@@ -1,0 +1,106 @@
+"""Derivative-path selection flags (counterpart of
+``paddlescience_tpu/autodiff/path.py``).
+
+The candidate bundles keep the JAX package's names, so a configuration
+pins the same path in both packages, and hold only the flags the port
+reads:
+
+* ``PSCI_JET``                  — "0": no jet forward (nested jvp);
+* ``PSCI_JET_PALLAS_MLP``       — "1": the MLP's hidden layers run as fused
+  segments (default "0", as in the JAX package). With only the ungated MLP
+  body ported, this one flag also does the work of the JAX package's
+  ``PSCI_JET_PALLAS``;
+* ``PSCI_JET_PALLAS_MIN_LANES`` — narrowest layer sent to the segments;
+* ``PSCI_JET_SEG``              — layers per segment;
+* ``PSCI_JET_SAVE_BOUNDS``      — "1": the forward saves stage boundaries.
+
+The JAX package's TPU tiling flags (``PSCI_JET_BLOCK_M``,
+``PSCI_JET_PBLOCK_GROUP``, ``PSCI_JET_PALLAS_MATMUL``) have no counterpart.
+The candidates:
+
+* ``jet``              — fused Taylor-jet forward in plain PyTorch
+  (``autodiff/jet.py``);
+* ``jet_pallas``       — hidden layers run as hand-written CUDA jet-segment
+  kernels (``ops/jet_mlp.py``) in segments of ``PSCI_JET_SEG`` layers
+  (default 3);
+* ``jet_pallas_full``  — the whole hidden stack as one segment;
+* ``jet_pallas_full_sb`` — as above, with the forward kernel saving the
+  stage boundaries so the backward skips its recompute pass.
+
+The ``jvp`` candidate (nested jvp) and the autotuner that picks a winner
+are not ported yet; a derivative request that the jet cannot serve raises
+``NotImplementedError``.
+
+Flags resolve as: context override > process default > environment >
+built-in default.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import os
+from typing import Dict, Optional
+
+__all__ = ["flag", "override", "set_default", "get_default", "CANDIDATES"]
+
+CANDIDATES: Dict[str, Dict[str, str]] = {
+    "jvp": {"PSCI_JET": "0"},
+    "jet": {"PSCI_JET": "1", "PSCI_JET_PALLAS_MLP": "0"},
+    "jet_pallas": {
+        "PSCI_JET": "1",
+        "PSCI_JET_PALLAS_MLP": "1",
+        "PSCI_JET_PALLAS_MIN_LANES": "0",
+    },
+    "jet_pallas_full": {
+        "PSCI_JET": "1",
+        "PSCI_JET_PALLAS_MLP": "1",
+        "PSCI_JET_PALLAS_MIN_LANES": "0",
+        "PSCI_JET_SEG": "999",
+    },
+    "jet_pallas_full_sb": {
+        "PSCI_JET": "1",
+        "PSCI_JET_PALLAS_MLP": "1",
+        "PSCI_JET_PALLAS_MIN_LANES": "0",
+        "PSCI_JET_SEG": "999",
+        "PSCI_JET_SAVE_BOUNDS": "1",
+    },
+}
+
+_OVERRIDE: contextvars.ContextVar[Optional[Dict[str, str]]] = contextvars.ContextVar(
+    "psci_torch_deriv_path_override", default=None
+)
+_DEFAULT: Dict[str, str] = {}
+
+
+def flag(name: str, default: str) -> str:
+    """Resolve a derivative-path flag: context override > process default >
+    environment > built-in default."""
+    ov = _OVERRIDE.get()
+    if ov is not None and name in ov:
+        return ov[name]
+    if name in _DEFAULT:
+        return _DEFAULT[name]
+    return os.environ.get(name, default)
+
+
+@contextlib.contextmanager
+def override(flags: Dict[str, str]):
+    """Force flags for everything run inside the context."""
+    token = _OVERRIDE.set(dict(flags))
+    try:
+        yield
+    finally:
+        _OVERRIDE.reset(token)
+
+
+def set_default(flags: Optional[Dict[str, str]]) -> None:
+    """Install a candidate as the process-wide default (below any active
+    :func:`override`, above the environment)."""
+    _DEFAULT.clear()
+    if flags:
+        _DEFAULT.update(flags)
+
+
+def get_default() -> Dict[str, str]:
+    return dict(_DEFAULT)

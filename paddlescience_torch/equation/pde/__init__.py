@@ -1,0 +1,4 @@
+from paddlescience_torch.equation.pde.base import PDE
+from paddlescience_torch.equation.pde.basic import AllenCahn
+
+__all__ = ["PDE", "AllenCahn"]

@@ -1,0 +1,62 @@
+"""Pointwise losses (counterpart of ``paddlescience_tpu/loss/losses.py``):
+``MSELoss`` and ``CausalMSELoss``. Contract:
+``loss(output_dict, label_dict, weight_dict=None) -> {key: scalar}``."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+__all__ = ["Loss", "MSELoss", "CausalMSELoss"]
+
+
+class Loss:
+    """Base: the reduction over the batch (``paddlescience_tpu/loss/base.py``;
+    its static per-key weights are not ported)."""
+
+    def __init__(self, reduction: str = "mean"):
+        if reduction not in ("mean", "sum"):
+            raise ValueError(f"reduction should be 'mean' or 'sum', but got {reduction}")
+        self.reduction = reduction
+
+    def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        return loss.sum() if self.reduction == "sum" else loss.mean()
+
+
+def _squared_error(output_dict, label_dict, weight_dict, key):
+    loss = (output_dict[key] - label_dict[key]) ** 2
+    if weight_dict and key in weight_dict:
+        loss = loss * weight_dict[key]
+    return loss
+
+
+class MSELoss(Loss):
+    """Mean squared error."""
+
+    def __call__(self, output_dict, label_dict, weight_dict=None) -> Dict[str, torch.Tensor]:
+        return {key: self._reduce(_squared_error(output_dict, label_dict, weight_dict, key)) for key in label_dict}
+
+
+class CausalMSELoss(Loss):
+    """Temporal-causality weighted MSE: the time-sorted residual batch is
+    reshaped to (n_chunks, -1); chunk i is weighted
+    w_i = exp(-tol * sum_{k<i} mean L_k), detached."""
+
+    def __init__(self, n_chunks: int, reduction: str = "mean", tol: float = 1.0):
+        if n_chunks <= 0:
+            raise ValueError(f"n_chunks should be positive, but got {n_chunks}")
+        super().__init__(reduction)
+        self.n_chunks = n_chunks
+        self.tol = tol
+
+    def __call__(self, output_dict, label_dict, weight_dict=None) -> Dict[str, torch.Tensor]:
+        losses = {}
+        for key in label_dict:
+            loss_t = _squared_error(output_dict, label_dict, weight_dict, key).reshape(self.n_chunks, -1)
+            # strictly-lower-triangular accumulation, as a product like the
+            # JAX package (acc_mat @ chunk means)
+            acc = torch.tril(torch.ones(self.n_chunks, self.n_chunks, device=loss_t.device), -1)
+            weight_t = torch.exp(-self.tol * (acc @ loss_t.mean(dim=-1, keepdim=True)))
+            losses[key] = self._reduce(loss_t * weight_t.detach())
+        return losses

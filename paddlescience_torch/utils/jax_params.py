@@ -1,0 +1,62 @@
+"""Carry parameters from the JAX package into the port.
+
+``paddlescience_tpu`` modules expose their state as nested plain dicts
+(``Module.param_tree()`` / ``buffer_tree()``). Given those trees as numpy
+arrays, :func:`load_jax_params` copies them into a port module whose
+parameters and buffers have the same dotted names (``linears.0.weight_v``,
+``fourier_emb.kernel``, ``period_emb.freq_x``, ``last_fc.bias``, ...). The
+layout is the JAX one on both sides (W of shape (in, out)), so nothing is
+transposed. This module imports no JAX: callers hand it numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["flatten_tree", "load_jax_params"]
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """{"a": {"b": x}} -> {"a.b": x}."""
+    flat: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(flatten_tree(v, key + "."))
+        else:
+            flat[key] = v
+    return flat
+
+
+@torch.no_grad()
+def load_jax_params(module: nn.Module, params: Mapping[str, Any],
+                    buffers: Optional[Mapping[str, Any]] = None) -> None:
+    """Copy a JAX param tree (and buffer tree) into ``module`` in place.
+
+    Every parameter of ``module`` must be covered and every tree entry must
+    name a parameter (or buffer) of matching shape; anything else raises
+    ``KeyError``/``ValueError``.
+    """
+    targets = dict(module.named_parameters())
+    flat = flatten_tree(params)
+    missing = sorted(set(targets) - set(flat))
+    unexpected = sorted(set(flat) - set(targets))
+    if missing or unexpected:
+        raise KeyError(f"param trees differ: missing {missing}, unexpected {unexpected}")
+    named_buffers = dict(module.named_buffers())
+    flat_buffers = flatten_tree(buffers or {})
+    unexpected = sorted(set(flat_buffers) - set(named_buffers))
+    if unexpected:
+        raise KeyError(f"unexpected buffers {unexpected}")
+    for name, value in list(flat.items()) + list(flat_buffers.items()):
+        dst = targets.get(name)
+        if dst is None:
+            dst = named_buffers[name]
+        src = torch.from_numpy(np.array(value, dtype=np.float32))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
+        dst.copy_(src)

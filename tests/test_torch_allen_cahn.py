@@ -1,0 +1,282 @@
+"""The PyTorch port's Allen-Cahn slice against paddlescience_tpu on the CPU:
+losses, aggregator, optimizer and schedule, the residual through the
+derivative tape, and three whole train steps.
+
+Both sides get the same parameters (``load_jax_params``) and the same
+batch, made with numpy from a seed and injected through a
+``DeviceSampledDataset`` whose ``sample_fn`` ignores its key or generator.
+The JAX side runs ``Solver._build_train_step()`` under the
+``jet_pallas_full`` candidate with the Pallas kernels interpreted, and
+refreshes GradNorm before each step as ``Solver.train`` does (``train``
+itself would also run the autotuner, which writes a cache file).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddlescience_tpu as psci
+from paddlescience_tpu.autodiff import path as jpath
+from paddlescience_tpu.constraint.base import Constraint as JConstraint
+from paddlescience_tpu.data import DeviceSampledDataset as JDeviceSampledDataset
+from paddlescience_tpu.loss import mtl as jmtl
+from paddlescience_tpu.nn.core import Rngs
+from paddlescience_tpu.utils import expression as jexpr
+from paddlescience_torch.arch.mlp import MLP as TMLP
+from paddlescience_torch.autodiff import ad as tad
+from paddlescience_torch.autodiff import path as tpath
+from paddlescience_torch.data import DeviceSampledDataset
+from paddlescience_torch.device import resolve_device
+from paddlescience_torch.equation import AllenCahn as TAllenCahn
+from paddlescience_torch.examples.allen_cahn import build_solver, ic_data
+from paddlescience_torch.loss import CausalMSELoss, MSELoss, mtl as tmtl
+from paddlescience_torch.optimizer import Adam as TAdam
+from paddlescience_torch.optimizer.lr_scheduler import ExponentialDecay as TExponentialDecay
+from paddlescience_torch.utils import expression as texpr
+from paddlescience_torch.utils.jax_params import flatten_tree, load_jax_params
+
+N_PDE, N_IC, WIDTH, LAYERS, FOURIER = 256, 64, 32, 2, 32
+LR, GAMMA, DECAY_STEPS, UPDATE_FREQ, STEPS = 1e-3, 0.9, 2, 2, 3
+
+
+@pytest.fixture(autouse=True)
+def _float32_and_paths(monkeypatch):
+    monkeypatch.setenv("PSCI_JET_PALLAS_INTERPRET", "1")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    saved = tpath.get_default()
+    with jax.default_matmul_precision("highest"):
+        yield
+    tpath.set_default(saved)
+
+
+def _close(got, ref, rtol):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=rtol * max(np.abs(ref).max(), 1e-30))
+
+
+def _pde_batch(seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0.0, 1.0, (N_PDE, 1)), axis=0).astype(np.float32)
+    x = rng.uniform(-1.0, 1.0, (N_PDE, 1)).astype(np.float32)
+    return t, x
+
+
+def _jax_model(seed=7):
+    return psci.arch.MLP(("t", "x"), ("u",), num_layers=LAYERS, hidden_size=WIDTH, activation="tanh",
+                         periods={"x": (2.0, False)}, fourier={"dim": FOURIER, "scale": 1.0},
+                         random_weight={"mean": 0.5, "std": 0.1}, rngs=Rngs(seed))
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+# ------------------------------------------------------------ components --
+
+
+@pytest.mark.parametrize("n_chunks", [1, 32])
+def test_losses_match(n_chunks):
+    rng = np.random.default_rng(3)
+    out = rng.standard_normal((N_PDE, 1)).astype(np.float32)
+    lab = rng.standard_normal((N_PDE, 1)).astype(np.float32)
+    jl = psci.loss.CausalMSELoss(n_chunks, "mean", tol=1.0)({"r": jnp.asarray(out)}, {"r": jnp.asarray(lab)})
+    tl = CausalMSELoss(n_chunks, "mean", tol=1.0)({"r": torch.from_numpy(out)}, {"r": torch.from_numpy(lab)})
+    _close(tl["r"], jl["r"], 1e-6)
+    jm = psci.loss.MSELoss("mean")({"r": jnp.asarray(out)}, {"r": jnp.asarray(lab)})
+    tm = MSELoss("mean")({"r": torch.from_numpy(out)}, {"r": torch.from_numpy(lab)})
+    _close(tm["r"], jm["r"], 1e-6)
+
+
+def test_gradnorm_refresh_and_aggregate_match():
+    norms = np.array([3.0e-2, 4.5, 0.0], np.float32)
+    losses = np.array([0.7, 0.2, 1.3], np.float32)
+    jg, tg = jmtl.GradNorm(None, 3, 2, 0.9), tmtl.GradNorm(None, 3, 2, 0.9)
+    js = jg.update_weights(jg.init_state(), jnp.asarray(norms))
+    ts = tg.update_weights(tg.init_state(torch.device("cpu")), torch.from_numpy(norms))
+    _close(ts["weight"], js["weight"], 1e-6)
+    jt, _ = jg.aggregate([jnp.asarray(v) for v in losses], js, 1)
+    tt, _ = tg.aggregate([torch.tensor(v) for v in losses], ts)
+    _close(tt, jt, 1e-6)
+
+
+def test_exponential_decay_matches():
+    kw = dict(epochs=3, iters_per_epoch=5, learning_rate=1e-3, gamma=0.9, decay_steps=4)
+    jf = psci.optimizer.lr_scheduler.ExponentialDecay(**kw)()
+    tf = TExponentialDecay(**kw)()
+    for step in (0, 1, 4, 7, 14):
+        np.testing.assert_allclose(tf(step), float(jf(step)), rtol=1e-6)
+
+
+def test_adam_matches_optax_rule():
+    """Three updates from identical gradients under a decaying schedule."""
+    rng = np.random.default_rng(4)
+    p0 = rng.standard_normal((5, 3)).astype(np.float32)
+    grads = [rng.standard_normal((5, 3)).astype(np.float32) * s for s in (1.0, 1e-3, 10.0)]
+    sched = psci.optimizer.lr_scheduler.ExponentialDecay(1, 3, 1e-2, 0.5, 1)()
+    jopt = psci.optimizer.Adam(sched)(None)
+    jp, jstate = jnp.asarray(p0), None
+    jstate = jopt.tx.init(jp)
+    lin = torch.nn.Linear(3, 5, bias=False)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(p0))
+    topt = TAdam(TExponentialDecay(1, 3, 1e-2, 0.5, 1)())(lin)
+    for step, g in enumerate(grads):
+        upd, jstate = jopt.tx.update(jnp.asarray(g), jstate, jp)
+        jp = jp + upd
+        topt.zero_grad()
+        lin.weight.grad = torch.from_numpy(g.copy())
+        topt.step(step)
+        _close(lin.weight, jp, 1e-6)
+
+
+@pytest.mark.parametrize("deriv", ["jet", "jet_pallas_full"])
+def test_allen_cahn_residual_matches(deriv):
+    """The residual through the port's tape and jet forward (plain jet, or
+    the fused segment) against the JAX evaluator on its jet path."""
+    jm = _jax_model()
+    tm = TMLP(("t", "x"), ("u",), num_layers=LAYERS, hidden_size=WIDTH, activation="tanh",
+              periods={"x": (2.0, False)}, fourier={"dim": FOURIER, "scale": 1.0},
+              random_weight={"mean": 0.5, "std": 0.1}, device="cpu")
+    load_jax_params(tm, _np_tree(jm.param_tree()), _np_tree(jm.buffer_tree()))
+    t, x = _pde_batch()
+    with jpath.override(jpath.CANDIDATES["jet"]):
+        jr = jexpr.evaluate_expressions([jm], {"t": jnp.asarray(t), "x": jnp.asarray(x)},
+                                        psci.equation.AllenCahn(0.01).equations)
+    with tpath.override(tpath.CANDIDATES[deriv]):
+        tr = texpr.evaluate_expressions([tm], {"t": torch.from_numpy(t), "x": torch.from_numpy(x)},
+                                        TAllenCahn(0.01).equations)
+    _close(tr["allen_cahn"], jr["allen_cahn"], 1e-4)
+
+
+def test_request_cache_replays_once_per_signature(monkeypatch):
+    """With a cache, the request-discovery replay runs once per input
+    signature and path, and the residual equals the uncached one."""
+    tm = TMLP(("t", "x"), ("u",), 2, 8, device="cpu")
+    eqs = TAllenCahn(0.01).equations
+    replays = []
+    collect = texpr._collect_jet_requests
+    monkeypatch.setattr(texpr, "_collect_jet_requests", lambda *a: replays.append(1) or collect(*a))
+    cache = {}
+    for n in (6, 9, 6):
+        inp = {"t": torch.rand(n, 1), "x": torch.rand(n, 1)}
+        with tpath.override(tpath.CANDIDATES["jet"]):
+            got = texpr.evaluate_expressions([tm], inp, eqs, request_cache=cache)
+            ref = texpr.evaluate_expressions([tm], inp, eqs)
+        torch.testing.assert_close(got["allen_cahn"], ref["allen_cahn"], rtol=0, atol=0)
+    assert len(replays) == 1 + 3  # one cached replay, three uncached ones
+    with tpath.override(tpath.CANDIDATES["jvp"]), pytest.raises(NotImplementedError):
+        texpr.evaluate_expressions([tm], inp, eqs, request_cache=cache)
+    assert len(cache) == 2
+
+
+def test_underived_requests_raise_not_implemented():
+    """What the jet cannot serve names the nested-jvp path as not ported."""
+    tm = TMLP(("t", "x"), ("u",), 1, 8, device="cpu")
+    inp = {"t": torch.rand(6, 1), "x": torch.rand(6, 1)}
+
+    def third_order(out):
+        u_x = tad.jacobian(out["u"], out["x"])
+        return tad.jacobian(tad.jacobian(u_x, out["x"]), out["x"])
+
+    def composed(out):
+        return tad.jacobian(out["u"] * out["u"], out["x"])
+
+    for expr in (third_order, composed):
+        with pytest.raises(NotImplementedError, match="nested-jvp"):
+            texpr.evaluate_expressions([tm], inp, {"r": expr})
+    with tpath.override(tpath.CANDIDATES["jvp"]), pytest.raises(NotImplementedError, match="nested-jvp"):
+        texpr.evaluate_expressions([tm], inp, {"r": lambda out: tad.jacobian(out["u"], out["x"])})
+
+
+# -------------------------------------------------------- device policy --
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TMLP(("t", "x"), ("u",), 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_solver(num_layers=1, hidden_size=8, fourier_dim=8, batch_size=32, ic_points=8)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+# ------------------------------------------------------------ the slice --
+
+
+def _jax_solver(jm, t, x, ic, tmp_path):
+    t_ic, x_ic, u_ic = ic
+    batch = ({"t": jnp.asarray(t), "x": jnp.asarray(x)}, {"allen_cahn": jnp.zeros((N_PDE, 1))}, {})
+    eq = psci.equation.AllenCahn(eps=0.01)
+    pde = JConstraint(JDeviceSampledDataset(lambda key: batch), None,
+                      psci.loss.CausalMSELoss(32, "mean", tol=1.0), "PDE")
+    pde.output_expr = eq.equations
+    ic_c = psci.constraint.SupervisedConstraint(
+        {"dataset": {"name": "IterableNamedArrayDataset", "input": {"t": t_ic, "x": x_ic},
+                     "label": {"u": u_ic}}},
+        psci.loss.MSELoss("mean"), {"u": lambda out: out["u"]}, name="IC")
+    lr = psci.optimizer.lr_scheduler.ExponentialDecay(epochs=1, iters_per_epoch=STEPS, learning_rate=LR,
+                                                      gamma=GAMMA, decay_steps=DECAY_STEPS)()
+    return psci.solver.Solver(
+        jm, {"PDE": pde, "IC": ic_c}, str(tmp_path), psci.optimizer.Adam(lr)(jm), epochs=1,
+        iters_per_epoch=STEPS, equation={"AllenCahn": eq},
+        loss_aggregator=jmtl.GradNorm(jm, 2, UPDATE_FREQ, 0.9), seed=42)
+
+
+def test_three_train_steps_match_jax_solver(tmp_path):
+    t, x = _pde_batch()
+    ic = ic_data(N_IC)
+    jm = _jax_model()
+    params0, buffers0 = _np_tree(jm.param_tree()), _np_tree(jm.buffer_tree())
+
+    # -- JAX: the jitted step under jet_pallas_full, GradNorm refreshed first
+    js = _jax_solver(jm, t, x, ic, tmp_path)
+    j_losses, j_grads0 = [], None
+    with jpath.override(jpath.CANDIDATES["jet_pallas_full"]):
+        step_fn = js._build_train_step()
+        for i in range(STEPS):
+            host = {"IC": jax.tree.map(jnp.asarray, next(js.constraint["IC"].data_iter))}
+            js._maybe_refresh_agg_weights(host, i)
+            if i == 0:
+                w = js.state["agg_state"]["weight"]
+                batches = {"PDE": js.constraint["PDE"].dataset.sample_fn(None), **host}
+
+                def total(p):
+                    ls = js._constraint_losses(p, js.state["rest"], {}, batches)
+                    return w[0] * ls["PDE"] + w[1] * ls["IC"]
+
+                j_grads0 = flatten_tree(_np_tree(jax.grad(total)(js.state["params"])))
+            js.state, logs = step_fn(js.state, host)
+            j_losses.append([float(logs[k]) for k in ("loss", "loss/PDE", "loss/IC")])
+    j_params = flatten_tree(_np_tree(js.state["params"]))
+
+    # -- port: the same solver from build_solver, same weights, same batch
+    ts = build_solver(epochs=1, iters_per_epoch=STEPS, batch_size=N_PDE, num_layers=LAYERS,
+                      hidden_size=WIDTH, fourier_dim=FOURIER, ic_points=N_IC, learning_rate=LR,
+                      gamma=GAMMA, decay_steps=DECAY_STEPS, update_freq=UPDATE_FREQ, device="cpu")
+    load_jax_params(ts.model, params0, buffers0)
+    fixed = ({"t": torch.from_numpy(t), "x": torch.from_numpy(x)}, {"allen_cahn": torch.zeros(N_PDE, 1)}, {})
+    ts.constraint["PDE"].dataset = DeviceSampledDataset(lambda gen: fixed)
+    t_losses = []
+    for i in range(STEPS):
+        logs = ts.train_step()
+        t_losses.append([float(logs[k]) for k in ("loss", "loss/PDE", "loss/IC")])
+        if i == 0:
+            t_grads0 = {n: p.grad.clone() for n, p in ts.model.named_parameters()}
+
+    assert set(t_grads0) == set(j_grads0)
+    for name, g in j_grads0.items():
+        err = np.linalg.norm(t_grads0[name].numpy() - g) / np.linalg.norm(g)
+        assert err < 1e-4, f"step-0 gradient of {name}: relative error {err:.2e}"
+    np.testing.assert_allclose(np.array(t_losses), np.array(j_losses), rtol=1e-4)
+    # Adam moves each element by about lr per step whatever the gradient's
+    # size, so float32 noise in a near-zero gradient could flip an update
+    # (2 lr apart). None does on these inputs (largest gap 2.4e-4 lr on the
+    # CPU); 1e-2 lr catches any flip or wrong moment.
+    diffs = np.concatenate([np.abs(p.detach().numpy() - j_params[n]).ravel()
+                            for n, p in ts.model.named_parameters()])
+    assert diffs.max() <= 1e-2 * LR
