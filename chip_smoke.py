@@ -4,31 +4,40 @@
 Run from the repository root: ``python3 chip_smoke.py``. Phases, each fatal
 on failure:
 
-1. build   - compile every kernel of the main path from
+1. build   - compile every kernel of the driven paths from
              ``paddlescience_torch/csrc`` with nvcc for sm_90a, in parallel;
 2. kernels - hold each kernel against its plain PyTorch version (and the
-             backward against ``torch.autograd`` through the plain forward)
+             backwards against ``torch.autograd`` through the plain forward)
              on the card, at the main-path shape (S=4 streams, N=4096,
-             W=256) and every segment depth a driven path runs (L=4 on
-             jet_pallas_full, L=3 and L=1 on jet_pallas), and at a ragged
-             N=4095;
-3. main    - train the port's Allen-Cahn solver at full width (MLP 4x256,
-             Fourier 256, 4096 PDE + 512 IC points) on the jet_pallas_full
-             path, and a few steps on jet_pallas (segments of 3+1 layers);
-             each path's kernel launch counts are read around its own run;
-4. check   - on one batch, the loss and its gradient through the kernels,
-             on each driven path, agree with the plain-PyTorch jet path on
-             the card;
-5. timing  - train steps per second; device time per step by kernel and
-             the device's busy share (torch.profiler); per kernel: time,
-             plain-version time, bound, library time.
+             W=256) and every depth a driven path runs: the MLP segment at
+             L=4 (jet_pallas_full), L=3 and L=1 (jet_pallas); the gated
+             segment for PirateNet groups of 9 and 3 blocks and ModifiedMLP
+             segments of 3 and 1 layers, in recompute and save-bounds mode;
+             all at a ragged N=4095 too; the LBM kernel for 1 and 200 steps
+             at 256 x 256 and 1 step at 1000 x 1000;
+3. main    - train the port's Allen-Cahn solvers at full width: MLP 4x256
+             on jet_pallas_full and jet_pallas (segments of 3+1 layers),
+             PirateNet 9 blocks x 256 on jet_pallas_full (one group) and
+             jet_pallas (groups of 3), ModifiedMLP 4x256 on jet_pallas; run
+             the lid-driven cavity at 256 x 256, Re 400, for 1000 steps.
+             Each path's kernel launch counts are set to 0 just before it
+             and read just after;
+4. check   - on one batch, the PDE loss and its gradient through the
+             kernels, on each driven training path, agree with the
+             plain-PyTorch jet path on the card;
+5. timing  - train steps per second of the MLP and the PirateNet solver;
+             device time per step by kernel and the device's busy share
+             (torch.profiler); per kernel: time, plain-version time, bound,
+             library time.
 
 Tolerance (kernels against plain versions): the float32 sums run in
 another order, so each output may differ by at most 1e-4 times the largest
-magnitude of the reference tensor (``REL_TOL``).
+magnitude of the reference tensor (``REL_TOL``). d alpha, a sum of
+S * N * W signed products that largely cancel, is held to 1e-4 times the
+larger of its reference and sqrt(S * N * W).
 
-The line before the last holds a JSON object ``{"kernels": [...]}``; the
-line before it the card's name and power limit; the last line
+The line before the last holds the card's name and power limit; the line
+before it a JSON object ``{"kernels": [...]}``; the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 CUDA is unavailable or the port is not beside this script.
 """
@@ -48,8 +57,20 @@ REL_TOL = 1e-4
 FP32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 HBM_BYTES = 3.35e12  # H100 SXM device-memory rate
 MAIN = dict(S=4, N=4096, W=256, L=4)
-PATHS = {"jet_pallas_full": 20, "jet_pallas": 3}  # derivative path -> train steps
+# driven training paths: name -> (build_solver arguments, derivative path, train steps)
+PATHS = {
+    "mlp/jet_pallas_full": (dict(arch="mlp"), "jet_pallas_full", 10),
+    "mlp/jet_pallas": (dict(arch="mlp"), "jet_pallas", 3),
+    "piratenet/jet_pallas_full": (dict(arch="piratenet", piratenet_blocks=9), "jet_pallas_full", 20),
+    "piratenet/jet_pallas": (dict(arch="piratenet", piratenet_blocks=9), "jet_pallas", 3),
+    "modified_mlp/jet_pallas": (dict(arch="modified_mlp"), "jet_pallas", 3),
+}
+TIMED = ("mlp/jet_pallas_full", "piratenet/jet_pallas_full")  # paths that are timed and profiled
+CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
+LBM_TIMED = 2048  # lattice edge at which the LBM kernel is timed
 TIMED_STEPS = 20
+KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "jet_alpha_reduce",
+           "lbm_collide_stream")
 
 
 def log(msg: str) -> None:
@@ -153,6 +174,134 @@ def check_kernels(S, N, W, L):
     return errs
 
 
+def make_gated_inputs(S, N, W, program, seed=1):
+    """Inputs of a gated segment on the card; alphas drawn in (0.1, 0.9)
+    (alpha = 0, the PirateNet init, would zero every block gradient)."""
+    import torch
+
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.ops import jet_gated as G
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    idx = jet.build_index([(0,), (1,), (1, 1)][: S - 1])
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    L = len(program)
+    y, u, v, g_out = ([rn(N, W) for _ in range(S)] for _ in range(4))
+    weights = [rn(W, W) / math.sqrt(W) for _ in range(L)]
+    biases = [0.1 * rn(W) for _ in range(L)]
+    alphas = [0.1 + 0.8 * torch.rand(1, generator=gen, device="cuda") for op in program if op & G.RESIDUAL]
+    return idx, y, u, v, weights, biases, alphas, g_out
+
+
+def alpha_tol(ref, n_terms: int) -> float:
+    return REL_TOL * max(float(ref.abs().max()), math.sqrt(n_terms))
+
+
+def check_gated_kernels(S, N, W, program, tag):
+    """Gated forward (recompute and save-bounds), backward, alpha reduce and
+    the weight-gradient sum of its outputs against the plain versions and
+    against torch.autograd through the plain forward; returns max abs errors."""
+    import torch
+
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.ops import jet_gated as G
+    from paddlescience_torch.ops import jet_mlp as J
+
+    idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
+    L = len(program)
+    tag = f"{tag} S={S} N={N} W={W} L={L}"
+    errs = {"jet_gated_fwd": 0.0, "jet_gated_bwd": 0.0, "jet_alpha_reduce": 0.0, "jet_wgrad": 0.0}
+
+    def hold(key, what, got, ref):
+        errs[key] = max(errs[key], check_close(f"{what} {tag}", got, ref))
+
+    ref_outs, ref_bounds = G.jet_gated_fwd_plain(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
+    outs, none = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=False)
+    outs_sb, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
+    if none or len(bounds) != len(ref_bounds):
+        raise AssertionError(f"{tag}: {len(none)} / {len(bounds)} boundaries, expected 0 / {len(ref_bounds)}")
+    for s in range(S):
+        hold("jet_gated_fwd", f"fwd out[{s}]", outs[s], ref_outs[s])
+        hold("jet_gated_fwd", f"fwd(save) out[{s}]", outs_sb[s], ref_outs[s])
+    for l, (b, rb) in enumerate(zip(bounds, ref_bounds)):
+        hold("jet_gated_fwd", f"fwd bound[{l}]", b, rb)
+
+    ref = G.jet_gated_bwd_plain(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx)
+    got = G.jet_gated_bwd(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx)
+    for name, gs, rs in zip(("g_y", "g_u", "g_v", "gz"), got[:4], ref[:4]):
+        if len(gs) != len(rs):
+            raise AssertionError(f"{tag}: {len(gs)} {name} tensors, expected {len(rs)}")
+        for k, (g, r) in enumerate(zip(gs, rs)):
+            hold("jet_gated_bwd", f"bwd {name}[{k}]", g, r)
+    for l, (g, r) in enumerate(zip(got[4], ref[4])):
+        hold("jet_gated_bwd", f"bwd layer input[{l}]", torch.stack(g), torch.stack(r))
+    d_alpha = G.jet_alpha_reduce(got[5])
+    plain_sum = G.jet_alpha_reduce_plain(got[5])
+    if alphas:
+        hold("jet_alpha_reduce", "alpha reduce", d_alpha, plain_sum)
+        err = max_err(d_alpha, ref[5])
+        if not err <= alpha_tol(ref[5], S * N * W):
+            raise AssertionError(f"d alpha {tag}: max abs err {err:.3e} > {alpha_tol(ref[5], S * N * W):.3e}")
+        errs["jet_gated_bwd"] = max(errs["jet_gated_bwd"], err)
+    dws, dbs = J.jet_wgrad(got[4], got[3])
+    ref_dw, ref_db = J.jet_wgrad_plain(ref[4], ref[3])
+    for l in range(L):
+        hold("jet_wgrad", f"wgrad dW[{l}]", dws[l], ref_dw[l])
+        hold("jet_wgrad", f"wgrad db[{l}]", dbs[l], ref_db[l])
+
+    # the autograd.Function (both modes) against torch.autograd through the plain forward
+    groups = (y, u, v, weights, biases, alphas)
+    leaves = [[t.clone().requires_grad_() for t in ts] for ts in groups]
+    o, _ = G.jet_gated_fwd_plain(*leaves, program, idx)
+    flat = [t for ts in leaves for t in ts]
+    auto = torch.autograd.grad(sum((a * g).sum() for a, g in zip(o, g_out)), flat)
+    for save_bounds in (False, True):
+        lv = [[t.clone().requires_grad_() for t in ts] for ts in groups]
+        out = G.jet_gated_segment(jet.Jet(lv[0], idx), jet.Jet(lv[1], idx), jet.Jet(lv[2], idx), lv[3], lv[4],
+                                  lv[5], program, save_bounds=save_bounds)
+        kern = torch.autograd.grad(sum((a * g).sum() for a, g in zip(out.streams, g_out)),
+                                   [t for ts in lv for t in ts])
+        n_alpha = len(alphas)
+        for k, (g, r) in enumerate(zip(kern, auto)):
+            if k >= len(auto) - n_alpha:
+                if not max_err(g, r) <= alpha_tol(r, S * N * W):
+                    raise AssertionError(f"kernels vs autograd {tag} d alpha: {float(g)} vs {float(r)}")
+            else:
+                check_close(f"kernels vs autograd {tag} (save_bounds={save_bounds}) leaf {k}", g, r)
+    torch.cuda.synchronize()
+    log(f"[kernels] {tag}: max abs err " + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+def make_lattice(ny, nx, seed=0):
+    """A perturbed equilibrium lattice on the card: every direction and
+    wall in play."""
+    import torch
+
+    from paddlescience_torch.ops import lbm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda: torch.randn(ny, nx, generator=gen, device="cuda")
+    return lbm._equilibrium(1.0 + 0.05 * rn(), 0.05 * rn(), 0.05 * rn())
+
+
+def check_lbm_kernel(ny, nx, steps, tau=0.62, u_lid=0.1):
+    import torch
+
+    from paddlescience_torch.ops import lbm
+
+    got = ref = make_lattice(ny, nx)
+    err = check_close(f"lbm_collide_stream {ny}x{nx}", lbm.lbm_collide_stream(got, tau),
+                      lbm.lbm_collide_stream_plain(ref, tau))
+    for _ in range(steps):
+        got = lbm.lbm_step(got, tau, u_lid)
+        ref = lbm.lbm_step_plain(ref, tau, u_lid)
+    torch.cuda.synchronize()
+    err = max(err, check_close(f"lbm {ny}x{nx} {steps} steps", got, ref))
+    log(f"[kernels] lbm_collide_stream {ny}x{nx}, {steps} step(s): max abs err {err:.3e}")
+    return err
+
+
 @contextlib.contextmanager
 def on_path(deriv: str):
     """Pin exactly the candidate ``deriv`` as the process default. (An
@@ -168,65 +317,177 @@ def on_path(deriv: str):
         deriv_path.set_default(saved)
 
 
-def run_path(solver, deriv: str, steps: int):
+def reset_counts() -> None:
+    from paddlescience_torch.ops import jet_gated, jet_mlp, lbm
+
+    for mod in (jet_mlp, jet_gated, lbm):
+        mod.reset_counters()
+
+
+def read_counts():
+    """(kernel launches by kernel name, plain-version calls on CUDA tensors)."""
+    from paddlescience_torch.ops import jet_gated as G
+    from paddlescience_torch.ops import jet_mlp as J
+    from paddlescience_torch.ops import lbm
+
+    wrappers = {"jet_mlp_fwd": J.jet_mlp_fwd, "jet_mlp_bwd": J.jet_mlp_bwd, "jet_wgrad": J.jet_wgrad,
+                "jet_gated_fwd": G.jet_gated_fwd, "jet_gated_bwd": G.jet_gated_bwd,
+                "jet_alpha_reduce": G.jet_alpha_reduce, "lbm_collide_stream": lbm.lbm_collide_stream}
+    plains = (J.jet_mlp_fwd_plain, J.jet_mlp_bwd_plain, J.jet_wgrad_plain, G.jet_gated_fwd_plain,
+              G.jet_gated_bwd_plain, G.jet_alpha_reduce_plain, lbm.lbm_collide_stream_plain)
+    return ({name: fn.launches for name, fn in wrappers.items()},
+            {fn.__name__: fn.cuda_calls for fn in plains})
+
+
+def expected_kernels(path: str):
+    """The kernels a driven path must launch."""
+    if path.startswith("mlp/"):
+        return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
+    if path.startswith("piratenet/"):
+        return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad", "jet_alpha_reduce")
+    if path.startswith("modified_mlp/"):
+        return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad")
+    return ("lbm_collide_stream",)
+
+
+def check_counts(path: str, counts, plain) -> None:
+    missing = [k for k in expected_kernels(path) if counts[k] < 1]
+    if missing or any(plain.values()):
+        raise AssertionError(f"{path}: kernels not launched {missing}; launches {counts}; "
+                             f"plain versions on CUDA {plain}")
+
+
+def run_path(solver, path: str, deriv: str, steps: int):
     """Train ``steps`` steps on ``deriv`` with the launch counters set to 0
     just before; returns (logs, counts)."""
     import torch
 
     from paddlescience_torch.autodiff import path as deriv_path
-    from paddlescience_torch.ops import jet_mlp as J
 
     deriv_path.set_default(deriv_path.CANDIDATES[deriv])
     torch.cuda.synchronize()
-    J.reset_counters()
+    reset_counts()
     logs = solver.train(steps)
     torch.cuda.synchronize()
-    counts = {fn.__name__: fn.launches for fn in (J.jet_mlp_fwd, J.jet_mlp_bwd, J.jet_wgrad)}
-    plain = {fn.__name__: fn.cuda_calls for fn in (J.jet_mlp_fwd_plain, J.jet_mlp_bwd_plain, J.jet_wgrad_plain)}
+    counts, plain = read_counts()
     for entry in logs:
         for k, v in entry.items():
             if k.startswith("loss") and not math.isfinite(v):
-                raise AssertionError(f"{deriv}: non-finite {k} = {v} at step {entry['step']}")
-    if min(counts.values()) < 1 or any(plain.values()):
-        raise AssertionError(f"{deriv}: kernel launches {counts}, plain versions on CUDA {plain}")
-    log(f"[main] {deriv}: {steps} steps, final loss {logs[-1]['loss']:.6f}, launches {counts}, "
-        f"plain versions on CUDA {plain}")
+                raise AssertionError(f"{path}: non-finite {k} = {v} at step {entry['step']}")
+    check_counts(path, counts, plain)
+    log(f"[main] {path}: {steps} steps, final loss {logs[-1]['loss']:.6f}, launches "
+        f"{ {k: v for k, v in counts.items() if v} }, plain versions on CUDA {sum(plain.values())}")
     return logs, counts
 
 
-def check_against_plain_path(solver, derivs):
-    """Loss and parameter gradient on one batch: each kernel path in
-    ``derivs`` vs the plain jet path (plain PyTorch on the card)."""
+def run_cavity_path():
+    """The lid-driven cavity through the LBM kernel: finite fields of the
+    lattice's shape, mass kept, the lid dragging the fluid in +x."""
+    import torch
+
+    from paddlescience_torch.ops import lbm
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rho, ux, uy = lbm.run_cavity(**CAVITY)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    check_counts("cavity", counts, plain)
+    for name, field in (("rho", rho), ("ux", ux), ("uy", uy)):
+        if tuple(field.shape) != (CAVITY["ny"], CAVITY["nx"]) or not bool(torch.isfinite(field).all()):
+            raise AssertionError(f"cavity: {name} has shape {tuple(field.shape)} or non-finite values")
+    mass, drag = float(rho.mean()), float(ux[-2].mean())
+    if abs(mass - 1.0) > 0.05 or not drag > 0:
+        raise AssertionError(f"cavity: mean density {mass}, mean ux under the lid {drag}")
+    log(f"[main] cavity {CAVITY}: {dt:.2f} s ({CAVITY['steps'] / dt:.0f} steps/s), mean rho {mass:.6f}, "
+        f"mean ux under the lid {drag:.5f}, launches {counts['lbm_collide_stream']}, "
+        f"plain versions on CUDA {sum(plain.values())}")
+    return counts
+
+
+def check_against_plain_path(solver, name: str, derivs):
+    """PDE loss and parameter gradient on one batch: each kernel path in
+    ``derivs`` vs the plain jet path (plain PyTorch on the card), over all
+    parameters and for the gate and residual parameters alone."""
     import torch
 
     batches = solver._batches()
+    names = [n for n, p in solver.model.named_parameters() if p.requires_grad]
     results = {}
     for deriv in (*derivs, "jet"):
         with on_path(deriv):
             losses = solver._constraint_losses(batches)
-            params = solver._params()
-            grads = torch.autograd.grad(losses["PDE"], params)
-        results[deriv] = (losses["PDE"].detach(), torch.cat([g.reshape(-1) for g in grads]))
+            grads = torch.autograd.grad(losses["PDE"], solver._params())
+        results[deriv] = (losses["PDE"].detach(), grads)
     lp, gp = results["jet"]
+    rel = lambda gk, keep: float(
+        torch.cat([(a - b).reshape(-1) for a, b, n in zip(gk, gp, names) if keep(n)]).norm()
+        / torch.cat([b.reshape(-1) for b, n in zip(gp, names) if keep(n)]).norm())
     for deriv in derivs:
         lk, gk = results[deriv]
         loss_err = float((lk - lp).abs() / lp.abs())
-        grad_err = float((gk - gp).norm() / gp.norm())
-        log(f"[check] {deriv}: PDE loss kernels {float(lk):.8f} vs plain {float(lp):.8f} "
-            f"(rel {loss_err:.2e}); gradient rel err {grad_err:.2e}")
-        if not (loss_err < 1e-4 and grad_err < 1e-3):
-            raise AssertionError(f"{deriv} disagrees with the plain jet path")
+        errs = {"all": rel(gk, lambda n: True)}
+        for part in ("alpha", "embed_u", "embed_v"):
+            if any(part in n for n in names):
+                errs[part] = rel(gk, lambda n, _p=part: _p in n)
+        log(f"[check] {name} {deriv}: PDE loss kernels {float(lk):.8f} vs plain {float(lp):.8f} "
+            f"(rel {loss_err:.2e}); gradient rel err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if not (loss_err < 1e-4 and all(v < 1e-3 for v in errs.values())):
+            raise AssertionError(f"{name} {deriv} disagrees with the plain jet path")
 
 
-def time_kernels(errs, counts, steps, device_ms):
-    """Per wrapper: ms, plain-version ms, bound and library ms at the main
-    shape; ``device_ms`` (from the profile) gives the per-step device time of
-    each kernel function a wrapper launches."""
+def gated_bound(S, N, W, program):
+    """(forward FLOPs, forward bytes, backward FLOPs, backward bytes) of a
+    gated segment: matrix products only (the elementwise rules add under
+    1%); every input read once, every output written once."""
+    from paddlescience_torch.ops import jet_gated as G
+
+    L = len(program)
+    inner = sum(1 for l, op in enumerate(program) if l > 0 and not op & G.STAGE)
+    stages = L - inner
+    mm = S * 2.0 * N * W * W
+    stream = S * N * W * 4.0
+    w_bytes = L * (W * W + W) * 4.0
+    fwd = (L * mm, 4 * stream + w_bytes)  # y, u, v in; out
+    # backward: 2 products per layer (z and gz @ W^T); reads y, u, v, g_out and the stages - 1
+    # boundaries; writes g_y, g_u, g_v, L gz and the inner layer inputs
+    bwd = (2 * L * mm, (4 + stages - 1 + 3 + L + inner) * stream + w_bytes)
+    return fwd + bwd
+
+
+def time_kernels(errs, launches, device_ms):
+    """Per wrapper: ms, plain-version ms, bound and library ms. The jet MLP
+    kernels at the MLP path's shape (L=4), the gated kernels at the
+    PirateNet path's (one group of 9 blocks, L=27), the LBM kernel at
+    LBM_TIMED^2 (and at the cavity's lattice, extra keys); ``device_ms``
+    (from the profiles) gives the per-step device time of each kernel
+    function a wrapper launches, ``launches`` the counts per driven path."""
     import torch
 
+    from paddlescience_torch.ops import jet_gated as G
     from paddlescience_torch.ops import jet_mlp as J
+    from paddlescience_torch.ops import lbm
 
     S, N, W, L = MAIN["S"], MAIN["N"], MAIN["W"], MAIN["L"]
+    rows = []
+
+    def row(name, source, fn, plain, flops, nbytes, library=None, extra=None, reps=20):
+        ms, plain_ms = cuda_ms(fn, reps), cuda_ms(plain, reps)
+        b, by = bound_ms(flops, nbytes)
+        r = {"name": name, "route": "cuda", "source": f"paddlescience_torch/csrc/{source}.cu",
+             "replaces": REPLACES[name], "launches": sum(c[name] for c in launches.values()),
+             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+             "library_ms": cuda_ms(library, reps) if library is not None else None,
+             "launches_by_path": {p: c[name] for p, c in launches.items() if c[name]},
+             "device_ms_per_step": {p: {fn: v for fn, v in d.items() if fn.startswith(name)}
+                                    for p, d in device_ms.items()}}
+        r.update(extra or {})
+        rows.append(r)
+        log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms by {by}"
+            + (f", library {r['library_ms']:.4f} ms" if library is not None else "") + ")")
+
     idx, streams, weights, biases, g_out = make_inputs(S, N, W, L)
     _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True)
     _, gzs = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx)
@@ -234,43 +495,87 @@ def time_kernels(errs, counts, steps, device_ms):
     mm_flops = L * S * 2.0 * N * W * W
     stream_bytes = S * N * W * 4.0
     w_bytes = L * (W * W + W) * 4.0
-
-    rows = []
-
-    def row(name, fn, plain, flops, nbytes, library=None, extra=None):
-        ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-        b, by = bound_ms(flops, nbytes)
-        r = {"name": name, "route": "cuda", "source": f"paddlescience_torch/csrc/{name}.cu",
-             "replaces": REPLACES[name], "launches": counts[name], "max_abs_err": errs[name],
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-             "library_ms": cuda_ms(library) if library is not None else None,
-             "device_ms_per_step": {fn: v for fn, v in device_ms.items() if fn.startswith(name)}}
-        r.update(extra or {})
-        rows.append(r)
-        log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms by {by}"
-            + (f", library {r['library_ms']:.4f} ms" if library is not None else "")
-            + f"), launches per step {counts[name] / steps:.2f}")
-
-    row("jet_mlp_fwd",
+    row("jet_mlp_fwd", "jet_mlp_fwd",
         lambda: J.jet_mlp_fwd(streams, weights, biases, idx),
         lambda: J.jet_mlp_fwd_plain(streams, weights, biases, idx),
         mm_flops, 2 * stream_bytes + w_bytes,
         extra={"ms_save_bounds": cuda_ms(lambda: J.jet_mlp_fwd(streams, weights, biases, idx, True))})
-    row("jet_mlp_bwd",
+    row("jet_mlp_bwd", "jet_mlp_bwd",
         lambda: J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx),
         lambda: J.jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out, idx),
         2 * mm_flops, (2 * L + 2) * stream_bytes + w_bytes)
     Y = torch.stack([torch.cat(y, 0) for y in ys])          # (L, S*N, W)
     GZ = torch.stack([g.reshape(S * N, W) for g in gzs])    # (L, S*N, W)
-    row("jet_wgrad",
+    row("jet_wgrad", "jet_wgrad",
         lambda: J.jet_wgrad(ys, gzs),
         lambda: J.jet_wgrad_plain(ys, gzs),
         mm_flops + L * N * W, 2 * L * stream_bytes + w_bytes,
         library=lambda: torch.bmm(Y.transpose(1, 2), GZ))
+    # the gated kernels on the same ungated program and inputs: what the MLP path would pay for them
+    ungated = G.mlp_program(L)
+    rows[0]["gated_kernel_ms"] = cuda_ms(lambda: G.jet_gated_fwd(streams, (), (), weights, biases, (), ungated, idx))
+    rows[1]["gated_kernel_ms"] = cuda_ms(
+        lambda: G.jet_gated_bwd(streams, (), (), bounds, weights, biases, (), g_out, ungated, idx))
+    log(f"[timing] the gated kernels on the ungated {L}-layer program: fwd {rows[0]['gated_kernel_ms']:.4f} ms "
+        f"(jet_mlp_fwd {rows[0]['ms']:.4f}), bwd {rows[1]['gated_kernel_ms']:.4f} ms "
+        f"(jet_mlp_bwd {rows[1]['ms']:.4f})")
+    del Y, GZ, ys, gzs, bounds
+
+    program = G.piratenet_program(9)
+    idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
+    _, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
+    f_flops, f_bytes, b_flops, b_bytes = gated_bound(S, N, W, program)
+    args = (y, u, v, weights, biases, alphas, program, idx)
+    row("jet_gated_fwd", "jet_gated_fwd",
+        lambda: G.jet_gated_fwd(*args), lambda: G.jet_gated_fwd_plain(*args), f_flops, f_bytes, reps=5,
+        extra={"program": "piratenet 9 blocks (L=27)",
+               "ms_save_bounds": cuda_ms(lambda: G.jet_gated_fwd(*args, save_bounds=True), 5)})
+    bargs = (y, u, v, bounds, weights, biases, alphas, g_out, program, idx)
+    row("jet_gated_bwd", "jet_gated_bwd",
+        lambda: G.jet_gated_bwd(*bargs), lambda: G.jet_gated_bwd_plain(*bargs), b_flops, b_bytes, reps=5,
+        extra={"program": "piratenet 9 blocks (L=27)"})
+    # the same stages with no gate and no residual: the products, gz and layer inputs alone
+    bare = tuple(op & G.STAGE for op in program)
+    rows[-1]["ms_without_gates_and_residuals"] = cuda_ms(
+        lambda: G.jet_gated_bwd(y, (), (), bounds, weights, biases, (), g_out, bare, idx), 5)
+    log(f"[timing] jet_gated_bwd, the same stages without gates and residuals: "
+        f"{rows[-1]['ms_without_gates_and_residuals']:.4f} ms")
+    *_, gzs27, ins27, partials = G.jet_gated_bwd(*bargs)
+    row("jet_alpha_reduce", "jet_wgrad",
+        lambda: G.jet_alpha_reduce(partials), lambda: G.jet_alpha_reduce_plain(partials),
+        float(partials.numel()), (partials.numel() + partials.shape[1]) * 4.0,
+        library=lambda: partials.sum(0))
+    rows[2]["ms_27_layers"] = cuda_ms(lambda: J.jet_wgrad(ins27, gzs27), 5)
+    rows[2]["bound_ms_27_layers"] = bound_ms(27 * S * 2.0 * N * W * W, 2 * 27 * stream_bytes + 27 * (W * W + W) * 4.0)[0]
+    log(f"[timing] jet_wgrad over the 27 PirateNet layers (one launch): {rows[2]['ms_27_layers']:.4f} ms "
+        f"(bound {rows[2]['bound_ms_27_layers']:.4f} ms), inputs gz + layer inputs "
+        f"{2 * 27 * stream_bytes / 1e6:.0f} MB")
+    del gzs27, ins27, bounds
+
+    tau, u_lid = 0.62, 0.1
+    f_big = make_lattice(LBM_TIMED, LBM_TIMED)
+    f_cav = make_lattice(CAVITY["ny"], CAVITY["nx"])
+    cells = lambda f: f.shape[1] * f.shape[2]
+    # ~100 FLOPs a cell; the lattice read once and written once
+    row("lbm_collide_stream", "lbm_collide_stream",
+        lambda: lbm.lbm_collide_stream(f_big, tau), lambda: lbm.lbm_collide_stream_plain(f_big, tau),
+        100.0 * cells(f_big), 2 * 9 * cells(f_big) * 4.0,
+        extra={"shape": f"{LBM_TIMED}x{LBM_TIMED}",
+               "ms_whole_step": cuda_ms(lambda: lbm.lbm_step(f_big, tau, u_lid)),
+               "plain_ms_whole_step": cuda_ms(lambda: lbm.lbm_step_plain(f_big, tau, u_lid)),
+               "ms_cavity_lattice": cuda_ms(lambda: lbm.lbm_collide_stream(f_cav, tau)),
+               "ms_whole_step_cavity_lattice": cuda_ms(lambda: lbm.lbm_step(f_cav, tau, u_lid)),
+               "plain_ms_whole_step_cavity_lattice": cuda_ms(lambda: lbm.lbm_step_plain(f_cav, tau, u_lid)),
+               "bound_ms_cavity_lattice": bound_ms(100.0 * cells(f_cav), 2 * 9 * cells(f_cav) * 4.0)[0]})
+    r = rows[-1]
+    log(f"[timing] lbm_step (kernel + walls and lid in plain ops): {r['ms_whole_step']:.4f} ms at "
+        f"{LBM_TIMED}x{LBM_TIMED} (plain {r['plain_ms_whole_step']:.4f} ms); at the cavity's lattice kernel "
+        f"{r['ms_cavity_lattice']:.4f} ms, step {r['ms_whole_step_cavity_lattice']:.4f} ms "
+        f"(plain {r['plain_ms_whole_step_cavity_lattice']:.4f} ms)")
     return rows
 
 
-def profile_steps(solver, step_ms: float, steps: int = 5, top: int = 12) -> dict:
+def profile_steps(solver, name: str, step_ms: float, steps: int = 5, top: int = 12) -> dict:
     """Device time per train step by kernel (torch.profiler), and the
     device's busy share of the unprofiled step time. Returns the ms per
     step of each device kernel of the port (a wrapper may launch more than
@@ -299,25 +604,49 @@ def profile_steps(solver, step_ms: float, steps: int = 5, top: int = 12) -> dict
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy == 0:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[profile] {name}: the profiler recorded no device time: not measured")
         return {}
-    log(f"[profile] device busy {busy:.3f} ms per step of {step_ms:.3f} ms wall "
+    log(f"[profile] {name}: device busy {busy:.3f} ms per step of {step_ms:.3f} ms wall "
         f"({100 * busy / step_ms:.1f}% busy, {100 * (1 - busy / step_ms):.1f}% idle); "
         f"{sum(r[1] for r in rows):.0f} kernels per step")
     port = {}
-    for i, (ms, count, name) in enumerate(rows):
-        fn = name.split("(")[0].split()[-1]
-        if fn.startswith("jet_"):
-            port[fn] = ms
-        if i < top or fn.startswith("jet_"):
-            log(f"[profile]   {ms:8.4f} ms  x{count:5.1f}  {name[:90]}")
+    for i, (ms, count, kname) in enumerate(rows):
+        fn = kname.split("(")[0].split()[-1].split("<")[0]
+        ours = fn.startswith(("jet_", "lbm_"))
+        if ours:
+            port[fn] = port.get(fn, 0.0) + ms
+        if i < top or ours:
+            log(f"[profile]   {ms:8.4f} ms  x{count:5.1f}  {kname[:90]}")
     return port
+
+
+def time_steps(solver, name: str):
+    """Steady-state step rate and launches per step; returns (ms per step,
+    launches over TIMED_STEPS steps)."""
+    import torch
+
+    solver.train_step()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        solver.train_step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, _ = read_counts()
+    log(f"[timing] {name} train step: {TIMED_STEPS / dt:.2f} steps/s ({dt / TIMED_STEPS * 1e3:.3f} ms/step), "
+        f"launches per step { {k: v / TIMED_STEPS for k, v in counts.items() if v} }")
+    return dt / TIMED_STEPS * 1e3, counts
 
 
 REPLACES = {
     "jet_mlp_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
     "jet_mlp_bwd": "paddlescience_tpu/ops/jet_pallas.py:557",
     "jet_wgrad": "paddlescience_tpu/ops/jet_pallas.py:526",
+    "jet_gated_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
+    "jet_gated_bwd": "paddlescience_tpu/ops/jet_pallas.py:557",
+    "jet_alpha_reduce": "paddlescience_tpu/ops/jet_pallas.py:526",
+    "lbm_collide_stream": "paddlescience_tpu/ops/lbm.py:141",
 }
 
 
@@ -330,7 +659,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import paddlescience_torch  # noqa: F401
-        from paddlescience_torch.ops import cuda_build, jet_mlp as J
+        from paddlescience_torch.ops import cuda_build
+        from paddlescience_torch.ops import jet_gated as G
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 3
@@ -350,43 +680,52 @@ def main() -> int:
     from paddlescience_torch.examples.allen_cahn import build_solver
 
     # the driven paths, and the segment depths at which each runs the kernels
-    solvers = {deriv: build_solver(deriv=deriv, log_freq=1, device="cuda") for deriv in PATHS}
-    depths = {}
-    for deriv, solver in solvers.items():
+    solvers, depths = {}, {}
+    for path, (kwargs, deriv, _) in PATHS.items():
+        solvers[path] = build_solver(deriv=deriv, log_freq=1, device="cuda", **kwargs)
         with on_path(deriv):
-            depths[deriv] = solver.model.jet_segment_lengths()
-        if not depths[deriv]:
-            raise AssertionError(f"{deriv} runs no fused segment")
+            depths[path] = solvers[path].model.jet_segment_lengths()
+        if not depths[path]:
+            raise AssertionError(f"{path} runs no fused segment")
     log(f"[kernels] segment depths per path: {depths}")
 
-    errs = {"jet_mlp_fwd": 0.0, "jet_mlp_bwd": 0.0, "jet_wgrad": 0.0}
-    for L in sorted({l for ls in depths.values() for l in ls}, reverse=True):
-        for k, v in check_kernels(MAIN["S"], MAIN["N"], MAIN["W"], L).items():
+    errs = {k: 0.0 for k in KERNELS}
+
+    def merge(new):
+        for k, v in new.items():
             errs[k] = max(errs[k], v)
-    check_kernels(MAIN["S"], MAIN["N"] - 1, MAIN["W"], MAIN["L"])
 
-    solver = solvers["jet_pallas_full"]
-    logs, counts = run_path(solver, "jet_pallas_full", PATHS["jet_pallas_full"])
-    run_path(solvers["jet_pallas"], "jet_pallas", PATHS["jet_pallas"])
-    deriv_path.set_default(deriv_path.CANDIDATES["jet_pallas_full"])
-    check_against_plain_path(solver, tuple(PATHS))
+    S, N, W = MAIN["S"], MAIN["N"], MAIN["W"]
+    for L in sorted({l for p, ls in depths.items() if p.startswith("mlp/") for l in ls}, reverse=True):
+        merge(check_kernels(S, N, W, L))
+    check_kernels(S, N - 1, W, MAIN["L"])
+    for L in sorted({l for p, ls in depths.items() if p.startswith("piratenet/") for l in ls}, reverse=True):
+        merge(check_gated_kernels(S, N, W, G.piratenet_program(L // 3), "piratenet"))
+    for L in sorted({l for p, ls in depths.items() if p.startswith("modified_mlp/") for l in ls}, reverse=True):
+        merge(check_gated_kernels(S, N, W, G.modified_mlp_program(L), "modified_mlp"))
+    check_gated_kernels(S, N - 1, W, G.piratenet_program(3), "piratenet")
+    check_gated_kernels(S, N - 1, W, G.modified_mlp_program(3), "modified_mlp")
+    errs["lbm_collide_stream"] = max(check_lbm_kernel(256, 256, 1), check_lbm_kernel(256, 256, 200),
+                                     check_lbm_kernel(1000, 1000, 1))
 
-    # steady-state step rate and launches per step on the main path
-    solver.train_step()
-    torch.cuda.synchronize()
-    J.reset_counters()
-    t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        solver.train_step()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    steady = {fn.__name__: fn.launches for fn in (J.jet_mlp_fwd, J.jet_mlp_bwd, J.jet_wgrad)}
-    log(f"[timing] train step: {TIMED_STEPS / dt:.2f} steps/s ({dt / TIMED_STEPS * 1e3:.3f} ms/step), "
-        f"launches per step {({k: v / TIMED_STEPS for k, v in steady.items()})}")
-    device_ms = profile_steps(solver, dt / TIMED_STEPS * 1e3)
-    rows = time_kernels(errs, steady, TIMED_STEPS, device_ms)
-    for r in rows:
-        r["launches"] = counts[r["name"]]
+    launches = {}
+    for path, (_, deriv, steps) in PATHS.items():
+        _, launches[path] = run_path(solvers[path], path, deriv, steps)
+    launches["cavity"] = run_cavity_path()
+
+    for arch in ("mlp", "piratenet", "modified_mlp"):
+        paths = [p for p in PATHS if p.startswith(arch + "/")]
+        solver = solvers[paths[0]]
+        if arch == "piratenet" and not all(float(b.alpha.detach()) != 0.0 for b in solver.model.blocks):
+            raise AssertionError("piratenet: an alpha is still 0 after training; the check would prove nothing")
+        check_against_plain_path(solver, arch, tuple(PATHS[p][1] for p in paths))
+
+    device_ms = {}
+    for path in TIMED:
+        deriv_path.set_default(deriv_path.CANDIDATES[PATHS[path][1]])
+        step_ms, _ = time_steps(solvers[path], path)
+        device_ms[path] = profile_steps(solvers[path], path, step_ms)
+    rows = time_kernels(errs, launches, device_ms)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

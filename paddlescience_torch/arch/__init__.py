@@ -1,4 +1,6 @@
 from paddlescience_torch.arch.base import Arch
-from paddlescience_torch.arch.mlp import MLP, FourierEmbedding, PeriodEmbedding, RandomWeightFactorization
+from paddlescience_torch.arch.mlp import (MLP, FourierEmbedding, ModifiedMLP, PeriodEmbedding, PirateNet,
+                                          PirateNetBlock, RandomWeightFactorization)
 
-__all__ = ["Arch", "MLP", "FourierEmbedding", "PeriodEmbedding", "RandomWeightFactorization"]
+__all__ = ["Arch", "MLP", "ModifiedMLP", "PirateNet", "PirateNetBlock", "FourierEmbedding", "PeriodEmbedding",
+           "RandomWeightFactorization"]

@@ -1,23 +1,31 @@
 """PINN backbone MLP family (counterpart of ``paddlescience_tpu/arch/mlp.py``).
 
 Ported: ``RandomWeightFactorization``, ``PeriodEmbedding``,
-``FourierEmbedding`` and ``MLP`` with its batched forward and its fused
-Taylor-jet forward (``forward_jet``). On the ``jet_pallas`` derivative
-paths the hidden tanh layers run as fused jet segments
-(``ops/jet_mlp.py``: CUDA kernels on the GPU, their plain versions on the
-CPU). Weights keep the JAX layout, W of shape (in, out) used as ``x @ W``,
-so parameters carry over key for key (``utils/jax_params.py``).
+``FourierEmbedding``, and ``MLP``, ``ModifiedMLP`` and ``PirateNet`` with
+their batched forward and their fused Taylor-jet forward (``forward_jet``).
+On the ``jet_pallas`` derivative paths the hidden tanh layers run as fused
+jet segments: the MLP's through ``ops/jet_mlp.py``, the gated ModifiedMLP
+layers and the PirateNet block groups through ``ops/jet_gated.py`` (CUDA
+kernels on the GPU, their plain versions on the CPU). As in the JAX
+package, ModifiedMLP and PirateNet take the segments whenever
+``PSCI_JET_PALLAS`` is not "0", the MLP only with ``PSCI_JET_PALLAS_MLP``.
+Weights keep the JAX layout, W of shape (in, out) used as ``x @ W``, and
+parameters keep the JAX names, so they carry over key for key
+(``utils/jax_params.py``).
 
-Not ported yet: ``WeightNormLinear``, ``ModifiedMLP``, ``PirateNet``.
+Not ported yet: ``WeightNormLinear`` (``weight_norm=``), skip connections,
+explicit ``input_dim``/``output_dim``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from paddlescience_torch.arch import activation as act_mod
 from paddlescience_torch.arch import base
@@ -27,7 +35,8 @@ from paddlescience_torch.device import DeviceLike, resolve_device
 from paddlescience_torch.nn.layers import Linear
 from paddlescience_torch.utils import initializer
 
-__all__ = ["RandomWeightFactorization", "PeriodEmbedding", "FourierEmbedding", "MLP"]
+__all__ = ["RandomWeightFactorization", "PeriodEmbedding", "FourierEmbedding", "MLP", "ModifiedMLP",
+           "PirateNetBlock", "PirateNet"]
 
 
 class RandomWeightFactorization(nn.Module):
@@ -112,14 +121,22 @@ def _jet_linear(layer, jx: jet.Jet) -> jet.Jet:
     return jet.linear(jx, w, b)
 
 
-def _jet_pallas_ok(model) -> bool:
-    """The fused segment kernels implement the tanh jet rule; other
-    activations (and narrow layers unless the candidate lifts the lane
-    gate) stay on the plain jet path."""
-    min_lanes = int(deriv_path.flag("PSCI_JET_PALLAS_MIN_LANES", "128"))
-    if any(_linear_out_features(l) < min_lanes for l in model.linears):
+def _jet_gate(y: jet.Jet, u: jet.Jet, v: jet.Jet) -> jet.Jet:
+    """y*u + (1-y)*v == v + y*(u-v): one jet product instead of two."""
+    return jet.add(v, jet.mul(y, jet.sub(u, v)))
+
+
+def _jet_pallas_ok(linears, acts) -> bool:
+    """``PSCI_JET_PALLAS`` not "0", and layers the fused segment kernels
+    take: they implement the tanh jet rule; other activations (and narrow
+    layers unless the candidate lifts the lane gate) stay on the plain jet
+    path."""
+    if deriv_path.flag("PSCI_JET_PALLAS", "1") != "1":
         return False
-    return all(a is torch.tanh for a in model.acts)
+    min_lanes = int(deriv_path.flag("PSCI_JET_PALLAS_MIN_LANES", "128"))
+    if any(_linear_out_features(l) < min_lanes for l in linears):
+        return False
+    return all(a is torch.tanh for a in acts)
 
 
 def _segment_lengths(model) -> List[int]:
@@ -136,18 +153,45 @@ def _segment_lengths(model) -> List[int]:
     return [min(g, n - s) for s in range(0, n, g)]
 
 
-def _jet_pallas_segments(model, jx: jet.Jet, lengths: List[int]) -> jet.Jet:
-    """Run the hidden (linear + tanh) layers as fused segments of the given
-    lengths."""
-    from paddlescience_torch.ops import jet_mlp
+def _jet_pallas_segments(model, jx: jet.Jet, lengths: List[int], uv=None) -> jet.Jet:
+    """Run the hidden (linear + tanh [+ gate with the jets ``uv``]) layers
+    as fused segments of the given lengths."""
+    from paddlescience_torch.ops import jet_gated, jet_mlp
 
     save_bounds = deriv_path.flag("PSCI_JET_SAVE_BOUNDS", "0") == "1"
     y, s = jx, 0
     for n in lengths:
         ws, bs = zip(*(_linear_eff(l) for l in model.linears[s : s + n]))
-        y = jet_mlp.jet_mlp_segment(y, ws, bs, save_bounds=save_bounds)
+        if uv is None:
+            y = jet_mlp.jet_mlp_segment(y, ws, bs, save_bounds=save_bounds)
+        else:
+            y = jet_gated.jet_gated_segment(y, uv[0], uv[1], ws, bs, (), jet_gated.modified_mlp_program(n),
+                                            save_bounds=save_bounds)
         s += n
     return y
+
+
+def _embedded_size(model, generator) -> int:
+    """Create ``model``'s period and Fourier embeddings (from its
+    ``periods``/``fourier`` settings) and return the width they produce."""
+    if model.periods:
+        model.period_emb = PeriodEmbedding(model.periods)
+    cur_size = len(model.input_keys)
+    if model.periods:
+        cur_size += len(model.periods)  # each period-embedded key doubles
+    if model.fourier:
+        model.fourier_emb = FourierEmbedding(cur_size, model.fourier["dim"], model.fourier["scale"],
+                                             generator=generator)
+        cur_size = model.fourier["dim"]
+    return cur_size
+
+
+def _embed(model, x: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Period + Fourier embeddings of a dict of input columns."""
+    if model.periods:
+        x = model.period_emb(x)
+    y = model.concat_to_tensor(x, model.input_keys, axis=-1)
+    return model.fourier_emb(y) if model.fourier else y
 
 
 def _jet_embed(model, jx: jet.Jet) -> jet.Jet:
@@ -204,16 +248,7 @@ class MLP(base.Arch):
         self.periods = dict(periods) if periods else None
         self.fourier = dict(fourier) if fourier else None
 
-        if self.periods:
-            self.period_emb = PeriodEmbedding(self.periods)
-        cur_size = len(self.input_keys)
-        if self.periods:
-            cur_size += len(self.periods)  # each period-embedded key doubles
-        if self.fourier:
-            self.fourier_emb = FourierEmbedding(cur_size, self.fourier["dim"], self.fourier["scale"],
-                                                generator=generator)
-            cur_size = self.fourier["dim"]
-
+        cur_size = _embedded_size(self, generator)
         linears, acts = [], []
         for _ in range(num_layers):
             linears.append(_make_linear(cur_size, hidden_size, random_weight, generator))
@@ -231,13 +266,7 @@ class MLP(base.Arch):
         return self.last_fc(y)
 
     def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        if self.periods:
-            x = self.period_emb(x)
-        y = self.concat_to_tensor(x, self.input_keys, axis=-1)
-        if self.fourier:
-            y = self.fourier_emb(y)
-        y = self.forward_tensor(y)
-        return self.split_to_dict(y, self.output_keys, axis=-1)
+        return self.split_to_dict(self.forward_tensor(_embed(self, x)), self.output_keys, axis=-1)
 
     def supports_jet(self) -> bool:
         return True
@@ -245,7 +274,7 @@ class MLP(base.Arch):
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused jet segment on the current derivative path;
         empty when the hidden layers take the plain jet path."""
-        if deriv_path.flag("PSCI_JET_PALLAS_MLP", "0") == "1" and _jet_pallas_ok(self):
+        if deriv_path.flag("PSCI_JET_PALLAS_MLP", "0") == "1" and _jet_pallas_ok(self.linears, self.acts):
             return _segment_lengths(self)
         return []
 
@@ -258,3 +287,245 @@ class MLP(base.Arch):
             for linear, act in zip(self.linears, self.acts):
                 jx = jet.elementwise(_jet_linear(linear, jx), act)
         return _jet_linear(self.last_fc, jx)
+
+
+class ModifiedMLP(base.Arch):
+    """Two-stream gated MLP (arXiv:2001.04536): y <- act(W y), then
+    y * u + (1 - y) * v with gates u, v embedded once from the input.
+    (``skip_connection``, ``weight_norm`` and ``input_dim``/``output_dim``
+    of the JAX class are not ported.) Parameters and device as for
+    :class:`MLP`."""
+
+    def __init__(
+        self,
+        input_keys: Tuple[str, ...],
+        output_keys: Tuple[str, ...],
+        num_layers: int,
+        hidden_size: int,
+        activation: str = "tanh",
+        periods: Optional[Dict[str, Tuple[float, bool]]] = None,
+        fourier: Optional[Dict[str, Union[float, int]]] = None,
+        random_weight: Optional[Dict[str, float]] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.input_keys = tuple(input_keys)
+        self.output_keys = tuple(output_keys)
+        self.periods = dict(periods) if periods else None
+        self.fourier = dict(fourier) if fourier else None
+
+        cur_size = _embedded_size(self, generator)
+        self.embed_u = _make_linear(cur_size, hidden_size, random_weight, generator)
+        self.embed_v = _make_linear(cur_size, hidden_size, random_weight, generator)
+        self.embed_act_u = act_mod.get_activation(activation)
+        self.embed_act_v = act_mod.get_activation(activation)
+        linears, acts = [], []
+        for _ in range(num_layers):
+            linears.append(_make_linear(cur_size, hidden_size, random_weight, generator))
+            acts.append(act_mod.get_activation(activation))
+            cur_size = hidden_size
+        self.linears = nn.ModuleList(linears)
+        self.acts = acts
+        self.last_fc = _make_linear(cur_size, len(self.output_keys), random_weight, generator)
+        self.to(device)
+
+    def forward_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        u = self.embed_act_u(self.embed_u(x))
+        v = self.embed_act_v(self.embed_v(x))
+        y = x
+        for linear, act in zip(self.linears, self.acts):
+            y = act(linear(y))
+            y = y * u + (1 - y) * v
+        return self.last_fc(y)
+
+    def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return self.split_to_dict(self.forward_tensor(_embed(self, x)), self.output_keys, axis=-1)
+
+    def supports_jet(self) -> bool:
+        return True
+
+    def jet_segment_lengths(self) -> List[int]:
+        """Layers per fused gated segment on the current derivative path;
+        empty when the hidden layers take the plain jet path."""
+        acts = [*self.acts, self.embed_act_u, self.embed_act_v]
+        return _segment_lengths(self) if _jet_pallas_ok(self.linears, acts) else []
+
+    def forward_jet(self, jx: jet.Jet) -> jet.Jet:
+        jx = _jet_embed(self, jx)
+        u = jet.elementwise(_jet_linear(self.embed_u, jx), self.embed_act_u)
+        v = jet.elementwise(_jet_linear(self.embed_v, jx), self.embed_act_v)
+        lengths = self.jet_segment_lengths()
+        if lengths:
+            y = _jet_pallas_segments(self, jx, lengths, uv=(u, v))
+        else:
+            y = jx
+            for linear, act in zip(self.linears, self.acts):
+                y = _jet_gate(jet.elementwise(_jet_linear(linear, y), act), u, v)
+        return _jet_linear(self.last_fc, y)
+
+
+class PirateNetBlock(nn.Module):
+    """Residual adaptive block (arXiv:2402.00326): three gated layers and
+    x_out = alpha * h + (1 - alpha) * x, alpha starting at 0 (the block
+    starts as the identity)."""
+
+    def __init__(self, embed_dim: int, activation: str = "tanh",
+                 random_weight: Optional[Dict[str, float]] = None, *, generator: torch.Generator):
+        super().__init__()
+        self.linear1 = _make_linear(embed_dim, embed_dim, random_weight, generator)
+        self.linear2 = _make_linear(embed_dim, embed_dim, random_weight, generator)
+        self.linear3 = _make_linear(embed_dim, embed_dim, random_weight, generator)
+        self.alpha = nn.Parameter(torch.zeros(1))
+        self.act1 = act_mod.get_activation(activation)
+        self.act2 = act_mod.get_activation(activation)
+        self.act3 = act_mod.get_activation(activation)
+
+    @property
+    def linears(self):
+        return (self.linear1, self.linear2, self.linear3)
+
+    @property
+    def acts(self):
+        return (self.act1, self.act2, self.act3)
+
+    def forward(self, x, u, v):
+        f = self.act1(self.linear1(x))
+        z1 = f * u + (1 - f) * v
+        g = self.act2(self.linear2(z1))
+        z2 = g * u + (1 - g) * v
+        h = self.act3(self.linear3(z2))
+        return self.alpha * h + (1 - self.alpha) * x
+
+    def forward_jet(self, x: jet.Jet, u: jet.Jet, v: jet.Jet) -> jet.Jet:
+        f = jet.elementwise(_jet_linear(self.linear1, x), self.act1)
+        z1 = _jet_gate(f, u, v)
+        g = jet.elementwise(_jet_linear(self.linear2, z1), self.act2)
+        z2 = _jet_gate(g, u, v)
+        h = jet.elementwise(_jet_linear(self.linear3, z2), self.act3)
+        return jet.add(jet.scale_const(h, self.alpha), jet.scale_const(x, 1 - self.alpha))
+
+
+def _piratenet_block_ws(block: PirateNetBlock):
+    """Effective weights and biases of a block's three layers."""
+    return zip(*(_linear_eff(l) for l in block.linears))
+
+
+def _checkpointed_block_jet(block: PirateNetBlock, y: jet.Jet, u: jet.Jet, v: jet.Jet) -> jet.Jet:
+    """``block.forward_jet`` with its inner jets rematerialised in the
+    backward, so only the block-boundary jets stay alive."""
+    S, index = len(y.index), y.index
+
+    def run(*streams):
+        parts = [jet.Jet(streams[k * S : (k + 1) * S], index) for k in range(3)]
+        return block.forward_jet(*parts).streams
+
+    return jet.Jet(checkpoint(run, *y.streams, *u.streams, *v.streams, use_reentrant=False), index)
+
+
+class PirateNet(base.Arch):
+    """PirateNet (arXiv:2402.00326): ``num_blocks`` residual adaptive
+    blocks of width ``hidden_size`` on the embedded input, with gates u, v
+    embedded once. The blocks act on the embedding itself, so
+    ``hidden_size`` must equal the embedding's width (``fourier["dim"]``).
+    (``weight_norm`` and ``input_dim``/``output_dim`` of the JAX class are
+    not ported.) Parameters and device as for :class:`MLP`.
+
+    On the fused path, consecutive blocks run as one segment in groups of
+    ``PSCI_JET_PBLOCK_GROUP`` blocks (default 3; ``jet_pallas_full`` takes
+    all blocks as one group). On the plain jet path each block is
+    rematerialised in the backward (``torch.utils.checkpoint``) unless
+    the environment sets ``PSCI_JET_REMAT=0``.
+    """
+
+    def __init__(
+        self,
+        input_keys: Tuple[str, ...],
+        output_keys: Tuple[str, ...],
+        num_blocks: int,
+        hidden_size: int,
+        activation: str = "tanh",
+        periods: Optional[Dict[str, Tuple[float, bool]]] = None,
+        fourier: Optional[Dict[str, Union[float, int]]] = None,
+        random_weight: Optional[Dict[str, float]] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device: DeviceLike = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.input_keys = tuple(input_keys)
+        self.output_keys = tuple(output_keys)
+        self.periods = dict(periods) if periods else None
+        self.fourier = dict(fourier) if fourier else None
+
+        cur_size = _embedded_size(self, generator)
+        if cur_size != hidden_size:
+            raise ValueError(f"PirateNet blocks act on the embedding: hidden_size {hidden_size} must equal "
+                             f"the embedded width {cur_size}")
+        self.embed_u = _make_linear(cur_size, hidden_size, random_weight, generator)
+        self.embed_v = _make_linear(cur_size, hidden_size, random_weight, generator)
+        self.embed_act_u = act_mod.get_activation(activation)
+        self.embed_act_v = act_mod.get_activation(activation)
+        self.blocks = nn.ModuleList(
+            PirateNetBlock(cur_size, activation=activation, random_weight=random_weight, generator=generator)
+            for _ in range(num_blocks))
+        self.last_fc = _make_linear(cur_size, len(self.output_keys), random_weight, generator)
+        self.to(device)
+
+    def forward_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        u = self.embed_act_u(self.embed_u(x))
+        v = self.embed_act_v(self.embed_v(x))
+        y = x
+        for block in self.blocks:
+            y = block(y, u, v)
+        return self.last_fc(y)
+
+    def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return self.split_to_dict(self.forward_tensor(_embed(self, x)), self.output_keys, axis=-1)
+
+    def supports_jet(self) -> bool:
+        return True
+
+    def _use_jet_pallas(self) -> bool:
+        return _jet_pallas_ok([l for b in self.blocks for l in b.linears],
+                              [a for b in self.blocks for a in b.acts])
+
+    def jet_segment_lengths(self) -> List[int]:
+        """Layers per fused segment (three per block of a group) on the
+        current derivative path; empty on the plain jet path."""
+        if not self._use_jet_pallas():
+            return []
+        n = len(self.blocks)
+        grp = int(deriv_path.flag("PSCI_JET_PBLOCK_GROUP", "3"))
+        return [3 * min(grp, n - i) for i in range(0, n, grp)]
+
+    def forward_jet(self, jx: jet.Jet) -> jet.Jet:
+        jx = _jet_embed(self, jx)
+        u = jet.elementwise(_jet_linear(self.embed_u, jx), self.embed_act_u)
+        v = jet.elementwise(_jet_linear(self.embed_v, jx), self.embed_act_v)
+        y = jx
+        lengths = self.jet_segment_lengths()
+        if lengths:
+            from paddlescience_torch.ops import jet_gated
+
+            save_bounds = deriv_path.flag("PSCI_JET_SAVE_BOUNDS", "0") == "1"
+            i = 0
+            for n_layers in lengths:
+                group = self.blocks[i : i + n_layers // 3]
+                ws, bs = zip(*(_piratenet_block_ws(b) for b in group))
+                y = jet_gated.jet_gated_segment(
+                    y, u, v, [w for blk in ws for w in blk], [b for blk in bs for b in blk],
+                    [b.alpha for b in group], jet_gated.piratenet_program(len(group)), save_bounds=save_bounds)
+                i += len(group)
+            return _jet_linear(self.last_fc, y)
+        remat = os.environ.get("PSCI_JET_REMAT", "1") == "1" and torch.is_grad_enabled()
+        for block in self.blocks:
+            y = _checkpointed_block_jet(block, y, u, v) if remat else block.forward_jet(y, u, v)
+        return _jet_linear(self.last_fc, y)

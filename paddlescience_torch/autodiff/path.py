@@ -5,26 +5,27 @@ The candidate bundles keep the JAX package's names, so a configuration
 pins the same path in both packages, and hold only the flags the port
 reads:
 
-* ``PSCI_JET``                  — "0": no jet forward (nested jvp);
-* ``PSCI_JET_PALLAS_MLP``       — "1": the MLP's hidden layers run as fused
-  segments (default "0", as in the JAX package). With only the ungated MLP
-  body ported, this one flag also does the work of the JAX package's
-  ``PSCI_JET_PALLAS``;
-* ``PSCI_JET_PALLAS_MIN_LANES`` — narrowest layer sent to the segments;
-* ``PSCI_JET_SEG``              — layers per segment;
-* ``PSCI_JET_SAVE_BOUNDS``      — "1": the forward saves stage boundaries.
+* ``PSCI_JET``                  - "0": no jet forward (nested jvp);
+* ``PSCI_JET_PALLAS``           - "0": no fused segments at all. Otherwise
+  (the default) ModifiedMLP and PirateNet run their hidden layers as fused
+  segments, as in the JAX package;
+* ``PSCI_JET_PALLAS_MLP``       - "1": the plain MLP's hidden layers do so
+  too (default "0", as in the JAX package);
+* ``PSCI_JET_PALLAS_MIN_LANES`` - narrowest layer sent to the segments;
+* ``PSCI_JET_SEG``              - MLP/ModifiedMLP layers per segment;
+* ``PSCI_JET_PBLOCK_GROUP``     - PirateNet blocks per segment (default 3);
+* ``PSCI_JET_SAVE_BOUNDS``      - "1": the forward saves stage boundaries.
 
 The JAX package's TPU tiling flags (``PSCI_JET_BLOCK_M``,
-``PSCI_JET_PBLOCK_GROUP``, ``PSCI_JET_PALLAS_MATMUL``) have no counterpart.
-The candidates:
+``PSCI_JET_PALLAS_MATMUL``) have no counterpart. The candidates:
 
-* ``jet``              — fused Taylor-jet forward in plain PyTorch
+* ``jet``              - fused Taylor-jet forward in plain PyTorch
   (``autodiff/jet.py``);
-* ``jet_pallas``       — hidden layers run as hand-written CUDA jet-segment
-  kernels (``ops/jet_mlp.py``) in segments of ``PSCI_JET_SEG`` layers
-  (default 3);
-* ``jet_pallas_full``  — the whole hidden stack as one segment;
-* ``jet_pallas_full_sb`` — as above, with the forward kernel saving the
+* ``jet_pallas``       - hidden layers run as hand-written CUDA jet-segment
+  kernels (``ops/jet_mlp.py``, ``ops/jet_gated.py``) in segments of
+  ``PSCI_JET_SEG`` layers (default 3) or ``PSCI_JET_PBLOCK_GROUP`` blocks;
+* ``jet_pallas_full``  - the whole hidden stack as one segment;
+* ``jet_pallas_full_sb`` - as above, with the forward kernel saving the
   stage boundaries so the backward skips its recompute pass.
 
 The ``jvp`` candidate (nested jvp) and the autotuner that picks a winner
@@ -32,7 +33,9 @@ are not ported yet; a derivative request that the jet cannot serve raises
 ``NotImplementedError``.
 
 Flags resolve as: context override > process default > environment >
-built-in default.
+built-in default. :func:`override` sets only the flags of the bundle it is
+given; the rest fall through to the process default, so pin a whole
+candidate with :func:`set_default`.
 """
 
 from __future__ import annotations
@@ -46,22 +49,27 @@ __all__ = ["flag", "override", "set_default", "get_default", "CANDIDATES"]
 
 CANDIDATES: Dict[str, Dict[str, str]] = {
     "jvp": {"PSCI_JET": "0"},
-    "jet": {"PSCI_JET": "1", "PSCI_JET_PALLAS_MLP": "0"},
+    "jet": {"PSCI_JET": "1", "PSCI_JET_PALLAS": "0", "PSCI_JET_PALLAS_MLP": "0"},
     "jet_pallas": {
         "PSCI_JET": "1",
+        "PSCI_JET_PALLAS": "1",
         "PSCI_JET_PALLAS_MLP": "1",
         "PSCI_JET_PALLAS_MIN_LANES": "0",
     },
     "jet_pallas_full": {
         "PSCI_JET": "1",
+        "PSCI_JET_PALLAS": "1",
         "PSCI_JET_PALLAS_MLP": "1",
         "PSCI_JET_PALLAS_MIN_LANES": "0",
+        "PSCI_JET_PBLOCK_GROUP": "999",
         "PSCI_JET_SEG": "999",
     },
     "jet_pallas_full_sb": {
         "PSCI_JET": "1",
+        "PSCI_JET_PALLAS": "1",
         "PSCI_JET_PALLAS_MLP": "1",
         "PSCI_JET_PALLAS_MIN_LANES": "0",
+        "PSCI_JET_PBLOCK_GROUP": "999",
         "PSCI_JET_SEG": "999",
         "PSCI_JET_SAVE_BOUNDS": "1",
     },

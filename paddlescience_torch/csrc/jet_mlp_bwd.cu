@@ -67,43 +67,6 @@ __device__ __forceinline__ void tanh_jet_vjp(float (&z)[S], const float (&g)[S],
   for (int s = 0; s < S; ++s) z[s] = gz[s];
 }
 
-// acc[s][i][j] += sum_c G[s][c][4ty+i] * W[4tx+j][c], c < D: the product
-// with W^T. W is (K, D); columns are staged KC at a time, transposed, into
-// Wt[cc][k] with row stride kpad. Ends with __syncthreads().
-template <int S>
-__device__ __forceinline__ void tile_matmul_t(float (&acc)[S][4][4], const float* G, int kmax,
-                                              const float* __restrict__ W, int K, int D,
-                                              float* Wt, int kpad, int tx, int ty) {
-  for (int c0 = 0; c0 < D; c0 += PSCI_KC) {
-    const int cn = min(PSCI_KC, D - c0);
-    for (int e = threadIdx.x; e < K * cn; e += PSCI_THREADS) {
-      const int k = e / cn, cc = e - k * cn;
-      Wt[cc * kpad + k] = __ldg(W + (size_t)k * D + c0 + cc);
-    }
-    __syncthreads();
-    if (4 * tx < K) {
-#pragma unroll 4
-      for (int cc = 0; cc < cn; ++cc) {
-        const float4 w = *reinterpret_cast<const float4*>(Wt + cc * kpad + 4 * tx);
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float4 a =
-              *reinterpret_cast<const float4*>(G + ((size_t)s * kmax + c0 + cc) * PSCI_BM + 4 * ty);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[s][i][0] = fmaf(av[i], w.x, acc[s][i][0]);
-            acc[s][i][1] = fmaf(av[i], w.y, acc[s][i][1]);
-            acc[s][i][2] = fmaf(av[i], w.z, acc[s][i][2]);
-            acc[s][i][3] = fmaf(av[i], w.w, acc[s][i][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
 template <int S>
 __global__ void __launch_bounds__(PSCI_THREADS, 1) jet_mlp_bwd_kernel(const BwdParams p) {
   extern __shared__ __align__(16) float smem[];

@@ -35,25 +35,6 @@ struct FwdParams {
 };
 
 template <int S>
-__device__ __forceinline__ void tanh_jet(float (&acc)[S][4][4], const JetIdx& idx, int i, int j) {
-  float z[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) z[s] = acc[s][i][j];
-  const float t = tanhf(z[0]);
-  const float sp = 1.f - t * t;
-  const float spp = -2.f * t * sp;
-  acc[0][i][j] = t;
-#pragma unroll
-  for (int s = 1; s < S; ++s) {
-    if (idx.kind[s] == 1) {
-      acc[s][i][j] = sp * z[s];
-    } else {
-      acc[s][i][j] = spp * sel<S>(z, idx.pa[s]) * sel<S>(z, idx.pb[s]) + sp * z[s];
-    }
-  }
-}
-
-template <int S>
 __global__ void __launch_bounds__(PSCI_THREADS, S <= 4 ? 2 : 1) jet_mlp_fwd_kernel(const FwdParams p) {
   extern __shared__ __align__(16) float smem[];
   float* A = smem;                                   // [S][kmax][BM]

@@ -15,6 +15,10 @@
 // own partial; phase 2 adds the P partials of every element in a fixed
 // order. The result is bitwise reproducible for a given shape and device.
 //
+// jet_alpha_reduce, at the end of this file, does the same for d alpha of
+// the PirateNet residuals: jet_gated_bwd.cu leaves one partial sum per CTA
+// and residual, and one block per residual adds them in a fixed order.
+//
 // What bounds it on an H100: operations, L*S*2*N*K*D FLOPs in float32
 // (8.6 GFLOP at S=4, N=4096, L=4, K=D=256: 0.13 ms at 67 TFLOP/s); the
 // reads of y_in and gz (~134 MB) take 0.04 ms at 3.35 TB/s.
@@ -153,6 +157,33 @@ extern "C" int jet_wgrad(const void* const* y, const void* const* gz, void* cons
   const size_t total = (size_t)kmax * dmax + dmax;
   const dim3 grid2((unsigned)((total + 255) / 256), L);
   jet_wgrad_reduce<<<grid2, 256, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// out[r] = sum_t part[t * n_res + r]: thread i adds the partials t = i,
+// i + 256, ... in order, then a shared-memory tree adds the 256 sums.
+__global__ void __launch_bounds__(256) jet_alpha_reduce_kernel(const float* __restrict__ part,
+                                                               float* __restrict__ out, int n_tiles,
+                                                               int n_res) {
+  __shared__ float sums[256];
+  const int r = blockIdx.x;
+  float sum = 0.f;
+  for (int t = threadIdx.x; t < n_tiles; t += 256) sum += part[(size_t)t * n_res + r];
+  sums[threadIdx.x] = sum;
+  __syncthreads();
+  for (int o = 128; o > 0; o >>= 1) {
+    if (threadIdx.x < o) sums[threadIdx.x] += sums[threadIdx.x + o];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[r] = sums[0];
+}
+
+// Host entry point: part is (n_tiles, n_res) row-major on the device, out
+// (n_res,). Returns a cudaError_t code (0 = launched).
+extern "C" int jet_alpha_reduce(const void* part, void* out, int n_tiles, int n_res, void* stream) {
+  if (n_tiles < 1 || n_res < 1) return (int)cudaErrorInvalidValue;
+  jet_alpha_reduce_kernel<<<n_res, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), n_tiles, n_res);
   return (int)cudaGetLastError();
 }
 

@@ -1,34 +1,46 @@
-"""Allen-Cahn PINN on the port (counterpart of ``examples/allen_cahn.py``,
-default variant):
+"""Allen-Cahn PINN on the port (counterpart of ``examples/allen_cahn.py``):
 
   u_t - 1e-4 u_xx + 5 u^3 - 5 u = 0,  (t, x) in [0, 1] x [-1, 1],
   u(0, x) = x^2 cos(pi x),  periodic in x.
 
-MLP 4 x 256 with tanh, period embedding on x (period 2), Fourier features
-(dim 256, scale 1), random weight factorization (mean 0.5, std 0.1);
+Three backbones, all 256 wide with tanh, period embedding on x (period 2),
+Fourier features (dim 256) and random weight factorization:
+
+============  =========================  =============  ========
+arch          net                        fourier scale  RWF mean
+============  =========================  =============  ========
+mlp           MLP 4 x 256                1.0            0.5
+modified_mlp  ModifiedMLP 4 x 256        2.0            1.0
+piratenet     PirateNet, 3 blocks x 256  2.0            1.0
+              (``piratenet_blocks``)
+============  =========================  =============  ========
+
 CausalMSELoss(32 chunks, tol 1) on 4096 collocation points sampled on the
 device each step, plus the initial-condition MSE on 512 points; GradNorm
 (update_freq 1000, momentum 0.9); Adam with ExponentialDecay (1e-3, gamma
 0.9 every 2000 steps). The derivative path is pinned to ``jet_pallas_full``:
-the four hidden layers run as one fused jet segment (CUDA kernels on the
-GPU).
+the hidden layers (all PirateNet blocks) run as one fused jet segment (CUDA
+kernels on the GPU).
 
 The initial-condition labels are x^2 cos(pi x) on
 ``linspace(-1, 1, 512, endpoint=False)``, which is row 0 of the JAX
 example's ETDRK4 reference solution. The L2Rel validator against that
-solution is not ported yet.
+solution and the NTK aggregator of the JAX example's ``sota`` variant are
+not ported yet.
 
-Run on the GPU: ``python -m paddlescience_torch.examples.allen_cahn [steps]``.
+Run on the GPU:
+``python -m paddlescience_torch.examples.allen_cahn [steps] [arch]``.
 """
 
 from __future__ import annotations
 
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
 
-from paddlescience_torch.arch.mlp import MLP
+from paddlescience_torch.arch.mlp import MLP, ModifiedMLP, PirateNet
 from paddlescience_torch.autodiff import path as deriv_path
 from paddlescience_torch.constraint.base import Constraint
 from paddlescience_torch.constraint.constraints import SupervisedConstraint
@@ -68,19 +80,34 @@ def build_solver(
     log_freq: int = 100,
     deriv: str = "jet_pallas_full",
     device: DeviceLike = None,
+    arch: str = "mlp",
+    piratenet_blocks: int = 3,
+    fourier_scale: Optional[float] = None,
+    rwf_mean: Optional[float] = None,
 ) -> Solver:
-    """The default Allen-Cahn solver; sizes are knobs so tests can shrink
-    it. ``deriv`` names the derivative-path candidate to pin."""
+    """The Allen-Cahn solver with backbone ``arch`` ("mlp", "modified_mlp"
+    or "piratenet"); sizes are knobs so tests can shrink it. ``deriv``
+    names the derivative-path candidate to pin. ``fourier_scale`` and
+    ``rwf_mean`` default per arch (2.0 and 1.0 for the gated archs, 1.0
+    and 0.5 for the MLP)."""
     device = resolve_device(device)
+    if arch not in ("mlp", "modified_mlp", "piratenet"):
+        raise ValueError(f"arch '{arch}' not found; available: mlp, modified_mlp, piratenet")
     deriv_path.set_default(deriv_path.CANDIDATES[deriv])
-    model = MLP(
-        ("t", "x"), ("u",), num_layers=num_layers, hidden_size=hidden_size, activation="tanh",
+    gated = arch != "mlp"
+    common = dict(
+        activation="tanh",
         periods={"x": (2.0, False)},
-        fourier={"dim": fourier_dim, "scale": 1.0},
-        random_weight={"mean": 0.5, "std": 0.1},
+        fourier={"dim": fourier_dim, "scale": (2.0 if gated else 1.0) if fourier_scale is None else fourier_scale},
+        random_weight={"mean": (1.0 if gated else 0.5) if rwf_mean is None else rwf_mean, "std": 0.1},
         generator=torch.Generator().manual_seed(seed),
         device=device,
     )
+    if arch == "piratenet":
+        model = PirateNet(("t", "x"), ("u",), num_blocks=piratenet_blocks, hidden_size=hidden_size, **common)
+    else:
+        cls = ModifiedMLP if gated else MLP
+        model = cls(("t", "x"), ("u",), num_layers=num_layers, hidden_size=hidden_size, **common)
     equation = {"AllenCahn": AllenCahn(eps=0.01)}
 
     t_ic, x_ic, u_ic = ic_data(ic_points)
@@ -115,4 +142,4 @@ def build_solver(
 
 if __name__ == "__main__":
     steps = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
-    build_solver().train(steps)
+    build_solver(arch=sys.argv[2] if len(sys.argv) > 2 else "mlp").train(steps)

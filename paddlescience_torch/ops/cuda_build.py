@@ -7,6 +7,11 @@ keyed by a hash of the sources and flags, so a checkout builds at first use
 and a changed source rebuilds. :func:`build` compiles several sources in
 parallel, one ``nvcc`` process each.
 
+The wrappers bind a kernel's host entry point with :func:`declare` and call
+it with :func:`launch`, which raises on a CUDA error code; :func:`ptrs`,
+:func:`ints`, :func:`stream_handle`, :func:`on_device` and :func:`is_cpu`
+are what they share in marshalling and checking tensors.
+
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -19,16 +24,21 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
-__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "build", "load", "nvcc_path"]
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "build", "load", "nvcc_path", "declare", "launch", "ptrs",
+           "ints", "stream_handle", "on_device", "is_cpu", "P", "I", "F"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
+KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd",
+           "lbm_collide_stream")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-split-compile", "0",  # a source's kernels (one per stream count) are optimised in parallel
 )
 
 _LOCK = threading.Lock()
@@ -102,3 +112,66 @@ def load(name: str) -> ctypes.CDLL:
             lib.psci_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+# ------------------------------------------------------ calling a kernel --
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ENTRY_POINTS: Dict[str, Tuple[str, list]] = {}  # entry point -> (library, argtypes)
+_BOUND: Dict[str, Tuple[ctypes.CDLL, object]] = {}
+
+
+def declare(entry: str, argtypes: list, library: Optional[str] = None) -> None:
+    """Register the C signature of host entry point ``entry`` of
+    ``csrc/<library>.cu`` (the library is named after the entry point
+    unless given). Every entry point returns a ``cudaError_t`` as int."""
+    _ENTRY_POINTS[entry] = (library or entry, argtypes)
+
+
+def launch(entry: str, *args) -> None:
+    """Call a declared entry point (building and loading its library at
+    first use); raises ``RuntimeError`` unless it returns 0."""
+    hit = _BOUND.get(entry)
+    if hit is None:
+        library, argtypes = _ENTRY_POINTS[entry]
+        lib = load(library)
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        hit = _BOUND[entry] = (lib, fn)
+    lib, fn = hit
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}: {lib.psci_error_string(rc).decode()}")
+
+
+def ptrs(ts: Sequence[Optional[torch.Tensor]]):
+    """Host array of device pointers; None gives a null pointer."""
+    return (ctypes.c_void_p * len(ts))(*[None if t is None else t.data_ptr() for t in ts])
+
+
+def ints(xs: Sequence[int]):
+    return (ctypes.c_int * len(xs))(*xs)
+
+
+def stream_handle(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def on_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """Contiguous float32 on ``dev``, 16-byte aligned (the kernels read
+    float4); raises on anything else."""
+    if t.device != dev or t.dtype != torch.float32:
+        raise ValueError(f"expected float32 tensors on {dev}, got {t.dtype} on {t.device}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def is_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (the wrapper takes its plain version), False
+    for a CUDA tensor (it launches its kernel); anything else raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA (or plainly on the CPU), got {t.device}")
+    return False

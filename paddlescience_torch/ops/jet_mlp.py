@@ -34,14 +34,15 @@ and used as ``x @ W``; stage boundaries and ``gz`` are (S, N, D) per layer.
 
 from __future__ import annotations
 
-import ctypes
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from paddlescience_torch.autodiff import jet as jetmod
+from paddlescience_torch.ops import cuda_build
+from paddlescience_torch.ops.cuda_build import I, P, ints, is_cpu, launch, on_device, ptrs, stream_handle
 
 __all__ = [
     "index_tables",
@@ -57,7 +58,7 @@ __all__ = [
 
 BM = 16  # rows per CTA tile in the forward and backward kernels
 MAX_STREAMS = 8
-MAX_LAYERS = 16
+MAX_LAYERS = 32
 MAX_WIDTH = 256
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
 WG_TILE, WG_RC = 64, 32  # jet_wgrad output tile edge and staged batch rows
@@ -103,12 +104,33 @@ def jet_mlp_fwd_plain(streams: Sequence[torch.Tensor], weights, biases,
     return y.streams, tuple(bounds)
 
 
+def tanh_jet_vjp(z, g, tables):
+    """VJP of the tanh jet rule at pre-activations ``z`` (S streams) for
+    output cotangents ``g``: the pre-activation cotangents gz, with
+    t = tanh z_0, sp = 1 - t^2, spp = -2 t sp, sppp = -2 sp^2 + 4 t^2 sp."""
+    kinds, pa, pb = tables
+    t = torch.tanh(z[0])
+    sp = 1.0 - t * t
+    spp = -2.0 * t * sp
+    sppp = -2.0 * sp * sp + 4.0 * t * t * sp
+    gz = [sp * gs for gs in g]
+    for s in range(1, len(g)):
+        if kinds[s] == 1:
+            gz[0] = gz[0] + spp * g[s] * z[s]
+        else:
+            za, zb = z[pa[s]], z[pb[s]]
+            gz[0] = gz[0] + (sppp * za * zb + spp * z[s]) * g[s]
+            gz[pa[s]] = gz[pa[s]] + spp * g[s] * zb
+            gz[pb[s]] = gz[pb[s]] + spp * g[s] * za
+    return gz
+
+
 def jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out,
                       index: jetmod.JetIndex) -> Tuple[Tensors, Tensors]:
     """Hand-derived VJP of the segment. Returns the cotangents of the input
     streams and, per layer, the pre-activation cotangents gz as (S, N, D)."""
     _note_plain_call(jet_mlp_bwd_plain, streams[0])
-    kinds, pa, pb = index_tables(index)
+    tables = index_tables(index)
     ins = [tuple(streams)] + [tuple(bd.unbind(0)) for bd in bounds]
     g = list(g_out)
     gzs = [None] * len(weights)
@@ -116,19 +138,7 @@ def jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out,
         w = weights[l]
         z = [s @ w for s in ins[l]]
         z[0] = z[0] + biases[l]
-        t = torch.tanh(z[0])
-        sp = 1.0 - t * t
-        spp = -2.0 * t * sp
-        sppp = -2.0 * sp * sp + 4.0 * t * t * sp
-        gz = [sp * gs for gs in g]
-        for s in range(1, len(g)):
-            if kinds[s] == 1:
-                gz[0] = gz[0] + spp * g[s] * z[s]
-            else:
-                za, zb = z[pa[s]], z[pb[s]]
-                gz[0] = gz[0] + (sppp * za * zb + spp * z[s]) * g[s]
-                gz[pa[s]] = gz[pa[s]] + spp * g[s] * zb
-                gz[pb[s]] = gz[pb[s]] + spp * g[s] * za
+        gz = tanh_jet_vjp(z, g, tables)
         gzs[l] = torch.stack(gz)
         g = [x @ w.t() for x in gz]
     return tuple(g), tuple(gzs)
@@ -154,62 +164,9 @@ for _fn in (jet_mlp_fwd_plain, jet_mlp_bwd_plain, jet_wgrad_plain):
 
 # ----------------------------------------------------------- CUDA wrappers --
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "jet_mlp_fwd": [_P] * 9 + [_I] * 4 + [_P],
-    "jet_mlp_bwd": [_P] * 11 + [_I] * 4 + [_P],
-    "jet_wgrad": [_P] * 6 + [_I] * 7 + [_P],
-}
-_KERNELS: Dict[str, Tuple[ctypes.CDLL, object]] = {}
-
-
-def _kernel(name: str):
-    hit = _KERNELS.get(name)
-    if hit is None:
-        from paddlescience_torch.ops import cuda_build
-
-        lib = cuda_build.load(name)
-        fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        hit = _KERNELS[name] = (lib, fn)
-    return hit
-
-
-def _launch(name: str, *args) -> None:
-    lib, fn = _kernel(name)
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: {lib.psci_error_string(rc).decode()}")
-
-
-def _ptrs(ts: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
-
-
-def _ints(xs: Sequence[int]):
-    return (ctypes.c_int * len(xs))(*xs)
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _on_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
-    """Contiguous float32 on ``dev``, 16-byte aligned (the kernels read
-    float4); raises on anything else."""
-    if t.device != dev or t.dtype != torch.float32:
-        raise ValueError(f"expected float32 tensors on {dev}, got {t.dtype} on {t.device}")
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _is_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"jet MLP kernels run on CUDA (or plainly on the CPU), got {t.device}")
-    return False
+cuda_build.declare("jet_mlp_fwd", [P] * 9 + [I] * 4 + [P])
+cuda_build.declare("jet_mlp_bwd", [P] * 11 + [I] * 4 + [P])
+cuda_build.declare("jet_wgrad", [P] * 6 + [I] * 7 + [P])
 
 
 def _round4(x: int) -> int:
@@ -240,7 +197,7 @@ def _segment_dims(streams, weights, biases, index) -> List[int]:
 def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.JetIndex,
                 save_bounds: bool = False) -> Tuple[Tensors, Tensors]:
     """Segment forward; returns (output streams, stage boundaries)."""
-    if _is_cpu(streams[0]):
+    if is_cpu(streams[0]):
         return jet_mlp_fwd_plain(streams, weights, biases, index, save_bounds)
     dev = streams[0].device
     dims = _segment_dims(streams, weights, biases, index)
@@ -248,15 +205,15 @@ def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.
     kmax = _round4(max(dims))
     if (S * kmax * BM + 16 * max(dims[1:])) * 4 > SMEM_LIMIT:
         raise ValueError(f"jet_mlp_fwd: {S} streams of width {kmax} exceed shared memory")
-    streams = [_on_device(s, dev) for s in streams]
-    weights = [_on_device(w, dev) for w in weights]
-    biases = [_on_device(b, dev) for b in biases]
+    streams = [on_device(s, dev) for s in streams]
+    weights = [on_device(w, dev) for w in weights]
+    biases = [on_device(b, dev) for b in biases]
     outs = tuple(torch.empty(N, dims[-1], device=dev) for _ in range(S))
     bounds = tuple(torch.empty(S, N, dims[l + 1], device=dev) for l in range(L - 1)) if save_bounds else ()
     kinds, pa, pb = index_tables(index)
-    _launch("jet_mlp_fwd", _ptrs(streams), _ptrs(weights), _ptrs(biases), _ptrs(outs),
-            _ptrs(bounds) if bounds else None, _ints(dims), _ints(kinds), _ints(pa), _ints(pb),
-            S, L, N, kmax, _stream(dev))
+    launch("jet_mlp_fwd", ptrs(streams), ptrs(weights), ptrs(biases), ptrs(outs),
+            ptrs(bounds) if bounds else None, ints(dims), ints(kinds), ints(pa), ints(pb),
+            S, L, N, kmax, stream_handle(dev))
     jet_mlp_fwd.launches += 1
     return outs, bounds
 
@@ -265,7 +222,7 @@ def jet_mlp_bwd(streams, bounds, weights, biases, g_out,
                 index: jetmod.JetIndex) -> Tuple[Tensors, Tensors]:
     """Segment backward from the stage boundaries; returns (input-stream
     cotangents, per-layer gz)."""
-    if _is_cpu(streams[0]):
+    if is_cpu(streams[0]):
         return jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out, index)
     dev = streams[0].device
     dims = _segment_dims(streams, weights, biases, index)
@@ -275,17 +232,17 @@ def jet_mlp_bwd(streams, bounds, weights, biases, g_out,
     kmax = _round4(max(dims))
     if (2 * S * kmax * BM + 16 * (kmax + 4)) * 4 > SMEM_LIMIT:
         raise ValueError(f"jet_mlp_bwd: {S} streams of width {kmax} exceed shared memory")
-    streams = [_on_device(s, dev) for s in streams]
-    bounds = [_on_device(b, dev) for b in bounds]
-    weights = [_on_device(w, dev) for w in weights]
-    biases = [_on_device(b, dev) for b in biases]
-    g_out = [_on_device(g, dev) for g in g_out]
+    streams = [on_device(s, dev) for s in streams]
+    bounds = [on_device(b, dev) for b in bounds]
+    weights = [on_device(w, dev) for w in weights]
+    biases = [on_device(b, dev) for b in biases]
+    g_out = [on_device(g, dev) for g in g_out]
     g_in = tuple(torch.empty(N, dims[0], device=dev) for _ in range(S))
     gzs = tuple(torch.empty(S, N, dims[l + 1], device=dev) for l in range(L))
     kinds, pa, pb = index_tables(index)
-    _launch("jet_mlp_bwd", _ptrs(streams), _ptrs(bounds) if bounds else None, _ptrs(weights),
-            _ptrs(biases), _ptrs(g_out), _ptrs(g_in), _ptrs(gzs), _ints(dims), _ints(kinds),
-            _ints(pa), _ints(pb), S, L, N, kmax, _stream(dev))
+    launch("jet_mlp_bwd", ptrs(streams), ptrs(bounds) if bounds else None, ptrs(weights),
+            ptrs(biases), ptrs(g_out), ptrs(g_in), ptrs(gzs), ints(dims), ints(kinds),
+            ints(pa), ints(pb), S, L, N, kmax, stream_handle(dev))
     jet_mlp_bwd.launches += 1
     return g_in, gzs
 
@@ -301,7 +258,7 @@ def _wgrad_splits(dev: torch.device, tiles: int, n: int) -> Tuple[int, int]:
 def jet_wgrad(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Tensor]):
     """Per-layer weight and bias gradients summed over the batch; ``ys[l]``
     is the S input streams of layer l, ``gzs[l]`` its (S, N, D) gz."""
-    if _is_cpu(gzs[0]):
+    if is_cpu(gzs[0]):
         return jet_wgrad_plain(ys, gzs)
     dev = gzs[0].device
     L, S, N = len(gzs), int(gzs[0].shape[0]), int(gzs[0].shape[1])
@@ -311,16 +268,16 @@ def jet_wgrad(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Tensor])
     for l in range(L):
         if any(tuple(t.shape) != (N, dims[l]) for t in ys[l]) or tuple(gzs[l].shape) != (S, N, dims[l + 1]):
             raise ValueError(f"jet_wgrad: layer {l} shapes do not match")
-    ys = [[_on_device(t, dev) for t in y] for y in ys]
-    gzs = [_on_device(g, dev) for g in gzs]
+    ys = [[on_device(t, dev) for t in y] for y in ys]
+    gzs = [on_device(g, dev) for g in gzs]
     kmax, dmax = max(dims[:-1]), max(dims[1:])
     tiles = L * math.ceil(kmax / WG_TILE) * math.ceil(dmax / WG_TILE)
-    P, rows_per = _wgrad_splits(dev, tiles, N)
-    part = torch.empty(L * P * (kmax * dmax + dmax), device=dev)
+    splits, rows_per = _wgrad_splits(dev, tiles, N)
+    part = torch.empty(L * splits * (kmax * dmax + dmax), device=dev)
     dws = tuple(torch.empty(dims[l], dims[l + 1], device=dev) for l in range(L))
     dbs = tuple(torch.empty(dims[l + 1], device=dev) for l in range(L))
-    _launch("jet_wgrad", _ptrs([t for y in ys for t in y]), _ptrs(gzs), _ptrs(dws), _ptrs(dbs),
-            part.data_ptr(), _ints(dims), S, L, N, P, rows_per, kmax, dmax, _stream(dev))
+    launch("jet_wgrad", ptrs([t for y in ys for t in y]), ptrs(gzs), ptrs(dws), ptrs(dbs),
+            part.data_ptr(), ints(dims), S, L, N, splits, rows_per, kmax, dmax, stream_handle(dev))
     jet_wgrad.launches += 1
     return dws, dbs
 

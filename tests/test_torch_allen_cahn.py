@@ -64,9 +64,9 @@ def _pde_batch(seed=0):
     return t, x
 
 
-def _jax_model(seed=7):
-    return psci.arch.MLP(("t", "x"), ("u",), num_layers=LAYERS, hidden_size=WIDTH, activation="tanh",
-                         periods={"x": (2.0, False)}, fourier={"dim": FOURIER, "scale": 1.0},
+def _jax_model(seed=7, layers=LAYERS, width=WIDTH, fourier=FOURIER):
+    return psci.arch.MLP(("t", "x"), ("u",), num_layers=layers, hidden_size=width, activation="tanh",
+                         periods={"x": (2.0, False)}, fourier={"dim": fourier, "scale": 1.0},
                          random_weight={"mean": 0.5, "std": 0.1}, rngs=Rngs(seed))
 
 
@@ -227,10 +227,14 @@ def _jax_solver(jm, t, x, ic, tmp_path):
         loss_aggregator=jmtl.GradNorm(jm, 2, UPDATE_FREQ, 0.9), seed=42)
 
 
-def test_three_train_steps_match_jax_solver(tmp_path):
+def _three_train_steps(tmp_path, layers, width, fourier, max_outlier_share=0.0, max_diff=1e-2 * LR):
+    """Three steps of the JAX solver and of the port from the same weights
+    on the same batches: per-step losses, the step-0 gradient, and the
+    parameters after the last step (at most ``max_outlier_share`` of the
+    elements further than 1e-2 lr apart, none further than ``max_diff``)."""
     t, x = _pde_batch()
     ic = ic_data(N_IC)
-    jm = _jax_model()
+    jm = _jax_model(layers=layers, width=width, fourier=fourier)
     params0, buffers0 = _np_tree(jm.param_tree()), _np_tree(jm.buffer_tree())
 
     # -- JAX: the jitted step under jet_pallas_full, GradNorm refreshed first
@@ -255,8 +259,8 @@ def test_three_train_steps_match_jax_solver(tmp_path):
     j_params = flatten_tree(_np_tree(js.state["params"]))
 
     # -- port: the same solver from build_solver, same weights, same batch
-    ts = build_solver(epochs=1, iters_per_epoch=STEPS, batch_size=N_PDE, num_layers=LAYERS,
-                      hidden_size=WIDTH, fourier_dim=FOURIER, ic_points=N_IC, learning_rate=LR,
+    ts = build_solver(epochs=1, iters_per_epoch=STEPS, batch_size=N_PDE, num_layers=layers,
+                      hidden_size=width, fourier_dim=fourier, ic_points=N_IC, learning_rate=LR,
                       gamma=GAMMA, decay_steps=DECAY_STEPS, update_freq=UPDATE_FREQ, device="cpu")
     load_jax_params(ts.model, params0, buffers0)
     fixed = ({"t": torch.from_numpy(t), "x": torch.from_numpy(x)}, {"allen_cahn": torch.zeros(N_PDE, 1)}, {})
@@ -275,8 +279,30 @@ def test_three_train_steps_match_jax_solver(tmp_path):
     np.testing.assert_allclose(np.array(t_losses), np.array(j_losses), rtol=1e-4)
     # Adam moves each element by about lr per step whatever the gradient's
     # size, so float32 noise in a near-zero gradient could flip an update
-    # (2 lr apart). None does on these inputs (largest gap 2.4e-4 lr on the
-    # CPU); 1e-2 lr catches any flip or wrong moment.
+    # (2 lr apart). None does at 2x32 on these inputs (largest gap 2.4e-4 lr
+    # on the CPU); 1e-2 lr catches any flip or wrong moment.
     diffs = np.concatenate([np.abs(p.detach().numpy() - j_params[n]).ravel()
                             for n, p in ts.model.named_parameters()])
-    assert diffs.max() <= 1e-2 * LR
+    assert (diffs > 1e-2 * LR).mean() <= max_outlier_share and diffs.max() <= max_diff
+    return np.array(j_losses), np.array(t_losses)
+
+
+def test_three_train_steps_match_jax_solver(tmp_path):
+    _three_train_steps(tmp_path, LAYERS, WIDTH, FOURIER)
+
+
+def test_three_train_steps_match_jax_solver_at_full_width(tmp_path):
+    """The same at the width the GPU run trains (MLP 4x256, Fourier 256):
+    whatever the loss does from step to step, both packages do it. Both
+    jump at the second step (0.446 -> 2042 -> 9.61 on these inputs): the
+    first Adam update moves every weight by lr whatever its gradient. After
+    that jump the losses already differ by 2e-5 relative, and Adam turns
+    the float32 noise of near-zero gradient elements into update noise: about 20
+    of the 265k elements end more than 1e-2 lr apart (at most 0.09 lr), so
+    the limits are a share of 1e-3 beyond 1e-2 lr and 0.2 lr for any one
+    (a wrong moment or a flipped update moves every element by about lr).
+    The step-0 gradient, taken before the jump, is held to 1e-4 like the
+    narrow test's."""
+    j_losses, t_losses = _three_train_steps(tmp_path, 4, 256, 256, max_outlier_share=1e-3,
+                                            max_diff=0.2 * LR)
+    assert j_losses[1, 0] > 100 * j_losses[0, 0] and t_losses[1, 0] > 100 * t_losses[0, 0]

@@ -1,11 +1,14 @@
-"""The port's jet-segment kernels and their plain versions
-(paddlescience_torch/ops/jet_mlp.py), without JAX.
+"""The port's kernels and their plain versions (paddlescience_torch/ops/
+jet_mlp.py, jet_gated.py, lbm.py), without JAX.
 
-On the CPU: the hand-derived backward against torch.autograd through the
-plain forward, the saved stage boundaries, and the wrappers' device rule.
+On the CPU: the hand-derived backwards (tanh MLP segment, gated layer
+programs) against torch.autograd through the plain forward, the saved
+stage boundaries, and the wrappers' device rule.
 On a GPU (tests marked ``cuda``, skipped elsewhere): each kernel against its
-plain version at the main-path segment depths (L=4 and the 3+1 split),
-with a ragged batch, and at a small shape.
+plain version at the main-path segment depths (MLP: L=4 and the 3+1 split;
+PirateNet groups of 3 and 9 blocks; ModifiedMLP segments of 3 and 1
+layers), with a ragged batch, and at a small shape; the LBM kernel at
+square, ragged and large lattices.
 This file imports only torch and the port, so it also runs where JAX is
 not installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_jet_mlp_kernels.py``.
@@ -18,7 +21,9 @@ import pytest
 import torch
 
 from paddlescience_torch.autodiff import jet as tjet
+from paddlescience_torch.ops import jet_gated as G
 from paddlescience_torch.ops import jet_mlp as J
+from paddlescience_torch.ops import lbm
 
 RTOL = 1e-4
 INDICES = [[(0,), (1,), (1, 1)], [(0,), (0, 1), (1, 1)]]
@@ -169,3 +174,200 @@ def test_segment_gradients_on_gpu(cuda_device):
         got = torch.autograd.grad(sum((o * g).sum() for o, g in zip(out.streams, gs)), lv)
         for a, b in zip(got, ref):
             _close(a, b)
+
+
+# ------------------------------------------------- gated layer programs --
+
+PROGRAMS = {
+    "piratenet_2": G.piratenet_program(2),
+    "modified_mlp_3": G.modified_mlp_program(3),
+    "mlp_2": G.mlp_program(2),
+    "block_then_gated_layer": G.piratenet_program(1) + G.modified_mlp_program(1),
+}
+
+
+def _gated_case(multis, program, n=37, w=12, seed=2, dtype=np.float32):
+    """numpy inputs of a gated segment: y, u, v streams, weights, biases,
+    alphas drawn in (0.1, 0.9) (alpha = 0 would zero every block gradient),
+    output cotangents."""
+    rng = np.random.default_rng(seed)
+    S, L = len(tjet.build_index(multis)), len(program)
+    draw = lambda *shape: rng.standard_normal(shape).astype(dtype)
+    y, u, v, cot = ([draw(n, w) for _ in range(S)] for _ in range(4))
+    weights = [(draw(w, w) / np.sqrt(w)).astype(dtype) for _ in range(L)]
+    biases = [(0.1 * draw(w)).astype(dtype) for _ in range(L)]
+    alphas = [rng.uniform(0.1, 0.9, (1,)).astype(dtype) for op in program if op & G.RESIDUAL]
+    return y, u, v, weights, biases, alphas, cot
+
+
+@pytest.mark.parametrize("multis", INDICES + [[(1,)], []])
+@pytest.mark.parametrize("program", list(PROGRAMS))
+@pytest.mark.parametrize("save_bounds", [False, True])
+def test_gated_hand_derived_backward_matches_autograd(multis, program, save_bounds):
+    """jet_gated_bwd_plain + jet_wgrad_plain + the alpha sum (through the
+    autograd.Function) against torch.autograd through the plain forward, in
+    float64: cotangents of the y, u and v streams, dW, db and d alpha."""
+    prog = PROGRAMS[program]
+    idx = tjet.build_index(multis)
+    arrs = _gated_case(multis, prog, dtype=np.float64)
+    y, u, v, ws, bs, al = ([torch.from_numpy(a).requires_grad_() for a in part] for part in arrs[:6])
+    g_out = [torch.from_numpy(c) for c in arrs[6]]
+    leaves = y + ws + bs + al + (u + v if G._has_gates(prog) else [])
+    outs, _ = G.jet_gated_fwd_plain(y, u, v, ws, bs, al, prog, idx)
+    ref = torch.autograd.grad(sum((o * g).sum() for o, g in zip(outs, g_out)), leaves)
+    out = G.jet_gated_segment(tjet.Jet(y, idx), tjet.Jet(u, idx), tjet.Jet(v, idx), ws, bs, al, prog,
+                              save_bounds=save_bounds)
+    got = torch.autograd.grad(sum((o * g).sum() for o, g in zip(out.streams, g_out)), leaves)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+
+
+def test_ungated_program_is_the_mlp_segment():
+    """The program table with no gate and no residual computes what
+    ops/jet_mlp.py computes."""
+    multis = INDICES[0]
+    idx = tjet.build_index(multis)
+    y, _, _, ws, bs, _, cot = ([torch.from_numpy(a) for a in part] for part in _gated_case(multis, G.mlp_program(3)))
+    ref_outs, ref_bounds = J.jet_mlp_fwd_plain(y, ws, bs, idx, save_bounds=True)
+    outs, bounds = G.jet_gated_fwd_plain(y, (), (), ws, bs, (), G.mlp_program(3), idx, save_bounds=True)
+    for a, b in zip([*outs, *bounds], [*ref_outs, *ref_bounds]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref_gin, ref_gz = J.jet_mlp_bwd_plain(y, ref_bounds, ws, bs, cot, idx)
+    g_y, g_u, g_v, gzs, ins, d_alpha = G.jet_gated_bwd_plain(y, (), (), bounds, ws, bs, (), cot, G.mlp_program(3), idx)
+    assert g_u == () and g_v == () and d_alpha.numel() == 0 and len(ins) == 3
+    for a, b in zip([*g_y, *gzs], [*ref_gin, *ref_gz]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_gated_save_bounds_are_the_stage_inputs():
+    """PirateNet saves one boundary per block, ModifiedMLP one per layer;
+    the backward's layer inputs are the boundaries plus what it recomputes."""
+    multis = INDICES[0]
+    idx = tjet.build_index(multis)
+    S = len(idx)
+    for prog, n_bounds in ((G.piratenet_program(3), 2), (G.modified_mlp_program(3), 2)):
+        y, u, v, ws, bs, al, cot = ([torch.from_numpy(a) for a in part] for part in _gated_case(multis, prog, n=9, w=8))
+        outs, bounds = G.jet_gated_fwd_plain(y, u, v, ws, bs, al, prog, idx, save_bounds=True)
+        assert len(bounds) == n_bounds and tuple(bounds[0].shape) == (S, 9, 8)
+        stage = len(prog) // 3
+        first, _ = G.jet_gated_fwd_plain(y, u, v, ws[:stage], bs[:stage], al[:1], prog[:stage], idx)
+        torch.testing.assert_close(bounds[0], torch.stack(first))
+        *_, ins, _ = G.jet_gated_bwd_plain(y, u, v, bounds, ws, bs, al, cot, prog, idx)
+        assert len(ins) == len(prog)
+        torch.testing.assert_close(torch.stack(ins[stage]), bounds[0])
+
+
+@pytest.mark.parametrize("program,message", [
+    ((G.GATE, G.STAGE), "starts with a STAGE"),
+    ((G.STAGE | G.RESIDUAL, G.GATE), "residual closes its stage"),
+    ((G.STAGE | G.GATE | G.RESIDUAL,), "residual closes its stage"),
+])
+def test_invalid_programs_are_refused(program, message):
+    idx = tjet.build_index([(0,)])
+    t = [torch.zeros(4, 8) for _ in range(2)]
+    w, b = [torch.zeros(8, 8)] * len(program), [torch.zeros(8)] * len(program)
+    with pytest.raises(ValueError, match=message):
+        G.jet_gated_fwd(t, t, t, w, b, [torch.zeros(1)], program, idx)
+
+
+def test_gated_wrappers_take_plain_versions_only_on_cpu():
+    idx = tjet.build_index([(0,)])
+    meta = [torch.empty(4, 8, device="meta") for _ in range(2)]
+    with pytest.raises(ValueError, match="CUDA"):
+        G.jet_gated_fwd(meta, meta, meta, [torch.empty(8, 8, device="meta")], [torch.empty(8, device="meta")],
+                        (), G.modified_mlp_program(1), idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        G.jet_alpha_reduce(torch.empty(4, 2, device="meta"))
+    G.reset_counters()
+    cpu = [torch.randn(4, 8) for _ in range(2)]
+    G.jet_gated_fwd(cpu, cpu, cpu, [torch.randn(8, 8)], [torch.randn(8)], (), G.modified_mlp_program(1), idx)
+    torch.testing.assert_close(G.jet_alpha_reduce(torch.ones(5, 2)), torch.full((2,), 5.0))
+    assert G.jet_gated_fwd.launches == 0 and G.jet_alpha_reduce.launches == 0
+    assert G.jet_gated_fwd_plain.cuda_calls == 0
+
+
+def _alpha_tol(ref, n_terms):
+    """d alpha sums ``n_terms`` signed products of order 1 that largely
+    cancel: the limit is RTOL times the larger of the result and the size
+    such a sum has by chance, sqrt(n_terms)."""
+    return RTOL * max(float(ref.abs().max()), float(n_terms) ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multis", INDICES)
+@pytest.mark.parametrize("program,n,w", [
+    (G.piratenet_program(3), 4096, 256), (G.piratenet_program(9), 4096, 256), (G.piratenet_program(3), 4095, 256),
+    (G.modified_mlp_program(3), 4096, 256), (G.modified_mlp_program(1), 4095, 256),
+    (G.piratenet_program(2), 70, 24), (G.piratenet_program(1) + G.modified_mlp_program(1), 70, 24),
+])
+def test_gated_kernels_match_plain_versions_on_gpu(cuda_device, multis, program, n, w):
+    idx = tjet.build_index(multis)
+    y, u, v, ws, bs, al, gs = ([torch.from_numpy(a).to(cuda_device) for a in part]
+                               for part in _gated_case(multis, program, n=n, w=w))
+    G.reset_counters()
+    J.reset_counters()
+    outs, _ = G.jet_gated_fwd(y, u, v, ws, bs, al, program, idx)
+    outs_sb, bounds = G.jet_gated_fwd(y, u, v, ws, bs, al, program, idx, save_bounds=True)
+    r_outs, r_bounds = G.jet_gated_fwd_plain(y, u, v, ws, bs, al, program, idx, save_bounds=True)
+    g_y, g_u, g_v, gzs, ins, part = G.jet_gated_bwd(y, u, v, r_bounds, ws, bs, al, gs, program, idx)
+    r_gy, r_gu, r_gv, r_gzs, r_ins, r_da = G.jet_gated_bwd_plain(y, u, v, r_bounds, ws, bs, al, gs, program, idx)
+    d_alpha = G.jet_alpha_reduce(part)
+    torch.cuda.synchronize()
+    assert (G.jet_gated_fwd.launches, G.jet_gated_bwd.launches, G.jet_alpha_reduce.launches) == (2, 1, int(bool(al)))
+    for got, ref in zip([*outs, *outs_sb, *bounds, *g_y, *g_u, *g_v, *gzs],
+                        [*r_outs, *r_outs, *r_bounds, *r_gy, *r_gu, *r_gv, *r_gzs]):
+        _close(got, ref)
+    for got, ref in zip(ins, r_ins):
+        _close(torch.stack(got), torch.stack(ref))
+    if al:
+        assert float((d_alpha - r_da).abs().max()) <= _alpha_tol(r_da, n * w * len(idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_bounds", [False, True])
+@pytest.mark.parametrize("program", ["piratenet_2", "modified_mlp_3"])
+def test_gated_segment_gradients_on_gpu(cuda_device, program, save_bounds):
+    """The gated autograd.Function on the card against autograd through the
+    plain forward: y, u, v cotangents, dW, db, d alpha."""
+    prog = PROGRAMS[program]
+    multis = INDICES[1]
+    idx = tjet.build_index(multis)
+    arrs = _gated_case(multis, prog, n=1000, w=64)
+    leaves = lambda: [[torch.from_numpy(a).to(cuda_device).requires_grad_() for a in part] for part in arrs[:6]]
+    gs = [torch.from_numpy(c).to(cuda_device) for c in arrs[6]]
+    y, u, v, ws, bs, al = leaves()
+    outs, _ = G.jet_gated_fwd_plain(y, u, v, ws, bs, al, prog, idx)
+    ref = torch.autograd.grad(sum((o * g).sum() for o, g in zip(outs, gs)), y + u + v + ws + bs + al)
+    y, u, v, ws, bs, al = leaves()
+    out = G.jet_gated_segment(tjet.Jet(y, idx), tjet.Jet(u, idx), tjet.Jet(v, idx), ws, bs, al, prog,
+                              save_bounds=save_bounds)
+    got = torch.autograd.grad(sum((o * g).sum() for o, g in zip(out.streams, gs)), y + u + v + ws + bs + al)
+    n_alpha = len(al)
+    for a, b in zip(got[: len(got) - n_alpha], ref):
+        _close(a, b)
+    for a, b in zip(got[len(got) - n_alpha:], ref[len(ref) - n_alpha:]):
+        assert float((a - b).abs()) <= _alpha_tol(b, 1000 * 64 * len(idx))
+
+
+# ------------------------------------------------------------------ LBM --
+
+
+def _lattice(ny, nx, seed=0):
+    rng = np.random.default_rng(seed)
+    rho = torch.from_numpy(1.0 + 0.05 * rng.standard_normal((ny, nx))).float()
+    ux, uy = (torch.from_numpy(0.05 * rng.standard_normal((ny, nx))).float() for _ in range(2))
+    return lbm._equilibrium(rho, ux, uy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ny,nx,steps", [(256, 256, 1), (256, 256, 200), (1000, 1000, 1), (24, 40, 50), (3, 5, 4)])
+def test_lbm_kernel_matches_plain_version_on_gpu(cuda_device, ny, nx, steps):
+    f = _lattice(ny, nx).to(cuda_device)
+    lbm.reset_counters()
+    got, ref = f, f
+    for _ in range(steps):
+        got = lbm.lbm_step(got, 0.62, 0.1)
+        ref = lbm.lbm_step_plain(ref, 0.62, 0.1)
+    torch.cuda.synchronize()
+    assert lbm.lbm_collide_stream.launches == steps and lbm.lbm_collide_stream_plain.cuda_calls == steps
+    _close(got, ref)

@@ -8,6 +8,7 @@ it (every module of the slice) must load none of them, nor the JAX package.
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -51,6 +52,49 @@ def test_sources_import_nothing_forbidden(path):
             names = [node.module]
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+CSRC = sorted((PORT / "csrc").glob("*.cu")) + sorted((PORT / "csrc").glob("*.cuh"))
+NEW_MODULES = ("ops/jet_gated.py", "ops/lbm.py", "csrc/jet_gated_fwd.cu", "csrc/jet_gated_bwd.cu",
+               "csrc/lbm_collide_stream.cu")
+
+
+def test_the_gated_and_lbm_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in [*PORT.rglob("*.py"), *CSRC]}
+    assert set(NEW_MODULES) <= checked
+
+
+@pytest.mark.parametrize("path", CSRC, ids=lambda p: p.name)
+def test_kernel_sources_have_a_plain_c_interface(path):
+    """The kernels build with nvcc alone and bind through ctypes: no
+    PyTorch, pybind or library-kernel headers (cuBLAS, CUTLASS, cuDNN), and
+    every host entry point is extern "C"."""
+    text = path.read_text()
+    includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', text)
+    for inc in includes:
+        assert inc in ("cuda_runtime.h", "stdint.h", "jet_common.cuh"), f"{path.name} includes {inc}"
+    if path.suffix == ".cu":
+        assert 'extern "C" int ' + path.stem + "(" in text
+        assert "<<<" in text, f"{path.name} launches no kernel of its own"
+
+
+# Figures measured on a TPU (rates, utilisation, on-chip memory sizes) must
+# not be carried into the port's sources as if they were its own.
+TPU_FIGURES = [
+    re.compile(r"\bMFU\b"),
+    re.compile(r"\bv5e\b|\bv5 ?lite\b|\bv6e\b|\bv4-\d", re.I),
+    re.compile(r"\d[\d.]*\s*(KiB|KB|MiB|MB|GiB|GB)\b[^.\n]*\bVMEM\b|\bVMEM\b[^.\n]*\d[\d.]*\s*(KiB|KB|MiB|MB|GiB|GB)\b"),
+    re.compile(r"\bTPU\b[^.\n]*\d[\d.]*\s*(steps/s|ms\b|us\b|TFLOP|GB/s|TB/s|%)"),
+    re.compile(r"\d[\d.]*\s*(steps/s|ms\b|TFLOP|GB/s|TB/s)[^.\n]*\bTPU\b"),
+]
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + CSRC + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_state_no_tpu_figures(path):
+    for n, line in enumerate(path.read_text().splitlines(), 1):
+        for pat in TPU_FIGURES:
+            assert not pat.search(line), f"{path.name}:{n}: a TPU figure in the port: {line.strip()}"
 
 
 def _run_smoke(cwd, hide_gpus):
