@@ -8,27 +8,37 @@ on failure:
              ``paddlescience_torch/csrc`` with nvcc for sm_90a, in parallel;
 2. kernels - hold each kernel against its plain PyTorch version (and the
              backwards against ``torch.autograd`` through the plain forward)
-             on the card, at the main-path shape (S=4 streams, N=4096,
-             W=256) and every depth a driven path runs: the MLP segment at
-             L=4 (jet_pallas_full), L=3 and L=1 (jet_pallas); the gated
-             segment for PirateNet groups of 9 and 3 blocks and ModifiedMLP
-             segments of 3 and 1 layers, in recompute and save-bounds mode;
-             all at a ragged N=4095 too; the LBM kernel for 1 and 200 steps
-             at 256 x 256 and 1 step at 1000 x 1000;
-3. main    - train the port's Allen-Cahn solvers at full width: MLP 4x256
-             on jet_pallas_full and jet_pallas (segments of 3+1 layers),
-             PirateNet 9 blocks x 256 on jet_pallas_full (one group) and
-             jet_pallas (groups of 3), ModifiedMLP 4x256 on jet_pallas; run
-             the lid-driven cavity at 256 x 256, Re 400, for 1000 steps.
-             Each path's kernel launch counts are set to 0 just before it
-             and read just after;
+             on the card, at the main-path shapes and every depth a driven
+             path runs: the Allen-Cahn MLP segment (tanh, S=4 streams,
+             N=4096, W=256) at L=4 (jet_pallas_full), L=3 and L=1
+             (jet_pallas); the gated segment for PirateNet groups of 9 and 3
+             blocks and ModifiedMLP segments of 3 and 1 layers, in recompute
+             and save-bounds mode; the aneurysm MLP segment (SiLU, S=7,
+             N=2048, 3 -> 512 -> ... -> 512) at L=6 (jet_pallas_full) and
+             3 + 3 (jet_pallas); all at a ragged N too; every activation at
+             S=4, W=256, L=2, ungated and as a ModifiedMLP program; the LBM
+             kernel for 1 and 200 steps at 256 x 256 and 1 step at
+             1000 x 1000;
+3. main    - train the port's solvers at full width: the Allen-Cahn MLP
+             4x256 on jet_pallas_full and jet_pallas (segments of 3+1
+             layers), PirateNet 9 blocks x 256 on jet_pallas_full (one
+             group) and jet_pallas (groups of 3), ModifiedMLP 4x256 on
+             jet_pallas; the aneurysm MLP 6x512 (SiLU, weight norm, the
+             3-D NavierStokes residual on 2048 points, three boundary and
+             two integral constraints) on jet_pallas_full and jet_pallas;
+             run the lid-driven cavity at 256 x 256, Re 400, for 1000
+             steps. Each path's kernel launch counts are set to 0 just
+             before it and read just after. The aneurysm STLs are written
+             by ``tools/gen_aneurysm_stl.py`` (run as a separate process)
+             into ``dataset/aneurysm`` when they are missing;
 4. check   - on one batch, the PDE loss and its gradient through the
              kernels, on each driven training path, agree with the
              plain-PyTorch jet path on the card;
-5. timing  - train steps per second of the MLP and the PirateNet solver;
-             device time per step by kernel and the device's busy share
-             (torch.profiler); per kernel: time, plain-version time, bound,
-             library time.
+5. timing  - train steps per second of the Allen-Cahn MLP and PirateNet
+             solvers and of the aneurysm solver; device time per step by
+             kernel and the device's busy share (torch.profiler); per
+             kernel: time, plain-version time, bound, library time, at the
+             Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's.
 
 Tolerance (kernels against plain versions): the float32 sums run in
 another order, so each output may differ by at most 1e-4 times the largest
@@ -48,6 +58,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +68,9 @@ REL_TOL = 1e-4
 FP32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 HBM_BYTES = 3.35e12  # H100 SXM device-memory rate
 MAIN = dict(S=4, N=4096, W=256, L=4)
+ANEURYSM = dict(N=2048, dims=(3,) + (512,) * 6)  # the interior batch and the hidden layers' widths
+NS3D = [(0,), (1,), (2,), (0, 0), (1, 1), (2, 2)]  # the 3-D NavierStokes jet: S = 7 streams
+ACT_CHECK = dict(S=4, N=1024, W=256)  # the shape at which every activation is checked
 # driven training paths: name -> (build_solver arguments, derivative path, train steps)
 PATHS = {
     "mlp/jet_pallas_full": (dict(arch="mlp"), "jet_pallas_full", 10),
@@ -64,8 +78,15 @@ PATHS = {
     "piratenet/jet_pallas_full": (dict(arch="piratenet", piratenet_blocks=9), "jet_pallas_full", 20),
     "piratenet/jet_pallas": (dict(arch="piratenet", piratenet_blocks=9), "jet_pallas", 3),
     "modified_mlp/jet_pallas": (dict(arch="modified_mlp"), "jet_pallas", 3),
+    # one aneurysm solver drives both paths (its host sampling takes seconds)
+    "aneurysm/jet_pallas_full": (None, "jet_pallas_full", 5),
+    "aneurysm/jet_pallas": (None, "jet_pallas", 3),
 }
-TIMED = ("mlp/jet_pallas_full", "piratenet/jet_pallas_full")  # paths that are timed and profiled
+# paths that are timed and profiled
+TIMED = ("mlp/jet_pallas_full", "piratenet/jet_pallas_full", "aneurysm/jet_pallas_full")
+PDE_CONSTRAINT = {"mlp": "PDE", "piratenet": "PDE", "modified_mlp": "PDE", "aneurysm": "interior"}
+HERE = os.path.dirname(os.path.abspath(__file__))
+STL_DIR = os.path.join(HERE, "dataset", "aneurysm")  # listed in .gitignore
 CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
 LBM_TIMED = 2048  # lattice edge at which the LBM kernel is timed
 TIMED_STEPS = 20
@@ -114,41 +135,58 @@ def check_close(what: str, got, ref) -> float:
     return err
 
 
-def make_inputs(S, N, W, L, seed=0):
-    import torch
-
+def jet_index(S):
+    """The jet of S streams a driven path runs: the Allen-Cahn index (u,
+    u_t, u_x, u_xx) cut to S, or the 3-D NavierStokes one at S = 7."""
     from paddlescience_torch.autodiff import jet
 
+    return jet.build_index(NS3D if S == 7 else [(0,), (1,), (1, 1)][: S - 1])
+
+
+def make_inputs(S, N, dims, seed=0):
+    """A segment's inputs on the card: S streams (N, dims[0]), layers
+    dims[l] -> dims[l + 1], output cotangents (N, dims[-1])."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    idx = jet.build_index([(0,), (1,), (1, 1)][: S - 1])
     rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
-    streams = [rn(N, W) for _ in range(S)]
-    weights = [rn(W, W) / math.sqrt(W) for _ in range(L)]
-    biases = [0.1 * rn(W) for _ in range(L)]
-    g_out = [rn(N, W) for _ in range(S)]
-    return idx, streams, weights, biases, g_out
+    L = len(dims) - 1
+    streams = [rn(N, dims[0]) for _ in range(S)]
+    weights = [rn(dims[l], dims[l + 1]) / math.sqrt(dims[l]) for l in range(L)]
+    biases = [0.1 * rn(dims[l + 1]) for l in range(L)]
+    g_out = [rn(N, dims[-1]) for _ in range(S)]
+    return jet_index(S), streams, weights, biases, g_out
 
 
-def check_kernels(S, N, W, L):
-    """Kernels against plain versions at one shape; returns max abs errors."""
+def act_name(act) -> str:
+    from paddlescience_torch.autodiff import jet
+
+    return jet.ACT_NAMES[act[0]] + (f"({act[1]})" if act[1] else "")
+
+
+def check_kernels(S, N, dims, act=None, log_it=True):
+    """Kernels against plain versions at one shape, activation ``act``
+    (tanh when None); returns max abs errors."""
     import torch
 
     from paddlescience_torch.ops import jet_mlp as J
 
-    idx, streams, weights, biases, g_out = make_inputs(S, N, W, L)
-    tag = f"S={S} N={N} W={W} L={L}"
+    act = act or J.TANH
+    idx, streams, weights, biases, g_out = make_inputs(S, N, dims)
+    L = len(dims) - 1
+    tag = f"{act_name(act)} S={S} N={N} dims={dims[0]}->{'x'.join(map(str, dims[1:]))}"
     errs = {"jet_mlp_fwd": 0.0, "jet_mlp_bwd": 0.0, "jet_wgrad": 0.0}
-    ref_outs, ref_bounds = J.jet_mlp_fwd_plain(streams, weights, biases, idx, save_bounds=True)
-    outs, _ = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=False)
-    outs_sb, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True)
+    ref_outs, ref_bounds = J.jet_mlp_fwd_plain(streams, weights, biases, idx, save_bounds=True, act=act)
+    outs, _ = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=False, act=act)
+    outs_sb, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=act)
     for s in range(S):
         errs["jet_mlp_fwd"] = max(errs["jet_mlp_fwd"], check_close(f"fwd {tag} out[{s}]", outs[s], ref_outs[s]),
                                   check_close(f"fwd(save) {tag} out[{s}]", outs_sb[s], ref_outs[s]))
     for l, (b, rb) in enumerate(zip(bounds, ref_bounds)):
         errs["jet_mlp_fwd"] = max(errs["jet_mlp_fwd"], check_close(f"fwd {tag} bound[{l}]", b, rb))
 
-    ref_gin, ref_gz = J.jet_mlp_bwd_plain(streams, ref_bounds, weights, biases, g_out, idx)
-    g_in, gzs = J.jet_mlp_bwd(streams, ref_bounds, weights, biases, g_out, idx)
+    ref_gin, ref_gz = J.jet_mlp_bwd_plain(streams, ref_bounds, weights, biases, g_out, idx, act)
+    g_in, gzs = J.jet_mlp_bwd(streams, ref_bounds, weights, biases, g_out, idx, act)
     for s in range(S):
         errs["jet_mlp_bwd"] = max(errs["jet_mlp_bwd"], check_close(f"bwd {tag} g_in[{s}]", g_in[s], ref_gin[s]))
     for l in range(L):
@@ -163,14 +201,15 @@ def check_kernels(S, N, W, L):
 
     # the hand-derived backward against torch.autograd through the plain forward
     leaves = [t.clone().requires_grad_() for t in (*streams, *weights, *biases)]
-    o, _ = J.jet_mlp_fwd_plain(leaves[:S], leaves[S : S + L], leaves[S + L :], idx)
+    o, _ = J.jet_mlp_fwd_plain(leaves[:S], leaves[S : S + L], leaves[S + L :], idx, act=act)
     auto = torch.autograd.grad(sum((a * g).sum() for a, g in zip(o, g_out)), leaves)
     k_dw, k_db = J.jet_wgrad(ys, gzs)
     for what, got, ref in zip(("g_in",) * S + ("dW",) * L + ("db",) * L, (*g_in, *k_dw, *k_db), auto):
         check_close(f"kernels vs autograd {tag} {what}", got, ref)
     torch.cuda.synchronize()
-    log(f"[kernels] {tag}: max abs err fwd {errs['jet_mlp_fwd']:.3e} bwd {errs['jet_mlp_bwd']:.3e} "
-        f"wgrad {errs['jet_wgrad']:.3e}")
+    if log_it:
+        log(f"[kernels] {tag}: max abs err fwd {errs['jet_mlp_fwd']:.3e} bwd {errs['jet_mlp_bwd']:.3e} "
+            f"wgrad {errs['jet_wgrad']:.3e}")
     return errs
 
 
@@ -179,11 +218,10 @@ def make_gated_inputs(S, N, W, program, seed=1):
     (alpha = 0, the PirateNet init, would zero every block gradient)."""
     import torch
 
-    from paddlescience_torch.autodiff import jet
     from paddlescience_torch.ops import jet_gated as G
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    idx = jet.build_index([(0,), (1,), (1, 1)][: S - 1])
+    idx = jet_index(S)
     rn = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     L = len(program)
     y, u, v, g_out = ([rn(N, W) for _ in range(S)] for _ in range(4))
@@ -197,27 +235,29 @@ def alpha_tol(ref, n_terms: int) -> float:
     return REL_TOL * max(float(ref.abs().max()), math.sqrt(n_terms))
 
 
-def check_gated_kernels(S, N, W, program, tag):
+def check_gated_kernels(S, N, W, program, tag, act=None, log_it=True):
     """Gated forward (recompute and save-bounds), backward, alpha reduce and
     the weight-gradient sum of its outputs against the plain versions and
-    against torch.autograd through the plain forward; returns max abs errors."""
+    against torch.autograd through the plain forward, activation ``act``
+    (tanh when None); returns max abs errors."""
     import torch
 
     from paddlescience_torch.autodiff import jet
     from paddlescience_torch.ops import jet_gated as G
     from paddlescience_torch.ops import jet_mlp as J
 
+    act = act or J.TANH
     idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
     L = len(program)
-    tag = f"{tag} S={S} N={N} W={W} L={L}"
+    tag = f"{tag} {act_name(act)} S={S} N={N} W={W} L={L}"
     errs = {"jet_gated_fwd": 0.0, "jet_gated_bwd": 0.0, "jet_alpha_reduce": 0.0, "jet_wgrad": 0.0}
 
     def hold(key, what, got, ref):
         errs[key] = max(errs[key], check_close(f"{what} {tag}", got, ref))
 
-    ref_outs, ref_bounds = G.jet_gated_fwd_plain(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
-    outs, none = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=False)
-    outs_sb, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
+    ref_outs, ref_bounds = G.jet_gated_fwd_plain(y, u, v, weights, biases, alphas, program, idx, True, act)
+    outs, none = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, False, act)
+    outs_sb, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, True, act)
     if none or len(bounds) != len(ref_bounds):
         raise AssertionError(f"{tag}: {len(none)} / {len(bounds)} boundaries, expected 0 / {len(ref_bounds)}")
     for s in range(S):
@@ -226,8 +266,8 @@ def check_gated_kernels(S, N, W, program, tag):
     for l, (b, rb) in enumerate(zip(bounds, ref_bounds)):
         hold("jet_gated_fwd", f"fwd bound[{l}]", b, rb)
 
-    ref = G.jet_gated_bwd_plain(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx)
-    got = G.jet_gated_bwd(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx)
+    ref = G.jet_gated_bwd_plain(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx, act)
+    got = G.jet_gated_bwd(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx, act)
     for name, gs, rs in zip(("g_y", "g_u", "g_v", "gz"), got[:4], ref[:4]):
         if len(gs) != len(rs):
             raise AssertionError(f"{tag}: {len(gs)} {name} tensors, expected {len(rs)}")
@@ -252,13 +292,13 @@ def check_gated_kernels(S, N, W, program, tag):
     # the autograd.Function (both modes) against torch.autograd through the plain forward
     groups = (y, u, v, weights, biases, alphas)
     leaves = [[t.clone().requires_grad_() for t in ts] for ts in groups]
-    o, _ = G.jet_gated_fwd_plain(*leaves, program, idx)
+    o, _ = G.jet_gated_fwd_plain(*leaves, program, idx, act=act)
     flat = [t for ts in leaves for t in ts]
     auto = torch.autograd.grad(sum((a * g).sum() for a, g in zip(o, g_out)), flat)
     for save_bounds in (False, True):
         lv = [[t.clone().requires_grad_() for t in ts] for ts in groups]
         out = G.jet_gated_segment(jet.Jet(lv[0], idx), jet.Jet(lv[1], idx), jet.Jet(lv[2], idx), lv[3], lv[4],
-                                  lv[5], program, save_bounds=save_bounds)
+                                  lv[5], program, save_bounds=save_bounds, act=act)
         kern = torch.autograd.grad(sum((a * g).sum() for a, g in zip(out.streams, g_out)),
                                    [t for ts in lv for t in ts])
         n_alpha = len(alphas)
@@ -269,7 +309,8 @@ def check_gated_kernels(S, N, W, program, tag):
             else:
                 check_close(f"kernels vs autograd {tag} (save_bounds={save_bounds}) leaf {k}", g, r)
     torch.cuda.synchronize()
-    log(f"[kernels] {tag}: max abs err " + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    if log_it:
+        log(f"[kernels] {tag}: max abs err " + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
 
 
@@ -341,7 +382,7 @@ def read_counts():
 
 def expected_kernels(path: str):
     """The kernels a driven path must launch."""
-    if path.startswith("mlp/"):
+    if path.startswith(("mlp/", "aneurysm/")):
         return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
     if path.startswith("piratenet/"):
         return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad", "jet_alpha_reduce")
@@ -350,8 +391,10 @@ def expected_kernels(path: str):
     return ("lbm_collide_stream",)
 
 
-def check_counts(path: str, counts, plain) -> None:
-    missing = [k for k in expected_kernels(path) if counts[k] < 1]
+def check_counts(path: str, counts, plain, steps: int = 1) -> None:
+    """Every kernel of the path launched at least once a step; no plain
+    version ran on CUDA tensors."""
+    missing = [k for k in expected_kernels(path) if counts[k] < steps]
     if missing or any(plain.values()):
         raise AssertionError(f"{path}: kernels not launched {missing}; launches {counts}; "
                              f"plain versions on CUDA {plain}")
@@ -374,7 +417,7 @@ def run_path(solver, path: str, deriv: str, steps: int):
         for k, v in entry.items():
             if k.startswith("loss") and not math.isfinite(v):
                 raise AssertionError(f"{path}: non-finite {k} = {v} at step {entry['step']}")
-    check_counts(path, counts, plain)
+    check_counts(path, counts, plain, steps)
     log(f"[main] {path}: {steps} steps, final loss {logs[-1]['loss']:.6f}, launches "
         f"{ {k: v for k, v in counts.items() if v} }, plain versions on CUDA {sum(plain.values())}")
     return logs, counts
@@ -407,20 +450,22 @@ def run_cavity_path():
     return counts
 
 
-def check_against_plain_path(solver, name: str, derivs):
+def check_against_plain_path(solver, name: str, derivs, parts=("alpha", "embed_u", "embed_v")):
     """PDE loss and parameter gradient on one batch: each kernel path in
     ``derivs`` vs the plain jet path (plain PyTorch on the card), over all
-    parameters and for the gate and residual parameters alone."""
+    parameters and for the parameters named by ``parts`` alone (PirateNet's
+    gates and residuals, the weight-normed layers' g, v and biases)."""
     import torch
 
     batches = solver._batches()
     names = [n for n, p in solver.model.named_parameters() if p.requires_grad]
+    pde = PDE_CONSTRAINT[name]
     results = {}
     for deriv in (*derivs, "jet"):
         with on_path(deriv):
             losses = solver._constraint_losses(batches)
-            grads = torch.autograd.grad(losses["PDE"], solver._params())
-        results[deriv] = (losses["PDE"].detach(), grads)
+            grads = torch.autograd.grad(losses[pde], solver._params())
+        results[deriv] = (losses[pde].detach(), grads)
     lp, gp = results["jet"]
     rel = lambda gk, keep: float(
         torch.cat([(a - b).reshape(-1) for a, b, n in zip(gk, gp, names) if keep(n)]).norm()
@@ -429,7 +474,7 @@ def check_against_plain_path(solver, name: str, derivs):
         lk, gk = results[deriv]
         loss_err = float((lk - lp).abs() / lp.abs())
         errs = {"all": rel(gk, lambda n: True)}
-        for part in ("alpha", "embed_u", "embed_v"):
+        for part in parts:
             if any(part in n for n in names):
                 errs[part] = rel(gk, lambda n, _p=part: _p in n)
         log(f"[check] {name} {deriv}: PDE loss kernels {float(lk):.8f} vs plain {float(lp):.8f} "
@@ -459,19 +504,23 @@ def gated_bound(S, N, W, program):
 
 def time_kernels(errs, launches, device_ms):
     """Per wrapper: ms, plain-version ms, bound and library ms. The jet MLP
-    kernels at the MLP path's shape (L=4), the gated kernels at the
-    PirateNet path's (one group of 9 blocks, L=27), the LBM kernel at
-    LBM_TIMED^2 (and at the cavity's lattice, extra keys); ``device_ms``
-    (from the profiles) gives the per-step device time of each kernel
-    function a wrapper launches, ``launches`` the counts per driven path."""
+    kernels at the Allen-Cahn MLP path's shape (tanh, L=4) and, under the
+    key "aneurysm", at the aneurysm path's (SiLU, S=7, the 6-layer
+    segment); the gated kernels at the PirateNet path's (one group of 9
+    blocks, L=27), the LBM kernel at LBM_TIMED^2 (and at the cavity's
+    lattice, extra keys); ``device_ms`` (from the profiles) gives the
+    per-step device time of each kernel function a wrapper launches,
+    ``launches`` the counts per driven path."""
     import torch
 
+    from paddlescience_torch.autodiff import jet
     from paddlescience_torch.ops import jet_gated as G
     from paddlescience_torch.ops import jet_mlp as J
     from paddlescience_torch.ops import lbm
 
     S, N, W, L = MAIN["S"], MAIN["N"], MAIN["W"], MAIN["L"]
     rows = []
+    steps = {p: PATHS[p][2] for p in launches if p in PATHS}
 
     def row(name, source, fn, plain, flops, nbytes, library=None, extra=None, reps=20):
         ms, plain_ms = cuda_ms(fn, reps), cuda_ms(plain, reps)
@@ -488,7 +537,7 @@ def time_kernels(errs, launches, device_ms):
         log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms by {by}"
             + (f", library {r['library_ms']:.4f} ms" if library is not None else "") + ")")
 
-    idx, streams, weights, biases, g_out = make_inputs(S, N, W, L)
+    idx, streams, weights, biases, g_out = make_inputs(S, N, (W,) * (L + 1))
     _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True)
     _, gzs = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx)
     ys = [streams] + [b.unbind(0) for b in bounds]
@@ -520,6 +569,48 @@ def time_kernels(errs, launches, device_ms):
         f"(jet_mlp_fwd {rows[0]['ms']:.4f}), bwd {rows[1]['gated_kernel_ms']:.4f} ms "
         f"(jet_mlp_bwd {rows[1]['ms']:.4f})")
     del Y, GZ, ys, gzs, bounds
+
+    # the MLP kernels at the aneurysm shape: SiLU, S = 7, N = 2048, the six hidden layers as one segment
+    silu = (jet.SILU, 0.0)
+    dims = ANEURYSM["dims"]
+    S7, NA, LA = len(NS3D) + 1, ANEURYSM["N"], len(ANEURYSM["dims"]) - 1
+    idx, streams, weights, biases, g_out = make_inputs(S7, NA, dims)
+    _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=silu)
+    _, gzs = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, silu)
+    ys = [streams] + [b.unbind(0) for b in bounds]
+    a_flops = sum(S7 * 2.0 * NA * dims[l] * dims[l + 1] for l in range(LA))
+    a_stream = [S7 * NA * d * 4.0 for d in dims]
+    a_w = sum((dims[l] * dims[l + 1] + dims[l + 1]) * 4.0 for l in range(LA))
+    # library: one bmm over the five 512 -> 512 layers (the 3 -> 512 one is 0.6% of the products)
+    Y = torch.stack([torch.cat(y, 0) for y in ys[1:]])        # (5, S*N, 512)
+    GZ = torch.stack([g.reshape(S7 * NA, -1) for g in gzs[1:]])
+    a_rows = {
+        "jet_mlp_fwd": (lambda: J.jet_mlp_fwd(streams, weights, biases, idx, act=silu),
+                        lambda: J.jet_mlp_fwd_plain(streams, weights, biases, idx, act=silu),
+                        a_flops, a_stream[0] + a_stream[-1] + a_w, None),
+        "jet_mlp_bwd": (lambda: J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, silu),
+                        lambda: J.jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out, idx, silu),
+                        2 * a_flops, 2 * a_stream[0] + 2 * sum(a_stream[1:]) + a_w, None),
+        "jet_wgrad": (lambda: J.jet_wgrad(ys, gzs), lambda: J.jet_wgrad_plain(ys, gzs),
+                      a_flops + LA * NA * dims[-1], sum(a_stream[:-1]) + sum(a_stream[1:]) + a_w,
+                      lambda: torch.bmm(Y.transpose(1, 2), GZ)),
+    }
+    for r in rows:
+        fn, plain, flops, nbytes, library = a_rows[r["name"]]
+        ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 3, 1)
+        b, by = bound_ms(flops, nbytes)
+        per_step = {p: launches[p][r["name"]] / steps[p] for p in launches if p.startswith("aneurysm/")}
+        r["aneurysm"] = {"shape": f"silu S={S7} N={NA} dims={'->'.join(map(str, dims))}", "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                         "library_ms": cuda_ms(library, 10) if library is not None else None,
+                         "launches_per_step": per_step}
+        if r["name"] == "jet_mlp_fwd":
+            r["aneurysm"]["ms_save_bounds"] = cuda_ms(lambda: J.jet_mlp_fwd(streams, weights, biases, idx, True,
+                                                                            silu), 10)
+        log(f"[timing] {r['name']} at the aneurysm shape: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms "
+            f"by {by}" + (f", library {r['aneurysm']['library_ms']:.4f} ms" if library is not None else "")
+            + f"), launches per step {per_step}")
+    del Y, GZ, ys, gzs, bounds, streams
 
     program = G.piratenet_program(9)
     idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
@@ -611,7 +702,7 @@ def profile_steps(solver, name: str, step_ms: float, steps: int = 5, top: int = 
         f"{sum(r[1] for r in rows):.0f} kernels per step")
     port = {}
     for i, (ms, count, kname) in enumerate(rows):
-        fn = kname.split("(")[0].split()[-1].split("<")[0]
+        fn = re.sub(r"<.*", "", kname.split("(")[0]).split()[-1]  # "void f<7, 8>(P)" -> "f"
         ours = fn.startswith(("jet_", "lbm_"))
         if ours:
             port[fn] = port.get(fn, 0.0) + ms
@@ -656,7 +747,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, HERE)
     try:
         import paddlescience_torch  # noqa: F401
         from paddlescience_torch.ops import cuda_build
@@ -676,13 +767,23 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    from paddlescience_torch.autodiff import jet
     from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import aneurysm
     from paddlescience_torch.examples.allen_cahn import build_solver
 
+    if not os.path.exists(os.path.join(STL_DIR, "aneurysm_closed.stl")):
+        subprocess.run([sys.executable, os.path.join(HERE, "tools", "gen_aneurysm_stl.py"), "--out", STL_DIR],
+                       check=True, capture_output=True, text=True, timeout=300)
     # the driven paths, and the segment depths at which each runs the kernels
     solvers, depths = {}, {}
+    t0 = time.perf_counter()
+    ane = aneurysm.build_solver(STL_DIR, iters_per_epoch=1, log_freq=1, device="cuda")
+    log(f"[main] aneurysm solver built (host sampling of every constraint) in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{n} {tuple(b[0][next(iter(b[0]))].shape)}" for n, b in ane._static_batches.items()))
     for path, (kwargs, deriv, _) in PATHS.items():
-        solvers[path] = build_solver(deriv=deriv, log_freq=1, device="cuda", **kwargs)
+        solvers[path] = ane if path.startswith("aneurysm/") else build_solver(deriv=deriv, log_freq=1,
+                                                                             device="cuda", **kwargs)
         with on_path(deriv):
             depths[path] = solvers[path].model.jet_segment_lengths()
         if not depths[path]:
@@ -697,8 +798,29 @@ def main() -> int:
 
     S, N, W = MAIN["S"], MAIN["N"], MAIN["W"]
     for L in sorted({l for p, ls in depths.items() if p.startswith("mlp/") for l in ls}, reverse=True):
-        merge(check_kernels(S, N, W, L))
-    check_kernels(S, N - 1, W, MAIN["L"])
+        merge(check_kernels(S, N, (W,) * (L + 1)))
+    check_kernels(S, N - 1, (W,) * (MAIN["L"] + 1))
+    # the aneurysm segments: the first takes the 3 coordinates, later ones 512 columns
+    silu, dims = (jet.SILU, 0.0), ANEURYSM["dims"]
+    shapes = set()
+    for path in ("aneurysm/jet_pallas_full", "aneurysm/jet_pallas"):
+        s = 0
+        for L in depths[path]:
+            shapes.add(dims[s : s + L + 1])
+            s += L
+    for n in (ANEURYSM["N"], ANEURYSM["N"] - 1):
+        for seg in sorted(shapes, key=lambda d: (-len(d), d)):
+            merge(check_kernels(len(NS3D) + 1, n, seg, silu))
+    # every activation the kernels take, at a small shape
+    # (their errors stay out of the main-path maxima: exp over two random layers reaches 1e30)
+    a = ACT_CHECK
+    for act_id in sorted(jet.ACT_RULES):
+        act = (act_id, 1.7 if act_id == jet.SIREN else 0.0)
+        check_kernels(a["S"], a["N"], (a["W"],) * 3, act, log_it=False)
+        check_gated_kernels(a["S"], a["N"], a["W"], G.modified_mlp_program(2), "modified_mlp", act, log_it=False)
+    log(f"[kernels] every activation ({len(jet.ACT_RULES)}: {', '.join(jet.ACT_NAMES)}) at S={a['S']} "
+        f"N={a['N']} W={a['W']} L=2, ungated and as a ModifiedMLP program: each output within {REL_TOL} x the "
+        f"largest magnitude of its reference")
     for L in sorted({l for p, ls in depths.items() if p.startswith("piratenet/") for l in ls}, reverse=True):
         merge(check_gated_kernels(S, N, W, G.piratenet_program(L // 3), "piratenet"))
     for L in sorted({l for p, ls in depths.items() if p.startswith("modified_mlp/") for l in ls}, reverse=True):
@@ -713,12 +835,19 @@ def main() -> int:
         _, launches[path] = run_path(solvers[path], path, deriv, steps)
     launches["cavity"] = run_cavity_path()
 
-    for arch in ("mlp", "piratenet", "modified_mlp"):
+    req = ane._jet_requests["interior"]
+    n_streams = {len(jet.build_index(stack)) for reqs in req.values() for stack in reqs}
+    log(f"[main] aneurysm interior jet: {n_streams} streams; hidden widths {ANEURYSM['dims']}")
+    if n_streams != {len(NS3D) + 1}:
+        raise AssertionError(f"aneurysm: the interior jet has {n_streams} streams, expected {len(NS3D) + 1}")
+
+    for arch in ("mlp", "piratenet", "modified_mlp", "aneurysm"):
         paths = [p for p in PATHS if p.startswith(arch + "/")]
         solver = solvers[paths[0]]
         if arch == "piratenet" and not all(float(b.alpha.detach()) != 0.0 for b in solver.model.blocks):
             raise AssertionError("piratenet: an alpha is still 0 after training; the check would prove nothing")
-        check_against_plain_path(solver, arch, tuple(PATHS[p][1] for p in paths))
+        parts = ("weight_g", "weight_v", "bias") if arch == "aneurysm" else ("alpha", "embed_u", "embed_v")
+        check_against_plain_path(solver, arch, tuple(PATHS[p][1] for p in paths), parts)
 
     device_ms = {}
     for path in TIMED:

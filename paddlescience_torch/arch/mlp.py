@@ -1,20 +1,21 @@
 """PINN backbone MLP family (counterpart of ``paddlescience_tpu/arch/mlp.py``).
 
-Ported: ``RandomWeightFactorization``, ``PeriodEmbedding``,
-``FourierEmbedding``, and ``MLP``, ``ModifiedMLP`` and ``PirateNet`` with
-their batched forward and their fused Taylor-jet forward (``forward_jet``).
-On the ``jet_pallas`` derivative paths the hidden tanh layers run as fused
-jet segments: the MLP's through ``ops/jet_mlp.py``, the gated ModifiedMLP
-layers and the PirateNet block groups through ``ops/jet_gated.py`` (CUDA
-kernels on the GPU, their plain versions on the CPU). As in the JAX
-package, ModifiedMLP and PirateNet take the segments whenever
-``PSCI_JET_PALLAS`` is not "0", the MLP only with ``PSCI_JET_PALLAS_MLP``.
-Weights keep the JAX layout, W of shape (in, out) used as ``x @ W``, and
-parameters keep the JAX names, so they carry over key for key
-(``utils/jax_params.py``).
+Ported: ``WeightNormLinear``, ``RandomWeightFactorization``,
+``PeriodEmbedding``, ``FourierEmbedding``, and ``MLP``, ``ModifiedMLP`` and
+``PirateNet`` with their batched forward and their fused Taylor-jet forward
+(``forward_jet``). On the ``jet_pallas`` derivative paths the hidden layers
+run as fused jet segments, whatever their activation
+(``arch/activation.py``): the MLP's through ``ops/jet_mlp.py``, the gated
+ModifiedMLP layers and the PirateNet block groups through
+``ops/jet_gated.py`` (CUDA kernels on the GPU, their plain versions on the
+CPU). As in the JAX package, ModifiedMLP and PirateNet take the segments
+whenever ``PSCI_JET_PALLAS`` is not "0", the MLP only with
+``PSCI_JET_PALLAS_MLP``. Weights keep the JAX layout, W of shape (in, out)
+used as ``x @ W``, and parameters keep the JAX names, so they carry over
+key for key (``utils/jax_params.py``).
 
-Not ported yet: ``WeightNormLinear`` (``weight_norm=``), skip connections,
-explicit ``input_dim``/``output_dim``.
+Not ported yet: skip connections, list-valued hidden sizes, explicit
+``input_dim``/``output_dim``, ``weight_norm`` of ModifiedMLP and PirateNet.
 """
 
 from __future__ import annotations
@@ -35,8 +36,27 @@ from paddlescience_torch.device import DeviceLike, resolve_device
 from paddlescience_torch.nn.layers import Linear
 from paddlescience_torch.utils import initializer
 
-__all__ = ["RandomWeightFactorization", "PeriodEmbedding", "FourierEmbedding", "MLP", "ModifiedMLP",
-           "PirateNetBlock", "PirateNet"]
+__all__ = ["WeightNormLinear", "RandomWeightFactorization", "PeriodEmbedding", "FourierEmbedding", "MLP",
+           "ModifiedMLP", "PirateNetBlock", "PirateNet"]
+
+
+class WeightNormLinear(nn.Module):
+    """y = x @ (g * v / |v|_col) + b: ``weight_v`` (in, out) xavier uniform,
+    ``weight_g`` (out,) ones, ``bias`` zeros (the JAX names and init)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *, generator: torch.Generator):
+        super().__init__()
+        self.weight_v = nn.Parameter(initializer.xavier_uniform_(torch.empty(in_features, out_features), generator))
+        self.weight_g = nn.Parameter(torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def effective_weight(self) -> torch.Tensor:
+        v = self.weight_v
+        return self.weight_g * v / torch.linalg.vector_norm(v, dim=0, keepdim=True)
+
+    def forward(self, x):
+        y = x @ self.effective_weight()
+        return y + self.bias if self.bias is not None else y
 
 
 class RandomWeightFactorization(nn.Module):
@@ -95,16 +115,20 @@ class FourierEmbedding(nn.Module):
         return torch.cat([torch.cos(z), torch.sin(z)], dim=-1)
 
 
-def _make_linear(in_features, out_features, random_weight, generator):
+def _make_linear(in_features, out_features, random_weight, generator, weight_norm=False, kernel_init=None):
+    if weight_norm:
+        return WeightNormLinear(in_features, out_features, generator=generator)
     if random_weight:
         return RandomWeightFactorization(in_features, out_features, mean=random_weight["mean"],
                                          std=random_weight["std"], generator=generator)
-    return Linear(in_features, out_features, generator=generator)
+    return Linear(in_features, out_features, kernel_init=kernel_init, generator=generator)
 
 
 def _linear_eff(layer):
     """Effective (W, b) of a linear layer: constant w.r.t. the coordinates,
     differentiable w.r.t. the underlying parameters."""
+    if isinstance(layer, WeightNormLinear):
+        return layer.effective_weight(), layer.bias
     if isinstance(layer, RandomWeightFactorization):
         return layer.weight_g * layer.weight_v, layer.bias
     return layer.weight, layer.bias
@@ -112,7 +136,7 @@ def _linear_eff(layer):
 
 def _linear_out_features(layer) -> int:
     """Output width of a linear layer, read without forming its weight."""
-    w = layer.weight_v if isinstance(layer, RandomWeightFactorization) else layer.weight
+    w = layer.weight_v if isinstance(layer, (RandomWeightFactorization, WeightNormLinear)) else layer.weight
     return int(w.shape[-1])
 
 
@@ -126,17 +150,24 @@ def _jet_gate(y: jet.Jet, u: jet.Jet, v: jet.Jet) -> jet.Jet:
     return jet.add(v, jet.mul(y, jet.sub(u, v)))
 
 
+def _segment_act(acts) -> Optional[jet.Act]:
+    """The (id, parameter) of the activation every layer of ``acts`` shares,
+    or None if they differ or one has no closed-form rule."""
+    rules = {jet.act_of(a) for a in acts}
+    return rules.pop() if len(rules) == 1 and None not in rules else None
+
+
 def _jet_pallas_ok(linears, acts) -> bool:
     """``PSCI_JET_PALLAS`` not "0", and layers the fused segment kernels
-    take: they implement the tanh jet rule; other activations (and narrow
-    layers unless the candidate lifts the lane gate) stay on the plain jet
-    path."""
+    take: every stateless activation (as the JAX gate, which admits any
+    parameterless one), one for the whole stack; narrow layers only where
+    the candidate lifts the lane gate."""
     if deriv_path.flag("PSCI_JET_PALLAS", "1") != "1":
         return False
     min_lanes = int(deriv_path.flag("PSCI_JET_PALLAS_MIN_LANES", "128"))
     if any(_linear_out_features(l) < min_lanes for l in linears):
         return False
-    return all(a is torch.tanh for a in acts)
+    return _segment_act(acts) is not None
 
 
 def _segment_lengths(model) -> List[int]:
@@ -154,21 +185,28 @@ def _segment_lengths(model) -> List[int]:
 
 
 def _jet_pallas_segments(model, jx: jet.Jet, lengths: List[int], uv=None) -> jet.Jet:
-    """Run the hidden (linear + tanh [+ gate with the jets ``uv``]) layers
-    as fused segments of the given lengths."""
+    """Run the hidden (linear + activation [+ gate with the jets ``uv``])
+    layers as fused segments of the given lengths."""
     from paddlescience_torch.ops import jet_gated, jet_mlp
 
     save_bounds = deriv_path.flag("PSCI_JET_SAVE_BOUNDS", "0") == "1"
+    act = _segment_act(model.acts)
     y, s = jx, 0
     for n in lengths:
         ws, bs = zip(*(_linear_eff(l) for l in model.linears[s : s + n]))
         if uv is None:
-            y = jet_mlp.jet_mlp_segment(y, ws, bs, save_bounds=save_bounds)
+            y = jet_mlp.jet_mlp_segment(y, ws, bs, save_bounds=save_bounds, act=act)
         else:
             y = jet_gated.jet_gated_segment(y, uv[0], uv[1], ws, bs, (), jet_gated.modified_mlp_program(n),
-                                            save_bounds=save_bounds)
+                                            save_bounds=save_bounds, act=act)
         s += n
     return y
+
+
+def _make_act(name: str):
+    """The activation called ``name``; Siren instantiated (w0 = 30)."""
+    act = act_mod.get_activation(name)
+    return act() if act is act_mod.Siren else act
 
 
 def _embedded_size(model, generator) -> int:
@@ -216,8 +254,11 @@ def _jet_embed(model, jx: jet.Jet) -> jet.Jet:
 
 class MLP(base.Arch):
     """Multi-layer perceptron with optional period embedding, Fourier
-    features and random weight factorization. (The JAX MLP's skip
-    connections, weight normalization, list-valued hidden sizes and
+    features, random weight factorization or weight normalization
+    (``weight_norm``: every hidden layer a :class:`WeightNormLinear`, the
+    output layer plain, as in the JAX MLP), and any activation of
+    ``arch/activation.py`` (``siren`` with the SIREN init of plain linear
+    layers). (The JAX MLP's skip connections, list-valued hidden sizes and
     explicit input/output dims are not ported.)
 
     Parameters are drawn on the CPU from ``generator`` (a CPU
@@ -235,6 +276,7 @@ class MLP(base.Arch):
         periods: Optional[Dict[str, Tuple[float, bool]]] = None,
         fourier: Optional[Dict[str, Union[float, int]]] = None,
         random_weight: Optional[Dict[str, float]] = None,
+        weight_norm: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
@@ -250,9 +292,12 @@ class MLP(base.Arch):
 
         cur_size = _embedded_size(self, generator)
         linears, acts = [], []
-        for _ in range(num_layers):
-            linears.append(_make_linear(cur_size, hidden_size, random_weight, generator))
-            acts.append(act_mod.get_activation(activation))
+        for i in range(num_layers):
+            kernel_init = None
+            if activation == "siren":
+                kernel_init = act_mod.Siren.first_layer_init if i == 0 else act_mod.Siren.hidden_layer_init()
+            linears.append(_make_linear(cur_size, hidden_size, random_weight, generator, weight_norm, kernel_init))
+            acts.append(_make_act(activation))
             cur_size = hidden_size
         self.linears = nn.ModuleList(linears)
         self.acts = acts
@@ -322,12 +367,12 @@ class ModifiedMLP(base.Arch):
         cur_size = _embedded_size(self, generator)
         self.embed_u = _make_linear(cur_size, hidden_size, random_weight, generator)
         self.embed_v = _make_linear(cur_size, hidden_size, random_weight, generator)
-        self.embed_act_u = act_mod.get_activation(activation)
-        self.embed_act_v = act_mod.get_activation(activation)
+        self.embed_act_u = _make_act(activation)
+        self.embed_act_v = _make_act(activation)
         linears, acts = [], []
         for _ in range(num_layers):
             linears.append(_make_linear(cur_size, hidden_size, random_weight, generator))
-            acts.append(act_mod.get_activation(activation))
+            acts.append(_make_act(activation))
             cur_size = hidden_size
         self.linears = nn.ModuleList(linears)
         self.acts = acts
@@ -381,9 +426,9 @@ class PirateNetBlock(nn.Module):
         self.linear2 = _make_linear(embed_dim, embed_dim, random_weight, generator)
         self.linear3 = _make_linear(embed_dim, embed_dim, random_weight, generator)
         self.alpha = nn.Parameter(torch.zeros(1))
-        self.act1 = act_mod.get_activation(activation)
-        self.act2 = act_mod.get_activation(activation)
-        self.act3 = act_mod.get_activation(activation)
+        self.act1 = _make_act(activation)
+        self.act2 = _make_act(activation)
+        self.act3 = _make_act(activation)
 
     @property
     def linears(self):
@@ -471,8 +516,8 @@ class PirateNet(base.Arch):
                              f"the embedded width {cur_size}")
         self.embed_u = _make_linear(cur_size, hidden_size, random_weight, generator)
         self.embed_v = _make_linear(cur_size, hidden_size, random_weight, generator)
-        self.embed_act_u = act_mod.get_activation(activation)
-        self.embed_act_v = act_mod.get_activation(activation)
+        self.embed_act_u = _make_act(activation)
+        self.embed_act_v = _make_act(activation)
         self.blocks = nn.ModuleList(
             PirateNetBlock(cur_size, activation=activation, random_weight=random_weight, generator=generator)
             for _ in range(num_blocks))
@@ -516,13 +561,15 @@ class PirateNet(base.Arch):
             from paddlescience_torch.ops import jet_gated
 
             save_bounds = deriv_path.flag("PSCI_JET_SAVE_BOUNDS", "0") == "1"
+            act = _segment_act([a for b in self.blocks for a in b.acts])
             i = 0
             for n_layers in lengths:
                 group = self.blocks[i : i + n_layers // 3]
                 ws, bs = zip(*(_piratenet_block_ws(b) for b in group))
                 y = jet_gated.jet_gated_segment(
                     y, u, v, [w for blk in ws for w in blk], [b for blk in bs for b in blk],
-                    [b.alpha for b in group], jet_gated.piratenet_program(len(group)), save_bounds=save_bounds)
+                    [b.alpha for b in group], jet_gated.piratenet_program(len(group)), save_bounds=save_bounds,
+                    act=act)
                 i += len(group)
             return _jet_linear(self.last_fc, y)
         remat = os.environ.get("PSCI_JET_REMAT", "1") == "1" and torch.is_grad_enabled()

@@ -20,7 +20,7 @@ with no counterpart here).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,6 +31,10 @@ __all__ = [
     "seed",
     "linear",
     "elementwise",
+    "act_of",
+    "act_derivs",
+    "ACT_RULES",
+    "ACT_NAMES",
     "mul",
     "add",
     "sub",
@@ -147,48 +151,180 @@ def linear(jet: Jet, w: torch.Tensor, b=None) -> Jet:
     return Jet(outs, jet.index)
 
 
-def _tanh_rule(p):
-    t = torch.tanh(p)
+# ---------------------------------------------------- activation rules --
+#
+# Closed-form (f, f', f'', f''') of every activation the fused segments
+# take, keyed by an integer id and one float parameter (Siren's w0). The
+# same table, by the same ids, is ``psci_act`` in csrc/jet_common.cuh: the
+# jet rule needs f, f', f''; the hand-derived VJP of the rule f', f'',
+# f'''. At a kink the derivative is the one JAX's ``jvp`` of ``jax.nn``
+# gives: relu and relu6 take 0 at 0 (and relu6 at 6), elu and selu their
+# left branch at 0, leaky_relu its right branch.
+
+TANH, IDENTITY, SIN, COS, EXP, SIGMOID, SILU, SOFTPLUS, MISH, GELU, RELU, RELU6, ELU, SELU, LEAKY_RELU, SIREN = range(16)
+ACT_NAMES = ("tanh", "identity", "sin", "cos", "exp", "sigmoid", "silu", "softplus", "mish", "gelu", "relu",
+             "relu6", "elu", "selu", "leaky_relu", "siren")
+SELU_ALPHA = 1.6732632423543772848170429916717
+SELU_SCALE = 1.0507009873554804934193349852946
+LEAKY_SLOPE = 0.01
+GELU_K = 0.7978845608028654  # sqrt(2 / pi)
+GELU_C = 0.044715
+
+Act = Tuple[int, float]  # (activation id, parameter)
+
+
+def _sigmoid4(x):
+    s = torch.sigmoid(x)
+    s1 = s * (1 - s)
+    return s, s1, s1 * (1 - 2 * s), s1 * (1 - 6 * s + 6 * s * s)
+
+
+def _tanh4(x, w):
+    t = torch.tanh(x)
     sp = 1.0 - t * t
-    return t, sp, -2.0 * t * sp
+    return t, sp, -2.0 * t * sp, -2.0 * sp * sp + 4.0 * t * t * sp
 
 
-def _sin_rule(p):
-    s, c = torch.sin(p), torch.cos(p)
-    return s, c, -s
+def _sin4(x, w):
+    s, c = torch.sin(x), torch.cos(x)
+    return s, c, -s, -c
 
 
-def _cos_rule(p):
-    s, c = torch.sin(p), torch.cos(p)
-    return c, -s, -c
+def _cos4(x, w):
+    s, c = torch.sin(x), torch.cos(x)
+    return c, -s, -c, s
 
 
-def _exp_rule(p):
-    e = torch.exp(p)
-    return e, e, e
+def _exp4(x, w):
+    e = torch.exp(x)
+    return e, e, e, e
 
 
-# closed-form (f, f', f'') rules keyed by function identity: one
-# transcendental, every derivative a product of the shared primal value
-_ELEMENTWISE_RULES = {
-    torch.tanh: _tanh_rule,
-    torch.sin: _sin_rule,
-    torch.cos: _cos_rule,
-    torch.exp: _exp_rule,
+def _identity4(x, w):
+    zero = torch.zeros_like(x)
+    return x, torch.ones_like(x), zero, zero
+
+
+def _silu4(x, w):
+    s, s1, s2, s3 = _sigmoid4(x)
+    return x * s, s + x * s1, 2 * s1 + x * s2, 3 * s2 + x * s3
+
+
+def _softplus4(x, w):
+    s, s1, s2, _ = _sigmoid4(x)
+    return torch.logaddexp(x, torch.zeros_like(x)), s, s1, s2
+
+
+def _mish4(x, w):
+    s, s1, s2, _ = _sigmoid4(x)
+    g = torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))  # tanh(softplus x)
+    h = 1 - g * g
+    g1 = h * s
+    h1 = -2 * g * g1
+    g2 = h1 * s + h * s1
+    h2 = -2 * (g1 * g1 + g * g2)
+    g3 = h2 * s + 2 * h1 * s1 + h * s2
+    return x * g, g + x * g1, 2 * g1 + x * g2, 3 * g2 + x * g3
+
+
+def _gelu4(x, w):
+    """The tanh approximation, ``jax.nn.gelu``'s default."""
+    u1 = GELU_K * (1 + 3 * GELU_C * x * x)
+    u2 = 6 * GELU_K * GELU_C * x
+    t = torch.tanh(GELU_K * (x + GELU_C * x * x * x))
+    s = 1 - t * t
+    t1 = s * u1
+    t2 = -2 * t * t1 * u1 + s * u2
+    t3 = -2 * (t1 * t1 * u1 + t * t2 * u1 + 2 * t * t1 * u2) + s * (6 * GELU_K * GELU_C)
+    return 0.5 * x * (1 + t), 0.5 * (1 + t) + 0.5 * x * t1, t1 + 0.5 * x * t2, 1.5 * t2 + 0.5 * x * t3
+
+
+def _linear_pieces4(f, f1):
+    zero = torch.zeros_like(f)
+    return f, f1, zero, zero
+
+
+def _relu4(x, w):
+    pos = x > 0
+    return _linear_pieces4(torch.where(pos, x, torch.zeros_like(x)), pos.to(x.dtype))
+
+
+def _relu64(x, w):
+    return _linear_pieces4(torch.clamp(x, 0.0, 6.0), ((x > 0) & (x < 6)).to(x.dtype))
+
+
+def _leaky4(x, w):
+    pos = x >= 0
+    return _linear_pieces4(torch.where(pos, x, LEAKY_SLOPE * x),
+                           torch.where(pos, torch.ones_like(x), torch.full_like(x, LEAKY_SLOPE)))
+
+
+def _elu4(x, alpha, scale):
+    pos = x > 0
+    xn = torch.where(pos, torch.zeros_like(x), x)
+    e = (scale * alpha) * torch.exp(xn)
+    zero = torch.zeros_like(x)
+    f = torch.where(pos, scale * x, (scale * alpha) * torch.expm1(xn))
+    return f, torch.where(pos, torch.full_like(x, scale), e), torch.where(pos, zero, e), torch.where(pos, zero, e)
+
+
+def _siren4(x, w):
+    s, c = torch.sin(w * x), torch.cos(w * x)
+    return s, w * c, -w * w * s, -w * w * w * c
+
+
+ACT_RULES: Dict[int, Callable] = {
+    TANH: _tanh4,
+    IDENTITY: _identity4,
+    SIN: _sin4,
+    COS: _cos4,
+    EXP: _exp4,
+    SIGMOID: lambda x, w: _sigmoid4(x),
+    SILU: _silu4,
+    SOFTPLUS: _softplus4,
+    MISH: _mish4,
+    GELU: _gelu4,
+    RELU: _relu4,
+    RELU6: _relu64,
+    ELU: lambda x, w: _elu4(x, 1.0, 1.0),
+    SELU: lambda x, w: _elu4(x, SELU_ALPHA, SELU_SCALE),
+    LEAKY_RELU: _leaky4,
+    SIREN: _siren4,
 }
+
+# plain torch functions with a rule, by identity
+_FN_ACTS: Dict[Callable, Act] = {torch.tanh: (TANH, 0.0), torch.sin: (SIN, 0.0), torch.cos: (COS, 0.0),
+                                 torch.exp: (EXP, 0.0)}
+
+
+def act_of(fn) -> Optional[Act]:
+    """The (id, parameter) of ``fn``'s closed-form rule: an activation of
+    ``arch/activation.py`` carries its own (``jet_act``); of the plain torch
+    functions tanh, sin, cos and exp have one. None for anything else."""
+    act = getattr(fn, "jet_act", None)
+    if act is not None:
+        return act
+    return _FN_ACTS.get(fn) if getattr(fn, "__hash__", None) else None
+
+
+def act_derivs(act: Act, x: torch.Tensor):
+    """(f, f', f'', f''') of activation ``act`` at ``x``."""
+    return ACT_RULES[act[0]](x, act[1])
 
 
 def elementwise(jet: Jet, fn: Callable) -> Jet:
-    """Jet chain rule through ``fn``, one of ``torch.tanh``/``sin``/``cos``/
-    ``exp``, whose closed-form rule gives sigma' and sigma'' from one
-    transcendental. (The JAX package also takes any function through
-    ``jax.jvp``; no ported arch needs that.)
+    """Jet chain rule through ``fn``: an activation of
+    ``arch/activation.py`` or ``torch.tanh``/``sin``/``cos``/``exp``, whose
+    closed-form rule gives sigma' and sigma'' (:func:`act_derivs`). (The
+    JAX package also takes any other function through ``jax.jvp``; no
+    ported arch needs that.)
     """
-    rule = _ELEMENTWISE_RULES.get(fn)
-    if rule is None:
-        raise ValueError(f"no closed-form jet rule for {fn}; available: tanh, sin, cos, exp")
+    act = act_of(fn)
+    if act is None:
+        raise ValueError(f"no closed-form jet rule for {fn}; available: the activations of "
+                         "arch/activation.py and torch.tanh, sin, cos, exp")
     idx = jet.index
-    f0, sp, spp = rule(jet.streams[0])
+    f0, sp, spp, _ = act_derivs(act, jet.streams[0])
     streams = [f0]
     for m in idx.multis[1:]:
         if len(m) == 1:

@@ -1,4 +1,5 @@
 from paddlescience_torch.constraint.base import Constraint
-from paddlescience_torch.constraint.constraints import SupervisedConstraint
+from paddlescience_torch.constraint.constraints import (BoundaryConstraint, IntegralConstraint, InteriorConstraint,
+                                                        SupervisedConstraint)
 
-__all__ = ["Constraint", "SupervisedConstraint"]
+__all__ = ["Constraint", "BoundaryConstraint", "IntegralConstraint", "InteriorConstraint", "SupervisedConstraint"]

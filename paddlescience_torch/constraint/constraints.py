@@ -1,18 +1,154 @@
 """Constraints (counterpart of
 ``paddlescience_tpu/constraint/constraints.py``). Ported:
-``SupervisedConstraint`` in its dict-config form over an
-``IterableNamedArrayDataset``."""
+``InteriorConstraint``, ``BoundaryConstraint`` and ``IntegralConstraint``
+over a geometry, and ``SupervisedConstraint`` in its dict-config form.
+
+Geometry sampling happens on the host when the constraint is built, with
+the JAX package's ``np.random`` calls in its order; the sampled arrays
+become an ``IterableNamedArrayDataset`` (the solver moves them to the
+device once and feeds them every step). Labels and weights are numbers or
+callables of the input dict: the sympy forms need sympy, which is not
+installed where the port runs. The indexed ``NamedArrayDataset`` (batches
+drawn from a larger sample) and ``criteria`` given as strings are not
+ported yet.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Union
+
+import numpy as np
 
 from paddlescience_torch.constraint.base import Constraint
 from paddlescience_torch.data.dataset.array_dataset import IterableNamedArrayDataset
 
-__all__ = ["SupervisedConstraint"]
+__all__ = ["InteriorConstraint", "BoundaryConstraint", "IntegralConstraint", "SupervisedConstraint",
+           "prepare_label", "prepare_weight"]
 
 _DATASETS = {"IterableNamedArrayDataset": IterableNamedArrayDataset}
+Spec = Union[float, int, Callable]
+
+
+def prepare_label(label_dict: Dict[str, Spec], input: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Label arrays aligned with the sampled inputs: a number fills the
+    shape of the inputs, a callable of the input dict gives the array."""
+    ref = next(iter(input.values()))
+    label = {}
+    for key, value in label_dict.items():
+        if isinstance(value, (int, float)):
+            label[key] = np.full_like(ref, value)
+        elif callable(value):
+            label[key] = value(input)
+            if isinstance(label[key], (int, float)):
+                label[key] = np.full_like(ref, label[key])
+        else:
+            raise NotImplementedError(f"label of type {type(value)} is not ported (numbers and callables are)")
+    return label
+
+
+def prepare_weight(weight_dict: Optional[Dict[str, Union[Spec, str]]], input, label) -> Optional[Dict[str, np.ndarray]]:
+    """Weight arrays: ones for every label key, then a number, a callable
+    of the input dict, or "sdf" (the sampled sdf column) per given key."""
+    if weight_dict is None:
+        return None
+    ref = next(iter(label.values()))
+    weight = {key: np.ones_like(ref) for key in label}
+    for key, value in weight_dict.items():
+        if isinstance(value, str):
+            if value != "sdf":
+                raise NotImplementedError(f"string '{value}' is invalid yet.")
+            weight[key] = input["sdf"]
+        elif isinstance(value, (int, float)):
+            weight[key] = np.full_like(ref, float(value))
+        elif callable(value):
+            weight[key] = value(input)
+            if isinstance(weight[key], (int, float)):
+                weight[key] = np.full_like(ref, weight[key])
+        else:
+            raise NotImplementedError(f"weight of type {type(value)} is not ported (numbers and callables are)")
+    return weight
+
+
+def _build_geom_dataset(input, label, weight, dataloader_cfg):
+    ds_cfg = dataloader_cfg.get("dataset", "NamedArrayDataset")
+    name = ds_cfg if isinstance(ds_cfg, str) else ds_cfg["name"]
+    if name not in _DATASETS:
+        raise NotImplementedError(f"dataset '{name}' is not ported; available: {sorted(_DATASETS)}")
+    return _DATASETS[name](input, label, weight)
+
+
+def _n_samples(dataloader_cfg) -> int:
+    return dataloader_cfg["batch_size"] * dataloader_cfg.get("iters_per_epoch", 1)
+
+
+def _select_outputs(cst, output_expr, label_dict):
+    cst.label_dict = label_dict
+    cst.output_keys = tuple(label_dict.keys())
+    cst.output_expr = {k: v for k, v in output_expr.items() if k in cst.output_keys}
+
+
+class InteriorConstraint(Constraint):
+    """PDE residuals over interior points of ``geom`` (with the "sdf"
+    column)."""
+
+    def __init__(self, output_expr: Dict[str, Callable], label_dict: Dict[str, Spec], geom,
+                 dataloader_cfg: Dict[str, Any], loss, random: str = "pseudo",
+                 criteria: Optional[Callable] = None, evenly: bool = False,
+                 weight_dict: Optional[Dict[str, Union[Spec, str]]] = None,
+                 compute_sdf_derivatives: bool = False, name: str = "EQ"):
+        _select_outputs(self, output_expr, label_dict)
+        self.input_keys = geom.dim_keys
+        input = geom.sample_interior(_n_samples(dataloader_cfg), random, criteria, evenly, compute_sdf_derivatives)
+        label = prepare_label(label_dict, input)
+        weight = prepare_weight(weight_dict, input, label)
+        super().__init__(_build_geom_dataset(input, label, weight, dataloader_cfg), dataloader_cfg, loss, name)
+
+
+class BoundaryConstraint(Constraint):
+    """Dirichlet/Neumann/Robin terms over boundary points of ``geom``
+    (normals as normal_x/normal_y/..., and "area" on a mesh)."""
+
+    def __init__(self, output_expr: Dict[str, Callable], label_dict: Dict[str, Spec], geom,
+                 dataloader_cfg: Dict[str, Any], loss, random: str = "pseudo",
+                 criteria: Optional[Callable] = None, evenly: bool = False,
+                 weight_dict: Optional[Dict[str, Union[Spec, str]]] = None, name: str = "BC"):
+        _select_outputs(self, output_expr, label_dict)
+        self.input_keys = geom.dim_keys
+        input = geom.sample_boundary(_n_samples(dataloader_cfg), random, criteria, evenly)
+        label = prepare_label(label_dict, input)
+        weight = prepare_weight(weight_dict, input, label)
+        super().__init__(_build_geom_dataset(input, label, weight, dataloader_cfg), dataloader_cfg, loss, name)
+
+
+class IntegralConstraint(Constraint):
+    """Monte-Carlo integral constraints: each sample is a set of
+    ``integral_batch_size`` boundary points whose integral must match a
+    scalar label. Inputs are (sets, points, 1), with "area" = the
+    geometry's area / points; labels and weights (sets, 1)."""
+
+    def __init__(self, output_expr: Dict[str, Callable], label_dict: Dict[str, Spec], geom,
+                 dataloader_cfg: Dict[str, Any], loss, random: str = "pseudo",
+                 criteria: Optional[Callable] = None,
+                 weight_dict: Optional[Dict[str, Union[Spec, str]]] = None,
+                 integral_batch_size: int = 1024, name: str = "IgC"):
+        _select_outputs(self, output_expr, label_dict)
+        self.input_keys = geom.dim_keys
+        n_sets = _n_samples(dataloader_cfg)
+        samples = [geom.sample_boundary(integral_batch_size, random, criteria) for _ in range(n_sets)]
+        input = {k: np.stack([s[k] for s in samples], axis=0) for k in samples[0]}  # (n_sets, m, 1)
+        area = getattr(geom, "perimeter", None) or getattr(geom, "area", 1.0)
+        input["area"] = np.full((n_sets, integral_batch_size, 1), area / integral_batch_size, dtype=np.float32)
+        ref = np.zeros((n_sets, 1), np.float32)
+        label = {}
+        for key, value in label_dict.items():
+            if isinstance(value, (int, float)):
+                label[key] = np.full_like(ref, value)
+            elif callable(value):
+                label[key] = np.asarray(value(input), np.float32).reshape(n_sets, 1)
+            else:
+                raise NotImplementedError(f"integral label of type {type(value)} unsupported")
+        weight = prepare_weight(weight_dict, input, label)
+        super().__init__(_build_geom_dataset(input, label, weight, dataloader_cfg), dataloader_cfg, loss, name)
 
 
 class SupervisedConstraint(Constraint):

@@ -6,21 +6,24 @@
 //   * a jet stream is an (N, W) row-major float32 tensor; S streams ride
 //     together (stream 0 = primal, then singles, then pairs);
 //   * weights are (K, D) row-major and used as x @ W (the JAX layout);
-//   * a row tile of PSCI_BM rows of all S streams lives in shared memory
+//   * a row tile of BM rows of all S streams lives in shared memory
 //     transposed, as A[s][k][r] (k = feature, r = row in the tile), so a
 //     thread reads the 4 rows of its micro-tile as one float4;
-//   * a CTA has 256 threads: tx = tid & 63 owns output columns 4tx..4tx+3,
-//     ty = tid >> 6 owns tile rows 4ty..4ty+3, for every stream.
+//   * a CTA has 256 threads, TX = 1024 / BM across the columns and BM / 4
+//     down the rows: tx = tid % TX owns output columns 4tx..4tx+3, ty =
+//     tid / TX owns tile rows 4ty..4ty+3, for every stream. BM = 16 (64 x 4
+//     threads) covers widths up to 256, BM = 8 (128 x 2) widths up to 512;
+//     the gated kernels use BM = 16 only.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define PSCI_BM 16        // rows per CTA tile
+#define PSCI_BM 16        // rows per CTA tile up to width 256
+#define PSCI_BM_WIDE 8    // rows per CTA tile up to width 512
 #define PSCI_THREADS 256  // threads per CTA
 #define PSCI_MAX_S 8      // jet streams per segment
 #define PSCI_MAX_L 32     // layers per segment
-#define PSCI_MAX_W 256    // feature width of any layer input or output
 #define PSCI_KC 16        // weight rows (or columns) staged per chunk
 
 // Op-code bits of a layer in a gated layer program (ops/jet_gated.py).
@@ -35,6 +38,157 @@ struct JetIdx {
   int pa[PSCI_MAX_S];
   int pb[PSCI_MAX_S];
 };
+
+// Activation ids, the same as paddlescience_torch/autodiff/jet.py (ACT_RULES).
+enum PsciActId {
+  PSCI_TANH = 0, PSCI_IDENTITY, PSCI_SIN, PSCI_COS, PSCI_EXP, PSCI_SIGMOID, PSCI_SILU, PSCI_SOFTPLUS,
+  PSCI_MISH, PSCI_GELU, PSCI_RELU, PSCI_RELU6, PSCI_ELU, PSCI_SELU, PSCI_LEAKY_RELU, PSCI_SIREN,
+  PSCI_N_ACTS
+};
+
+// The activation of a segment: its id and one parameter (Siren's w0).
+struct Act {
+  int id;
+  float w;
+};
+
+__device__ __forceinline__ void sigmoid4(float x, float& s, float& s1, float& s2, float& s3) {
+  s = 1.f / (1.f + expf(-x));
+  s1 = s * (1.f - s);
+  s2 = s1 * (1.f - 2.f * s);
+  s3 = s1 * (1.f - 6.f * s + 6.f * s * s);
+}
+
+// f, f1 = f', f2 = f'', f3 = f''' of activation a at x: the closed forms of
+// autodiff/jet.py::ACT_RULES, term for term (at a kink, the derivative
+// JAX's jvp of jax.nn takes). The id is the same for the whole grid, so the
+// switch never diverges; outputs a caller does not use fold away.
+__device__ __forceinline__ void psci_act(const Act a, float x, float& f, float& f1, float& f2, float& f3) {
+  switch (a.id) {
+    case PSCI_IDENTITY:
+      f = x;
+      f1 = 1.f;
+      f2 = f3 = 0.f;
+      break;
+    case PSCI_SIN: {
+      float s, c;
+      sincosf(x, &s, &c);
+      f = s;
+      f1 = c;
+      f2 = -s;
+      f3 = -c;
+      break;
+    }
+    case PSCI_COS: {
+      float s, c;
+      sincosf(x, &s, &c);
+      f = c;
+      f1 = -s;
+      f2 = -c;
+      f3 = s;
+      break;
+    }
+    case PSCI_EXP:
+      f = f1 = f2 = f3 = expf(x);
+      break;
+    case PSCI_SIGMOID:
+      sigmoid4(x, f, f1, f2, f3);
+      break;
+    case PSCI_SILU: {
+      float s, s1, s2, s3;
+      sigmoid4(x, s, s1, s2, s3);
+      f = x * s;
+      f1 = s + x * s1;
+      f2 = 2.f * s1 + x * s2;
+      f3 = 3.f * s2 + x * s3;
+      break;
+    }
+    case PSCI_SOFTPLUS: {
+      float s3;
+      sigmoid4(x, f1, f2, f3, s3);
+      f = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));  // logaddexp(x, 0)
+      break;
+    }
+    case PSCI_MISH: {  // x tanh(softplus x)
+      float s, s1, s2, s3;
+      sigmoid4(x, s, s1, s2, s3);
+      const float g = tanhf(fmaxf(x, 0.f) + log1pf(expf(-fabsf(x))));
+      const float h = 1.f - g * g;
+      const float g1 = h * s;
+      const float h1 = -2.f * g * g1;
+      const float g2 = h1 * s + h * s1;
+      const float h2 = -2.f * (g1 * g1 + g * g2);
+      const float g3 = h2 * s + 2.f * h1 * s1 + h * s2;
+      f = x * g;
+      f1 = g + x * g1;
+      f2 = 2.f * g1 + x * g2;
+      f3 = 3.f * g2 + x * g3;
+      break;
+    }
+    case PSCI_GELU: {  // the tanh approximation
+      const float k = 0.7978845608028654f, c = 0.044715f;
+      const float u1 = k * (1.f + 3.f * c * x * x);
+      const float u2 = 6.f * k * c * x;
+      const float t = tanhf(k * (x + c * x * x * x));
+      const float s = 1.f - t * t;
+      const float t1 = s * u1;
+      const float t2 = -2.f * t * t1 * u1 + s * u2;
+      const float t3 = -2.f * (t1 * t1 * u1 + t * t2 * u1 + 2.f * t * t1 * u2) + s * (6.f * k * c);
+      f = 0.5f * x * (1.f + t);
+      f1 = 0.5f * (1.f + t) + 0.5f * x * t1;
+      f2 = t1 + 0.5f * x * t2;
+      f3 = 1.5f * t2 + 0.5f * x * t3;
+      break;
+    }
+    case PSCI_RELU:
+      f = x > 0.f ? x : 0.f;
+      f1 = x > 0.f ? 1.f : 0.f;
+      f2 = f3 = 0.f;
+      break;
+    case PSCI_RELU6:
+      f = fminf(fmaxf(x, 0.f), 6.f);
+      f1 = (x > 0.f && x < 6.f) ? 1.f : 0.f;
+      f2 = f3 = 0.f;
+      break;
+    case PSCI_ELU:
+    case PSCI_SELU: {
+      const float alpha = a.id == PSCI_ELU ? 1.f : 1.6732632423543772848170429916717f;
+      const float scale = a.id == PSCI_ELU ? 1.f : 1.0507009873554804934193349852946f;
+      if (x > 0.f) {
+        f = scale * x;
+        f1 = scale;
+        f2 = f3 = 0.f;
+      } else {
+        f = (scale * alpha) * expm1f(x);
+        f1 = f2 = f3 = (scale * alpha) * expf(x);
+      }
+      break;
+    }
+    case PSCI_LEAKY_RELU:
+      f = x >= 0.f ? x : 0.01f * x;
+      f1 = x >= 0.f ? 1.f : 0.01f;
+      f2 = f3 = 0.f;
+      break;
+    case PSCI_SIREN: {  // sin(w0 x)
+      float s, c;
+      sincosf(a.w * x, &s, &c);
+      f = s;
+      f1 = a.w * c;
+      f2 = -a.w * a.w * s;
+      f3 = -a.w * a.w * a.w * c;
+      break;
+    }
+    default: {  // PSCI_TANH
+      const float t = tanhf(x);
+      const float sp = 1.f - t * t;
+      f = t;
+      f1 = sp;
+      f2 = -2.f * t * sp;
+      f3 = -2.f * sp * sp + 4.f * t * t * sp;
+      break;
+    }
+  }
+}
 
 // z[a] for a runtime a, without dynamic register indexing.
 template <int S>
@@ -64,16 +218,16 @@ __device__ __forceinline__ void zero_acc(float (&acc)[S][4][4]) {
 
 // A[s][k][r] <- src[s][(row0 + r) * K + k]; rows past N read as zero. src
 // is not written during the kernel (the loads take the read-only path).
-template <int S>
+template <int S, int BM = PSCI_BM>
 __device__ __forceinline__ void load_tile(float* A, int kmax, const float* const (&src)[S],
                                           int K, int row0, int N) {
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    for (int e = threadIdx.x; e < PSCI_BM * K; e += PSCI_THREADS) {
+    for (int e = threadIdx.x; e < BM * K; e += PSCI_THREADS) {
       const int r = e / K, k = e - r * K;
       const int n = row0 + r;
       const float* q = src[s] + (size_t)n * K + k;
-      A[((size_t)s * kmax + k) * PSCI_BM + r] = (n < N) ? __ldg(q) : 0.f;
+      A[((size_t)s * kmax + k) * BM + r] = (n < N) ? __ldg(q) : 0.f;
     }
   }
 }
@@ -81,7 +235,7 @@ __device__ __forceinline__ void load_tile(float* A, int kmax, const float* const
 // acc[s][i][j] += sum_k A[s][k][4ty+i] * W[k][4tx+j], k < K; W is (K, D)
 // with D % 4 == 0 and 16-byte aligned. Weight rows are staged KC at a time
 // through Wc. Ends with __syncthreads(), so A may be overwritten after it.
-template <int S>
+template <int S, int BM = PSCI_BM>
 __device__ __forceinline__ void tile_matmul(float (&acc)[S][4][4], const float* A, int kmax,
                                             const float* __restrict__ W, int K, int D,
                                             float* Wc, int tx, int ty) {
@@ -98,7 +252,7 @@ __device__ __forceinline__ void tile_matmul(float (&acc)[S][4][4], const float* 
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           const float4 a =
-              *reinterpret_cast<const float4*>(A + ((size_t)s * kmax + k0 + kk) * PSCI_BM + 4 * ty);
+              *reinterpret_cast<const float4*>(A + ((size_t)s * kmax + k0 + kk) * BM + 4 * ty);
           const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -115,14 +269,14 @@ __device__ __forceinline__ void tile_matmul(float (&acc)[S][4][4], const float* 
 }
 
 // Write the thread's micro-tile back into a tile A[s][c][r] (c = 4tx+j).
-template <int S>
+template <int S, int BM = PSCI_BM>
 __device__ __forceinline__ void store_tile(float* A, int kmax, const float (&acc)[S][4][4],
                                            int tx, int ty) {
 #pragma unroll
   for (int s = 0; s < S; ++s)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(A + ((size_t)s * kmax + 4 * tx + j) * PSCI_BM + 4 * ty) =
+      *reinterpret_cast<float4*>(A + ((size_t)s * kmax + 4 * tx + j) * BM + 4 * ty) =
           make_float4(acc[s][0][j], acc[s][1][j], acc[s][2][j], acc[s][3][j]);
 }
 
@@ -177,7 +331,7 @@ __device__ __forceinline__ void add_bias(float (&acc)[S][4][4], const float* __r
 // acc[s][i][j] += sum_c G[s][c][4ty+i] * W[4tx+j][c], c < D: the product
 // with W^T. W is (K, D); columns are staged KC at a time, transposed, into
 // Wt[cc][k] with row stride kpad. Ends with __syncthreads().
-template <int S>
+template <int S, int BM = PSCI_BM>
 __device__ __forceinline__ void tile_matmul_t(float (&acc)[S][4][4], const float* G, int kmax,
                                               const float* __restrict__ W, int K, int D,
                                               float* Wt, int kpad, int tx, int ty) {
@@ -195,7 +349,7 @@ __device__ __forceinline__ void tile_matmul_t(float (&acc)[S][4][4], const float
 #pragma unroll
         for (int s = 0; s < S; ++s) {
           const float4 a =
-              *reinterpret_cast<const float4*>(G + ((size_t)s * kmax + c0 + cc) * PSCI_BM + 4 * ty);
+              *reinterpret_cast<const float4*>(G + ((size_t)s * kmax + c0 + cc) * BM + 4 * ty);
           const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -211,36 +365,64 @@ __device__ __forceinline__ void tile_matmul_t(float (&acc)[S][4][4], const float
   }
 }
 
-// The tanh jet rule on one element's pre-activations z (all S streams):
-//   y_0 = t = tanh(z_0),  y_k = sp z_k,  y_ij = spp z_i z_j + sp z_ij,
-// sp = 1 - t^2, spp = -2 t sp.
+// The jet rule on one element's pre-activations z (all S streams), with
+// f, f1 = f', f2 = f'' of the activation at z_0:
+//   y_0 = f,  y_k = f1 z_k,  y_ij = f2 z_i z_j + f1 z_ij.
 template <int S>
-__device__ __forceinline__ void tanh_jet_elem(float (&z)[S], const JetIdx& idx) {
-  const float t = tanhf(z[0]);
-  const float sp = 1.f - t * t;
-  const float spp = -2.f * t * sp;
+__device__ __forceinline__ void jet_rule_elem(float (&z)[S], float f, float f1, float f2, const JetIdx& idx) {
   float y[S];
-  y[0] = t;
+  y[0] = f;
 #pragma unroll
   for (int s = 1; s < S; ++s) {
     if (idx.kind[s] == 1) {
-      y[s] = sp * z[s];
+      y[s] = f1 * z[s];
     } else {
-      y[s] = spp * sel<S>(z, idx.pa[s]) * sel<S>(z, idx.pb[s]) + sp * z[s];
+      y[s] = f2 * sel<S>(z, idx.pa[s]) * sel<S>(z, idx.pb[s]) + f1 * z[s];
     }
   }
 #pragma unroll
   for (int s = 0; s < S; ++s) z[s] = y[s];
 }
 
+// The activation's jet rule on element (i, j) of the thread's micro-tile.
 template <int S>
-__device__ __forceinline__ void tanh_jet(float (&acc)[S][4][4], const JetIdx& idx, int i, int j) {
+__device__ __forceinline__ void act_jet(float (&acc)[S][4][4], const JetIdx& idx, const Act act, int i, int j) {
   float z[S];
 #pragma unroll
   for (int s = 0; s < S; ++s) z[s] = acc[s][i][j];
-  tanh_jet_elem<S>(z, idx);
+  float f, f1, f2, f3;
+  psci_act(act, z[0], f, f1, f2, f3);
+  jet_rule_elem<S>(z, f, f1, f2, idx);
 #pragma unroll
   for (int s = 0; s < S; ++s) acc[s][i][j] = z[s];
+}
+
+// VJP of the jet rule: z holds the pre-activations on entry and their
+// cotangents on exit, g the cotangents of the rule's outputs, f1, f2, f3
+// the activation's derivatives at z_0:
+//   gz_0  = f1 g_0 + f2 sum_k g_k z_k + sum_ij (f3 z_i z_j + f2 z_ij) g_ij
+//   gz_k  = f1 g_k + sum_{pairs ij containing k} f2 g_ij z_other
+//           (the pair (k,k) contributes 2 f2 g_kk z_k)
+//   gz_ij = f1 g_ij.
+template <int S>
+__device__ __forceinline__ void jet_rule_vjp(float (&z)[S], const float (&g)[S], float f1, float f2, float f3,
+                                             const JetIdx& idx) {
+  float gz[S];
+  gz[0] = f1 * g[0];
+#pragma unroll
+  for (int s = 1; s < S; ++s) {
+    gz[s] = f1 * g[s];
+    if (idx.kind[s] == 1) {
+      gz[0] += f2 * g[s] * z[s];
+    } else {
+      const float za = sel<S>(z, idx.pa[s]), zb = sel<S>(z, idx.pb[s]);
+      gz[0] += (f3 * za * zb + f2 * z[s]) * g[s];
+      add_at<S>(gz, idx.pa[s], f2 * g[s] * zb);
+      add_at<S>(gz, idx.pb[s], f2 * g[s] * za);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) z[s] = gz[s];
 }
 
 // The gate v + f * (u - v) on one element, by the jet product rule with

@@ -8,12 +8,13 @@
 // is derived by hand. Stages are walked in reverse from the saved (or
 // freshly recomputed) stage boundaries. For each stage:
 //   1. forward phase: recompute the stage's inner layers from its boundary
-//      (z_s = y_in_s @ W (+ b on the primal), tanh jet rule, gate); write
+//      (z_s = y_in_s @ W (+ b on the primal), the activation's jet rule,
+//      gate); write
 //      each layer's output, the next layer's input, to device memory for
 //      jet_wgrad.cu, and park its z in the layer's gz buffer;
 //   2. reverse phase, per layer from the stage's last: take z back from the
 //      gz buffer (the stage's last layer computes it here, from the input
-//      the forward phase left in shared memory) and f = tanh-jet(z); then,
+//      the forward phase left in shared memory) and f = act-jet(z); then,
 //      with g the cotangent of the layer's output,
 //      RESIDUAL (out = alpha f + (1 - alpha) y_stage_in):
 //        d alpha += sum_s g_s (f_s - y_stage_in_s),
@@ -26,7 +27,8 @@
 //        g_dk = g_k f_0 + sum_{pairs ij containing k} g_ij f_other,
 //        g_fij = g_ij d_0,       g_dij = g_ij f_0,
 //        g_u += g_d,  g_v += g - g_d,  g <- g_f;
-//      tanh jet rule: gz from (z, g) as in jet_mlp_bwd.cu;
+//      the activation's jet rule: gz from (z, g) (jet_common.cuh,
+//      jet_rule_vjp) as in jet_mlp_bwd.cu;
 //      write gz; g <- gz @ W^T; at the stage's first layer add g_res.
 // The sums over the batch (dW, db: jet_wgrad.cu; d alpha: jet_alpha_reduce
 // there) are separate kernels: this one writes gz, the layer inputs and one
@@ -67,6 +69,7 @@ struct GatedBwdParams {
   int sfirst[PSCI_MAX_L];          // first layer of the stage that holds layer l
   int aidx[PSCI_MAX_L];            // ordinal of a residual layer among the residuals
   JetIdx idx;
+  Act act;
   int L, N, kmax, n_res;
 };
 
@@ -76,24 +79,16 @@ struct GatedBwdParams {
 // ok: the row is inside the batch.
 template <int S>
 __device__ __forceinline__ void layer_vjp_elem(float (&z)[S], float (&g)[S], const GatedBwdParams& p,
-                                               int op, float a, const float* const (&xin)[S],
+                                               const Act act, int op, float a, const float* const (&xin)[S],
                                                bool first_gate, size_t off, bool ok, float& asum) {
   const JetIdx& idx = p.idx;
-  const float t = tanhf(z[0]);
-  const float sp = 1.f - t * t;
-  const float spp = -2.f * t * sp;
-  const float sppp = -2.f * sp * sp + 4.f * t * t * sp;
+  float f0, f1, f2, f3;
+  psci_act(act, z[0], f0, f1, f2, f3);
   if (op & (PSCI_OP_GATE | PSCI_OP_RESIDUAL)) {
     float f[S];
-    f[0] = t;
 #pragma unroll
-    for (int s = 1; s < S; ++s) {
-      if (idx.kind[s] == 1) {
-        f[s] = sp * z[s];
-      } else {
-        f[s] = spp * sel<S>(z, idx.pa[s]) * sel<S>(z, idx.pb[s]) + sp * z[s];
-      }
-    }
+    for (int s = 0; s < S; ++s) f[s] = z[s];
+    jet_rule_elem<S>(f, f0, f1, f2, idx);
     if (op & PSCI_OP_RESIDUAL) {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -146,27 +141,12 @@ __device__ __forceinline__ void layer_vjp_elem(float (&z)[S], float (&g)[S], con
       for (int s = 0; s < S; ++s) g[s] = gf[s];
     }
   }
-  // VJP of the tanh jet rule
-  float gz[S];
-  gz[0] = sp * g[0];
-#pragma unroll
-  for (int s = 1; s < S; ++s) {
-    gz[s] = sp * g[s];
-    if (idx.kind[s] == 1) {
-      gz[0] += spp * g[s] * z[s];
-    } else {
-      const float za = sel<S>(z, idx.pa[s]), zb = sel<S>(z, idx.pb[s]);
-      gz[0] += (sppp * za * zb + spp * z[s]) * g[s];
-      add_at<S>(gz, idx.pa[s], spp * g[s] * zb);
-      add_at<S>(gz, idx.pb[s], spp * g[s] * za);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < S; ++s) z[s] = gz[s];
+  jet_rule_vjp<S>(z, g, f1, f2, f3, idx);  // VJP of the activation's jet rule
 }
 
-template <int S>
+template <int S, bool ANY>
 __global__ void __launch_bounds__(PSCI_THREADS, 1) jet_gated_bwd_kernel(const GatedBwdParams p) {
+  const Act act = ANY ? p.act : Act{PSCI_TANH, 0.f};
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[PSCI_THREADS / 32];
   const size_t tile = (size_t)S * p.kmax * PSCI_BM;
@@ -217,7 +197,7 @@ __global__ void __launch_bounds__(PSCI_THREADS, 1) jet_gated_bwd_kernel(const Ga
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) tanh_jet<S>(acc, p.idx, i, j);
+            for (int j = 0; j < 4; ++j) act_jet<S>(acc, p.idx, act, i, j);
           if (p.op[m] & PSCI_OP_GATE) gate_tile<S>(acc, us, vs, D, row0, p.N, p.idx, tx, ty);
           store_tile<S>(A, p.kmax, acc, tx, ty);
 #pragma unroll
@@ -265,7 +245,7 @@ __global__ void __launch_bounds__(PSCI_THREADS, 1) jet_gated_bwd_kernel(const Ga
               g[s] = i == 0 ? gv4[s].x : i == 1 ? gv4[s].y : i == 2 ? gv4[s].z : gv4[s].w;
             }
             const int n = row0 + 4 * ty + i;
-            layer_vjp_elem<S>(z, g, p, op, a, stage_in, first_gate, (size_t)n * D + 4 * tx + j,
+            layer_vjp_elem<S>(z, g, p, act, op, a, stage_in, first_gate, (size_t)n * D + 4 * tx + j,
                               n < p.N, asum);
 #pragma unroll
             for (int s = 0; s < S; ++s) acc[s][i][j] = z[s];
@@ -334,16 +314,32 @@ __global__ void __launch_bounds__(PSCI_THREADS, 1) jet_gated_bwd_kernel(const Ga
   }
 }
 
-template <int S>
+template <int S, bool ANY>
 static cudaError_t launch(const GatedBwdParams& p, cudaStream_t stream) {
   const size_t smem =
       (2 * (size_t)S * p.kmax * PSCI_BM + (size_t)PSCI_KC * (p.kmax + 4)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(jet_gated_bwd_kernel<S>,
+  cudaError_t err = cudaFuncSetAttribute(jet_gated_bwd_kernel<S, ANY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + PSCI_BM - 1) / PSCI_BM);
-  jet_gated_bwd_kernel<S><<<grid, PSCI_THREADS, smem, stream>>>(p);
+  jet_gated_bwd_kernel<S, ANY><<<grid, PSCI_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ANY = false: the kernel specialised to tanh (the Allen-Cahn paths'
+// activation), with the code and registers of a tanh-only kernel.
+template <bool ANY>
+static cudaError_t launch_s(const GatedBwdParams& p, int S, cudaStream_t st) {
+  switch (S) {
+    case 1: return launch<1, ANY>(p, st);
+    case 2: return launch<2, ANY>(p, st);
+    case 3: return launch<3, ANY>(p, st);
+    case 4: return launch<4, ANY>(p, st);
+    case 5: return launch<5, ANY>(p, st);
+    case 6: return launch<6, ANY>(p, st);
+    case 7: return launch<7, ANY>(p, st);
+    default: return launch<8, ANY>(p, st);
+  }
 }
 
 // Host entry point. Pointer arguments are host arrays of device pointers:
@@ -351,16 +347,20 @@ static cudaError_t launch(const GatedBwdParams& p, cudaStream_t stream) {
 // arrays when no layer is gated), W[L], b[L], alpha[L] (null entries
 // without a residual), lin[L] (entry 0 unused), gz[L]; apart is device
 // scratch of ceil(N / 16) * n_res floats (null when there is no residual);
-// dims[L+1]; op[L]; kind/pa/pb[S]. kmax >= every dims[l], rounded up to a
-// multiple of 4. A program with residuals has one width throughout.
+// dims[L+1]; op[L]; kind/pa/pb[S]; act, act_w: the activation's id and
+// parameter. kmax >= every dims[l], rounded up to a multiple of 4, and <=
+// 256 (16-row tiles). A program with residuals has one width throughout.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int jet_gated_bwd(const void* const* x, const void* const* u, const void* const* v,
                              const void* const* gout, void* const* gin, void* const* gu,
                              void* const* gv, const void* const* W, const void* const* b,
                              const void* const* alpha, void* const* lin, void* const* gz, void* apart,
                              const int* dims, const int* op, const int* kind, const int* pa,
-                             const int* pb, int S, int L, int N, int kmax, void* stream) {
-  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1) return (int)cudaErrorInvalidValue;
+                             const int* pb, int S, int L, int N, int kmax, int act, float act_w,
+                             void* stream) {
+  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 4 * 64 || act < 0 ||
+      act >= PSCI_N_ACTS)
+    return (int)cudaErrorInvalidValue;
   if (!(op[0] & PSCI_OP_STAGE)) return (int)cudaErrorInvalidValue;
   GatedBwdParams p = {};
   const bool gated = u != nullptr && v != nullptr && gu != nullptr && gv != nullptr;
@@ -398,21 +398,13 @@ extern "C" int jet_gated_bwd(const void* const* x, const void* const* u, const v
   }
   for (int l = 0; l <= L; ++l) p.dims[l] = dims[l];
   p.apart = static_cast<float*>(apart);
+  p.act = Act{act, act_w};
   p.L = L;
   p.N = N;
   p.kmax = kmax;
   p.n_res = n_res;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (S) {
-    case 1: return (int)launch<1>(p, st);
-    case 2: return (int)launch<2>(p, st);
-    case 3: return (int)launch<3>(p, st);
-    case 4: return (int)launch<4>(p, st);
-    case 5: return (int)launch<5>(p, st);
-    case 6: return (int)launch<6>(p, st);
-    case 7: return (int)launch<7>(p, st);
-    default: return (int)launch<8>(p, st);
-  }
+  return (int)(act == PSCI_TANH ? launch_s<false>(p, S, st) : launch_s<true>(p, S, st));
 }
 
 PSCI_ERROR_STRING_FN

@@ -4,8 +4,8 @@
 // Replaces paddlescience_tpu/ops/jet_pallas.py::_forward (pallas_call at
 // :361) for the bodies arch/mlp.py::_mlp_segment_fn(gated=True) and
 // _piratenet_blocks_fn. For each layer l and each of the S jet streams:
-// z_s = y_s @ W_l, z_0 += b_l, the tanh jet rule, then what the layer's op
-// code asks for (jet_common.cuh):
+// z_s = y_s @ W_l, z_0 += b_l, the jet rule of the segment's activation
+// (jet_common.cuh, psci_act), then what the layer's op code asks for:
 //   GATE      y <- v + y * (u - v)          (jet product rule with u, v)
 //   RESIDUAL  y <- alpha * y + (1 - alpha) * y_in, y_in the stage's input
 // Optionally writes the stage boundaries (the carry entering every stage
@@ -40,11 +40,13 @@ struct GatedFwdParams {
   int op[PSCI_MAX_L];
   int sfirst[PSCI_MAX_L];          // first layer of the stage that holds layer l
   JetIdx idx;
+  Act act;
   int L, N, kmax;
 };
 
-template <int S>
+template <int S, bool ANY>
 __global__ void __launch_bounds__(PSCI_THREADS, S <= 4 ? 2 : 1) jet_gated_fwd_kernel(const GatedFwdParams p) {
+  const Act act = ANY ? p.act : Act{PSCI_TANH, 0.f};
   extern __shared__ __align__(16) float smem[];
   float* A = smem;                                   // [S][kmax][BM]
   float* Wc = smem + (size_t)S * p.kmax * PSCI_BM;   // [KC][D]
@@ -73,7 +75,7 @@ __global__ void __launch_bounds__(PSCI_THREADS, S <= 4 ? 2 : 1) jet_gated_fwd_ke
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) tanh_jet<S>(acc, p.idx, i, j);
+        for (int j = 0; j < 4; ++j) act_jet<S>(acc, p.idx, act, i, j);
       if (op & PSCI_OP_GATE) gate_tile<S>(acc, us, vs, D, row0, p.N, p.idx, tx, ty);
       if (op & PSCI_OP_RESIDUAL) {
         const float a = __ldg(p.alpha[l]);
@@ -112,31 +114,50 @@ __global__ void __launch_bounds__(PSCI_THREADS, S <= 4 ? 2 : 1) jet_gated_fwd_ke
   }
 }
 
-template <int S>
+template <int S, bool ANY>
 static cudaError_t launch(const GatedFwdParams& p, cudaStream_t stream) {
   int dmax = 0;
   for (int l = 1; l <= p.L; ++l) dmax = p.dims[l] > dmax ? p.dims[l] : dmax;
   const size_t smem = ((size_t)S * p.kmax * PSCI_BM + (size_t)PSCI_KC * dmax) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(jet_gated_fwd_kernel<S>,
+  cudaError_t err = cudaFuncSetAttribute(jet_gated_fwd_kernel<S, ANY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + PSCI_BM - 1) / PSCI_BM);
-  jet_gated_fwd_kernel<S><<<grid, PSCI_THREADS, smem, stream>>>(p);
+  jet_gated_fwd_kernel<S, ANY><<<grid, PSCI_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// ANY = false: the kernel specialised to tanh (the Allen-Cahn paths'
+// activation), with the code and registers of a tanh-only kernel.
+template <bool ANY>
+static cudaError_t launch_s(const GatedFwdParams& p, int S, cudaStream_t st) {
+  switch (S) {
+    case 1: return launch<1, ANY>(p, st);
+    case 2: return launch<2, ANY>(p, st);
+    case 3: return launch<3, ANY>(p, st);
+    case 4: return launch<4, ANY>(p, st);
+    case 5: return launch<5, ANY>(p, st);
+    case 6: return launch<6, ANY>(p, st);
+    case 7: return launch<7, ANY>(p, st);
+    default: return launch<8, ANY>(p, st);
+  }
 }
 
 // Host entry point. Pointer arguments are host arrays of device pointers:
 // x[S], u[S], v[S] (u, v may be null arrays when no layer is gated), W[L],
 // b[L], alpha[L] (null entries for layers without a residual), out[S],
-// lin[L] (null entries = do not write). dims[L+1]; op[L]; kind/pa/pb[S].
-// A residual in a stage that does not start the segment needs lin[] of
-// that stage's first layer. Returns a cudaError_t code (0 = launched).
+// lin[L] (null entries = do not write). dims[L+1]; op[L]; kind/pa/pb[S];
+// act, act_w: the activation's id and parameter. A residual in a stage
+// that does not start the segment needs lin[] of that stage's first layer.
+// Widths <= 256 (16-row tiles). Returns a cudaError_t code (0 = launched).
 extern "C" int jet_gated_fwd(const void* const* x, const void* const* u, const void* const* v,
                              const void* const* W, const void* const* b, const void* const* alpha,
                              void* const* out, void* const* lin, const int* dims, const int* op,
                              const int* kind, const int* pa, const int* pb, int S, int L, int N,
-                             int kmax, void* stream) {
-  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1) return (int)cudaErrorInvalidValue;
+                             int kmax, int act, float act_w, void* stream) {
+  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 4 * 64 || act < 0 ||
+      act >= PSCI_N_ACTS)
+    return (int)cudaErrorInvalidValue;
   if (!(op[0] & PSCI_OP_STAGE)) return (int)cudaErrorInvalidValue;
   GatedFwdParams p = {};
   for (int s = 0; s < S; ++s) {
@@ -162,20 +183,12 @@ extern "C" int jet_gated_fwd(const void* const* x, const void* const* u, const v
       return (int)cudaErrorInvalidValue;
   }
   for (int l = 0; l <= L; ++l) p.dims[l] = dims[l];
+  p.act = Act{act, act_w};
   p.L = L;
   p.N = N;
   p.kmax = kmax;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (S) {
-    case 1: return (int)launch<1>(p, st);
-    case 2: return (int)launch<2>(p, st);
-    case 3: return (int)launch<3>(p, st);
-    case 4: return (int)launch<4>(p, st);
-    case 5: return (int)launch<5>(p, st);
-    case 6: return (int)launch<6>(p, st);
-    case 7: return (int)launch<7>(p, st);
-    default: return (int)launch<8>(p, st);
-  }
+  return (int)(act == PSCI_TANH ? launch_s<false>(p, S, st) : launch_s<true>(p, S, st));
 }
 
 PSCI_ERROR_STRING_FN

@@ -1,4 +1,4 @@
 from paddlescience_torch.equation.pde.base import PDE
-from paddlescience_torch.equation.pde.basic import AllenCahn
+from paddlescience_torch.equation.pde.basic import AllenCahn, NavierStokes, NormalDotVec
 
-__all__ = ["PDE", "AllenCahn"]
+__all__ = ["PDE", "AllenCahn", "NavierStokes", "NormalDotVec"]

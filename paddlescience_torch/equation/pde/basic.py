@@ -1,17 +1,19 @@
 """Named PDEs (counterpart of ``paddlescience_tpu/equation/pde/basic.py``).
 
-Ported: ``AllenCahn`` (closure form). The sympy-form PDEs (Laplace,
-Poisson, NavierStokes, ...) need a sympy-free lowering first.
+Ported: ``AllenCahn``, ``NavierStokes`` (constant nu and rho) and
+``NormalDotVec``, in closure form: sympy is not installed where the port
+runs. The other sympy-form PDEs (Laplace, Poisson, ...) need the same
+lowering first.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 from paddlescience_torch.autodiff.ad import jacobian
 from paddlescience_torch.equation.pde.base import PDE
 
-__all__ = ["AllenCahn"]
+__all__ = ["AllenCahn", "NavierStokes", "NormalDotVec"]
 
 
 class AllenCahn(PDE):
@@ -30,3 +32,66 @@ class AllenCahn(PDE):
             return u__t - (self.eps**2) * u__x__x + 5 * u * u * u - 5 * u
 
         self.add_equation("allen_cahn", allen_cahn)
+
+
+class NavierStokes(PDE):
+    """Incompressible Navier-Stokes in closure form, for a constant ``nu``
+    and ``rho``, ``dim`` 2 or 3, steady or unsteady (``time``): the four
+    residuals of the JAX package's sympy form (``basic.py:187-216``),
+
+        continuity = u_x + v_y (+ w_z)
+        momentum_x = u_t + u u_x + v u_y (+ w u_z)
+                     - nu (u_xx + u_yy (+ u_zz)) + p_x / rho
+
+    and likewise momentum_y, momentum_z. A string ``nu`` or ``rho`` (a
+    sympy expression, or a learnable symbol) is not ported: it raises
+    ``NotImplementedError``."""
+
+    def __init__(self, nu: Union[float, str], rho: Union[float, str], dim: int, time: bool,
+                 detach_keys: Optional[Tuple[str, ...]] = None):
+        super().__init__()
+        if isinstance(nu, str) or isinstance(rho, str):
+            raise NotImplementedError("NavierStokes with a string nu or rho (a sympy expression or a learnable "
+                                      "symbol) is not ported; pass numbers")
+        if dim not in (2, 3):
+            raise ValueError(f"dim must be 2 or 3, got {dim}")
+        self.detach_keys = detach_keys
+        self.nu, self.rho, self.dim, self.time = float(nu), float(rho), dim, time
+        vel = ("u", "v", "w")[:dim]
+        axes = ("x", "y", "z")[:dim]
+
+        def continuity(out):
+            return sum(jacobian(out[c], out[a]) for c, a in zip(vel, axes))
+
+        def momentum(k):
+            def residual(out):
+                q = out[vel[k]]
+                grads = jacobian(q, [out[a] for a in axes])
+                r = jacobian(q, out["t"]) if time else 0.0
+                for c, g in zip(vel, grads):
+                    r = r + out[c] * g
+                r = r - self.nu * sum(jacobian(g, out[a]) for g, a in zip(grads, axes))
+                return r + jacobian(out["p"], out[axes[k]]) / self.rho
+
+            return residual
+
+        self.add_equation("continuity", continuity)
+        for k, name in enumerate(("momentum_x", "momentum_y", "momentum_z")[:dim]):
+            self.add_equation(name, momentum(k))
+
+
+class NormalDotVec(PDE):
+    """n . v over boundary normals: ``normal_x * v[0] + normal_y * v[1] +
+    normal_z * v[2]`` for the keys in ``vec_keys``."""
+
+    def __init__(self, vec_keys: Tuple[str, ...], detach_keys: Optional[Tuple[str, ...]] = None):
+        super().__init__()
+        if not vec_keys:
+            raise ValueError(f"vec_keys is {vec_keys}")
+        self.detach_keys = detach_keys
+        self.vec_keys = tuple(vec_keys)
+
+        def normal_dot_vec(out):
+            return sum(out[f"normal_{a}"] * out[k] for a, k in zip("xyz", self.vec_keys))
+
+        self.add_equation("normal_dot_vec", normal_dot_vec)

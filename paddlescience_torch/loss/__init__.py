@@ -1,4 +1,4 @@
 from paddlescience_torch.loss import mtl
-from paddlescience_torch.loss.losses import CausalMSELoss, Loss, MSELoss
+from paddlescience_torch.loss.losses import CausalMSELoss, IntegralLoss, Loss, MSELoss
 
-__all__ = ["mtl", "CausalMSELoss", "Loss", "MSELoss"]
+__all__ = ["mtl", "CausalMSELoss", "IntegralLoss", "Loss", "MSELoss"]

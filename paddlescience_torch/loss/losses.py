@@ -1,6 +1,8 @@
-"""Pointwise losses (counterpart of ``paddlescience_tpu/loss/losses.py``):
-``MSELoss`` and ``CausalMSELoss``. Contract:
-``loss(output_dict, label_dict, weight_dict=None) -> {key: scalar}``."""
+"""Losses (counterpart of ``paddlescience_tpu/loss/losses.py``):
+``MSELoss``, ``CausalMSELoss`` and ``IntegralLoss``. Contract:
+``loss(output_dict, label_dict, weight_dict=None) -> {key: scalar}``. As in
+the JAX package, a pointwise loss is weighted by the ``"area"`` column
+when the output dict carries one (mesh boundary samples do)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["Loss", "MSELoss", "CausalMSELoss"]
+__all__ = ["Loss", "MSELoss", "CausalMSELoss", "IntegralLoss"]
 
 
 class Loss:
@@ -28,6 +30,8 @@ def _squared_error(output_dict, label_dict, weight_dict, key):
     loss = (output_dict[key] - label_dict[key]) ** 2
     if weight_dict and key in weight_dict:
         loss = loss * weight_dict[key]
+    if "area" in output_dict:
+        loss = loss * output_dict["area"]
     return loss
 
 
@@ -59,4 +63,20 @@ class CausalMSELoss(Loss):
             acc = torch.tril(torch.ones(self.n_chunks, self.n_chunks, device=loss_t.device), -1)
             weight_t = torch.exp(-self.tol * (acc @ loss_t.mean(dim=-1, keepdim=True)))
             losses[key] = self._reduce(loss_t * weight_t.detach())
+        return losses
+
+
+class IntegralLoss(Loss):
+    """Monte-Carlo integral matching: per set of points, (sum_i o_i * area_i
+    - label)^2, times the weight, reduced over the sets. Outputs and areas
+    are (sets, points, 1), labels and weights (sets, 1)."""
+
+    def __call__(self, output_dict, label_dict, weight_dict=None) -> Dict[str, torch.Tensor]:
+        losses = {}
+        for key in label_dict:
+            integral = (output_dict[key] * output_dict["area"]).sum(dim=1)
+            loss = (integral - label_dict[key]) ** 2
+            if weight_dict and key in weight_dict:
+                loss = loss * weight_dict[key]
+            losses[key] = self._reduce(loss)
         return losses

@@ -3,6 +3,8 @@ plain ``Linear`` the MLP family needs, in the JAX layout."""
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 from torch import nn
 
@@ -12,14 +14,16 @@ __all__ = ["Linear"]
 
 
 class Linear(nn.Module):
-    """y = x @ W + b with W of shape (in, out), xavier-uniform initialised."""
+    """y = x @ W + b with W of shape (in, out), xavier-uniform initialised
+    unless ``kernel_init(tensor, generator)`` is given."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True, *,
-                 generator: torch.Generator):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 kernel_init: Optional[Callable] = None, *, generator: torch.Generator):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = nn.Parameter(initializer.xavier_uniform_(torch.empty(in_features, out_features), generator))
+        init = kernel_init or initializer.xavier_uniform_
+        self.weight = nn.Parameter(init(torch.empty(in_features, out_features), generator))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x):

@@ -5,8 +5,11 @@ Counterpart of ``paddlescience_tpu/ops/jet_pallas.py`` for the bodies that
 ``arch/mlp.py`` feeds it besides the ungated MLP (``ops/jet_mlp.py``): the
 gated ModifiedMLP segment (``_mlp_segment_fn(gated=True)``) and the
 PirateNet block group (``_piratenet_blocks_fn``). One *layer program*
-expresses all of them. A segment is L ``linear + tanh`` layers on the S
-streams of the carry ``y``; each layer's op code says what follows it:
+expresses all of them. A segment is L ``linear + activation`` layers on
+the S streams of the carry ``y`` (one activation of
+``autodiff/jet.py::ACT_RULES`` for the whole segment, ``act = (id,
+parameter)``, default tanh; widths <= 256); each layer's op code says what
+follows it:
 
 * ``GATE``     - the two-stream gate ``v + y * (u - v)`` (the jet product
   rule) with the segment's gate jets ``u`` and ``v``;
@@ -45,8 +48,8 @@ from torch.autograd.function import once_differentiable
 
 from paddlescience_torch.autodiff import jet as jetmod
 from paddlescience_torch.ops import cuda_build, jet_mlp
-from paddlescience_torch.ops.cuda_build import I, P, ints, is_cpu, launch, on_device, ptrs, stream_handle
-from paddlescience_torch.ops.jet_mlp import BM, SMEM_LIMIT, index_tables, tanh_jet_vjp
+from paddlescience_torch.ops.cuda_build import F, I, P, ints, is_cpu, launch, on_device, ptrs, stream_handle
+from paddlescience_torch.ops.jet_mlp import BM, SMEM_LIMIT, TANH, act_args, act_jet, act_jet_vjp, index_tables
 
 __all__ = [
     "GATE",
@@ -66,6 +69,7 @@ __all__ = [
 ]
 
 GATE, RESIDUAL, STAGE = 1, 2, 4  # op-code bits of a layer (csrc/jet_common.cuh)
+MAX_WIDTH = 256  # the gated kernels keep the 16-row tile of jet_mlp's narrow case
 
 Program = Tuple[int, ...]
 Tensors = Tuple[torch.Tensor, ...]
@@ -106,8 +110,8 @@ def _has_gates(program: Program) -> bool:
 # ----------------------------------------------------------- plain versions --
 
 
-def _layer_fwd(y: jetmod.Jet, w, b, op: int, jv, jd, alpha, stage_in) -> jetmod.Jet:
-    y = jetmod.elementwise(jetmod.linear(y, w, b), torch.tanh)
+def _layer_fwd(y: jetmod.Jet, w, b, op: int, jv, jd, alpha, stage_in, act) -> jetmod.Jet:
+    y = jetmod.Jet(act_jet(jetmod.linear(y, w, b).streams, index_tables(y.index), act), y.index)
     if op & GATE:
         y = jetmod.add(jv, jetmod.mul(y, jd))
     if op & RESIDUAL:
@@ -116,7 +120,7 @@ def _layer_fwd(y: jetmod.Jet, w, b, op: int, jv, jd, alpha, stage_in) -> jetmod.
 
 
 def jet_gated_fwd_plain(y, u, v, weights, biases, alphas, program: Program, index: jetmod.JetIndex,
-                        save_bounds: bool = False) -> Tuple[Tensors, Tensors]:
+                        save_bounds: bool = False, act: jetmod.Act = TANH) -> Tuple[Tensors, Tensors]:
     """The layer program in jet primitives. ``u``/``v`` are the gate
     streams (empty when the program has no gate), ``alphas`` one (1,)
     tensor per residual layer in order. Returns the output streams and,
@@ -138,18 +142,8 @@ def jet_gated_fwd_plain(y, u, v, weights, biases, alphas, program: Program, inde
         alpha = None
         if op & RESIDUAL:
             alpha, a = alphas[a], a + 1
-        cur = _layer_fwd(cur, weights[l], biases[l], op, jv, jd, alpha, stage_in)
+        cur = _layer_fwd(cur, weights[l], biases[l], op, jv, jd, alpha, stage_in, act)
     return cur.streams, tuple(bounds)
-
-
-def _tanh_jet(z, tables):
-    """The tanh jet rule on pre-activation streams z."""
-    kinds, pa, pb = tables
-    t = torch.tanh(z[0])
-    sp = 1.0 - t * t
-    spp = -2.0 * t * sp
-    return [t] + [sp * z[s] if kinds[s] == 1 else spp * z[pa[s]] * z[pb[s]] + sp * z[s]
-                  for s in range(1, len(z))]
 
 
 def _mul_vjp(f, d, g, tables):
@@ -173,10 +167,10 @@ def _mul_vjp(f, d, g, tables):
 
 
 def jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program: Program,
-                        index: jetmod.JetIndex):
+                        index: jetmod.JetIndex, act: jetmod.Act = TANH):
     """Hand-derived VJP of the layer program, stage by stage in reverse:
     recompute a stage's inner layer inputs from its boundary, then walk its
-    layers backwards through the residual, gate and tanh rules.
+    layers backwards through the residual, gate and activation rules.
 
     Returns ``(g_y, g_u, g_v, gzs, layer_inputs, d_alpha)``: the cotangents
     of the three input jets (``g_u``/``g_v`` empty without gates), per
@@ -203,7 +197,7 @@ def jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program
         for l in range(l0, l1):  # inner layers carry no residual
             z = [s @ weights[l] for s in x]
             z[0] = z[0] + biases[l]
-            x = _tanh_jet(z, tables)
+            x = act_jet(z, tables, act)
             if program[l] & GATE:
                 x = [vs + ps for vs, ps in zip(v, jetmod.mul(jetmod.Jet(x, index), jetmod.Jet(d, index)).streams)]
             ins[l + 1] = tuple(x)
@@ -213,7 +207,7 @@ def jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program
             z = [s @ w for s in ins[l]]
             z[0] = z[0] + biases[l]
             if op & (GATE | RESIDUAL):
-                f = _tanh_jet(z, tables)
+                f = act_jet(z, tables, act)
             if op & RESIDUAL:
                 a -= 1
                 alpha = alphas[a]
@@ -226,7 +220,7 @@ def jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program
                     gu[s] = gu[s] + gd[s]
                     gv[s] = gv[s] + g[s] - gd[s]
                 g = gf
-            gz = tanh_jet_vjp(z, g, tables)
+            gz = act_jet_vjp(z, g, tables, act)
             gzs[l] = torch.stack(gz)
             g = [x @ w.t() for x in gz]
         if g_res is not None:
@@ -243,8 +237,8 @@ def jet_alpha_reduce_plain(partials: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------- CUDA wrappers --
 
-cuda_build.declare("jet_gated_fwd", [P] * 13 + [I] * 4 + [P])
-cuda_build.declare("jet_gated_bwd", [P] * 18 + [I] * 4 + [P])
+cuda_build.declare("jet_gated_fwd", [P] * 13 + [I] * 5 + [F, P])
+cuda_build.declare("jet_gated_bwd", [P] * 18 + [I] * 5 + [F, P])
 cuda_build.declare("jet_alpha_reduce", [P, P, I, I, P], library="jet_wgrad")
 
 
@@ -252,7 +246,7 @@ def _gated_dims(y, u, v, weights, biases, alphas, program, index) -> List[int]:
     _stages(program)
     if len(program) != len(weights):
         raise ValueError(f"the program has {len(program)} layers, got {len(weights)} weights")
-    dims = jet_mlp._segment_dims(y, weights, biases, index)
+    dims = jet_mlp._segment_dims(y, weights, biases, index, MAX_WIDTH)
     if len(alphas) != _n_residuals(program) or any(tuple(a.shape) != (1,) for a in alphas):
         raise ValueError("need one (1,) alpha per residual layer")
     if _has_gates(program):
@@ -285,12 +279,13 @@ def _alpha_table(program: Program, alphas) -> list:
 
 
 def jet_gated_fwd(y, u, v, weights, biases, alphas, program: Program, index: jetmod.JetIndex,
-                  save_bounds: bool = False) -> Tuple[Tensors, Tensors]:
+                  save_bounds: bool = False, act: jetmod.Act = TANH) -> Tuple[Tensors, Tensors]:
     """Segment forward; returns (output streams, stage boundaries)."""
     if is_cpu(y[0]):
-        return jet_gated_fwd_plain(y, u, v, weights, biases, alphas, program, index, save_bounds)
+        return jet_gated_fwd_plain(y, u, v, weights, biases, alphas, program, index, save_bounds, act)
     dev = y[0].device
     dims = _gated_dims(y, u, v, weights, biases, alphas, program, index)
+    act_id, act_w = act_args(act)
     S, L, N = len(y), len(weights), int(y[0].shape[0])
     kmax = jet_mlp._round4(max(dims))
     if (S * kmax * BM + 16 * max(dims[1:])) * 4 > SMEM_LIMIT:
@@ -312,21 +307,22 @@ def jet_gated_fwd(y, u, v, weights, biases, alphas, program: Program, index: jet
     kinds, pa, pb = index_tables(index)
     launch("jet_gated_fwd", ptrs(y), ptrs(u) if u else None, ptrs(v) if v else None, ptrs(weights),
            ptrs(biases), ptrs(_alpha_table(program, alphas)), ptrs(outs), ptrs(table), ints(dims),
-           ints(program), ints(kinds), ints(pa), ints(pb), S, L, N, kmax, stream_handle(dev))
+           ints(program), ints(kinds), ints(pa), ints(pb), S, L, N, kmax, act_id, act_w, stream_handle(dev))
     jet_gated_fwd.launches += 1
     return outs, bounds
 
 
 def jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out, program: Program,
-                  index: jetmod.JetIndex):
+                  index: jetmod.JetIndex, act: jetmod.Act = TANH):
     """Segment backward from the stage boundaries; returns what
     :func:`jet_gated_bwd_plain` returns, d alpha as (n_tiles, n_residuals)
     partial sums on CUDA tensors (for :func:`jet_alpha_reduce`) and
     already summed on CPU tensors."""
     if is_cpu(y[0]):
-        return jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program, index)
+        return jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program, index, act)
     dev = y[0].device
     dims = _gated_dims(y, u, v, weights, biases, alphas, program, index)
+    act_id, act_w = act_args(act)
     S, L, N = len(y), len(weights), int(y[0].shape[0])
     starts = [l for l, op in enumerate(program) if op & STAGE and l > 0]
     if len(bounds) != len(starts) or len(g_out) != S:
@@ -353,7 +349,7 @@ def jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out, program: Prog
            ptrs(g_y), ptrs(g_u) if gated else None, ptrs(g_v) if gated else None, ptrs(weights),
            ptrs(biases), ptrs(_alpha_table(program, alphas)), ptrs(table), ptrs(gzs),
            partials.data_ptr() if n_res else None, ints(dims), ints(program), ints(kinds), ints(pa),
-           ints(pb), S, L, N, kmax, stream_handle(dev))
+           ints(pb), S, L, N, kmax, act_id, act_w, stream_handle(dev))
     jet_gated_bwd.launches += 1
     ins = tuple(tuple(y) if l == 0 else tuple(t.unbind(0)) for l, t in enumerate(table))
     return g_y, g_u, g_v, gzs, ins, partials
@@ -399,15 +395,15 @@ class _JetGatedSegment(torch.autograd.Function):
     differentiable, like ``ops/jet_mlp.py::_JetMLPSegment``."""
 
     @staticmethod
-    def forward(ctx, index, program, save_bounds, *tensors):
+    def forward(ctx, index, program, save_bounds, act, *tensors):
         S, L = len(index), len(program)
         n_uv = S if _has_gates(program) else 0
         cuts = [S, S + n_uv, S + 2 * n_uv, S + 2 * n_uv + L, S + 2 * n_uv + 2 * L]
         y, u, v, weights, biases, alphas = (tensors[a:b] for a, b in zip([0] + cuts, cuts + [len(tensors)]))
         n_stages = len(_stages(program))
         outs, bounds = jet_gated_fwd(y, u, v, weights, biases, alphas, program, index,
-                                     save_bounds and n_stages > 1)
-        ctx.index, ctx.program, ctx.cuts, ctx.n_in = index, program, cuts, len(tensors)
+                                     save_bounds and n_stages > 1, act)
+        ctx.index, ctx.program, ctx.act, ctx.cuts, ctx.n_in = index, program, act, cuts, len(tensors)
         ctx.save_for_backward(*tensors, *bounds)
         return outs
 
@@ -419,24 +415,25 @@ class _JetGatedSegment(torch.autograd.Function):
         y, u, v, weights, biases, alphas = (saved[a:b] for a, b in zip([0] + cuts, cuts + [ctx.n_in]))
         bounds = saved[ctx.n_in :]
         if len(_stages(ctx.program)) > 1 and not bounds:
-            _, bounds = jet_gated_fwd(y, u, v, weights, biases, alphas, ctx.program, ctx.index, save_bounds=True)
+            _, bounds = jet_gated_fwd(y, u, v, weights, biases, alphas, ctx.program, ctx.index, save_bounds=True,
+                                      act=ctx.act)
         g_y, g_u, g_v, gzs, ins, d_alpha = jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out,
-                                                         ctx.program, ctx.index)
+                                                         ctx.program, ctx.index, ctx.act)
         dws, dbs = jet_mlp.jet_wgrad(ins, gzs)
         if d_alpha.dim() == 2:
             d_alpha = jet_alpha_reduce(d_alpha)
-        return (None, None, None, *g_y, *g_u, *g_v, *dws, *dbs, *d_alpha.reshape(-1, 1).unbind(0))
+        return (None, None, None, None, *g_y, *g_u, *g_v, *dws, *dbs, *d_alpha.reshape(-1, 1).unbind(0))
 
 
 def jet_gated_segment(jy: jetmod.Jet, ju: Optional[jetmod.Jet], jv: Optional[jetmod.Jet],
                       weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
                       alphas: Sequence[torch.Tensor], program: Program,
-                      save_bounds: bool = False) -> jetmod.Jet:
+                      save_bounds: bool = False, act: jetmod.Act = TANH) -> jetmod.Jet:
     """Run a layer program on every stream of ``jy`` as one fused segment
     (kernels on CUDA, plain versions on the CPU), differentiable with
     respect to the ``y``, ``u``, ``v`` streams, weights, biases and alphas.
     ``ju``/``jv`` may be None for a program without gates."""
     program = tuple(int(op) for op in program)
     uv = (*ju.streams, *jv.streams) if _has_gates(program) else ()
-    outs = _JetGatedSegment.apply(jy.index, program, save_bounds, *jy.streams, *uv, *weights, *biases, *alphas)
+    outs = _JetGatedSegment.apply(jy.index, program, save_bounds, act, *jy.streams, *uv, *weights, *biases, *alphas)
     return jetmod.Jet(outs, jy.index)

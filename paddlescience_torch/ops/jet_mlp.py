@@ -1,9 +1,11 @@
-"""Fused Taylor-jet segments of an ungated tanh MLP: three hand-written
-CUDA kernels for Hopper and their plain PyTorch versions.
+"""Fused Taylor-jet segments of an ungated MLP: three hand-written CUDA
+kernels for Hopper and their plain PyTorch versions.
 
 Counterpart of ``paddlescience_tpu/ops/jet_pallas.py`` for the MLP body
 (``arch/mlp.py::_mlp_segment_fn``, no gate). A segment is L consecutive
-``linear + tanh`` layers applied to all S streams of a jet:
+``linear + activation`` layers applied to all S streams of a jet. The
+activation is any rule of ``autodiff/jet.py::ACT_RULES``, passed to every
+wrapper and plain version as ``act = (id, parameter)`` (default tanh):
 
 * :func:`jet_mlp_fwd` (``csrc/jet_mlp_fwd.cu``) replaces ``_forward``
   (``jet_pallas.py:361``): the segment forward, optionally saving the stage
@@ -17,8 +19,9 @@ Counterpart of ``paddlescience_tpu/ops/jet_pallas.py`` for the MLP body
   split-K reduction.
 
 :class:`_JetMLPSegment` wraps the three in one ``torch.autograd.Function``.
-It receives the *effective* weights (RWF ``g * v`` is formed outside in
-plain torch), so autograd carries their gradient on to the parameters.
+It receives the *effective* weights (RWF ``g * v`` or weight norm
+``g v / |v|`` is formed outside in plain torch), so autograd carries their
+gradient on to the parameters.
 
 Every wrapper takes its plain version for tensors on the CPU, and only
 there; for a CUDA tensor it launches its kernel or raises. ``<wrapper>.launches``
@@ -30,6 +33,11 @@ what the JAX package calls "highest".
 
 Stream layout: a stream is an (N, W) float32 tensor; weights are (K, D)
 and used as ``x @ W``; stage boundaries and ``gz`` are (S, N, D) per layer.
+
+Limits: S <= 8 streams, widths <= 512. A CTA's row tile is 16 rows up to
+width 256 and 8 rows above (:func:`tile_rows`); the backward keeps the
+layer input and the running cotangent in shared memory where both fit and
+otherwise parks the cotangent in the ``gz`` buffers (:func:`bwd_parks`).
 """
 
 from __future__ import annotations
@@ -42,10 +50,15 @@ from torch.autograd.function import once_differentiable
 
 from paddlescience_torch.autodiff import jet as jetmod
 from paddlescience_torch.ops import cuda_build
-from paddlescience_torch.ops.cuda_build import I, P, ints, is_cpu, launch, on_device, ptrs, stream_handle
+from paddlescience_torch.ops.cuda_build import F, I, P, ints, is_cpu, launch, on_device, ptrs, stream_handle
 
 __all__ = [
+    "TANH",
     "index_tables",
+    "tile_rows",
+    "bwd_parks",
+    "act_jet",
+    "act_jet_vjp",
     "jet_mlp_fwd",
     "jet_mlp_bwd",
     "jet_wgrad",
@@ -56,12 +69,16 @@ __all__ = [
     "reset_counters",
 ]
 
-BM = 16  # rows per CTA tile in the forward and backward kernels
+BM = 16  # rows per CTA tile up to NARROW_WIDTH (and always in the gated kernels)
+BM_WIDE = 8  # rows per CTA tile above NARROW_WIDTH
+NARROW_WIDTH = 256
 MAX_STREAMS = 8
 MAX_LAYERS = 32
-MAX_WIDTH = 256
+MAX_WIDTH = 512
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
+KC = 16  # weight rows (or columns) staged per chunk
 WG_TILE, WG_RC = 64, 32  # jet_wgrad output tile edge and staged batch rows
+TANH: jetmod.Act = (jetmod.TANH, 0.0)
 
 Tensors = Tuple[torch.Tensor, ...]
 
@@ -89,30 +106,44 @@ def _note_plain_call(fn, t: torch.Tensor) -> None:
         fn.cuda_calls += 1
 
 
+def act_jet(z, tables, act: jetmod.Act = TANH):
+    """The jet rule of ``act`` on pre-activation streams z:
+    y_0 = f(z_0), y_k = f' z_k, y_ij = f'' z_i z_j + f' z_ij."""
+    kinds, pa, pb = tables
+    f, f1, f2, _ = jetmod.act_derivs(act, z[0])
+    return [f] + [f1 * z[s] if kinds[s] == 1 else f2 * z[pa[s]] * z[pb[s]] + f1 * z[s] for s in range(1, len(z))]
+
+
 def jet_mlp_fwd_plain(streams: Sequence[torch.Tensor], weights, biases,
-                      index: jetmod.JetIndex, save_bounds: bool = False) -> Tuple[Tensors, Tensors]:
-    """Per-stream ``@`` products and the tanh jet rule. Returns the output
-    streams and, with ``save_bounds``, the L-1 stage boundaries as
+                      index: jetmod.JetIndex, save_bounds: bool = False,
+                      act: jetmod.Act = TANH) -> Tuple[Tensors, Tensors]:
+    """Per-stream ``@`` products and the jet rule of ``act``. Returns the
+    output streams and, with ``save_bounds``, the L-1 stage boundaries as
     (S, N, D) tensors (the jets entering layers 1..L-1)."""
     _note_plain_call(jet_mlp_fwd_plain, streams[0])
-    y = jetmod.Jet(streams, index)
+    tables = index_tables(index)
+    y = list(streams)
     bounds = []
     for l, (w, b) in enumerate(zip(weights, biases)):
         if save_bounds and l > 0:
-            bounds.append(torch.stack(y.streams))
-        y = jetmod.elementwise(jetmod.linear(y, w, b), torch.tanh)
-    return y.streams, tuple(bounds)
+            bounds.append(torch.stack(y))
+        z = jetmod.linear(jetmod.Jet(y, index), w, b).streams
+        y = act_jet(z, tables, act)
+    return tuple(y), tuple(bounds)
 
 
-def tanh_jet_vjp(z, g, tables):
-    """VJP of the tanh jet rule at pre-activations ``z`` (S streams) for
-    output cotangents ``g``: the pre-activation cotangents gz, with
-    t = tanh z_0, sp = 1 - t^2, spp = -2 t sp, sppp = -2 sp^2 + 4 t^2 sp."""
+def act_jet_vjp(z, g, tables, act: jetmod.Act = TANH):
+    """VJP of the jet rule of ``act`` at pre-activations ``z`` (S streams)
+    for output cotangents ``g``: the pre-activation cotangents
+
+        gz_0  = f' g_0 + f'' sum_k g_k z_k + sum_ij (f3 z_i z_j + f'' z_ij) g_ij
+        gz_k  = f' g_k + sum over pairs ij containing k of f'' g_ij z_other
+                (the pair (k, k) contributes 2 f'' g_kk z_k)
+        gz_ij = f' g_ij
+
+    with f3 the third derivative of the activation at z_0."""
     kinds, pa, pb = tables
-    t = torch.tanh(z[0])
-    sp = 1.0 - t * t
-    spp = -2.0 * t * sp
-    sppp = -2.0 * sp * sp + 4.0 * t * t * sp
+    _, sp, spp, sppp = jetmod.act_derivs(act, z[0])
     gz = [sp * gs for gs in g]
     for s in range(1, len(g)):
         if kinds[s] == 1:
@@ -126,7 +157,7 @@ def tanh_jet_vjp(z, g, tables):
 
 
 def jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out,
-                      index: jetmod.JetIndex) -> Tuple[Tensors, Tensors]:
+                      index: jetmod.JetIndex, act: jetmod.Act = TANH) -> Tuple[Tensors, Tensors]:
     """Hand-derived VJP of the segment. Returns the cotangents of the input
     streams and, per layer, the pre-activation cotangents gz as (S, N, D)."""
     _note_plain_call(jet_mlp_bwd_plain, streams[0])
@@ -138,7 +169,7 @@ def jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out,
         w = weights[l]
         z = [s @ w for s in ins[l]]
         z[0] = z[0] + biases[l]
-        gz = tanh_jet_vjp(z, g, tables)
+        gz = act_jet_vjp(z, g, tables, act)
         gzs[l] = torch.stack(gz)
         g = [x @ w.t() for x in gz]
     return tuple(g), tuple(gzs)
@@ -164,8 +195,8 @@ for _fn in (jet_mlp_fwd_plain, jet_mlp_bwd_plain, jet_wgrad_plain):
 
 # ----------------------------------------------------------- CUDA wrappers --
 
-cuda_build.declare("jet_mlp_fwd", [P] * 9 + [I] * 4 + [P])
-cuda_build.declare("jet_mlp_bwd", [P] * 11 + [I] * 4 + [P])
+cuda_build.declare("jet_mlp_fwd", [P] * 9 + [I] * 6 + [F, P])
+cuda_build.declare("jet_mlp_bwd", [P] * 11 + [I] * 7 + [F, P])
 cuda_build.declare("jet_wgrad", [P] * 6 + [I] * 7 + [P])
 
 
@@ -173,7 +204,7 @@ def _round4(x: int) -> int:
     return -(-x // 4) * 4
 
 
-def _segment_dims(streams, weights, biases, index) -> List[int]:
+def _segment_dims(streams, weights, biases, index, max_width: int = MAX_WIDTH) -> List[int]:
     S, L = len(streams), len(weights)
     if S != len(index) or not 1 <= S <= MAX_STREAMS:
         raise ValueError(f"need 1..{MAX_STREAMS} streams matching the index, got {S}")
@@ -185,8 +216,8 @@ def _segment_dims(streams, weights, biases, index) -> List[int]:
             raise ValueError(f"layer shapes do not chain: W {tuple(w.shape)}, b {tuple(b.shape)} "
                              f"after width {dims[-1]}")
         dims.append(int(w.shape[1]))
-    if max(dims) > MAX_WIDTH or any(d % 4 for d in dims[1:]):
-        raise ValueError(f"the kernels take widths <= {MAX_WIDTH}, layer outputs a multiple "
+    if max(dims) > max_width or any(d % 4 for d in dims[1:]):
+        raise ValueError(f"the kernels take widths <= {max_width}, layer outputs a multiple "
                          f"of 4; got {dims}")
     for s in streams:
         if tuple(s.shape) != tuple(streams[0].shape):
@@ -194,16 +225,51 @@ def _segment_dims(streams, weights, biases, index) -> List[int]:
     return dims
 
 
+def act_args(act: jetmod.Act) -> Tuple[int, float]:
+    """(id, parameter) as the kernels take them; refuses an unknown id."""
+    if act[0] not in jetmod.ACT_RULES:
+        raise ValueError(f"unknown activation id {act[0]}")
+    return int(act[0]), float(act[1])
+
+
+def tile_rows(dims: Sequence[int]) -> int:
+    """Rows of a CTA's tile: 16 up to NARROW_WIDTH (64 threads across the
+    columns, 4 down the rows), 8 above (128 across, 2 down), so a thread
+    always owns a 4x4 micro-tile of every stream."""
+    return BM if max(dims) <= NARROW_WIDTH else BM_WIDE
+
+
+def fwd_smem(S: int, dims: Sequence[int]) -> int:
+    """Shared-memory bytes of the forward kernels: the S-stream row tile
+    at the widest layer and one weight chunk."""
+    return (S * _round4(max(dims)) * tile_rows(dims) + KC * max(dims[1:])) * 4
+
+
+def bwd_parks(S: int, dims: Sequence[int]) -> bool:
+    """Whether jet_mlp_bwd parks the running cotangent in device memory
+    (in the gz buffers) instead of a second shared-memory tile: where the
+    layer-input tile, the cotangent tile and a weight chunk do not fit."""
+    kmax = _round4(max(dims))
+    return (2 * S * kmax * tile_rows(dims) + KC * (kmax + 4)) * 4 > SMEM_LIMIT
+
+
+def bwd_smem(S: int, dims: Sequence[int]) -> int:
+    kmax = _round4(max(dims))
+    tiles = 1 if bwd_parks(S, dims) else 2
+    return (tiles * S * kmax * tile_rows(dims) + KC * (kmax + 4)) * 4
+
+
 def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.JetIndex,
-                save_bounds: bool = False) -> Tuple[Tensors, Tensors]:
+                save_bounds: bool = False, act: jetmod.Act = TANH) -> Tuple[Tensors, Tensors]:
     """Segment forward; returns (output streams, stage boundaries)."""
     if is_cpu(streams[0]):
-        return jet_mlp_fwd_plain(streams, weights, biases, index, save_bounds)
+        return jet_mlp_fwd_plain(streams, weights, biases, index, save_bounds, act)
     dev = streams[0].device
     dims = _segment_dims(streams, weights, biases, index)
     S, L, N = len(streams), len(weights), int(streams[0].shape[0])
     kmax = _round4(max(dims))
-    if (S * kmax * BM + 16 * max(dims[1:])) * 4 > SMEM_LIMIT:
+    act_id, act_w = act_args(act)
+    if fwd_smem(S, dims) > SMEM_LIMIT:
         raise ValueError(f"jet_mlp_fwd: {S} streams of width {kmax} exceed shared memory")
     streams = [on_device(s, dev) for s in streams]
     weights = [on_device(w, dev) for w in weights]
@@ -212,25 +278,26 @@ def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.
     bounds = tuple(torch.empty(S, N, dims[l + 1], device=dev) for l in range(L - 1)) if save_bounds else ()
     kinds, pa, pb = index_tables(index)
     launch("jet_mlp_fwd", ptrs(streams), ptrs(weights), ptrs(biases), ptrs(outs),
-            ptrs(bounds) if bounds else None, ints(dims), ints(kinds), ints(pa), ints(pb),
-            S, L, N, kmax, stream_handle(dev))
+           ptrs(bounds) if bounds else None, ints(dims), ints(kinds), ints(pa), ints(pb),
+           S, L, N, kmax, tile_rows(dims), act_id, act_w, stream_handle(dev))
     jet_mlp_fwd.launches += 1
     return outs, bounds
 
 
 def jet_mlp_bwd(streams, bounds, weights, biases, g_out,
-                index: jetmod.JetIndex) -> Tuple[Tensors, Tensors]:
+                index: jetmod.JetIndex, act: jetmod.Act = TANH) -> Tuple[Tensors, Tensors]:
     """Segment backward from the stage boundaries; returns (input-stream
     cotangents, per-layer gz)."""
     if is_cpu(streams[0]):
-        return jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out, index)
+        return jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out, index, act)
     dev = streams[0].device
     dims = _segment_dims(streams, weights, biases, index)
     S, L, N = len(streams), len(weights), int(streams[0].shape[0])
     if len(bounds) != L - 1 or len(g_out) != S:
         raise ValueError(f"jet_mlp_bwd: need {L - 1} boundaries and {S} cotangents")
     kmax = _round4(max(dims))
-    if (2 * S * kmax * BM + 16 * (kmax + 4)) * 4 > SMEM_LIMIT:
+    act_id, act_w = act_args(act)
+    if bwd_smem(S, dims) > SMEM_LIMIT:
         raise ValueError(f"jet_mlp_bwd: {S} streams of width {kmax} exceed shared memory")
     streams = [on_device(s, dev) for s in streams]
     bounds = [on_device(b, dev) for b in bounds]
@@ -241,8 +308,9 @@ def jet_mlp_bwd(streams, bounds, weights, biases, g_out,
     gzs = tuple(torch.empty(S, N, dims[l + 1], device=dev) for l in range(L))
     kinds, pa, pb = index_tables(index)
     launch("jet_mlp_bwd", ptrs(streams), ptrs(bounds) if bounds else None, ptrs(weights),
-            ptrs(biases), ptrs(g_out), ptrs(g_in), ptrs(gzs), ints(dims), ints(kinds),
-            ints(pa), ints(pb), S, L, N, kmax, stream_handle(dev))
+           ptrs(biases), ptrs(g_out), ptrs(g_in), ptrs(gzs), ints(dims), ints(kinds),
+           ints(pa), ints(pb), S, L, N, kmax, tile_rows(dims), int(bwd_parks(S, dims)), act_id, act_w,
+           stream_handle(dev))
     jet_mlp_bwd.launches += 1
     return g_in, gzs
 
@@ -277,7 +345,7 @@ def jet_wgrad(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Tensor])
     dws = tuple(torch.empty(dims[l], dims[l + 1], device=dev) for l in range(L))
     dbs = tuple(torch.empty(dims[l + 1], device=dev) for l in range(L))
     launch("jet_wgrad", ptrs([t for y in ys for t in y]), ptrs(gzs), ptrs(dws), ptrs(dbs),
-            part.data_ptr(), ints(dims), S, L, N, splits, rows_per, kmax, dmax, stream_handle(dev))
+           part.data_ptr(), ints(dims), S, L, N, splits, rows_per, kmax, dmax, stream_handle(dev))
     jet_wgrad.launches += 1
     return dws, dbs
 
@@ -305,13 +373,13 @@ class _JetMLPSegment(torch.autograd.Function):
     raises."""
 
     @staticmethod
-    def forward(ctx, index, save_bounds, n_layers, *tensors):
+    def forward(ctx, index, save_bounds, n_layers, act, *tensors):
         S = len(index)
         streams = tensors[:S]
         weights = tensors[S : S + n_layers]
         biases = tensors[S + n_layers :]
-        outs, bounds = jet_mlp_fwd(streams, weights, biases, index, save_bounds and n_layers > 1)
-        ctx.index, ctx.n_layers, ctx.n_bounds = index, n_layers, len(bounds)
+        outs, bounds = jet_mlp_fwd(streams, weights, biases, index, save_bounds and n_layers > 1, act)
+        ctx.index, ctx.n_layers, ctx.act = index, n_layers, act
         ctx.save_for_backward(*streams, *weights, *biases, *bounds)
         return outs
 
@@ -325,17 +393,17 @@ class _JetMLPSegment(torch.autograd.Function):
         biases = saved[S + L : S + 2 * L]
         bounds = saved[S + 2 * L :]
         if L > 1 and not bounds:
-            _, bounds = jet_mlp_fwd(streams, weights, biases, ctx.index, save_bounds=True)
-        g_in, gzs = jet_mlp_bwd(streams, bounds, weights, biases, g_out, ctx.index)
+            _, bounds = jet_mlp_fwd(streams, weights, biases, ctx.index, save_bounds=True, act=ctx.act)
+        g_in, gzs = jet_mlp_bwd(streams, bounds, weights, biases, g_out, ctx.index, ctx.act)
         ys = [streams] + [b.unbind(0) for b in bounds]
         dws, dbs = jet_wgrad(ys, gzs)
-        return (None, None, None, *g_in, *dws, *dbs)
+        return (None, None, None, None, *g_in, *dws, *dbs)
 
 
 def jet_mlp_segment(jx: jetmod.Jet, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
-                    save_bounds: bool = False) -> jetmod.Jet:
-    """Run L ``linear + tanh`` layers on every stream of ``jx`` as one fused
+                    save_bounds: bool = False, act: jetmod.Act = TANH) -> jetmod.Jet:
+    """Run L ``linear + act`` layers on every stream of ``jx`` as one fused
     segment (kernels on CUDA, plain versions on the CPU), differentiable
     with respect to the input streams, weights and biases."""
-    outs = _JetMLPSegment.apply(jx.index, save_bounds, len(weights), *jx.streams, *weights, *biases)
+    outs = _JetMLPSegment.apply(jx.index, save_bounds, len(weights), act, *jx.streams, *weights, *biases)
     return jetmod.Jet(outs, jx.index)

@@ -42,8 +42,12 @@ def forward_with_derivatives(models: Sequence, input_dict: Mapping[str, torch.Te
     the tape so ``jacobian`` works on the results. Returns the input
     coordinates plus all model outputs.
 
-    Every model input must be an (N, 1) coordinate column (the dense-stack
-    case); per-point extras belong to the nested-jvp path, not ported yet.
+    A model whose inputs are all (N, 1) coordinate columns gets a
+    derivative stack (the dense-stack case). A model with no such column,
+    e.g. on the (sets, points, 1) inputs of an integral constraint, runs
+    its batched forward only and its outputs take no derivatives, as in
+    the JAX package. Coordinate columns mixed with per-point extras belong
+    to the nested-jvp path, not ported yet.
     """
     out: Dict[str, torch.Tensor] = {}
     for k, v in input_dict.items():
@@ -57,6 +61,9 @@ def forward_with_derivatives(models: Sequence, input_dict: Mapping[str, torch.Te
             raise KeyError(f"model inputs {missing} not found in constraint inputs {list(input_dict)}")
         feed = {k: input_dict[k] for k in in_keys}
         extra_keys = [k for k in in_keys if not (feed[k].ndim == 2 and feed[k].shape[-1] == 1)]
+        if len(extra_keys) == len(in_keys):
+            out.update(model(feed))
+            continue
         if extra_keys:
             raise NotImplementedError(
                 f"model inputs {extra_keys} are not (N, 1) coordinate columns; per-point "
@@ -126,4 +133,9 @@ def evaluate_expressions(
             for stack, reqs in zip(tape._stacks, jet_requests):
                 stack.precompute(reqs)
         wrapped = ad.wrap_tape_outputs(tape, out)
-        return {name: ad.unwrap(expr(wrapped)) for name, expr in output_exprs.items()}
+        results = {name: ad.unwrap(expr(wrapped)) for name, expr in output_exprs.items()}
+        # the area and sdf columns ride along for the losses that weight by them
+        for aux in ("area", "sdf"):
+            if aux in out and aux not in results:
+                results[aux] = out[aux]
+        return results

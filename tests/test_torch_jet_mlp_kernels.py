@@ -7,8 +7,10 @@ stage boundaries, and the wrappers' device rule.
 On a GPU (tests marked ``cuda``, skipped elsewhere): each kernel against its
 plain version at the main-path segment depths (MLP: L=4 and the 3+1 split;
 PirateNet groups of 3 and 9 blocks; ModifiedMLP segments of 3 and 1
-layers), with a ragged batch, and at a small shape; the LBM kernel at
-square, ragged and large lattices.
+layers), with a ragged batch, and at a small shape; the aneurysm MLP's
+segments (SiLU, S = 7, 3 -> 512 -> ... -> 512, 6 layers and 3 + 3); every
+activation, ungated and gated; the LBM kernel at square, ragged and large
+lattices.
 This file imports only torch and the port, so it also runs where JAX is
 not installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_jet_mlp_kernels.py``.
@@ -121,6 +123,28 @@ def test_wrappers_take_plain_versions_only_on_cpu():
     cpu = [torch.randn(4, 8) for _ in range(2)]
     J.jet_mlp_fwd(cpu, [torch.randn(8, 8)], [torch.randn(8)], idx)
     assert J.jet_mlp_fwd.launches == 0 and J.jet_mlp_fwd_plain.cuda_calls == 0
+
+
+def test_tiling_and_shared_memory_plan():
+    """Which row tile and cotangent placement each shape gets, and that
+    every shape the wrappers admit (S <= 8, widths <= 512; gated <= 256)
+    fits the shared memory of one CTA."""
+    aneurysm = [3] + [512] * 6
+    assert J.tile_rows(aneurysm) == J.BM_WIDE and J.bwd_parks(7, aneurysm)
+    assert J.tile_rows([256] * 5) == J.BM and not J.bwd_parks(4, [256] * 5) and not J.bwd_parks(6, [256] * 5)
+    assert J.bwd_parks(7, [256] * 5)  # two 7-stream tiles of 256 would need 246,016 bytes
+    for S in range(1, J.MAX_STREAMS + 1):
+        for w in (24, 256, 260, 512):
+            dims = [3] + [w] * 4
+            assert J.fwd_smem(S, dims) <= J.SMEM_LIMIT and J.bwd_smem(S, dims) <= J.SMEM_LIMIT, (S, w)
+    idx = tjet.build_index([(0,)])
+    t = [torch.zeros(4, 516)] * 2
+    with pytest.raises(ValueError, match="widths <= 512"):
+        J._segment_dims(t, [torch.zeros(516, 516)], [torch.zeros(516)], idx)
+    with pytest.raises(ValueError, match="widths <= 256"):
+        G._gated_dims(t[:1] * 2, (), (), [torch.zeros(516, 260)], [torch.zeros(260)], (), G.mlp_program(1), idx)
+    with pytest.raises(ValueError, match="unknown activation"):
+        J.act_args((99, 0.0))
 
 
 @pytest.fixture
@@ -347,6 +371,74 @@ def test_gated_segment_gradients_on_gpu(cuda_device, program, save_bounds):
         _close(a, b)
     for a, b in zip(got[len(got) - n_alpha:], ref[len(ref) - n_alpha:]):
         assert float((a - b).abs()) <= _alpha_tol(b, 1000 * 64 * len(idx))
+
+
+ACTS = [(i, 1.7 if i == tjet.SIREN else 0.0) for i in sorted(tjet.ACT_RULES)]
+NS3D = [(0,), (1,), (2,), (0, 0), (1, 1), (2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ACTS, ids=lambda a: tjet.ACT_NAMES[a[0]])
+def test_every_activation_on_gpu(cuda_device, act):
+    """Each activation through the MLP kernels (S=4, W=256, L=2) and the
+    gated ones (a ModifiedMLP program of 2 layers)."""
+    multis = INDICES[0]
+    idx = tjet.build_index(multis)
+    dev = lambda arrs: [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    ss, ws, bs, gs = (dev(a) for a in _case(multis, 2, n=1000, w=256))
+    outs, bounds = J.jet_mlp_fwd(ss, ws, bs, idx, save_bounds=True, act=act)
+    r_outs, r_bounds = J.jet_mlp_fwd_plain(ss, ws, bs, idx, save_bounds=True, act=act)
+    g_in, gzs = J.jet_mlp_bwd(ss, r_bounds, ws, bs, gs, idx, act)
+    r_gin, r_gzs = J.jet_mlp_bwd_plain(ss, r_bounds, ws, bs, gs, idx, act)
+    for got, ref in zip([*outs, *bounds, *g_in, *gzs], [*r_outs, *r_bounds, *r_gin, *r_gzs]):
+        _close(got, ref)
+    prog = G.modified_mlp_program(2)
+    y, u, v, ws, bs, al, gs = (dev(part) for part in _gated_case(multis, prog, n=1000, w=256))
+    outs, bounds = G.jet_gated_fwd(y, u, v, ws, bs, al, prog, idx, save_bounds=True, act=act)
+    r_outs, r_bounds = G.jet_gated_fwd_plain(y, u, v, ws, bs, al, prog, idx, save_bounds=True, act=act)
+    got = G.jet_gated_bwd(y, u, v, r_bounds, ws, bs, al, gs, prog, idx, act)
+    ref = G.jet_gated_bwd_plain(y, u, v, r_bounds, ws, bs, al, gs, prog, idx, act)
+    torch.cuda.synchronize()
+    for a, b in zip([*outs, *bounds], [*r_outs, *r_bounds]):
+        _close(a, b)
+    for gs_, rs_ in zip(got[:4], ref[:4]):
+        for a, b in zip(gs_, rs_):
+            _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2048, 2047])
+@pytest.mark.parametrize("lengths", [[6], [3, 3]])
+def test_aneurysm_segments_on_gpu(cuda_device, n, lengths):
+    """The aneurysm MLP's hidden layers (3 -> 512, then 512 -> 512; SiLU;
+    S = 7) as one 6-layer segment and as 3 + 3: forward in both modes,
+    backward, weight gradients."""
+    idx = tjet.build_index(NS3D)
+    silu = (tjet.SILU, 0.0)
+    rng = np.random.default_rng(5)
+    dims = [3] + [512] * 6
+    rn = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+    x = [rn(n, 3) for _ in range(len(idx))]
+    weights = [rn(dims[l], dims[l + 1]) / dims[l] ** 0.5 for l in range(6)]
+    biases = [0.1 * rn(512) for _ in range(6)]
+    s = 0
+    for L in lengths:
+        ws, bs = weights[s : s + L], biases[s : s + L]
+        gs = [rn(n, 512) for _ in range(len(idx))]
+        outs, none = J.jet_mlp_fwd(x, ws, bs, idx, act=silu)
+        outs_sb, bounds = J.jet_mlp_fwd(x, ws, bs, idx, save_bounds=True, act=silu)
+        r_outs, r_bounds = J.jet_mlp_fwd_plain(x, ws, bs, idx, save_bounds=True, act=silu)
+        g_in, gzs = J.jet_mlp_bwd(x, r_bounds, ws, bs, gs, idx, silu)
+        r_gin, r_gzs = J.jet_mlp_bwd_plain(x, r_bounds, ws, bs, gs, idx, silu)
+        ys = [x] + [b.unbind(0) for b in r_bounds]
+        dws, dbs = J.jet_wgrad(ys, r_gzs)
+        r_dws, r_dbs = J.jet_wgrad_plain(ys, r_gzs)
+        torch.cuda.synchronize()
+        assert none == () and len(bounds) == L - 1
+        for got, ref in zip([*outs, *outs_sb, *bounds, *g_in, *gzs, *dws, *dbs],
+                            [*r_outs, *r_outs, *r_bounds, *r_gin, *r_gzs, *r_dws, *r_dbs]):
+            _close(got, ref)
+        x, s = list(r_outs), s + L
 
 
 # ------------------------------------------------------------------ LBM --

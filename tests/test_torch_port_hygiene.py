@@ -114,3 +114,48 @@ def test_chip_smoke_fails_alone(tmp_path):
     res = _run_smoke(tmp_path, hide_gpus=False)  # on a GPU machine: fails to find the port
     assert res.returncode != 0
     assert res.stdout.strip() == ""
+
+
+ANEURYSM_MODULES = ("geometry/geometry.py", "geometry/mesh.py", "geometry/sampler.py", "examples/aneurysm.py",
+                    "constraint/constraints.py", "equation/pde/basic.py")
+
+
+def test_the_aneurysm_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(ANEURYSM_MODULES) <= checked
+
+
+def _imported_names(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reaches_neither_tools_nor_the_native_library(path):
+    """The port keeps its own copy of what it needs: no import of the
+    repository's ``tools`` scripts, no read of the JAX package's C++ mesh
+    library."""
+    for name in _imported_names(path):
+        assert name.split(".")[0] != "tools" and "gen_aneurysm_stl" not in name, f"{path.name} imports {name}"
+    text = path.read_text()
+    for needle in ("paddlescience_tpu/native", "libpsci_mesh", "mesh_kernels"):
+        assert needle not in text, f"{path.name} names {needle}"
+
+
+def test_chip_smoke_runs_the_stl_generator_only_as_a_subprocess():
+    path = ROOT / "chip_smoke.py"
+    assert not any("tools" in n.split(".") or "gen_aneurysm_stl" in n for n in _imported_names(path))
+    tree = ast.parse(path.read_text())
+    docstrings = {id(n.body[0].value) for n in ast.walk(tree)
+                  if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef)) and n.body
+                  and isinstance(n.body[0], ast.Expr) and isinstance(n.body[0].value, ast.Constant)}
+    mentions = [n for n in ast.walk(tree) if isinstance(n, ast.Constant) and "gen_aneurysm_stl" in str(n.value)
+                and id(n) not in docstrings]
+    assert mentions, "chip_smoke.py generates the aneurysm STLs"
+    runs = [n for n in ast.walk(tree) if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+            and isinstance(n.func.value, ast.Name) and n.func.value.id == "subprocess"]
+    inside = {id(c) for call in runs for c in ast.walk(call)}
+    assert all(id(m) in inside for m in mentions), "the STL generator is named outside a subprocess call"
