@@ -15,10 +15,12 @@ on failure:
              blocks and ModifiedMLP segments of 3 and 1 layers, in recompute
              and save-bounds mode; the aneurysm MLP segment (SiLU, S=7,
              N=2048, 3 -> 512 -> ... -> 512) at L=6 (jet_pallas_full) and
-             3 + 3 (jet_pallas); all at a ragged N too; every activation at
-             S=4, W=256, L=2, ungated and as a ModifiedMLP program; the LBM
-             kernel for 1 and 200 steps at 256 x 256 and 1 step at
-             1000 x 1000;
+             3 + 3 (jet_pallas); all at a ragged N too; d alpha, summed by
+             jet_wgrad, against jet_alpha_reduce_plain; two jet_wgrad calls
+             bitwise equal (dW, db, d alpha) at the PirateNet and aneurysm
+             shapes; every activation at S=4, W=256, L=2, ungated and as a
+             ModifiedMLP program; the LBM kernel for 1 and 200 steps at
+             256 x 256 and 1 step at 1000 x 1000;
 3. main    - train the port's solvers at full width: the Allen-Cahn MLP
              4x256 on jet_pallas_full and jet_pallas (segments of 3+1
              layers), PirateNet 9 blocks x 256 on jet_pallas_full (one
@@ -38,7 +40,9 @@ on failure:
              solvers and of the aneurysm solver; device time per step by
              kernel and the device's busy share (torch.profiler); per
              kernel: time, plain-version time, bound, library time, at the
-             Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's.
+             Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's;
+             jet_wgrad over the 27 PirateNet layers beside torch.bmm, with
+             and without the d alpha sum and against a separate sum.
 
 Tolerance (kernels against plain versions): the float32 sums run in
 another order, so each output may differ by at most 1e-4 times the largest
@@ -90,8 +94,7 @@ STL_DIR = os.path.join(HERE, "dataset", "aneurysm")  # listed in .gitignore
 CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
 LBM_TIMED = 2048  # lattice edge at which the LBM kernel is timed
 TIMED_STEPS = 20
-KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "jet_alpha_reduce",
-           "lbm_collide_stream")
+KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "lbm_collide_stream")
 
 
 def log(msg: str) -> None:
@@ -236,10 +239,11 @@ def alpha_tol(ref, n_terms: int) -> float:
 
 
 def check_gated_kernels(S, N, W, program, tag, act=None, log_it=True):
-    """Gated forward (recompute and save-bounds), backward, alpha reduce and
-    the weight-gradient sum of its outputs against the plain versions and
-    against torch.autograd through the plain forward, activation ``act``
-    (tanh when None); returns max abs errors."""
+    """Gated forward (recompute and save-bounds), backward and the
+    weight-gradient and d alpha sums of its outputs (one jet_wgrad call)
+    against the plain versions and against torch.autograd through the plain
+    forward, activation ``act`` (tanh when None); returns max abs errors
+    (d alpha's sum against jet_alpha_reduce_plain under "d_alpha")."""
     import torch
 
     from paddlescience_torch.autodiff import jet
@@ -250,7 +254,7 @@ def check_gated_kernels(S, N, W, program, tag, act=None, log_it=True):
     idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
     L = len(program)
     tag = f"{tag} {act_name(act)} S={S} N={N} W={W} L={L}"
-    errs = {"jet_gated_fwd": 0.0, "jet_gated_bwd": 0.0, "jet_alpha_reduce": 0.0, "jet_wgrad": 0.0}
+    errs = {"jet_gated_fwd": 0.0, "jet_gated_bwd": 0.0, "jet_wgrad": 0.0, "d_alpha": 0.0}
 
     def hold(key, what, got, ref):
         errs[key] = max(errs[key], check_close(f"{what} {tag}", got, ref))
@@ -275,15 +279,13 @@ def check_gated_kernels(S, N, W, program, tag, act=None, log_it=True):
             hold("jet_gated_bwd", f"bwd {name}[{k}]", g, r)
     for l, (g, r) in enumerate(zip(got[4], ref[4])):
         hold("jet_gated_bwd", f"bwd layer input[{l}]", torch.stack(g), torch.stack(r))
-    d_alpha = G.jet_alpha_reduce(got[5])
-    plain_sum = G.jet_alpha_reduce_plain(got[5])
+    dws, dbs, d_alpha = J.jet_wgrad(got[4], got[3], alpha_partials=got[5])
     if alphas:
-        hold("jet_alpha_reduce", "alpha reduce", d_alpha, plain_sum)
+        hold("d_alpha", "d alpha vs jet_alpha_reduce_plain", d_alpha, G.jet_alpha_reduce_plain(got[5]))
         err = max_err(d_alpha, ref[5])
         if not err <= alpha_tol(ref[5], S * N * W):
             raise AssertionError(f"d alpha {tag}: max abs err {err:.3e} > {alpha_tol(ref[5], S * N * W):.3e}")
         errs["jet_gated_bwd"] = max(errs["jet_gated_bwd"], err)
-    dws, dbs = J.jet_wgrad(got[4], got[3])
     ref_dw, ref_db = J.jet_wgrad_plain(ref[4], ref[3])
     for l in range(L):
         hold("jet_wgrad", f"wgrad dW[{l}]", dws[l], ref_dw[l])
@@ -312,6 +314,54 @@ def check_gated_kernels(S, N, W, program, tag, act=None, log_it=True):
     if log_it:
         log(f"[kernels] {tag}: max abs err " + " ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
+
+
+def check_wgrad_repeat():
+    """Two jet_wgrad calls on the same inputs give bitwise the same dW, db
+    and d alpha: the PirateNet group of 9 blocks with its d alpha partials,
+    and the aneurysm's 6-layer segment (narrow units for its 3 inputs)."""
+    import torch
+
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.ops import jet_gated as G
+    from paddlescience_torch.ops import jet_mlp as J
+
+    S, N, W = MAIN["S"], MAIN["N"], MAIN["W"]
+    program = G.piratenet_program(9)
+    idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
+    _, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
+    *_, gzs, ins, partials = G.jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out, program, idx)
+    cases = {"piratenet 9 blocks": (ins, gzs, partials)}
+    silu = (jet.SILU, 0.0)
+    idx, streams, weights, biases, g_out = make_inputs(len(NS3D) + 1, ANEURYSM["N"], ANEURYSM["dims"])
+    _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=silu)
+    _, gzs = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, silu)
+    cases["aneurysm"] = ([streams] + [b.unbind(0) for b in bounds], gzs, None)
+    flat = lambda out: [t for part in out for t in (part if isinstance(part, tuple) else (part,))]
+    for name, (ys, gzs, partials) in cases.items():
+        first = flat(J.jet_wgrad(ys, gzs, alpha_partials=partials))
+        second = flat(J.jet_wgrad(ys, gzs, alpha_partials=partials))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"jet_wgrad {name}: two calls on the same inputs differ")
+    log(f"[kernels] jet_wgrad: two calls bitwise equal (dW, db, d alpha) at {', '.join(cases)}")
+
+
+def ptxas_by_function(text: str):
+    """(registers, spill store bytes, spill load bytes) by kernel function
+    from nvcc's -Xptxas -v report."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out.setdefault(fn, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.setdefault(fn, [None, 0, 0])[0] = int(m.group(1))
+    return out
 
 
 def make_lattice(ny, nx, seed=0):
@@ -373,9 +423,9 @@ def read_counts():
 
     wrappers = {"jet_mlp_fwd": J.jet_mlp_fwd, "jet_mlp_bwd": J.jet_mlp_bwd, "jet_wgrad": J.jet_wgrad,
                 "jet_gated_fwd": G.jet_gated_fwd, "jet_gated_bwd": G.jet_gated_bwd,
-                "jet_alpha_reduce": G.jet_alpha_reduce, "lbm_collide_stream": lbm.lbm_collide_stream}
-    plains = (J.jet_mlp_fwd_plain, J.jet_mlp_bwd_plain, J.jet_wgrad_plain, G.jet_gated_fwd_plain,
-              G.jet_gated_bwd_plain, G.jet_alpha_reduce_plain, lbm.lbm_collide_stream_plain)
+                "lbm_collide_stream": lbm.lbm_collide_stream}
+    plains = (J.jet_mlp_fwd_plain, J.jet_mlp_bwd_plain, J.jet_wgrad_plain, J.jet_alpha_reduce_plain,
+              G.jet_gated_fwd_plain, G.jet_gated_bwd_plain, lbm.lbm_collide_stream_plain)
     return ({name: fn.launches for name, fn in wrappers.items()},
             {fn.__name__: fn.cuda_calls for fn in plains})
 
@@ -384,9 +434,7 @@ def expected_kernels(path: str):
     """The kernels a driven path must launch."""
     if path.startswith(("mlp/", "aneurysm/")):
         return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
-    if path.startswith("piratenet/"):
-        return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad", "jet_alpha_reduce")
-    if path.startswith("modified_mlp/"):
+    if path.startswith(("piratenet/", "modified_mlp/")):
         return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad")
     return ("lbm_collide_stream",)
 
@@ -518,6 +566,8 @@ def time_kernels(errs, launches, device_ms):
     from paddlescience_torch.ops import jet_mlp as J
     from paddlescience_torch.ops import lbm
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the torch.bmm yardsticks would not be float32")
     S, N, W, L = MAIN["S"], MAIN["N"], MAIN["W"], MAIN["L"]
     rows = []
     steps = {p: PATHS[p][2] for p in launches if p in PATHS}
@@ -631,17 +681,37 @@ def time_kernels(errs, launches, device_ms):
         lambda: G.jet_gated_bwd(y, (), (), bounds, weights, biases, (), g_out, bare, idx), 5)
     log(f"[timing] jet_gated_bwd, the same stages without gates and residuals: "
         f"{rows[-1]['ms_without_gates_and_residuals']:.4f} ms")
+    # jet_wgrad over the 27 layers of the group, as the PirateNet backward calls it (with the d alpha
+    # partials), without them, and without them followed by a separate sum of d alpha; in turns
     *_, gzs27, ins27, partials = G.jet_gated_bwd(*bargs)
-    row("jet_alpha_reduce", "jet_wgrad",
-        lambda: G.jet_alpha_reduce(partials), lambda: G.jet_alpha_reduce_plain(partials),
-        float(partials.numel()), (partials.numel() + partials.shape[1]) * 4.0,
-        library=lambda: partials.sum(0))
-    rows[2]["ms_27_layers"] = cuda_ms(lambda: J.jet_wgrad(ins27, gzs27), 5)
-    rows[2]["bound_ms_27_layers"] = bound_ms(27 * S * 2.0 * N * W * W, 2 * 27 * stream_bytes + 27 * (W * W + W) * 4.0)[0]
-    log(f"[timing] jet_wgrad over the 27 PirateNet layers (one launch): {rows[2]['ms_27_layers']:.4f} ms "
-        f"(bound {rows[2]['bound_ms_27_layers']:.4f} ms), inputs gz + layer inputs "
-        f"{2 * 27 * stream_bytes / 1e6:.0f} MB")
-    del gzs27, ins27, bounds
+    Y = torch.stack([torch.cat(y, 0) for y in ins27])          # (27, S*N, W)
+    GZ = torch.stack([g.reshape(S * N, W) for g in gzs27])
+    with_alpha = lambda: J.jet_wgrad(ins27, gzs27, alpha_partials=partials)
+    without = lambda: J.jet_wgrad(ins27, gzs27)
+    separate = lambda: (J.jet_wgrad(ins27, gzs27), partials.sum(0))
+    turns = [(k, cuda_ms(f, 20)) for k, f in (("with", with_alpha), ("without", without), ("separate", separate),
+                                              ("separate", separate), ("without", without), ("with", with_alpha))]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        with_alpha()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    r = rows[2]
+    r["ms_27_layers"] = [ms for k, ms in turns if k == "with"]
+    r["ms_27_layers_without_d_alpha"] = [ms for k, ms in turns if k == "without"]
+    r["ms_27_layers_then_separate_d_alpha_sum"] = [ms for k, ms in turns if k == "separate"]
+    r["host_ms_per_call_27_layers"] = host_ms
+    r["bound_ms_27_layers"] = bound_ms(27 * S * 2.0 * N * W * W, 2 * 27 * stream_bytes + 27 * (W * W + W) * 4.0)[0]
+    r["library_ms_27_layers"] = cuda_ms(lambda: torch.bmm(Y.transpose(1, 2), GZ), 20)
+    r["d_alpha_max_abs_err"] = errs["d_alpha"]
+    r["d_alpha_plain_ms"] = cuda_ms(lambda: J.jet_alpha_reduce_plain(partials))
+    log(f"[timing] jet_wgrad over the 27 PirateNet layers (one launch, with d alpha): {r['ms_27_layers']} ms, "
+        f"without d alpha {r['ms_27_layers_without_d_alpha']} ms, then a separate partials.sum(0) "
+        f"{r['ms_27_layers_then_separate_d_alpha_sum']} ms; host {host_ms:.4f} ms per call; bound "
+        f"{r['bound_ms_27_layers']:.4f} ms; torch.bmm {r['library_ms_27_layers']:.4f} ms; inputs gz + layer "
+        f"inputs {2 * 27 * stream_bytes / 1e6:.0f} MB; d alpha vs jet_alpha_reduce_plain max abs err "
+        f"{errs['d_alpha']:.3e} (plain {r['d_alpha_plain_ms']:.4f} ms)")
+    del Y, GZ, gzs27, ins27, bounds
 
     tau, u_lid = 0.62, 0.1
     f_big = make_lattice(LBM_TIMED, LBM_TIMED)
@@ -736,7 +806,6 @@ REPLACES = {
     "jet_wgrad": "paddlescience_tpu/ops/jet_pallas.py:526",
     "jet_gated_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
     "jet_gated_bwd": "paddlescience_tpu/ops/jet_pallas.py:557",
-    "jet_alpha_reduce": "paddlescience_tpu/ops/jet_pallas.py:526",
     "lbm_collide_stream": "paddlescience_tpu/ops/lbm.py:141",
 }
 
@@ -766,6 +835,8 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    for fn, (regs, st, ld) in ptxas_by_function(build_logs.get("jet_wgrad", "")).items():
+        log(f"[build] jet_wgrad.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
 
     from paddlescience_torch.autodiff import jet
     from paddlescience_torch.autodiff import path as deriv_path
@@ -790,7 +861,7 @@ def main() -> int:
             raise AssertionError(f"{path} runs no fused segment")
     log(f"[kernels] segment depths per path: {depths}")
 
-    errs = {k: 0.0 for k in KERNELS}
+    errs = {k: 0.0 for k in KERNELS + ("d_alpha",)}
 
     def merge(new):
         for k, v in new.items():
@@ -827,6 +898,7 @@ def main() -> int:
         merge(check_gated_kernels(S, N, W, G.modified_mlp_program(L), "modified_mlp"))
     check_gated_kernels(S, N - 1, W, G.piratenet_program(3), "piratenet")
     check_gated_kernels(S, N - 1, W, G.modified_mlp_program(3), "modified_mlp")
+    check_wgrad_repeat()
     errs["lbm_collide_stream"] = max(check_lbm_kernel(256, 256, 1), check_lbm_kernel(256, 256, 200),
                                      check_lbm_kernel(1000, 1000, 1))
 

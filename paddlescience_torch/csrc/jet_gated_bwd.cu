@@ -30,9 +30,9 @@
 //      the activation's jet rule: gz from (z, g) (jet_common.cuh,
 //      jet_rule_vjp) as in jet_mlp_bwd.cu;
 //      write gz; g <- gz @ W^T; at the stage's first layer add g_res.
-// The sums over the batch (dW, db: jet_wgrad.cu; d alpha: jet_alpha_reduce
-// there) are separate kernels: this one writes gz, the layer inputs and one
-// partial d alpha per CTA and residual.
+// The sums over the batch (dW, db and d alpha) are jet_wgrad.cu's, one
+// launch: this kernel writes gz, the layer inputs and one partial d alpha
+// per CTA and residual.
 //
 // What bounds it on an H100: operations. Per layer 2 products, z once and
 // gz @ W^T once: a PirateNet group of 9 blocks at S=4, N=4096, K=D=256 does

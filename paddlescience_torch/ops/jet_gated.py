@@ -28,10 +28,10 @@ build the three bodies.
   (``jet_pallas.py:361``) for these bodies;
 * :func:`jet_gated_bwd` (``csrc/jet_gated_bwd.cu``) replaces the per-tile
   part of ``_bwd`` (``jet_pallas.py:557``, ``_staged_vjp``): cotangents of
-  the ``y``, ``u`` and ``v`` streams, every layer's ``gz`` and input (for
-  ``ops/jet_mlp.py::jet_wgrad``), and per-tile partial sums of d alpha;
-* :func:`jet_alpha_reduce` (``csrc/jet_wgrad.cu``) adds those partial sums
-  in a fixed order, so d alpha is bitwise reproducible like dW.
+  the ``y``, ``u`` and ``v`` streams, every layer's ``gz`` and input, and
+  per-tile partial sums of d alpha, all for ``ops/jet_mlp.py::jet_wgrad``,
+  which sums dW, db and d alpha over the batch in one launch, in a fixed
+  order.
 
 :class:`_JetGatedSegment` wraps them, with ``jet_wgrad``, in one
 ``torch.autograd.Function``. Wrappers take their plain versions for CPU
@@ -49,7 +49,8 @@ from torch.autograd.function import once_differentiable
 from paddlescience_torch.autodiff import jet as jetmod
 from paddlescience_torch.ops import cuda_build, jet_mlp
 from paddlescience_torch.ops.cuda_build import F, I, P, ints, is_cpu, launch, on_device, ptrs, stream_handle
-from paddlescience_torch.ops.jet_mlp import BM, SMEM_LIMIT, TANH, act_args, act_jet, act_jet_vjp, index_tables
+from paddlescience_torch.ops.jet_mlp import (BM, SMEM_LIMIT, TANH, act_args, act_jet, act_jet_vjp, index_tables,
+                                             jet_alpha_reduce_plain)
 
 __all__ = [
     "GATE",
@@ -60,7 +61,6 @@ __all__ = [
     "piratenet_program",
     "jet_gated_fwd",
     "jet_gated_bwd",
-    "jet_alpha_reduce",
     "jet_gated_fwd_plain",
     "jet_gated_bwd_plain",
     "jet_alpha_reduce_plain",
@@ -229,17 +229,10 @@ def jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program
     return tuple(g), tuple(gu), tuple(gv), tuple(gzs), tuple(ins), d_alpha
 
 
-def jet_alpha_reduce_plain(partials: torch.Tensor) -> torch.Tensor:
-    """(n_tiles, n_residuals) partial sums -> (n_residuals,)."""
-    jet_mlp._note_plain_call(jet_alpha_reduce_plain, partials)
-    return partials.sum(0)
-
-
 # ----------------------------------------------------------- CUDA wrappers --
 
 cuda_build.declare("jet_gated_fwd", [P] * 13 + [I] * 5 + [F, P])
 cuda_build.declare("jet_gated_bwd", [P] * 18 + [I] * 5 + [F, P])
-cuda_build.declare("jet_alpha_reduce", [P, P, I, I, P], library="jet_wgrad")
 
 
 def _gated_dims(y, u, v, weights, biases, alphas, program, index) -> List[int]:
@@ -315,11 +308,12 @@ def jet_gated_fwd(y, u, v, weights, biases, alphas, program: Program, index: jet
 def jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out, program: Program,
                   index: jetmod.JetIndex, act: jetmod.Act = TANH):
     """Segment backward from the stage boundaries; returns what
-    :func:`jet_gated_bwd_plain` returns, d alpha as (n_tiles, n_residuals)
-    partial sums on CUDA tensors (for :func:`jet_alpha_reduce`) and
-    already summed on CPU tensors."""
+    :func:`jet_gated_bwd_plain` returns, but d alpha as (n_tiles,
+    n_residuals) partial sums, the ``alpha_partials`` of ``jet_wgrad`` (one
+    tile, the whole sum, on CPU tensors)."""
     if is_cpu(y[0]):
-        return jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program, index, act)
+        *rest, d_alpha = jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program, index, act)
+        return (*rest, d_alpha[None])
     dev = y[0].device
     dims = _gated_dims(y, u, v, weights, biases, alphas, program, index)
     act_id, act_w = act_args(act)
@@ -355,22 +349,8 @@ def jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out, program: Prog
     return g_y, g_u, g_v, gzs, ins, partials
 
 
-def jet_alpha_reduce(partials: torch.Tensor) -> torch.Tensor:
-    """Sum the per-tile d alpha partials in a fixed order."""
-    if is_cpu(partials):
-        return jet_alpha_reduce_plain(partials)
-    partials = on_device(partials, partials.device)
-    n_tiles, n_res = partials.shape
-    out = torch.empty(n_res, device=partials.device)
-    if n_res:
-        launch("jet_alpha_reduce", partials.data_ptr(), out.data_ptr(), n_tiles, n_res,
-               stream_handle(partials.device))
-        jet_alpha_reduce.launches += 1
-    return out
-
-
-_WRAPPERS = (jet_gated_fwd, jet_gated_bwd, jet_alpha_reduce)
-_PLAINS = (jet_gated_fwd_plain, jet_gated_bwd_plain, jet_alpha_reduce_plain)
+_WRAPPERS = (jet_gated_fwd, jet_gated_bwd)
+_PLAINS = (jet_gated_fwd_plain, jet_gated_bwd_plain)
 
 
 def reset_counters() -> None:
@@ -389,7 +369,7 @@ reset_counters()
 
 class _JetGatedSegment(torch.autograd.Function):
     """Forward through :func:`jet_gated_fwd`; backward through
-    :func:`jet_gated_bwd`, ``jet_wgrad`` and :func:`jet_alpha_reduce`. In
+    :func:`jet_gated_bwd` and ``jet_wgrad`` (dW, db and d alpha). In
     recompute mode (``save_bounds`` False) the backward first re-runs the
     forward kernel in save mode to get the stage boundaries. Once
     differentiable, like ``ops/jet_mlp.py::_JetMLPSegment``."""
@@ -417,11 +397,9 @@ class _JetGatedSegment(torch.autograd.Function):
         if len(_stages(ctx.program)) > 1 and not bounds:
             _, bounds = jet_gated_fwd(y, u, v, weights, biases, alphas, ctx.program, ctx.index, save_bounds=True,
                                       act=ctx.act)
-        g_y, g_u, g_v, gzs, ins, d_alpha = jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out,
-                                                         ctx.program, ctx.index, ctx.act)
-        dws, dbs = jet_mlp.jet_wgrad(ins, gzs)
-        if d_alpha.dim() == 2:
-            d_alpha = jet_alpha_reduce(d_alpha)
+        g_y, g_u, g_v, gzs, ins, partials = jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out,
+                                                          ctx.program, ctx.index, ctx.act)
+        dws, dbs, d_alpha = jet_mlp.jet_wgrad(ins, gzs, alpha_partials=partials)
         return (None, None, None, None, *g_y, *g_u, *g_v, *dws, *dbs, *d_alpha.reshape(-1, 1).unbind(0))
 
 

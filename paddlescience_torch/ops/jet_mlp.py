@@ -16,7 +16,9 @@ wrapper and plain version as ``act = (id, parameter)`` (default tanh):
   cotangents ``gz``;
 * :func:`jet_wgrad` (``csrc/jet_wgrad.cu``) replaces ``_bwd``'s cross-grid
   weight-gradient sum (``jet_pallas.py:526-537``) with a deterministic
-  split-K reduction.
+  split-K reduction over work units that :func:`wgrad_plan` sizes to whole
+  waves of the card; given the gated backward's d alpha partials it sums
+  them in the same launch.
 
 :class:`_JetMLPSegment` wraps the three in one ``torch.autograd.Function``.
 It receives the *effective* weights (RWF ``g * v`` or weight norm
@@ -42,8 +44,9 @@ otherwise parks the cotangent in the ``gz`` buffers (:func:`bwd_parks`).
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -65,6 +68,8 @@ __all__ = [
     "jet_mlp_fwd_plain",
     "jet_mlp_bwd_plain",
     "jet_wgrad_plain",
+    "jet_alpha_reduce_plain",
+    "wgrad_plan",
     "jet_mlp_segment",
     "reset_counters",
 ]
@@ -77,7 +82,10 @@ MAX_LAYERS = 32
 MAX_WIDTH = 512
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
 KC = 16  # weight rows (or columns) staged per chunk
-WG_TILE, WG_RC = 64, 32  # jet_wgrad output tile edge and staged batch rows
+WG_T, WG_RC, WG_NARROW = 128, 32, 8  # jet_wgrad: tile edge, rows per stage, widest layer of narrow units
+WG_PART = WG_T * WG_T + WG_T  # floats of one jet_wgrad unit's partial (its dW tile, then db)
+WG_NARROW_COST = 0.25  # time per row of a narrow unit, in rows of a 128 x 128 unit
+WG_UNIT_COST = 3 * WG_RC  # a unit's time outside its row loop (ring fill, writing its partial), in rows
 TANH: jetmod.Act = (jetmod.TANH, 0.0)
 
 Tensors = Tuple[torch.Tensor, ...]
@@ -189,15 +197,21 @@ def jet_wgrad_plain(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Te
     return tuple(dws), tuple(dbs)
 
 
-for _fn in (jet_mlp_fwd_plain, jet_mlp_bwd_plain, jet_wgrad_plain):
-    _fn.cuda_calls = 0
+def jet_alpha_reduce_plain(partials: torch.Tensor) -> torch.Tensor:
+    """(n_tiles, n_residuals) partial sums of d alpha -> (n_residuals,)."""
+    _note_plain_call(jet_alpha_reduce_plain, partials)
+    return partials.sum(0)
+
+
+_PLAINS = (jet_mlp_fwd_plain, jet_mlp_bwd_plain, jet_wgrad_plain, jet_alpha_reduce_plain)
 
 
 # ----------------------------------------------------------- CUDA wrappers --
 
 cuda_build.declare("jet_mlp_fwd", [P] * 9 + [I] * 6 + [F, P])
 cuda_build.declare("jet_mlp_bwd", [P] * 11 + [I] * 7 + [F, P])
-cuda_build.declare("jet_wgrad", [P] * 6 + [I] * 7 + [P])
+cuda_build.declare("jet_wgrad", [P] * 9 + [I] * 5 + [P])
+cuda_build.declare("jet_wgrad_slots", [P], library="jet_wgrad")
 
 
 def _round4(x: int) -> int:
@@ -315,46 +329,130 @@ def jet_mlp_bwd(streams, bounds, weights, biases, g_out,
     return g_in, gzs
 
 
-def _wgrad_splits(dev: torch.device, tiles: int, n: int) -> Tuple[int, int]:
-    """Row splits P and rows per split: about four CTAs per SM in all."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    p = max(1, min(math.ceil(n / WG_RC), math.ceil(4 * sms / tiles)))
-    rows_per = math.ceil(math.ceil(n / p) / WG_RC) * WG_RC
-    return math.ceil(n / rows_per), rows_per
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
-def jet_wgrad(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Tensor]):
+def wgrad_tiles(K: int, D: int) -> Tuple[int, int]:
+    """(tile rows, tile columns) of a layer's dW in jet_wgrad: 128 x 128
+    tiles, or one row of narrow 8 x 128 tiles where K <= WG_NARROW."""
+    return (1 if K <= WG_NARROW else -(-K // WG_T)), -(-D // WG_T)
+
+
+class WgradPlan(NamedTuple):
+    """How jet_wgrad splits the S*N rows of each layer: ``splits[l]`` row
+    ranges of ``rows[l]`` rows (the last may be shorter) per output tile;
+    ``units`` CTAs in all, of which the card runs ``slots`` at once."""
+
+    splits: Tuple[int, ...]
+    rows: Tuple[int, ...]
+    units: int
+    slots: int
+
+    @property
+    def waves(self) -> int:
+        return -(-self.units // self.slots)
+
+    @property
+    def tail(self) -> float:
+        """Share of the launch's CTA slots that the last wave leaves empty."""
+        return 1.0 - self.units / (self.waves * self.slots)
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_plan(dims: Tuple[int, ...], S: int, N: int, slots: int) -> WgradPlan:
+    """The row split of every layer that minimises the launch's modelled
+    time, waves x (the longest unit's rows + WG_UNIT_COST), for a card that
+    runs ``slots`` units at once: units of one cost (a narrow unit takes
+    1 / WG_NARROW_COST times the rows of a 128 x 128 one), so that they fill
+    whole waves. Ties go to fewer units (less partial traffic)."""
+    R, L = S * N, len(dims) - 1
+    full = _round_up(R, WG_RC)
+    tiles = [math.prod(wgrad_tiles(dims[l], dims[l + 1])) for l in range(L)]
+    cost = [WG_NARROW_COST if dims[l] <= WG_NARROW else 1.0 for l in range(L)]
+    best = None
+    for target in range(WG_RC, full + 1, WG_RC):  # rows of a 128 x 128 unit
+        splits, rows = [], []
+        for c in cost:
+            p = -(-R // min(full, _round_up(math.ceil(target / c), WG_RC)))
+            splits.append(p)
+            rows.append(_round_up(-(-R // p), WG_RC))
+        units = sum(t * p for t, p in zip(tiles, splits))
+        time = -(-units // slots) * (max(r * c for r, c in zip(rows, cost)) + WG_UNIT_COST)
+        if best is None or (time, units) < best[0]:
+            best = ((time, units), WgradPlan(tuple(splits), tuple(rows), units, slots))
+    return best[1]
+
+
+_SLOTS: Dict[int, int] = {}
+
+
+def _wgrad_slots(dev: torch.device) -> int:
+    """jet_wgrad units the card runs at once (SMs x resident CTAs), read
+    from the built kernel once per device."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _SLOTS:
+        out = ints([0])
+        with torch.cuda.device(index):
+            launch("jet_wgrad_slots", out)
+        if out[0] < 1:
+            raise RuntimeError("jet_wgrad: the kernel fits no SM")
+        _SLOTS[index] = out[0]
+    return _SLOTS[index]
+
+
+@functools.lru_cache(maxsize=256)
+def _wgrad_args(dims: Tuple[int, ...], S: int, N: int, slots: int):
+    """(plan, C dims, C plan, sizes of each dW and db in one flat output,
+    in order). Every size is a multiple of 4 floats where the widths are, so
+    the kernel's float4 stores stay 16-byte aligned."""
+    plan = wgrad_plan(dims, S, N, slots)
+    sizes = [n for l in range(len(dims) - 1) for n in (dims[l] * dims[l + 1], dims[l + 1])]
+    flat_plan = [v for pair in zip(plan.splits, plan.rows) for v in pair]
+    return plan, ints(dims), ints(flat_plan), sizes
+
+
+def jet_wgrad(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Tensor],
+              alpha_partials: Optional[torch.Tensor] = None):
     """Per-layer weight and bias gradients summed over the batch; ``ys[l]``
-    is the S input streams of layer l, ``gzs[l]`` its (S, N, D) gz."""
+    is the S input streams of layer l, ``gzs[l]`` its (S, N, D) gz. Returns
+    ``(dws, dbs)``; with ``alpha_partials``, the (n_tiles, n_residuals) d
+    alpha partial sums of ``ops/jet_gated.py::jet_gated_bwd``, also their
+    sum over tiles from the same launch: ``(dws, dbs, d_alpha)``."""
     if is_cpu(gzs[0]):
-        return jet_wgrad_plain(ys, gzs)
+        dws, dbs = jet_wgrad_plain(ys, gzs)
+        return (dws, dbs) if alpha_partials is None else (dws, dbs, jet_alpha_reduce_plain(alpha_partials))
     dev = gzs[0].device
     L, S, N = len(gzs), int(gzs[0].shape[0]), int(gzs[0].shape[1])
     if len(ys) != L or any(len(y) != S for y in ys) or not (1 <= S <= MAX_STREAMS and 1 <= L <= MAX_LAYERS):
         raise ValueError("jet_wgrad: need S input streams for each of the L layers")
-    dims = [int(ys[0][0].shape[1])] + [int(g.shape[2]) for g in gzs]
+    dims = (int(ys[0][0].shape[1]),) + tuple(int(g.shape[2]) for g in gzs)
     for l in range(L):
         if any(tuple(t.shape) != (N, dims[l]) for t in ys[l]) or tuple(gzs[l].shape) != (S, N, dims[l + 1]):
             raise ValueError(f"jet_wgrad: layer {l} shapes do not match")
-    ys = [[on_device(t, dev) for t in y] for y in ys]
+    if alpha_partials is not None and alpha_partials.dim() != 2:
+        raise ValueError("jet_wgrad: alpha_partials is (n_tiles, n_residuals)")
+    plan, c_dims, c_plan, sizes = _wgrad_args(dims, S, N, _wgrad_slots(dev))
+    ys = [on_device(t, dev) for y in ys for t in y]
     gzs = [on_device(g, dev) for g in gzs]
-    kmax, dmax = max(dims[:-1]), max(dims[1:])
-    tiles = L * math.ceil(kmax / WG_TILE) * math.ceil(dmax / WG_TILE)
-    splits, rows_per = _wgrad_splits(dev, tiles, N)
-    part = torch.empty(L * splits * (kmax * dmax + dmax), device=dev)
-    dws = tuple(torch.empty(dims[l], dims[l + 1], device=dev) for l in range(L))
-    dbs = tuple(torch.empty(dims[l + 1], device=dev) for l in range(L))
-    launch("jet_wgrad", ptrs([t for y in ys for t in y]), ptrs(gzs), ptrs(dws), ptrs(dbs),
-           part.data_ptr(), ints(dims), S, L, N, splits, rows_per, kmax, dmax, stream_handle(dev))
+    n_tiles, n_res = alpha_partials.shape if alpha_partials is not None else (0, 0)
+    *parts, d_alpha = torch.empty(sum(sizes) + n_res, device=dev).split(sizes + [n_res])
+    dws = tuple(p.view(dims[l], dims[l + 1]) for l, p in enumerate(parts[0::2]))
+    dbs = tuple(parts[1::2])
+    apart = on_device(alpha_partials, dev) if n_res else None
+    part = torch.empty(plan.units * WG_PART, device=dev)
+    launch("jet_wgrad", ptrs(ys), ptrs(gzs), ptrs(dws), ptrs(dbs), part.data_ptr(), c_dims, c_plan,
+           apart.data_ptr() if n_res else None, d_alpha.data_ptr() if n_res else None, n_tiles, n_res,
+           S, L, N, stream_handle(dev))
     jet_wgrad.launches += 1
-    return dws, dbs
+    return (dws, dbs) if alpha_partials is None else (dws, dbs, d_alpha)
 
 
 def reset_counters() -> None:
     """Set every launch and plain-call counter to 0."""
     for fn in (jet_mlp_fwd, jet_mlp_bwd, jet_wgrad):
         fn.launches = 0
-    for fn in (jet_mlp_fwd_plain, jet_mlp_bwd_plain, jet_wgrad_plain):
+    for fn in _PLAINS:
         fn.cuda_calls = 0
 
 

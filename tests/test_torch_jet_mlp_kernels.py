@@ -3,14 +3,18 @@ jet_mlp.py, jet_gated.py, lbm.py), without JAX.
 
 On the CPU: the hand-derived backwards (tanh MLP segment, gated layer
 programs) against torch.autograd through the plain forward, the saved
-stage boundaries, and the wrappers' device rule.
+stage boundaries, jet_wgrad's unit plan (every output element and batch
+row covered once, the last wave nearly full), and the wrappers' device
+rule.
 On a GPU (tests marked ``cuda``, skipped elsewhere): each kernel against its
 plain version at the main-path segment depths (MLP: L=4 and the 3+1 split;
 PirateNet groups of 3 and 9 blocks; ModifiedMLP segments of 3 and 1
-layers), with a ragged batch, and at a small shape; the aneurysm MLP's
-segments (SiLU, S = 7, 3 -> 512 -> ... -> 512, 6 layers and 3 + 3); every
-activation, ungated and gated; the LBM kernel at square, ragged and large
-lattices.
+layers), with a ragged batch, and at a small shape; jet_wgrad also at the
+aneurysm's 3 -> 512 x 6 (S = 7), an input width that is not a multiple of
+4, and bitwise the same from call to call (dW, db, d alpha); the aneurysm
+MLP's segments (SiLU, S = 7, 3 -> 512 -> ... -> 512, 6 layers and 3 + 3);
+every activation, ungated and gated; the LBM kernel at square, ragged and
+large lattices.
 This file imports only torch and the port, so it also runs where JAX is
 not installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_jet_mlp_kernels.py``.
@@ -38,11 +42,14 @@ def _close(got, ref, rtol=RTOL):
     assert err <= rtol * max(scale, 1e-30), f"max abs err {err:.3e} > {rtol} * {scale:.3e}"
 
 
-def _case(multis, L, n=70, w=24, seed=0):
+def _case(multis, L, n=70, w=24, seed=0, k_in=None):
+    """numpy inputs of an ungated segment: S streams (n, k_in), layers
+    k_in -> w -> ... -> w (k_in = w unless given), output cotangents."""
     rng = np.random.default_rng(seed)
     S = len(tjet.build_index(multis))
-    streams = [rng.standard_normal((n, w)).astype(np.float32) for _ in range(S)]
-    weights = [(rng.standard_normal((w, w)) / np.sqrt(w)).astype(np.float32) for _ in range(L)]
+    dims = [k_in or w] + [w] * L
+    streams = [rng.standard_normal((n, dims[0])).astype(np.float32) for _ in range(S)]
+    weights = [(rng.standard_normal((dims[l], w)) / np.sqrt(dims[l])).astype(np.float32) for l in range(L)]
     biases = [(0.1 * rng.standard_normal((w,))).astype(np.float32) for _ in range(L)]
     cot = [rng.standard_normal((n, w)).astype(np.float32) for _ in range(S)]
     return streams, weights, biases, cot
@@ -147,6 +154,90 @@ def test_tiling_and_shared_memory_plan():
         J.act_args((99, 0.0))
 
 
+WGRAD_SHAPES = {  # (dims, S, N)
+    "allen_cahn_L4": ((256,) * 5, 4, 4096),
+    "piratenet_27_layers": ((256,) * 28, 4, 4096),
+    "aneurysm": ((3,) + (512,) * 6, 7, 2048),
+    "ragged_N4095": ((256,) * 5, 4, 4095),
+    "ragged_N70": ((24,) * 4, 3, 70),
+    "K3_D24": ((3, 24, 24), 3, 70),
+}
+
+
+def _wgrad_units(dims, S, N, plan):
+    """jet_wgrad's work units in launch order, as the kernel derives them
+    from the plan: (layer, first dW row, tile height, first dW column,
+    first batch row, end batch row, adds db)."""
+    units = []
+    for l in range(len(dims) - 1):
+        K, D = dims[l], dims[l + 1]
+        tk, td = J.wgrad_tiles(K, D)
+        height = J.WG_NARROW if K <= J.WG_NARROW else J.WG_T
+        for q in range(plan.splits[l]):
+            r0 = q * plan.rows[l]
+            for t in range(tk * td):
+                k0 = (t // td) * J.WG_T
+                units.append((l, k0, height, (t % td) * J.WG_T, r0, min(S * N, r0 + plan.rows[l]), k0 == 0 and r0 < N))
+    return units
+
+
+def _contiguous(ranges, end):
+    ranges = sorted(ranges)
+    return ranges[0][0] == 0 and ranges[-1][1] == end and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("shape", list(WGRAD_SHAPES))
+def test_wgrad_plan_covers_every_output_and_row_once(shape):
+    """jet_wgrad's work units on an H100 (132 SMs, 2 CTAs each): the tiles
+    of each layer cover its dW once, each tile's row ranges cover the S*N
+    rows once, the units that add db cover the N rows of stream 0 once per
+    column; a layer of <= 8 inputs takes 8-row tiles; the last wave leaves
+    at most 10% of the slots empty, or the launch is one wave of units that
+    cannot be cut finer."""
+    dims, S, N = WGRAD_SHAPES[shape]
+    plan = J.wgrad_plan(dims, S, N, 132 * 2)
+    units = _wgrad_units(dims, S, N, plan)
+    assert len(units) == plan.units
+    for l in range(len(dims) - 1):
+        K, D = dims[l], dims[l + 1]
+        mine = [u for u in units if u[0] == l]
+        cover = np.zeros((K, D), np.int64)
+        rows = {}
+        for _, k0, height, c0, r0, r1, _ in mine:
+            assert height == (J.WG_NARROW if K <= J.WG_NARROW else J.WG_T)
+            rows.setdefault((k0, c0), []).append((r0, r1))
+        for (k0, c0), ranges in rows.items():
+            cover[k0 : k0 + J.WG_T, c0 : c0 + J.WG_T] += 1
+            assert _contiguous(ranges, S * N), (l, k0, c0)
+        assert (cover == 1).all()
+        for c0 in range(0, D, J.WG_T):
+            bias = [(r0, min(r1, N)) for _, _, _, c, r0, r1, b in mine if b and c == c0]
+            assert _contiguous(bias, N), (l, c0)
+    cost = max(r * (J.WG_NARROW_COST if k <= J.WG_NARROW else 1) for r, k in zip(plan.rows, dims))
+    assert plan.tail <= 0.1 or (plan.waves == 1 and cost == J.WG_RC), (plan, plan.tail)
+
+
+def test_wgrad_takes_plain_versions_only_on_cpu():
+    """jet_wgrad with alpha_partials on CPU tensors is jet_wgrad_plain plus
+    jet_alpha_reduce_plain and launches nothing; on a tensor that is neither
+    on the CPU nor on CUDA it raises."""
+    rng = np.random.default_rng(3)
+    ys = [[torch.from_numpy(rng.standard_normal((6, 5)).astype(np.float32)) for _ in range(2)]]
+    gzs = [torch.from_numpy(rng.standard_normal((2, 6, 8)).astype(np.float32))]
+    partials = torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32))
+    J.reset_counters()
+    dws, dbs, d_alpha = J.jet_wgrad(ys, gzs, alpha_partials=partials)
+    ref_dw, ref_db = J.jet_wgrad_plain(ys, gzs)
+    torch.testing.assert_close(dws[0], ref_dw[0], rtol=0, atol=0)
+    torch.testing.assert_close(dbs[0], ref_db[0], rtol=0, atol=0)
+    torch.testing.assert_close(d_alpha, J.jet_alpha_reduce_plain(partials), rtol=0, atol=0)
+    assert len(J.jet_wgrad(ys, gzs)) == 2
+    assert J.jet_wgrad.launches == 0 and J.jet_wgrad_plain.cuda_calls == 0
+    meta = [[torch.empty(6, 5, device="meta")] * 2]
+    with pytest.raises(ValueError, match="CUDA"):
+        J.jet_wgrad(meta, [torch.empty(2, 6, 8, device="meta")], alpha_partials=torch.empty(4, 3, device="meta"))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -154,13 +245,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
+NS3D = [(0,), (1,), (2,), (0, 0), (1, 1), (2, 2)]
+SEGMENT_SHAPES = [(multis, n, L, w, None) for multis in INDICES
+                  for n, L, w in [(4096, 4, 256), (4096, 3, 256), (4095, 4, 256), (4096, 1, 256), (70, 3, 24)]]
+# jet_wgrad's narrow units and 4-byte copies: the aneurysm's 3 -> 512 x 6 at S = 7, input widths of 5 and
+# 3, batches that are not a multiple of the 32 staged rows
+SEGMENT_SHAPES += [(NS3D, 2048, 6, 512, 3), (NS3D, 2047, 2, 512, 3), (INDICES[0], 1000, 2, 64, 5),
+                   (INDICES[1], 4095, 3, 256, 3)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("multis", INDICES)
-@pytest.mark.parametrize("n,L,w", [(4096, 4, 256), (4096, 3, 256), (4095, 4, 256), (4096, 1, 256),
-                                   (70, 3, 24)])
-def test_kernels_match_plain_versions_on_gpu(cuda_device, multis, n, L, w):
+@pytest.mark.parametrize("multis,n,L,w,k_in", SEGMENT_SHAPES)
+def test_kernels_match_plain_versions_on_gpu(cuda_device, multis, n, L, w, k_in):
     idx = tjet.build_index(multis)
-    streams, weights, biases, cot = _case(multis, L, n=n, w=w)
+    streams, weights, biases, cot = _case(multis, L, n=n, w=w, k_in=k_in)
     dev = lambda arrs: [torch.from_numpy(a).to(cuda_device) for a in arrs]
     ss, ws, bs, gs = dev(streams), dev(weights), dev(biases), dev(cot)
     J.reset_counters()
@@ -301,12 +399,14 @@ def test_gated_wrappers_take_plain_versions_only_on_cpu():
         G.jet_gated_fwd(meta, meta, meta, [torch.empty(8, 8, device="meta")], [torch.empty(8, device="meta")],
                         (), G.modified_mlp_program(1), idx)
     with pytest.raises(ValueError, match="CUDA"):
-        G.jet_alpha_reduce(torch.empty(4, 2, device="meta"))
+        J.jet_wgrad([meta], [torch.empty(2, 4, 8, device="meta")], alpha_partials=torch.empty(4, 2, device="meta"))
     G.reset_counters()
+    J.reset_counters()
     cpu = [torch.randn(4, 8) for _ in range(2)]
     G.jet_gated_fwd(cpu, cpu, cpu, [torch.randn(8, 8)], [torch.randn(8)], (), G.modified_mlp_program(1), idx)
-    torch.testing.assert_close(G.jet_alpha_reduce(torch.ones(5, 2)), torch.full((2,), 5.0))
-    assert G.jet_gated_fwd.launches == 0 and G.jet_alpha_reduce.launches == 0
+    *_, d_alpha = J.jet_wgrad([cpu], [torch.randn(2, 4, 8)], alpha_partials=torch.ones(5, 2))
+    torch.testing.assert_close(d_alpha, torch.full((2,), 5.0))
+    assert G.jet_gated_fwd.launches == 0 and J.jet_wgrad.launches == 0
     assert G.jet_gated_fwd_plain.cuda_calls == 0
 
 
@@ -335,11 +435,13 @@ def test_gated_kernels_match_plain_versions_on_gpu(cuda_device, multis, program,
     r_outs, r_bounds = G.jet_gated_fwd_plain(y, u, v, ws, bs, al, program, idx, save_bounds=True)
     g_y, g_u, g_v, gzs, ins, part = G.jet_gated_bwd(y, u, v, r_bounds, ws, bs, al, gs, program, idx)
     r_gy, r_gu, r_gv, r_gzs, r_ins, r_da = G.jet_gated_bwd_plain(y, u, v, r_bounds, ws, bs, al, gs, program, idx)
-    d_alpha = G.jet_alpha_reduce(part)
+    dws, dbs, d_alpha = J.jet_wgrad(ins, gzs, alpha_partials=part)
+    r_dws, r_dbs = J.jet_wgrad_plain(r_ins, r_gzs)
     torch.cuda.synchronize()
-    assert (G.jet_gated_fwd.launches, G.jet_gated_bwd.launches, G.jet_alpha_reduce.launches) == (2, 1, int(bool(al)))
-    for got, ref in zip([*outs, *outs_sb, *bounds, *g_y, *g_u, *g_v, *gzs],
-                        [*r_outs, *r_outs, *r_bounds, *r_gy, *r_gu, *r_gv, *r_gzs]):
+    assert (G.jet_gated_fwd.launches, G.jet_gated_bwd.launches, J.jet_wgrad.launches) == (2, 1, 1)
+    assert tuple(d_alpha.shape) == (len(al),)
+    for got, ref in zip([*outs, *outs_sb, *bounds, *g_y, *g_u, *g_v, *gzs, *dws, *dbs],
+                        [*r_outs, *r_outs, *r_bounds, *r_gy, *r_gu, *r_gv, *r_gzs, *r_dws, *r_dbs]):
         _close(got, ref)
     for got, ref in zip(ins, r_ins):
         _close(torch.stack(got), torch.stack(ref))
@@ -373,8 +475,33 @@ def test_gated_segment_gradients_on_gpu(cuda_device, program, save_bounds):
         assert float((a - b).abs()) <= _alpha_tol(b, 1000 * 64 * len(idx))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["piratenet_3_blocks", "aneurysm"])
+def test_wgrad_is_bitwise_repeatable_on_gpu(cuda_device, shape):
+    """Two jet_wgrad calls on the same inputs give bitwise the same dW, db
+    and d alpha: a fixed summation order, no atomics."""
+    if shape == "aneurysm":
+        streams, weights, biases, cot = _case(NS3D, 6, n=2048, w=512, k_in=3)
+        idx = tjet.build_index(NS3D)
+        ss, ws, bs, gs = ([torch.from_numpy(a).to(cuda_device) for a in arrs] for arrs in (streams, weights, biases, cot))
+        _, bounds = J.jet_mlp_fwd(ss, ws, bs, idx, save_bounds=True)
+        _, gzs = J.jet_mlp_bwd(ss, bounds, ws, bs, gs, idx)
+        ins, part = [ss] + [b.unbind(0) for b in bounds], torch.randn(128, 0, device=cuda_device)
+    else:
+        program = G.piratenet_program(3)
+        idx = tjet.build_index(INDICES[0])
+        y, u, v, ws, bs, al, gs = ([torch.from_numpy(a).to(cuda_device) for a in part]
+                                   for part in _gated_case(INDICES[0], program, n=4096, w=256))
+        _, bounds = G.jet_gated_fwd(y, u, v, ws, bs, al, program, idx, save_bounds=True)
+        *_, gzs, ins, part = G.jet_gated_bwd(y, u, v, bounds, ws, bs, al, gs, program, idx)
+    first = J.jet_wgrad(ins, gzs, alpha_partials=part)
+    second = J.jet_wgrad(ins, gzs, alpha_partials=part)
+    torch.cuda.synchronize()
+    for a, b in zip([*first[0], *first[1], first[2]], [*second[0], *second[1], second[2]]):
+        assert torch.equal(a, b)
+
+
 ACTS = [(i, 1.7 if i == tjet.SIREN else 0.0) for i in sorted(tjet.ACT_RULES)]
-NS3D = [(0,), (1,), (2,), (0, 0), (1, 1), (2, 2)]
 
 
 @pytest.mark.cuda
