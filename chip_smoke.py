@@ -18,7 +18,8 @@ on failure:
              3 + 3 (jet_pallas); all at a ragged N too; d alpha, summed by
              jet_wgrad, against jet_alpha_reduce_plain; two jet_wgrad calls
              bitwise equal (dW, db, d alpha) at the PirateNet and aneurysm
-             shapes; every activation at S=4, W=256, L=2, ungated and as a
+             shapes, two jet_gated_bwd calls bitwise equal (every output)
+             on the PirateNet and ModifiedMLP programs; every activation at S=4, W=256, L=2, ungated and as a
              ModifiedMLP program; the LBM kernel for 1 and 200 steps at
              256 x 256 and 1 step at 1000 x 1000;
 3. main    - train the port's solvers at full width: the Allen-Cahn MLP
@@ -29,20 +30,25 @@ on failure:
              3-D NavierStokes residual on 2048 points, three boundary and
              two integral constraints) on jet_pallas_full and jet_pallas;
              run the lid-driven cavity at 256 x 256, Re 400, for 1000
-             steps. Each path's kernel launch counts are set to 0 just
-             before it and read just after. The aneurysm STLs are written
+             steps; take one step of the Allen-Cahn solver with
+             cylinder2d's MLP 5x50 on jet_pallas_full, whose widths the
+             kernels refuse: it must run on the plain jet path with no jet
+             kernel launch. Each path's kernel launch counts are set to 0
+             just before it and read just after. The aneurysm STLs are written
              by ``tools/gen_aneurysm_stl.py`` (run as a separate process)
              into ``dataset/aneurysm`` when they are missing;
 4. check   - on one batch, the PDE loss and its gradient through the
              kernels, on each driven training path, agree with the
              plain-PyTorch jet path on the card;
-5. timing  - train steps per second of the Allen-Cahn MLP and PirateNet
-             solvers and of the aneurysm solver; device time per step by
+5. timing  - train steps per second of the Allen-Cahn MLP, PirateNet and
+             ModifiedMLP solvers and of the aneurysm solver; device time per step by
              kernel and the device's busy share (torch.profiler); per
              kernel: time, plain-version time, bound, library time, at the
              Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's;
              jet_wgrad over the 27 PirateNet layers beside torch.bmm, with
-             and without the d alpha sum and against a separate sum.
+             and without the d alpha sum and against a separate sum;
+             jet_gated_bwd on the PirateNet stages without gates and
+             residuals, and so the share of the elementwise traffic.
 
 Tolerance (kernels against plain versions): the float32 sums run in
 another order, so each output may differ by at most 1e-4 times the largest
@@ -87,7 +93,9 @@ PATHS = {
     "aneurysm/jet_pallas": (None, "jet_pallas", 3),
 }
 # paths that are timed and profiled
-TIMED = ("mlp/jet_pallas_full", "piratenet/jet_pallas_full", "aneurysm/jet_pallas_full")
+TIMED = ("mlp/jet_pallas_full", "piratenet/jet_pallas_full", "modified_mlp/jet_pallas", "aneurysm/jet_pallas_full")
+# cylinder2d's MLP 5x50 (bench.py:165): widths the kernels refuse
+REFUSED = dict(arch="mlp", num_layers=5, hidden_size=50)
 PDE_CONSTRAINT = {"mlp": "PDE", "piratenet": "PDE", "modified_mlp": "PDE", "aneurysm": "interior"}
 HERE = os.path.dirname(os.path.abspath(__file__))
 STL_DIR = os.path.join(HERE, "dataset", "aneurysm")  # listed in .gitignore
@@ -95,6 +103,7 @@ CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
 LBM_TIMED = 2048  # lattice edge at which the LBM kernel is timed
 TIMED_STEPS = 20
 KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "lbm_collide_stream")
+GATED_BWD_PTXAS = {}  # jet_gated_bwd kernel instance -> [registers, spill store bytes, spill load bytes]
 
 
 def log(msg: str) -> None:
@@ -347,6 +356,30 @@ def check_wgrad_repeat():
     log(f"[kernels] jet_wgrad: two calls bitwise equal (dW, db, d alpha) at {', '.join(cases)}")
 
 
+def check_gated_bwd_repeat():
+    """Two jet_gated_bwd calls on the same inputs give bitwise the same
+    outputs (g_y, g_u, g_v, every gz and layer input, the d alpha
+    partials), on the PirateNet group of 9 blocks and the ModifiedMLP
+    program of 4 layers, at a ragged batch."""
+    import torch
+
+    from paddlescience_torch.ops import jet_gated as G
+
+    S, N, W = MAIN["S"], MAIN["N"] - 1, MAIN["W"]
+    flat = lambda out: [out] if isinstance(out, torch.Tensor) else [t for part in out for t in flat(part)]
+    programs = {"piratenet 9 blocks": G.piratenet_program(9), "modified_mlp 4": G.modified_mlp_program(4)}
+    for name, program in programs.items():
+        idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
+        _, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
+        args = (y, u, v, bounds, weights, biases, alphas, g_out, program, idx)
+        first, second = flat(G.jet_gated_bwd(*args)), flat(G.jet_gated_bwd(*args))
+        torch.cuda.synchronize()
+        if not (len(first) == len(second) > 0 and all(torch.equal(a, b) for a, b in zip(first, second))):
+            raise AssertionError(f"jet_gated_bwd {name}: two calls on the same inputs differ")
+    log("[kernels] jet_gated_bwd: two calls bitwise equal (every output) on the piratenet 9-block and "
+        "modified_mlp 4-layer programs")
+
+
 def ptxas_by_function(text: str):
     """(registers, spill store bytes, spill load bytes) by kernel function
     from nvcc's -Xptxas -v report."""
@@ -496,6 +529,31 @@ def run_cavity_path():
         f"mean ux under the lid {drag:.5f}, launches {counts['lbm_collide_stream']}, "
         f"plain versions on CUDA {sum(plain.values())}")
     return counts
+
+
+def run_refused_path():
+    """One train step of the Allen-Cahn solver with MLP 5x50 on
+    jet_pallas_full: the kernels refuse its widths (no multiple of 4), so
+    the dispatcher sends every segment to the plain jet path. The step must
+    run, with a finite loss, and launch no jet kernel."""
+    import torch
+
+    from paddlescience_torch.examples.allen_cahn import build_solver
+
+    with on_path("jet_pallas_full"):
+        solver = build_solver(deriv="jet_pallas_full", log_freq=1, device="cuda", **REFUSED)
+        lengths = solver.model.jet_segment_lengths()
+        torch.cuda.synchronize()
+        reset_counts()
+        logs = solver.train(1)
+        torch.cuda.synchronize()
+        counts, plain = read_counts()
+    loss = logs[-1]["loss"]
+    if lengths or any(counts.values()) or any(plain.values()) or not math.isfinite(loss):
+        raise AssertionError(f"mlp 5x50/jet_pallas_full: segments {lengths}, launches {counts}, plain versions "
+                             f"on CUDA {plain}, loss {loss}")
+    log(f"[main] mlp 5x50/jet_pallas_full (widths the kernels refuse): 1 step on the plain jet path, loss "
+        f"{loss:.6f}, segments {lengths}, jet kernel launches {sum(counts.values())}")
 
 
 def check_against_plain_path(solver, name: str, derivs, parts=("alpha", "embed_u", "embed_v")):
@@ -677,10 +735,14 @@ def time_kernels(errs, launches, device_ms):
         extra={"program": "piratenet 9 blocks (L=27)"})
     # the same stages with no gate and no residual: the products, gz and layer inputs alone
     bare = tuple(op & G.STAGE for op in program)
-    rows[-1]["ms_without_gates_and_residuals"] = cuda_ms(
+    r = rows[-1]
+    r["ms_without_gates_and_residuals"] = cuda_ms(
         lambda: G.jet_gated_bwd(y, (), (), bounds, weights, biases, (), g_out, bare, idx), 5)
+    r["ms_elementwise_share"] = r["ms"] - r["ms_without_gates_and_residuals"]
+    r["registers_spills"] = GATED_BWD_PTXAS
     log(f"[timing] jet_gated_bwd, the same stages without gates and residuals: "
-        f"{rows[-1]['ms_without_gates_and_residuals']:.4f} ms")
+        f"{r['ms_without_gates_and_residuals']:.4f} ms; elementwise share (gates, residuals) "
+        f"{r['ms_elementwise_share']:.4f} ms")
     # jet_wgrad over the 27 layers of the group, as the PirateNet backward calls it (with the d alpha
     # partials), without them, and without them followed by a separate sum of d alpha; in turns
     *_, gzs27, ins27, partials = G.jet_gated_bwd(*bargs)
@@ -835,8 +897,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    for fn, (regs, st, ld) in ptxas_by_function(build_logs.get("jet_wgrad", "")).items():
-        log(f"[build] jet_wgrad.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    for name in ("jet_wgrad", "jet_gated_bwd"):
+        for fn, (regs, st, ld) in ptxas_by_function(build_logs.get(name, "")).items():
+            log(f"[build] {name}.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+            if name == "jet_gated_bwd":
+                GATED_BWD_PTXAS[fn] = [regs, st, ld]
 
     from paddlescience_torch.autodiff import jet
     from paddlescience_torch.autodiff import path as deriv_path
@@ -899,6 +964,7 @@ def main() -> int:
     check_gated_kernels(S, N - 1, W, G.piratenet_program(3), "piratenet")
     check_gated_kernels(S, N - 1, W, G.modified_mlp_program(3), "modified_mlp")
     check_wgrad_repeat()
+    check_gated_bwd_repeat()
     errs["lbm_collide_stream"] = max(check_lbm_kernel(256, 256, 1), check_lbm_kernel(256, 256, 200),
                                      check_lbm_kernel(1000, 1000, 1))
 
@@ -906,6 +972,7 @@ def main() -> int:
     for path, (_, deriv, steps) in PATHS.items():
         _, launches[path] = run_path(solvers[path], path, deriv, steps)
     launches["cavity"] = run_cavity_path()
+    run_refused_path()
 
     req = ane._jet_requests["interior"]
     n_streams = {len(jet.build_index(stack)) for reqs in req.values() for stack in reqs}

@@ -218,12 +218,13 @@ __device__ __forceinline__ void zero_acc(float (&acc)[S][4][4]) {
 
 // A[s][k][r] <- src[s][(row0 + r) * K + k]; rows past N read as zero. src
 // is not written during the kernel (the loads take the read-only path).
-template <int S, int BM = PSCI_BM>
+// THREADS: the CTA's threads.
+template <int S, int BM = PSCI_BM, int THREADS = PSCI_THREADS>
 __device__ __forceinline__ void load_tile(float* A, int kmax, const float* const (&src)[S],
                                           int K, int row0, int N) {
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    for (int e = threadIdx.x; e < BM * K; e += PSCI_THREADS) {
+    for (int e = threadIdx.x; e < BM * K; e += THREADS) {
       const int r = e / K, k = e - r * K;
       const int n = row0 + r;
       const float* q = src[s] + (size_t)n * K + k;
@@ -478,6 +479,25 @@ __device__ __forceinline__ void gate_tile(float (&acc)[S][4][4], const float* co
       for (int s = 0; s < S; ++s) acc[s][i][j] = f[s];
     }
   }
+}
+
+// Asynchronous copies from device to shared memory (cp.async): 16 bytes
+// through L2 only, or 4; ok = false writes zeros (source size 0).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 #define PSCI_ERROR_STRING_FN                                   \

@@ -9,9 +9,8 @@
 // freshly recomputed) stage boundaries. For each stage:
 //   1. forward phase: recompute the stage's inner layers from its boundary
 //      (z_s = y_in_s @ W (+ b on the primal), the activation's jet rule,
-//      gate); write
-//      each layer's output, the next layer's input, to device memory for
-//      jet_wgrad.cu, and park its z in the layer's gz buffer;
+//      gate); write each layer's output, the next layer's input, to device
+//      memory for jet_wgrad.cu, and park its z in the layer's gz buffer;
 //   2. reverse phase, per layer from the stage's last: take z back from the
 //      gz buffer (the stage's last layer computes it here, from the input
 //      the forward phase left in shared memory) and f = act-jet(z); then,
@@ -35,19 +34,60 @@
 // per CTA and residual.
 //
 // What bounds it on an H100: operations. Per layer 2 products, z once and
-// gz @ W^T once: a PirateNet group of 9 blocks at S=4, N=4096, K=D=256 does
-// 2*27*S*2*N*K*D = 116 GFLOP in float32, 1.7 ms at 67 TFLOP/s, against
-// ~1.1 GB of boundary, gz, layer-input and gate-cotangent traffic (0.33 ms
-// at 3.35 TB/s) and 0.6 GB more for parking z (not part of the bound).
+// gz @ W^T once: a PirateNet group of 9 blocks (L = 27) at S=4, N=4096,
+// K=D=256 does 2*27*S*2*N*K*D = 116 GFLOP in float32, 1.73 ms at 67
+// TFLOP/s. Beside them, ~1.1 GB of boundary, gz and layer-input traffic,
+// 0.6 GB for parking z, and the elementwise traffic of the gates and
+// residuals: 18 gated layers x 6 stream sets (read u, v; read and write
+// g_u, g_v) and 9 residuals x 3 (read the stage input; park and read back
+// g_res), one stream set S*N*W*4 = 16.8 MB, ~2.3 GB, 0.67 ms at 3.35 TB/s
+// and less where L2 serves a CTA's 16 rows.
 //
 // Design: as jet_mlp_bwd.cu, one CTA per 16-row tile holds the layer input
 // A and the running cotangent G of all S streams in shared memory
-// (2 * S * 256 * 16 floats), weights stream from L2. u, v, the residual's
-// stage input and the g_u, g_v sums are elementwise only: each thread
-// reads and updates its own micro-tile of them in device memory, so no
-// atomics and a fixed summation order. d alpha is reduced over the CTA by
-// warp shuffles and a fixed-order sum over the 8 warps.
+// ([S][kmax][16] each, transposed). No atomics, a fixed summation order:
+// two calls on the same inputs are bitwise equal.
+//   * 512 threads, a 4-row x 2-column micro-tile of every stream each, so
+//     a thread fits in 128 registers and an SM runs 16 warps. With 256
+//     threads, 4 x 4 micro-tiles, 255 registers and 8 warps, the
+//     elementwise part below was latency-bound on the card.
+//   * Elementwise traffic in whole rows. The reverse phase walks the
+//     micro-tile rows outer and columns inner, as the forward's gate_tile
+//     does: per (stream, row) a thread moves its 2 contiguous columns of u,
+//     v, the residual's stage input, g_u, g_v (read before the row's
+//     arithmetic, written after it; the first gate walked writes without
+//     reading) and the parked g_res as one float2, so a warp's accesses
+//     fill whole sectors. The cotangent micro-tile comes out of the
+//     transposed G tile as float4 columns and stays in registers for the
+//     layer.
+//   * Weight staging that overlaps the FMAs. Both products stage 16-row
+//     (z = y_in @ W) or 16-column (gz @ W^T) chunks of W with 16-byte
+//     cp.async copies into a ring of GB_STAGES chunks, one __syncthreads a
+//     chunk: the copy of chunk c+1 is in flight while chunk c is computed.
+//     The W^T chunk lands in W's own row-major layout ([k][16], no element
+//     by element transposition), its four 16-byte pieces per row swizzled
+//     by bits 1-2 of the row; in this product a thread owns output columns
+//     tx + 128j, so the 8 lanes of each LDS.128 phase read 8 consecutive
+//     rows and hit 32 distinct banks. The result goes back into G (or g_y)
+//     by column index; the elementwise ownership above is unchanged.
+//   cp.async rather than TMA: a segment has up to 32 weight matrices, each
+//   would need its own tensor map. Widths are multiples of 4 (layer
+//   outputs; the wrapper checks), so every weight row starts 16-byte
+//   aligned, the narrow first input (dims[0] = 3, 5) included.
+// What holds it back (PERF.md): each product runs at under half of the
+// float32 FMA rate. A thread executes S + 1 shared loads per 8S FMAs (the A
+// fragment is one float4 per stream); with 128 registers it cannot hold
+// more accumulators to spread them over.
 #include "jet_common.cuh"
+
+// A CTA of 512 threads covers a 16-row tile: 4 rows of threads (ty), each
+// owning GB_RM = 4 tile rows, by GB_TX = 128 columns of threads (tx), each
+// owning GB_CN = 2 contiguous columns (widths up to 256).
+#define GB_THREADS 512
+#define GB_RM 4
+#define GB_CN 2
+#define GB_TX 128
+#define GB_STAGES 2  // weight chunks in the ring
 
 struct GatedBwdParams {
   const float* x[PSCI_MAX_S];      // segment input streams, (N, dims[0])
@@ -73,102 +113,410 @@ struct GatedBwdParams {
   int L, N, kmax, n_res;
 };
 
-// One element of one layer in the reverse phase: z holds the recomputed
-// pre-activations on entry and the pre-activation cotangents on exit; g the
-// cotangent of the layer's output. n, c: the element's row and column;
-// ok: the row is inside the batch.
+// A thread's micro-tile of one stream: rows GB_RM ty + i, columns GB_CN tx + j.
 template <int S>
-__device__ __forceinline__ void layer_vjp_elem(float (&z)[S], float (&g)[S], const GatedBwdParams& p,
-                                               const Act act, int op, float a, const float* const (&xin)[S],
-                                               bool first_gate, size_t off, bool ok, float& asum) {
-  const JetIdx& idx = p.idx;
-  float f0, f1, f2, f3;
-  psci_act(act, z[0], f0, f1, f2, f3);
-  if (op & (PSCI_OP_GATE | PSCI_OP_RESIDUAL)) {
-    float f[S];
+using Tile = float[S][GB_RM][GB_CN];
+
+// N (2 or 4) contiguous floats as one access.
+template <int N>
+__device__ __forceinline__ void ld(const float* p, float (&v)[N]) {
+  static_assert(N == 2 || N == 4, "float2 or float4");
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+// The same through the read-only path (data the kernel does not write).
+template <int N>
+__device__ __forceinline__ void ldg(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fill(float (&v)[N], float x) {
 #pragma unroll
-    for (int s = 0; s < S; ++s) f[s] = z[s];
-    jet_rule_elem<S>(f, f0, f1, f2, idx);
+  for (int j = 0; j < N; ++j) v[j] = x;
+}
+
+// ------------------------------------------------------ tile movement --
+
+// Column j of the micro-tile into a transposed tile A[s][c][r] at column c.
+template <int S>
+__device__ __forceinline__ void gb_store_col(float* A, int kmax, const Tile<S>& acc, int s, int j, int c, int ty) {
+  float v[GB_RM];
+#pragma unroll
+  for (int i = 0; i < GB_RM; ++i) v[i] = acc[s][i][j];
+  st<GB_RM>(A + ((size_t)s * kmax + c) * PSCI_BM + GB_RM * ty, v);
+}
+
+// The micro-tile into a transposed tile A[s][c][r] (c = GB_CN tx + j).
+template <int S>
+__device__ __forceinline__ void gb_store_tile(float* A, int kmax, const Tile<S>& acc, int tx, int ty) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < GB_CN; ++j) gb_store_col<S>(A, kmax, acc, s, j, GB_CN * tx + j, ty);
+}
+
+// The micro-tile rows to S (N, D) streams in device memory.
+template <int S>
+__device__ __forceinline__ void gb_store_rows(float* const (&dst)[S], const Tile<S>& acc, int D, int row0, int N,
+                                              int tx, int ty) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int i = 0; i < GB_RM; ++i) {
+      const int n = row0 + GB_RM * ty + i;
+      if (n < N) st<GB_CN>(dst[s] + (size_t)n * D + GB_CN * tx, acc[s][i]);
+    }
+}
+
+// The micro-tile rows back from what this thread wrote with gb_store_rows
+// (plain loads: written during the kernel); rows past N read as zero.
+template <int S>
+__device__ __forceinline__ void gb_load_rows(Tile<S>& acc, const float* const (&src)[S], int D, int row0, int N,
+                                             int tx, int ty) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int i = 0; i < GB_RM; ++i) {
+      const int n = row0 + GB_RM * ty + i;
+      fill<GB_CN>(acc[s][i], 0.f);
+      if (n < N) ld<GB_CN>(src[s] + (size_t)n * D + GB_CN * tx, acc[s][i]);
+    }
+}
+
+template <int S>
+__device__ __forceinline__ void gb_zero(Tile<S>& acc) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int i = 0; i < GB_RM; ++i) fill<GB_CN>(acc[s][i], 0.f);
+}
+
+// The bias on the primal stream's pre-activations.
+template <int S>
+__device__ __forceinline__ void gb_add_bias(Tile<S>& acc, const float* __restrict__ b, int tx) {
+  float bias[GB_CN];
+  ldg<GB_CN>(b + GB_CN * tx, bias);
+#pragma unroll
+  for (int i = 0; i < GB_RM; ++i)
+#pragma unroll
+    for (int j = 0; j < GB_CN; ++j) acc[0][i][j] += bias[j];
+}
+
+// The activation's jet rule, then (gated) v + f (u - v) by the jet product
+// rule, on the micro-tile in place; u, v rows read GB_CN floats at a time.
+template <int S>
+__device__ __forceinline__ void gb_act_gate(Tile<S>& acc, const GatedBwdParams& p, const Act act, bool gated, int D,
+                                            int row0, int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < GB_RM; ++i) {
+    const int n = row0 + GB_RM * ty + i;
+    float uu[S][GB_CN], vv[S][GB_CN];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      fill<GB_CN>(uu[s], 0.f);
+      fill<GB_CN>(vv[s], 0.f);
+      if (gated && n < p.N) {
+        ldg<GB_CN>(p.u[s] + (size_t)n * D + GB_CN * tx, uu[s]);
+        ldg<GB_CN>(p.v[s] + (size_t)n * D + GB_CN * tx, vv[s]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < GB_CN; ++j) {
+      float z[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) z[s] = acc[s][i][j];
+      float f, f1, f2, f3;
+      psci_act(act, z[0], f, f1, f2, f3);
+      jet_rule_elem<S>(z, f, f1, f2, p.idx);
+      if (gated) {
+        float ue[S], ve[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          ue[s] = uu[s][j];
+          ve[s] = vv[s][j];
+        }
+        gate_jet_elem<S>(z, ue, ve, p.idx);
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc[s][i][j] = z[s];
+    }
+  }
+}
+
+// ------------------------------------------------ ring-staged products --
+
+// Rows k0 .. k0+kc-1 of W (K, D): one contiguous block of kc * D floats.
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ W, int k0, int kc, int D) {
+  const float* src = W + (size_t)k0 * D;
+  for (int e = threadIdx.x; e < kc * D / 4; e += GB_THREADS) cp_async16(dst + 4 * e, src + 4 * e, true);
+}
+
+// Columns c0 .. c0+cn-1 (cn <= 16, a multiple of 4) of every row of W
+// (K, D), row-major as dst[k][16]; the 16-byte piece p of row k sits at
+// piece p ^ ((k >> 1) & 3). Pieces past cn are zero.
+__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ W, int c0, int cn, int K, int D) {
+  for (int e = threadIdx.x; e < 4 * K; e += GB_THREADS) {
+    const int k = e >> 2, p = e & 3;
+    const bool ok = 4 * p < cn;
+    cp_async16(dst + k * PSCI_KC + 4 * (p ^ ((k >> 1) & 3)), ok ? W + (size_t)k * D + c0 + 4 * p : W, ok);
+  }
+}
+
+// acc[s][i][j] += sum_k A[s][k][GB_RM ty + i] * W[k][GB_CN tx + j], k < K;
+// W (K, D), D % 4 == 0. Chunks of 16 weight rows go through the ring
+// (stage floats each). Enter with the ring free; ends with
+// __syncthreads(), so A and the ring may be overwritten after it.
+template <int S>
+__device__ __forceinline__ void ring_matmul(Tile<S>& acc, const float* A, int kmax, const float* __restrict__ W,
+                                            int K, int D, float* ring, int stage, int tx, int ty) {
+  const int n = (K + PSCI_KC - 1) / PSCI_KC;
+  auto fetch = [&](int c) {
+    if (c < n) stage_rows(ring + (c % GB_STAGES) * stage, W, c * PSCI_KC, min(PSCI_KC, K - c * PSCI_KC), D);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < GB_STAGES - 1; ++c) fetch(c);
+  for (int c = 0; c < n; ++c) {
+    cp_async_wait<GB_STAGES - 2>();
+    __syncthreads();  // chunk c has landed for every thread; chunk c-1's slot is free
+    fetch(c + GB_STAGES - 1);
+    const float* Wc = ring + (c % GB_STAGES) * stage;
+    const int k0 = c * PSCI_KC, kc = min(PSCI_KC, K - k0);
+    if (GB_CN * tx < D) {
+#pragma unroll 4
+      for (int kk = 0; kk < kc; ++kk) {
+        float w[GB_CN];
+        ld<GB_CN>(Wc + kk * D + GB_CN * tx, w);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          float a[GB_RM];
+          ld<GB_RM>(A + ((size_t)s * kmax + k0 + kk) * PSCI_BM + GB_RM * ty, a);
+#pragma unroll
+          for (int i = 0; i < GB_RM; ++i)
+#pragma unroll
+            for (int j = 0; j < GB_CN; ++j) acc[s][i][j] = fmaf(a[i], w[j], acc[s][i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// acc[s][i][j] += sum_c G[s][c][GB_RM ty + i] * W[tx + GB_TX j][c], c < D:
+// the product with W^T, output column tx + GB_TX j (rows past K read row
+// K-1; their sums are not used). Chunks of 16 columns of W go through the
+// ring as stage_cols lays them out. Enter with the ring free; ends with
+// __syncthreads(), so G and the ring may be overwritten after it.
+template <int S>
+__device__ __forceinline__ void ring_matmul_t(Tile<S>& acc, const float* G, int kmax, const float* __restrict__ W,
+                                              int K, int D, float* ring, int stage, int tx, int ty) {
+  const int n = (D + PSCI_KC - 1) / PSCI_KC;
+  const int sw = (tx >> 1) & 3;  // the swizzle of rows tx + GB_TX j
+  int wrow[GB_CN];
+#pragma unroll
+  for (int j = 0; j < GB_CN; ++j) wrow[j] = min(tx + GB_TX * j, K - 1) * PSCI_KC;
+  auto fetch = [&](int c) {
+    if (c < n) stage_cols(ring + (c % GB_STAGES) * stage, W, c * PSCI_KC, min(PSCI_KC, D - c * PSCI_KC), K, D);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < GB_STAGES - 1; ++c) fetch(c);
+  for (int c = 0; c < n; ++c) {
+    cp_async_wait<GB_STAGES - 2>();
+    __syncthreads();
+    fetch(c + GB_STAGES - 1);
+    const float* Wt = ring + (c % GB_STAGES) * stage;
+    const int c0 = c * PSCI_KC, cn = min(PSCI_KC, D - c0);
+#pragma unroll 1
+    for (int q4 = 0; q4 < cn / 4; ++q4) {
+      float w[GB_CN][4];
+#pragma unroll
+      for (int j = 0; j < GB_CN; ++j) ld<4>(Wt + wrow[j] + 4 * (q4 ^ sw), w[j]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          float a[GB_RM];
+          ld<GB_RM>(G + ((size_t)s * kmax + c0 + 4 * q4 + q) * PSCI_BM + GB_RM * ty, a);
+#pragma unroll
+          for (int i = 0; i < GB_RM; ++i)
+#pragma unroll
+            for (int j = 0; j < GB_CN; ++j) acc[s][i][j] = fmaf(a[i], w[j][q], acc[s][i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------ the elementwise rules --
+
+// The reverse phase's elementwise part of layer m on the thread's
+// micro-tile (GB_CN tx < D): acc holds the layer's pre-activations z on
+// entry and its gz on exit; the cotangents of the layer's output come from
+// G. Rows outer, columns inner: per (stream, row) the thread moves its
+// GB_CN contiguous columns of every elementwise operand as one access.
+// Residual: d alpha into asum, (1 - a) g parked in gin. Gate: g_u, g_v
+// written (first_gate) or added to.
+template <int S>
+__device__ __forceinline__ void layer_vjp_tile(Tile<S>& acc, const float* G, const GatedBwdParams& p, const Act act,
+                                               int op, float a, const float* const (&xin)[S], bool first_gate, int D,
+                                               int row0, int tx, int ty, float& asum) {
+  const JetIdx& idx = p.idx;
+  float gt[S][GB_CN][GB_RM];  // gt[s][j][i]: cotangent of row GB_RM ty + i, column GB_CN tx + j
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < GB_CN; ++j)
+      ld<GB_RM>(G + ((size_t)s * p.kmax + GB_CN * tx + j) * PSCI_BM + GB_RM * ty, gt[s][j]);
+#pragma unroll
+  for (int i = 0; i < GB_RM; ++i) {
+    const int n = row0 + GB_RM * ty + i;
+    const bool ok = n < p.N;
+    const size_t off = (size_t)n * D + GB_CN * tx;
+    // the row's u - v, g_u, g_v (gate) or stage input, g_res (residual)
+    float e1[S][GB_CN], e2[S][GB_CN], e3[S][GB_CN];
     if (op & PSCI_OP_RESIDUAL) {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        const float xs = ok ? __ldg(xin[s] + off) : 0.f;
-        asum += g[s] * (f[s] - xs);
-        if (ok) p.gin[s][off] = (1.f - a) * g[s];
-        g[s] *= a;
+        fill<GB_CN>(e1[s], 0.f);
+        if (ok) ldg<GB_CN>(xin[s] + off, e1[s]);
       }
-    }
-    if (op & PSCI_OP_GATE) {
-      float d[S], gf[S], gd[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) d[s] = ok ? __ldg(p.u[s] + off) - __ldg(p.v[s] + off) : 0.f;
-      gf[0] = 0.f;
-      gd[0] = 0.f;
+    } else if (op & PSCI_OP_GATE) {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        gf[0] += g[s] * d[s];
-        gd[0] += g[s] * f[s];
-      }
-#pragma unroll
-      for (int s = 1; s < S; ++s) {
-        gf[s] = g[s] * d[0];
-        gd[s] = g[s] * f[0];
-      }
-#pragma unroll
-      for (int s = 1; s < S; ++s) {
-        if (idx.kind[s] == 2) {
-          const int ia = idx.pa[s], ib = idx.pb[s];
-          add_at<S>(gf, ia, g[s] * sel<S>(d, ib));
-          add_at<S>(gf, ib, g[s] * sel<S>(d, ia));
-          add_at<S>(gd, ia, g[s] * sel<S>(f, ib));
-          add_at<S>(gd, ib, g[s] * sel<S>(f, ia));
+        float vv[GB_CN];
+        fill<GB_CN>(e1[s], 0.f);
+        fill<GB_CN>(vv, 0.f);
+        fill<GB_CN>(e2[s], 0.f);
+        fill<GB_CN>(e3[s], 0.f);
+        if (ok) {
+          ldg<GB_CN>(p.u[s] + off, e1[s]);
+          ldg<GB_CN>(p.v[s] + off, vv);
+          if (!first_gate) {  // this thread alone owns these columns of the row
+            ld<GB_CN>(p.gu[s] + off, e2[s]);
+            ld<GB_CN>(p.gv[s] + off, e3[s]);
+          }
         }
-      }
-      if (ok) {
 #pragma unroll
-        for (int s = 0; s < S; ++s) {
-          // this thread alone owns the element: a plain read-modify-write
-          if (first_gate) {
-            p.gu[s][off] = gd[s];
-            p.gv[s][off] = g[s] - gd[s];
-          } else {
-            p.gu[s][off] += gd[s];
-            p.gv[s][off] += g[s] - gd[s];
+        for (int j = 0; j < GB_CN; ++j) e1[s][j] -= vv[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < GB_CN; ++j) {
+      float z[S], g[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        z[s] = acc[s][i][j];
+        g[s] = gt[s][j][i];
+      }
+      float f0, f1, f2, f3;
+      psci_act(act, z[0], f0, f1, f2, f3);
+      if (op & (PSCI_OP_GATE | PSCI_OP_RESIDUAL)) {
+        float f[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) f[s] = z[s];
+        jet_rule_elem<S>(f, f0, f1, f2, idx);
+        if (op & PSCI_OP_RESIDUAL) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            asum += g[s] * (f[s] - e1[s][j]);
+            e2[s][j] = (1.f - a) * g[s];
+            g[s] *= a;
+          }
+        } else {
+          float d[S], gf[S], gd[S];
+#pragma unroll
+          for (int s = 0; s < S; ++s) d[s] = e1[s][j];
+          gf[0] = 0.f;
+          gd[0] = 0.f;
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            gf[0] += g[s] * d[s];
+            gd[0] += g[s] * f[s];
+          }
+#pragma unroll
+          for (int s = 1; s < S; ++s) {
+            gf[s] = g[s] * d[0];
+            gd[s] = g[s] * f[0];
+          }
+#pragma unroll
+          for (int s = 1; s < S; ++s) {
+            if (idx.kind[s] == 2) {
+              const int ia = idx.pa[s], ib = idx.pb[s];
+              add_at<S>(gf, ia, g[s] * sel<S>(d, ib));
+              add_at<S>(gf, ib, g[s] * sel<S>(d, ia));
+              add_at<S>(gd, ia, g[s] * sel<S>(f, ib));
+              add_at<S>(gd, ib, g[s] * sel<S>(f, ia));
+            }
+          }
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            e2[s][j] += gd[s];
+            e3[s][j] += g[s] - gd[s];
+            g[s] = gf[s];
           }
         }
       }
+      jet_rule_vjp<S>(z, g, f1, f2, f3, idx);  // VJP of the activation's jet rule
 #pragma unroll
-      for (int s = 0; s < S; ++s) g[s] = gf[s];
+      for (int s = 0; s < S; ++s) acc[s][i][j] = z[s];
+    }
+    if (ok && (op & PSCI_OP_RESIDUAL)) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) st<GB_CN>(p.gin[s] + off, e2[s]);
+    } else if (ok && (op & PSCI_OP_GATE)) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        st<GB_CN>(p.gu[s] + off, e2[s]);
+        st<GB_CN>(p.gv[s] + off, e3[s]);
+      }
     }
   }
-  jet_rule_vjp<S>(z, g, f1, f2, f3, idx);  // VJP of the activation's jet rule
 }
 
+// ------------------------------------------------------------- kernel --
+
 template <int S, bool ANY>
-__global__ void __launch_bounds__(PSCI_THREADS, 1) jet_gated_bwd_kernel(const GatedBwdParams p) {
+__global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const GatedBwdParams p) {
   const Act act = ANY ? p.act : Act{PSCI_TANH, 0.f};
   extern __shared__ __align__(16) float smem[];
-  __shared__ float red[PSCI_THREADS / 32];
+  __shared__ float red[GB_THREADS / 32];
   const size_t tile = (size_t)S * p.kmax * PSCI_BM;
-  float* A = smem;             // layer input y_in, [S][kmax][BM]
-  float* G = smem + tile;      // running cotangent, [S][kmax][BM]
-  float* Wc = smem + 2 * tile; // weight chunk
-  const int kpad = p.kmax + 4;
+  float* A = smem;                // layer input y_in, [S][kmax][BM]
+  float* G = smem + tile;         // running cotangent, [S][kmax][BM]
+  float* ring = smem + 2 * tile;  // GB_STAGES weight chunks
+  const int stage = PSCI_KC * p.kmax;
   const int row0 = blockIdx.x * PSCI_BM;
-  const int tx = threadIdx.x & 63, ty = threadIdx.x >> 6;
+  const int tx = threadIdx.x % GB_TX, ty = threadIdx.x / GB_TX;
 
-  const float* us[S];
-  const float* vs[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    us[s] = p.u[s];
-    vs[s] = p.v[s];
-  }
   {
     const float* src[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) src[s] = p.gout[s];
-    load_tile<S>(G, p.kmax, src, p.dims[p.L], row0, p.N);
+    load_tile<S, PSCI_BM, GB_THREADS>(G, p.kmax, src, p.dims[p.L], row0, p.N);
   }
   bool first_gate = true;
 
@@ -181,76 +529,49 @@ __global__ void __launch_bounds__(PSCI_THREADS, 1) jet_gated_bwd_kernel(const Ga
 
     // ---- forward phase: the inputs of the stage's inner layers
     if (l0 < l1) {
-      load_tile<S>(A, p.kmax, stage_in, p.dims[l0], row0, p.N);
-      __syncthreads();
+      load_tile<S, PSCI_BM, GB_THREADS>(A, p.kmax, stage_in, p.dims[l0], row0, p.N);
       for (int m = l0; m < l1; ++m) {
         const int K = p.dims[m], D = p.dims[m + 1];
-        float acc[S][4][4];
-        zero_acc<S>(acc);
-        tile_matmul<S>(acc, A, p.kmax, p.W[m], K, D, Wc, tx, ty);
-        if (4 * tx < D) {
-          add_bias<S>(acc, p.b[m], tx);
+        Tile<S> acc;
+        gb_zero<S>(acc);
+        ring_matmul<S>(acc, A, p.kmax, p.W[m], K, D, ring, stage, tx, ty);
+        if (GB_CN * tx < D) {
+          gb_add_bias<S>(acc, p.b[m], tx);
           float* dst[S];
 #pragma unroll
           for (int s = 0; s < S; ++s) dst[s] = p.gz[m] + (size_t)s * p.N * D;
-          store_rows<S>(dst, acc, D, row0, p.N, tx, ty);  // z, for the reverse phase
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) act_jet<S>(acc, p.idx, act, i, j);
-          if (p.op[m] & PSCI_OP_GATE) gate_tile<S>(acc, us, vs, D, row0, p.N, p.idx, tx, ty);
-          store_tile<S>(A, p.kmax, acc, tx, ty);
+          gb_store_rows<S>(dst, acc, D, row0, p.N, tx, ty);  // z, for the reverse phase
+          gb_act_gate<S>(acc, p, act, p.op[m] & PSCI_OP_GATE, D, row0, tx, ty);
+          gb_store_tile<S>(A, p.kmax, acc, tx, ty);
 #pragma unroll
           for (int s = 0; s < S; ++s) dst[s] = p.lin[m + 1] + (size_t)s * p.N * D;
-          store_rows<S>(dst, acc, D, row0, p.N, tx, ty);
+          gb_store_rows<S>(dst, acc, D, row0, p.N, tx, ty);
         }
-        __syncthreads();
       }
     }
 
     // ---- reverse phase
     for (int m = l1; m >= l0; --m) {
       const int K = p.dims[m], D = p.dims[m + 1], op = p.op[m];
-      float acc[S][4][4];
+      Tile<S> acc;
       if (m == l1) {
         // a one-layer stage starts from its boundary; otherwise A still
         // holds the input of layer l1 from the forward phase
-        if (l0 == l1) load_tile<S>(A, p.kmax, stage_in, K, row0, p.N);
-        __syncthreads();
-        zero_acc<S>(acc);
-        tile_matmul<S>(acc, A, p.kmax, p.W[m], K, D, Wc, tx, ty);  // z
-        if (4 * tx < D) add_bias<S>(acc, p.b[m], tx);
-      } else if (4 * tx < D) {
+        if (l0 == l1) load_tile<S, PSCI_BM, GB_THREADS>(A, p.kmax, stage_in, K, row0, p.N);
+        gb_zero<S>(acc);
+        ring_matmul<S>(acc, A, p.kmax, p.W[m], K, D, ring, stage, tx, ty);  // z
+        if (GB_CN * tx < D) gb_add_bias<S>(acc, p.b[m], tx);
+      } else if (GB_CN * tx < D) {
         // z as this thread parked it in the forward phase
         const float* src[S];
 #pragma unroll
         for (int s = 0; s < S; ++s) src[s] = p.gz[m] + (size_t)s * p.N * D;
-        load_rows<S>(acc, src, D, row0, p.N, tx, ty);
+        gb_load_rows<S>(acc, src, D, row0, p.N, tx, ty);
       }
       float asum = 0.f;
-      if (4 * tx < D) {
+      if (GB_CN * tx < D) {
         const float a = (op & PSCI_OP_RESIDUAL) ? __ldg(p.alpha[m]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float4 gv4[S];
-#pragma unroll
-          for (int s = 0; s < S; ++s)
-            gv4[s] = *reinterpret_cast<const float4*>(G + ((size_t)s * p.kmax + 4 * tx + j) * PSCI_BM + 4 * ty);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float z[S], g[S];
-#pragma unroll
-            for (int s = 0; s < S; ++s) {
-              z[s] = acc[s][i][j];
-              g[s] = i == 0 ? gv4[s].x : i == 1 ? gv4[s].y : i == 2 ? gv4[s].z : gv4[s].w;
-            }
-            const int n = row0 + 4 * ty + i;
-            layer_vjp_elem<S>(z, g, p, act, op, a, stage_in, first_gate, (size_t)n * D + 4 * tx + j,
-                              n < p.N, asum);
-#pragma unroll
-            for (int s = 0; s < S; ++s) acc[s][i][j] = z[s];
-          }
-        }
+        layer_vjp_tile<S>(acc, G, p, act, op, a, stage_in, first_gate, D, row0, tx, ty, asum);
       }
       if (op & PSCI_OP_GATE) first_gate = false;
       if (op & PSCI_OP_RESIDUAL) {
@@ -259,53 +580,39 @@ __global__ void __launch_bounds__(PSCI_THREADS, 1) jet_gated_bwd_kernel(const Ga
         for (int o = 16; o > 0; o >>= 1) asum += __shfl_down_sync(0xffffffffu, asum, o);
         if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = asum;
       }
-      __syncthreads();  // every thread has read its cotangents from G; red is written
+      __syncthreads();  // red is written
       if ((op & PSCI_OP_RESIDUAL) && threadIdx.x == 0) {
         float tot = 0.f;
 #pragma unroll
-        for (int w = 0; w < PSCI_THREADS / 32; ++w) tot += red[w];
+        for (int w = 0; w < GB_THREADS / 32; ++w) tot += red[w];
         p.apart[(size_t)blockIdx.x * p.n_res + p.aidx[m]] = tot;
       }
-      if (4 * tx < D) {
-        store_tile<S>(G, p.kmax, acc, tx, ty);
+      if (GB_CN * tx < D) {
+        // each thread overwrites only the cotangents it read from G
+        gb_store_tile<S>(G, p.kmax, acc, tx, ty);
         float* dst[S];
 #pragma unroll
         for (int s = 0; s < S; ++s) dst[s] = p.gz[m] + (size_t)s * p.N * D;
-        store_rows<S>(dst, acc, D, row0, p.N, tx, ty);
+        gb_store_rows<S>(dst, acc, D, row0, p.N, tx, ty);
       }
-      __syncthreads();
 
-      zero_acc<S>(acc);
-      tile_matmul_t<S>(acc, G, p.kmax, p.W[m], K, D, Wc, kpad, tx, ty);  // gz @ W^T
-      if (4 * tx < K) {
-        if (m == l0 && (p.op[l1] & PSCI_OP_RESIDUAL)) {
-          // the residual's share, parked in gin by this thread (K == dims[l1+1])
+      gb_zero<S>(acc);
+      ring_matmul_t<S>(acc, G, p.kmax, p.W[m], K, D, ring, stage, tx, ty);  // gz @ W^T
+      // the residual's share, parked in gin (K == dims[l1+1]) in layer l1's elementwise part
+      const bool add_res = m == l0 && (p.op[l1] & PSCI_OP_RESIDUAL);
 #pragma unroll
-          for (int s = 0; s < S; ++s)
+      for (int j = 0; j < GB_CN; ++j) {
+        const int k = tx + GB_TX * j;
+        if (k >= K) continue;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int n = row0 + 4 * ty + i;
-              if (n >= p.N) continue;
-              const float4 r = *(reinterpret_cast<const float4*>(p.gin[s] + (size_t)n * K) + tx);
-              acc[s][i][0] += r.x;
-              acc[s][i][1] += r.y;
-              acc[s][i][2] += r.z;
-              acc[s][i][3] += r.w;
-            }
-        }
-        if (m > 0) {
-          store_tile<S>(G, p.kmax, acc, tx, ty);
-        } else {
+        for (int s = 0; s < S; ++s) {
 #pragma unroll
-          for (int s = 0; s < S; ++s)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int n = row0 + 4 * ty + i;
-              if (n >= p.N) continue;
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (4 * tx + j < K) p.gin[s][(size_t)n * K + 4 * tx + j] = acc[s][i][j];
-            }
+          for (int i = 0; i < GB_RM; ++i) {
+            const int n = row0 + GB_RM * ty + i;
+            if (add_res && n < p.N) acc[s][i][j] += p.gin[s][(size_t)n * K + k];
+            if (m == 0 && n < p.N) p.gin[s][(size_t)n * K + k] = acc[s][i][j];
+          }
+          if (m > 0) gb_store_col<S>(G, p.kmax, acc, s, j, k, ty);
         }
       }
       __syncthreads();
@@ -314,20 +621,23 @@ __global__ void __launch_bounds__(PSCI_THREADS, 1) jet_gated_bwd_kernel(const Ga
   }
 }
 
+// Dynamic shared memory: the A and G tiles and the weight ring
+// (ops/jet_mlp.py::gated_bwd_smem computes the same).
+__host__ __forceinline__ size_t gated_bwd_smem(int S, int kmax) {
+  return (2 * (size_t)S * kmax * PSCI_BM + (size_t)GB_STAGES * PSCI_KC * kmax) * sizeof(float);
+}
+
 template <int S, bool ANY>
 static cudaError_t launch(const GatedBwdParams& p, cudaStream_t stream) {
-  const size_t smem =
-      (2 * (size_t)S * p.kmax * PSCI_BM + (size_t)PSCI_KC * (p.kmax + 4)) * sizeof(float);
+  const size_t smem = gated_bwd_smem(S, p.kmax);
   cudaError_t err = cudaFuncSetAttribute(jet_gated_bwd_kernel<S, ANY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + PSCI_BM - 1) / PSCI_BM);
-  jet_gated_bwd_kernel<S, ANY><<<grid, PSCI_THREADS, smem, stream>>>(p);
+  jet_gated_bwd_kernel<S, ANY><<<grid, GB_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// ANY = false: the kernel specialised to tanh (the Allen-Cahn paths'
-// activation), with the code and registers of a tanh-only kernel.
 template <bool ANY>
 static cudaError_t launch_s(const GatedBwdParams& p, int S, cudaStream_t st) {
   switch (S) {
@@ -347,10 +657,10 @@ static cudaError_t launch_s(const GatedBwdParams& p, int S, cudaStream_t st) {
 // arrays when no layer is gated), W[L], b[L], alpha[L] (null entries
 // without a residual), lin[L] (entry 0 unused), gz[L]; apart is device
 // scratch of ceil(N / 16) * n_res floats (null when there is no residual);
-// dims[L+1]; op[L]; kind/pa/pb[S]; act, act_w: the activation's id and
-// parameter. kmax >= every dims[l], rounded up to a multiple of 4, and <=
-// 256 (16-row tiles). A program with residuals has one width throughout.
-// Returns a cudaError_t code (0 = launched).
+// dims[L+1] (dims[1..L] multiples of 4); op[L]; kind/pa/pb[S]; act, act_w:
+// the activation's id and parameter. kmax >= every dims[l], rounded up to a
+// multiple of 4, and <= 256 (16-row tiles). A program with residuals has
+// one width throughout. Returns a cudaError_t code (0 = launched).
 extern "C" int jet_gated_bwd(const void* const* x, const void* const* u, const void* const* v,
                              const void* const* gout, void* const* gin, void* const* gu,
                              void* const* gv, const void* const* W, const void* const* b,
@@ -358,7 +668,7 @@ extern "C" int jet_gated_bwd(const void* const* x, const void* const* u, const v
                              const int* dims, const int* op, const int* kind, const int* pa,
                              const int* pb, int S, int L, int N, int kmax, int act, float act_w,
                              void* stream) {
-  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 4 * 64 || act < 0 ||
+  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 4 * 64 || kmax % 4 || act < 0 ||
       act >= PSCI_N_ACTS)
     return (int)cudaErrorInvalidValue;
   if (!(op[0] & PSCI_OP_STAGE)) return (int)cudaErrorInvalidValue;
@@ -390,6 +700,7 @@ extern "C" int jet_gated_bwd(const void* const* x, const void* const* u, const v
     p.sfirst[l] = sfirst;
     if (l > 0 && lin[l] == nullptr) return (int)cudaErrorInvalidValue;
     if ((op[l] & PSCI_OP_GATE) && !gated) return (int)cudaErrorInvalidValue;
+    if (dims[l + 1] % 4 || dims[l + 1] > kmax || dims[l] > kmax) return (int)cudaErrorInvalidValue;
     if (op[l] & PSCI_OP_RESIDUAL) {
       if (alpha[l] == nullptr || apart == nullptr || dims[l + 1] != dims[0] || dims[sfirst] != dims[0])
         return (int)cudaErrorInvalidValue;

@@ -79,23 +79,6 @@ static_assert(2 * WG_STAGES * WG_STAGE_FLOATS >= 16 * WG_NARROW * WG_T, "a narro
 __host__ __device__ inline int wg_cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int wg_tiles_k(int K) { return K <= WG_NARROW ? 1 : wg_cdiv(K, WG_T); }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The copies of one operand's stage: COLS per row, 16 bytes each (VEC) or
 // 4; at(rr, cc, src) gives the source of row rr, column cc of the stage
 // and whether it exists (else the copy writes zeros).

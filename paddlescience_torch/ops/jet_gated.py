@@ -49,7 +49,7 @@ from torch.autograd.function import once_differentiable
 from paddlescience_torch.autodiff import jet as jetmod
 from paddlescience_torch.ops import cuda_build, jet_mlp
 from paddlescience_torch.ops.cuda_build import F, I, P, ints, is_cpu, launch, on_device, ptrs, stream_handle
-from paddlescience_torch.ops.jet_mlp import (BM, SMEM_LIMIT, TANH, act_args, act_jet, act_jet_vjp, index_tables,
+from paddlescience_torch.ops.jet_mlp import (BM, TANH, act_args, act_jet, act_jet_vjp, index_tables,
                                              jet_alpha_reduce_plain)
 
 __all__ = [
@@ -69,7 +69,6 @@ __all__ = [
 ]
 
 GATE, RESIDUAL, STAGE = 1, 2, 4  # op-code bits of a layer (csrc/jet_common.cuh)
-MAX_WIDTH = 256  # the gated kernels keep the 16-row tile of jet_mlp's narrow case
 
 Program = Tuple[int, ...]
 Tensors = Tuple[torch.Tensor, ...]
@@ -239,7 +238,7 @@ def _gated_dims(y, u, v, weights, biases, alphas, program, index) -> List[int]:
     _stages(program)
     if len(program) != len(weights):
         raise ValueError(f"the program has {len(program)} layers, got {len(weights)} weights")
-    dims = jet_mlp._segment_dims(y, weights, biases, index, MAX_WIDTH)
+    dims = jet_mlp._segment_dims(y, weights, biases, index, gated=True)
     if len(alphas) != _n_residuals(program) or any(tuple(a.shape) != (1,) for a in alphas):
         raise ValueError("need one (1,) alpha per residual layer")
     if _has_gates(program):
@@ -281,8 +280,6 @@ def jet_gated_fwd(y, u, v, weights, biases, alphas, program: Program, index: jet
     act_id, act_w = act_args(act)
     S, L, N = len(y), len(weights), int(y[0].shape[0])
     kmax = jet_mlp._round4(max(dims))
-    if (S * kmax * BM + 16 * max(dims[1:])) * 4 > SMEM_LIMIT:
-        raise ValueError(f"jet_gated_fwd: {S} streams of width {kmax} exceed shared memory")
     y, u, v, weights, biases, alphas = ([on_device(t, dev) for t in ts] for ts in (y, u, v, weights, biases, alphas))
     outs = tuple(torch.empty(N, dims[-1], device=dev) for _ in range(S))
     starts = [l for l, op in enumerate(program) if op & STAGE and l > 0]
@@ -322,8 +319,6 @@ def jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out, program: Prog
     if len(bounds) != len(starts) or len(g_out) != S:
         raise ValueError(f"jet_gated_bwd: need {len(starts)} boundaries and {S} cotangents")
     kmax = jet_mlp._round4(max(dims))
-    if (2 * S * kmax * BM + 16 * (kmax + 4)) * 4 > SMEM_LIMIT:
-        raise ValueError(f"jet_gated_bwd: {S} streams of width {kmax} exceed shared memory")
     y, u, v, bounds, weights, biases, alphas, g_out = (
         [on_device(t, dev) for t in ts] for ts in (y, u, v, bounds, weights, biases, alphas, g_out))
     for bd, l in zip(bounds, starts):

@@ -36,8 +36,13 @@ what the JAX package calls "highest".
 Stream layout: a stream is an (N, W) float32 tensor; weights are (K, D)
 and used as ``x @ W``; stage boundaries and ``gz`` are (S, N, D) per layer.
 
-Limits: S <= 8 streams, widths <= 512. A CTA's row tile is 16 rows up to
-width 256 and 8 rows above (:func:`tile_rows`); the backward keeps the
+Limits: :func:`kernels_take` is the one statement of what the jet kernels
+(these and ``ops/jet_gated.py``'s) take: 1..8 streams, 1..32 layers,
+widths <= 512 (<= 256 gated), layer outputs a multiple of 4, and the
+forward's and backward's shared memory within a CTA's. The segment
+dispatcher (``arch/mlp.py``) sends a segment to the kernels only where it
+holds; the wrappers raise where it does not. A CTA's row tile is 16 rows up
+to width 256 and 8 rows above (:func:`tile_rows`); the backward keeps the
 layer input and the running cotangent in shared memory where both fit and
 otherwise parks the cotangent in the ``gz`` buffers (:func:`bwd_parks`).
 """
@@ -60,6 +65,8 @@ __all__ = [
     "index_tables",
     "tile_rows",
     "bwd_parks",
+    "kernels_take",
+    "kernel_refusal",
     "act_jet",
     "act_jet_vjp",
     "jet_mlp_fwd",
@@ -80,8 +87,10 @@ NARROW_WIDTH = 256
 MAX_STREAMS = 8
 MAX_LAYERS = 32
 MAX_WIDTH = 512
+GATED_MAX_WIDTH = 256  # the gated kernels keep the 16-row tile of the narrow case
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
 KC = 16  # weight rows (or columns) staged per chunk
+GB_STAGES = 2  # jet_gated_bwd: weight chunks in its cp.async ring
 WG_T, WG_RC, WG_NARROW = 128, 32, 8  # jet_wgrad: tile edge, rows per stage, widest layer of narrow units
 WG_PART = WG_T * WG_T + WG_T  # floats of one jet_wgrad unit's partial (its dW tile, then db)
 WG_NARROW_COST = 0.25  # time per row of a narrow unit, in rows of a 128 x 128 unit
@@ -218,24 +227,26 @@ def _round4(x: int) -> int:
     return -(-x // 4) * 4
 
 
-def _segment_dims(streams, weights, biases, index, max_width: int = MAX_WIDTH) -> List[int]:
+def _segment_dims(streams, weights, biases, index, gated: bool = False) -> List[int]:
+    """The segment's widths dims[0] -> ... -> dims[L]; raises ValueError
+    where the shapes do not chain or the kernels refuse them."""
     S, L = len(streams), len(weights)
-    if S != len(index) or not 1 <= S <= MAX_STREAMS:
-        raise ValueError(f"need 1..{MAX_STREAMS} streams matching the index, got {S}")
-    if not 1 <= L <= MAX_LAYERS or len(biases) != L:
-        raise ValueError(f"need 1..{MAX_LAYERS} layers with one bias each, got {L}")
+    if S != len(index):
+        raise ValueError(f"need one stream per entry of the jet index ({len(index)}), got {S}")
+    if len(biases) != L:
+        raise ValueError(f"need one bias per layer, got {len(biases)} for {L} layers")
     dims = [int(streams[0].shape[1])]
     for w, b in zip(weights, biases):
         if w.dim() != 2 or w.shape[0] != dims[-1] or tuple(b.shape) != (w.shape[1],):
             raise ValueError(f"layer shapes do not chain: W {tuple(w.shape)}, b {tuple(b.shape)} "
                              f"after width {dims[-1]}")
         dims.append(int(w.shape[1]))
-    if max(dims) > max_width or any(d % 4 for d in dims[1:]):
-        raise ValueError(f"the kernels take widths <= {max_width}, layer outputs a multiple "
-                         f"of 4; got {dims}")
     for s in streams:
         if tuple(s.shape) != tuple(streams[0].shape):
             raise ValueError("all streams of a jet share one shape")
+    reason = kernel_refusal(S, dims, gated)
+    if reason:
+        raise ValueError(reason)
     return dims
 
 
@@ -273,6 +284,39 @@ def bwd_smem(S: int, dims: Sequence[int]) -> int:
     return (tiles * S * kmax * tile_rows(dims) + KC * (kmax + 4)) * 4
 
 
+def gated_bwd_smem(S: int, dims: Sequence[int]) -> int:
+    """Shared-memory bytes of jet_gated_bwd: the layer-input and cotangent
+    tiles (16 rows) and its ring of GB_STAGES weight chunks of KC x kmax."""
+    kmax = _round4(max(dims))
+    return (2 * S * kmax * BM + GB_STAGES * KC * kmax) * 4
+
+
+def kernel_refusal(S: int, dims: Sequence[int], gated: bool = False) -> Optional[str]:
+    """Why the jet kernels refuse a segment of S streams through layers
+    dims[0] -> ... -> dims[L] (the ungated pair ``jet_mlp_{fwd,bwd}``, or
+    with ``gated`` the pair of ``ops/jet_gated.py``), or None where they
+    take it. The one statement of the kernels' limits: the dispatcher reads
+    it before any launch, the wrappers raise on it."""
+    L, max_width = len(dims) - 1, GATED_MAX_WIDTH if gated else MAX_WIDTH
+    if not 1 <= S <= MAX_STREAMS:
+        return f"the kernels take 1..{MAX_STREAMS} streams, got {S}"
+    if not 1 <= L <= MAX_LAYERS:
+        return f"the kernels take 1..{MAX_LAYERS} layers, got {L}"
+    if max(dims) > max_width or any(d % 4 for d in dims[1:]):
+        return f"the kernels take widths <= {max_width}, layer outputs a multiple of 4; got {list(dims)}"
+    smem = max(fwd_smem(S, dims), (gated_bwd_smem if gated else bwd_smem)(S, dims))
+    if smem > SMEM_LIMIT:
+        return (f"{S} streams of width {_round4(max(dims))} need {smem} bytes of shared memory, "
+                f"more than a CTA's {SMEM_LIMIT}")
+    return None
+
+
+def kernels_take(S: int, dims: Sequence[int], gated: bool = False) -> bool:
+    """Whether the jet kernels run a segment of S streams through layers
+    dims[0] -> ... -> dims[L] (see :func:`kernel_refusal`)."""
+    return kernel_refusal(S, dims, gated) is None
+
+
 def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.JetIndex,
                 save_bounds: bool = False, act: jetmod.Act = TANH) -> Tuple[Tensors, Tensors]:
     """Segment forward; returns (output streams, stage boundaries)."""
@@ -283,8 +327,6 @@ def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.
     S, L, N = len(streams), len(weights), int(streams[0].shape[0])
     kmax = _round4(max(dims))
     act_id, act_w = act_args(act)
-    if fwd_smem(S, dims) > SMEM_LIMIT:
-        raise ValueError(f"jet_mlp_fwd: {S} streams of width {kmax} exceed shared memory")
     streams = [on_device(s, dev) for s in streams]
     weights = [on_device(w, dev) for w in weights]
     biases = [on_device(b, dev) for b in biases]
@@ -311,8 +353,6 @@ def jet_mlp_bwd(streams, bounds, weights, biases, g_out,
         raise ValueError(f"jet_mlp_bwd: need {L - 1} boundaries and {S} cotangents")
     kmax = _round4(max(dims))
     act_id, act_w = act_args(act)
-    if bwd_smem(S, dims) > SMEM_LIMIT:
-        raise ValueError(f"jet_mlp_bwd: {S} streams of width {kmax} exceed shared memory")
     streams = [on_device(s, dev) for s in streams]
     bounds = [on_device(b, dev) for b in bounds]
     weights = [on_device(w, dev) for w in weights]

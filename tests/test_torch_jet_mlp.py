@@ -122,3 +122,48 @@ def test_index_tables():
     # ((), (0,), (1,), (0, 1), (1, 1))
     assert kinds == [0, 1, 1, 2, 2]
     assert pa[3:] == [1, 2] and pb[3:] == [2, 2]
+
+
+@pytest.mark.parametrize("multis", INDICES)
+def test_refused_width_matches_the_pallas_kernel(multis):
+    """cylinder2d's MLP 5x50 under ``jet_pallas_full``: the JAX package runs
+    its hidden layers through the Pallas segment (interpreted), which takes
+    any width; the port's dispatcher sends them to the plain jet path, since
+    the Hopper kernels take layer outputs that are multiples of 4 only
+    (``ops/jet_mlp.py::kernels_take``). Same parameters, same inputs: the
+    jet streams and every parameter gradient agree."""
+    import paddlescience_tpu as psci
+    from paddlescience_tpu.nn.core import Rngs
+    from paddlescience_torch.arch.mlp import MLP as TMLP
+    from paddlescience_torch.autodiff import path as tpath
+    from paddlescience_torch.utils.jax_params import flatten_tree, load_jax_params
+
+    np_tree = lambda tree: jax.tree.map(np.asarray, tree)
+    jm = psci.arch.MLP(("t", "x", "y"), ("u", "v", "p"), 5, 50, rngs=Rngs(3))
+    tm = TMLP(("t", "x", "y"), ("u", "v", "p"), 5, 50, device="cpu")
+    load_jax_params(tm, np_tree(jm.param_tree()), np_tree(jm.buffer_tree()))
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1.0, 1.0, (40, 3)).astype(np.float32)
+    cot = [rng.standard_normal((40, 3)).astype(np.float32) for _ in range(len(multis) + 1)]
+    flags = tpath.CANDIDATES["jet_pallas_full"]
+
+    def jloss(params):
+        with jm.bind(params):
+            out = jm.forward_jet(jjet.seed(jnp.asarray(x), jjet.build_index(multis)))
+        return sum(jnp.sum(o * jnp.asarray(c)) for o, c in zip(out.streams, cot)), out.streams
+
+    with jpath.override(flags):
+        (_, j_streams), j_grads = jax.value_and_grad(jloss, has_aux=True)(jm.param_tree())
+    assert getattr(jm, "_jet_specs", None), "the JAX model did not take its Pallas segment"
+    with tpath.override(flags):
+        assert tm.jet_segment_lengths() == []
+        out = tm.forward_jet(tjet.seed(torch.from_numpy(x), tjet.build_index(multis)))
+        names, params = zip(*tm.named_parameters())
+        t_grads = dict(zip(names, torch.autograd.grad(
+            sum((o * torch.from_numpy(c)).sum() for o, c in zip(out.streams, cot)), params)))
+    for a, b in zip(out.streams, j_streams):
+        _close(a, b, 1e-5)
+    j_grads = flatten_tree(np_tree(j_grads))
+    assert set(t_grads) == set(j_grads)
+    for name, g in j_grads.items():
+        _close(t_grads[name], g)

@@ -4,17 +4,22 @@ jet_mlp.py, jet_gated.py, lbm.py), without JAX.
 On the CPU: the hand-derived backwards (tanh MLP segment, gated layer
 programs) against torch.autograd through the plain forward, the saved
 stage boundaries, jet_wgrad's unit plan (every output element and batch
-row covered once, the last wave nearly full), and the wrappers' device
-rule.
+row covered once, the last wave nearly full), the wrappers' device rule,
+the one predicate of what the kernels take (``kernels_take``) and the
+segment dispatcher that reads it: a model whose widths the kernels refuse
+(MLP 5x50) trains on the plain jet path under ``jet_pallas_full``.
 On a GPU (tests marked ``cuda``, skipped elsewhere): each kernel against its
 plain version at the main-path segment depths (MLP: L=4 and the 3+1 split;
 PirateNet groups of 3 and 9 blocks; ModifiedMLP segments of 3 and 1
-layers), with a ragged batch, and at a small shape; jet_wgrad also at the
+layers), with a ragged batch, and at a small shape; the gated backward
+also at S = 6 x width 256 (its shared-memory edge), a narrow first input,
+the bare program and bitwise the same from call to call; jet_wgrad also at the
 aneurysm's 3 -> 512 x 6 (S = 7), an input width that is not a multiple of
 4, and bitwise the same from call to call (dW, db, d alpha); the aneurysm
 MLP's segments (SiLU, S = 7, 3 -> 512 -> ... -> 512, 6 layers and 3 + 3);
-every activation, ungated and gated; the LBM kernel at square, ragged and
-large lattices.
+every activation, ungated and gated; MLP 5x50 trains under
+``jet_pallas_full`` with no kernel launch; the LBM kernel at square,
+ragged and large lattices.
 This file imports only torch and the port, so it also runs where JAX is
 not installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_jet_mlp_kernels.py``.
@@ -152,6 +157,125 @@ def test_tiling_and_shared_memory_plan():
         G._gated_dims(t[:1] * 2, (), (), [torch.zeros(516, 260)], [torch.zeros(260)], (), G.mlp_program(1), idx)
     with pytest.raises(ValueError, match="unknown activation"):
         J.act_args((99, 0.0))
+
+
+PIRATENET_9 = [256] * 28
+ANEURYSM_DIMS = [3] + [512] * 6
+
+
+def _index_of(S):
+    """A jet index of S streams: the primal and S - 1 first derivatives."""
+    return tjet.build_index([(i,) for i in range(S - 1)])
+
+
+@pytest.mark.parametrize("S,dims,gated,takes", [
+    (4, [256] + [50] * 5, False, False),        # cylinder2d's MLP 5x50: outputs not a multiple of 4
+    (1, [3] + [50] * 5, False, False),
+    (4, [516] * 3, False, False),               # wider than 512
+    (4, [260] * 3, True, False),                # gated wider than 256
+    (7, PIRATENET_9, True, False),              # gated S = 7 at width 256: shared memory
+    (9, [24] * 3, False, False),                # more than 8 streams
+    (4, [256] * 34, False, False),              # more than 32 layers
+    (4, [256] * 5, False, True),                # the Allen-Cahn MLP 4x256
+    (4, PIRATENET_9, True, True),               # PirateNet 9 blocks
+    (6, PIRATENET_9, True, True),               # the gated backward's shared-memory edge
+    (7, ANEURYSM_DIMS, False, True),            # the aneurysm MLP 3 -> 512 x 6
+    (8, [5] + [64] * 3, True, True),            # a narrow first input, every stream count
+])
+def test_kernels_take(S, dims, gated, takes):
+    """The one statement of the kernels' limits, and the wrappers' shape
+    check that raises on it."""
+    assert J.kernels_take(S, dims, gated) is takes
+    assert (J.kernel_refusal(S, dims, gated) is None) is takes
+    idx = _index_of(S)
+    streams = [torch.zeros(2, dims[0])] * S
+    weights = [torch.zeros(dims[l], dims[l + 1]) for l in range(len(dims) - 1)]
+    biases = [torch.zeros(d) for d in dims[1:]]
+    if takes:
+        assert J._segment_dims(streams, weights, biases, idx, gated) == dims
+    else:
+        with pytest.raises(ValueError, match="the kernels take|shared memory"):
+            J._segment_dims(streams, weights, biases, idx, gated)
+
+
+@pytest.mark.parametrize("w", [64, 128, 256])
+@pytest.mark.parametrize("S", range(1, J.MAX_STREAMS + 1))
+def test_gated_backward_shared_memory_plan(S, w):
+    """jet_gated_bwd's shared memory (the input and cotangent tiles, and its
+    ring of weight chunks, as csrc/jet_gated_bwd.cu sizes them) against the
+    wrapper's check: a program is refused exactly where it exceeds a CTA."""
+    src = (J.cuda_build.CSRC / "jet_gated_bwd.cu").read_text()
+    assert f"#define GB_STAGES {J.GB_STAGES} " in src
+    dims = [w] * 5
+    need = (2 * S * w * 16 + J.GB_STAGES * 16 * w) * 4
+    assert J.gated_bwd_smem(S, dims) == need
+    fits = max(need, J.fwd_smem(S, dims)) <= J.SMEM_LIMIT
+    assert J.kernels_take(S, dims, gated=True) is fits
+    assert fits is (w < 256 or S <= 6)
+    idx = _index_of(S)
+    t = [torch.zeros(2, w)] * S
+    args = (t, t, t, [torch.zeros(w, w)] * 4, [torch.zeros(w)] * 4, (), G.modified_mlp_program(4), idx)
+    if fits:
+        assert G._gated_dims(*args) == dims
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            G._gated_dims(*args)
+
+
+def _mlp_5x50_solver():
+    """The Allen-Cahn solver with cylinder2d's MLP 5x50 (bench.py:165) on a
+    small batch, pinned to jet_pallas_full."""
+    from paddlescience_torch.examples.allen_cahn import build_solver
+
+    return build_solver(num_layers=5, hidden_size=50, batch_size=64, ic_points=32, fourier_dim=16,
+                        deriv="jet_pallas_full", device="cpu")
+
+
+def test_refused_widths_send_no_segment_to_the_kernels(monkeypatch):
+    """Under jet_pallas_full MLP 5x50 gets no fused segment: its widths are
+    no multiple of 4 at any stream count, and forward_jet never calls the
+    segment kernels' autograd.Function."""
+    from paddlescience_torch.arch.mlp import MLP
+    from paddlescience_torch.autodiff import path as tpath
+
+    saved = tpath.get_default()
+    try:
+        tpath.set_default(tpath.CANDIDATES["jet_pallas_full"])
+        model = MLP(("t", "x", "y"), ("u", "v", "p"), 5, 50, device="cpu")
+        assert model.jet_segment_lengths() == []
+        wide = MLP(("t", "x", "y"), ("u", "v", "p"), 5, 52, device="cpu")
+        assert wide.jet_segment_lengths() == [5]
+        monkeypatch.setattr(J, "jet_mlp_segment", lambda *a, **k: 1 / 0)
+        out = model.forward_jet(tjet.seed(torch.rand(8, 3), tjet.build_index([(0,), (1,), (1, 1)])))
+        assert len(out.streams) == 4 and tuple(out.streams[0].shape) == (8, 3)
+        with pytest.raises(ZeroDivisionError):
+            wide.forward_jet(tjet.seed(torch.rand(8, 3), tjet.build_index([(0,)])))
+    finally:
+        tpath.set_default(saved)
+
+
+def test_refused_widths_train_on_the_plain_jet_path():
+    """MLP 5x50 takes a train step under jet_pallas_full, and on one batch
+    its PDE loss and every parameter gradient equal the jet path's."""
+    from paddlescience_torch.autodiff import path as tpath
+
+    saved = tpath.get_default()
+    try:
+        solver = _mlp_5x50_solver()
+        batches = solver._batches()
+        results = {}
+        for deriv in ("jet_pallas_full", "jet"):
+            tpath.set_default(tpath.CANDIDATES[deriv])
+            losses = solver._constraint_losses(batches)
+            results[deriv] = (losses["PDE"].detach(), torch.autograd.grad(losses["PDE"], solver._params()))
+        (lk, gk), (lp, gp) = results["jet_pallas_full"], results["jet"]
+        assert torch.equal(lk, lp) and all(torch.equal(a, b) for a, b in zip(gk, gp))
+        assert any(float(g.abs().max()) > 0 for g in gp)
+        tpath.set_default(tpath.CANDIDATES["jet_pallas_full"])
+        logs = solver.train(2)
+        assert all(np.isfinite(entry["loss"]) for entry in logs)
+    finally:
+        tpath.set_default(saved)
 
 
 WGRAD_SHAPES = {  # (dims, S, N)
@@ -308,15 +432,18 @@ PROGRAMS = {
 }
 
 
-def _gated_case(multis, program, n=37, w=12, seed=2, dtype=np.float32):
-    """numpy inputs of a gated segment: y, u, v streams, weights, biases,
+def _gated_case(multis, program, n=37, w=12, seed=2, dtype=np.float32, k_in=None):
+    """numpy inputs of a gated segment: y streams (n, k_in), u, v streams
+    (n, w), layers k_in -> w -> ... -> w (k_in = w unless given), biases,
     alphas drawn in (0.1, 0.9) (alpha = 0 would zero every block gradient),
     output cotangents."""
     rng = np.random.default_rng(seed)
     S, L = len(tjet.build_index(multis)), len(program)
     draw = lambda *shape: rng.standard_normal(shape).astype(dtype)
-    y, u, v, cot = ([draw(n, w) for _ in range(S)] for _ in range(4))
-    weights = [(draw(w, w) / np.sqrt(w)).astype(dtype) for _ in range(L)]
+    y = [draw(n, k_in or w) for _ in range(S)]
+    u, v, cot = ([draw(n, w) for _ in range(S)] for _ in range(3))
+    weights = [(draw(k_in or w if l == 0 else w, w) / np.sqrt(k_in or w if l == 0 else w)).astype(dtype)
+               for l in range(L)]
     biases = [(0.1 * draw(w)).astype(dtype) for _ in range(L)]
     alphas = [rng.uniform(0.1, 0.9, (1,)).astype(dtype) for op in program if op & G.RESIDUAL]
     return y, u, v, weights, biases, alphas, cot
@@ -417,17 +544,31 @@ def _alpha_tol(ref, n_terms):
     return RTOL * max(float(ref.abs().max()), float(n_terms) ** 0.5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("multis", INDICES)
-@pytest.mark.parametrize("program,n,w", [
+S6 = [(0,), (1,), (0, 0), (1, 1), (0, 1)]  # 6 streams: the shared-memory edge of the gated backward at 256
+BARE_PIRATENET_3 = tuple(op & G.STAGE for op in G.piratenet_program(3))  # its stages, no gate, no residual
+GATED_SHAPES = [(multis, program, n, w, None) for multis in INDICES for program, n, w in [
     (G.piratenet_program(3), 4096, 256), (G.piratenet_program(9), 4096, 256), (G.piratenet_program(3), 4095, 256),
     (G.modified_mlp_program(3), 4096, 256), (G.modified_mlp_program(1), 4095, 256),
     (G.piratenet_program(2), 70, 24), (G.piratenet_program(1) + G.modified_mlp_program(1), 70, 24),
-])
-def test_gated_kernels_match_plain_versions_on_gpu(cuda_device, multis, program, n, w):
+]]
+GATED_SHAPES += [
+    (S6, G.piratenet_program(3), 1001, 256, None), (S6, G.modified_mlp_program(2), 4096, 256, None),
+    (INDICES[0], G.piratenet_program(2), 1001, 64, None),          # N not a multiple of the 16-row tile
+    (INDICES[0], G.modified_mlp_program(3), 1001, 256, 3),         # a narrow first input
+    (INDICES[1], G.modified_mlp_program(2), 70, 24, 5),
+    (INDICES[0], BARE_PIRATENET_3, 4095, 256, None), (INDICES[1], G.mlp_program(3), 70, 24, 5),
+    (INDICES[1], G.modified_mlp_program(4), 1001, 256, None),      # the ModifiedMLP program of the GPU run
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("multis,program,n,w,k_in", GATED_SHAPES)
+def test_gated_kernels_match_plain_versions_on_gpu(cuda_device, multis, program, n, w, k_in):
     idx = tjet.build_index(multis)
     y, u, v, ws, bs, al, gs = ([torch.from_numpy(a).to(cuda_device) for a in part]
-                               for part in _gated_case(multis, program, n=n, w=w))
+                               for part in _gated_case(multis, program, n=n, w=w, k_in=k_in))
+    if not G._has_gates(program):
+        u = v = []
     G.reset_counters()
     J.reset_counters()
     outs, _ = G.jet_gated_fwd(y, u, v, ws, bs, al, program, idx)
@@ -439,7 +580,7 @@ def test_gated_kernels_match_plain_versions_on_gpu(cuda_device, multis, program,
     r_dws, r_dbs = J.jet_wgrad_plain(r_ins, r_gzs)
     torch.cuda.synchronize()
     assert (G.jet_gated_fwd.launches, G.jet_gated_bwd.launches, J.jet_wgrad.launches) == (2, 1, 1)
-    assert tuple(d_alpha.shape) == (len(al),)
+    assert tuple(d_alpha.shape) == (len(al),) and len(g_u) == len(r_gu) and len(g_v) == len(r_gv)
     for got, ref in zip([*outs, *outs_sb, *bounds, *g_y, *g_u, *g_v, *gzs, *dws, *dbs],
                         [*r_outs, *r_outs, *r_bounds, *r_gy, *r_gu, *r_gv, *r_gzs, *r_dws, *r_dbs]):
         _close(got, ref)
@@ -447,6 +588,51 @@ def test_gated_kernels_match_plain_versions_on_gpu(cuda_device, multis, program,
         _close(torch.stack(got), torch.stack(ref))
     if al:
         assert float((d_alpha - r_da).abs().max()) <= _alpha_tol(r_da, n * w * len(idx))
+
+
+def _tensors(out):
+    """The tensors of a nest of tuples, in order."""
+    return [out] if isinstance(out, torch.Tensor) else [t for part in out for t in _tensors(part)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["piratenet_9", "modified_mlp_4"])
+def test_gated_bwd_is_bitwise_repeatable_on_gpu(cuda_device, program):
+    """Two jet_gated_bwd calls on the same inputs give bitwise the same
+    outputs, every one of them: no atomics, a fixed summation order."""
+    program = G.piratenet_program(9) if program == "piratenet_9" else G.modified_mlp_program(4)
+    idx = tjet.build_index(INDICES[0])
+    y, u, v, ws, bs, al, gs = ([torch.from_numpy(a).to(cuda_device) for a in part]
+                               for part in _gated_case(INDICES[0], program, n=4095, w=256))
+    _, bounds = G.jet_gated_fwd(y, u, v, ws, bs, al, program, idx, save_bounds=True)
+    first = _tensors(G.jet_gated_bwd(y, u, v, bounds, ws, bs, al, gs, program, idx))
+    second = _tensors(G.jet_gated_bwd(y, u, v, bounds, ws, bs, al, gs, program, idx))
+    torch.cuda.synchronize()
+    assert len(first) == len(second) > 0
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_refused_widths_train_on_gpu_without_kernels(cuda_device):
+    """MLP 5x50 under jet_pallas_full trains on the card, on the plain jet
+    path: no error and no jet kernel launch."""
+    from paddlescience_torch.autodiff import path as tpath
+    from paddlescience_torch.examples.allen_cahn import build_solver
+
+    saved = tpath.get_default()
+    try:
+        solver = build_solver(num_layers=5, hidden_size=50, batch_size=1024, deriv="jet_pallas_full",
+                              device=cuda_device)
+        J.reset_counters()
+        G.reset_counters()
+        logs = solver.train(2)
+        torch.cuda.synchronize()
+        assert all(np.isfinite(entry["loss"]) for entry in logs)
+        assert J.jet_mlp_fwd.launches == J.jet_mlp_bwd.launches == J.jet_wgrad.launches == 0
+        assert G.jet_gated_fwd.launches == G.jet_gated_bwd.launches == 0
+    finally:
+        tpath.set_default(saved)
 
 
 @pytest.mark.cuda
