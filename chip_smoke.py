@@ -19,9 +19,11 @@ on failure:
              jet_wgrad, against jet_alpha_reduce_plain; two jet_wgrad calls
              bitwise equal (dW, db, d alpha) at the PirateNet and aneurysm
              shapes, two jet_gated_bwd calls bitwise equal (every output)
-             on the PirateNet and ModifiedMLP programs; every activation at S=4, W=256, L=2, ungated and as a
-             ModifiedMLP program; the LBM kernel for 1 and 200 steps at
-             256 x 256 and 1 step at 1000 x 1000;
+             on the PirateNet and ModifiedMLP programs; the gated kernels
+             at S=7, W=256, where the backward keeps one tile and parks
+             the cotangent; every activation at S=4, W=256, L=2, ungated
+             and as a ModifiedMLP program; the LBM kernel for 1 and 200
+             steps at 256 x 256 and 1 step at 1000 x 1000;
 3. main    - train the port's solvers at full width: the Allen-Cahn MLP
              4x256 on jet_pallas_full and jet_pallas (segments of 3+1
              layers), PirateNet 9 blocks x 256 on jet_pallas_full (one
@@ -30,16 +32,16 @@ on failure:
              3-D NavierStokes residual on 2048 points, three boundary and
              two integral constraints) on jet_pallas_full and jet_pallas;
              run the lid-driven cavity at 256 x 256, Re 400, for 1000
-             steps; take one step of the Allen-Cahn solver with
-             cylinder2d's MLP 5x50 on jet_pallas_full, whose widths the
-             kernels refuse: it must run on the plain jet path with no jet
-             kernel launch. Each path's kernel launch counts are set to 0
+             steps; train the Allen-Cahn solver with cylinder2d's MLP 5x50
+             on jet_pallas_full for 2 steps: its widths are no multiple of
+             4, so its segment runs zero-padded to 52 through the MLP
+             kernels. Each path's kernel launch counts are set to 0
              just before it and read just after. The aneurysm STLs are written
              by ``tools/gen_aneurysm_stl.py`` (run as a separate process)
              into ``dataset/aneurysm`` when they are missing;
 4. check   - on one batch, the PDE loss and its gradient through the
-             kernels, on each driven training path, agree with the
-             plain-PyTorch jet path on the card;
+             kernels, on each driven training path (MLP 5x50 too), agree
+             with the plain-PyTorch jet path on the card;
 5. timing  - train steps per second of the Allen-Cahn MLP, PirateNet and
              ModifiedMLP solvers and of the aneurysm solver; device time per step by
              kernel and the device's busy share (torch.profiler); per
@@ -48,7 +50,8 @@ on failure:
              jet_wgrad over the 27 PirateNet layers beside torch.bmm, with
              and without the d alpha sum and against a separate sum;
              jet_gated_bwd on the PirateNet stages without gates and
-             residuals, and so the share of the elementwise traffic.
+             residuals, and so the share of the elementwise traffic, and
+             on the PirateNet program at S=6, 7 (parked) and 8 (W=64, 128).
 
 Tolerance (kernels against plain versions): the float32 sums run in
 another order, so each output may differ by at most 1e-4 times the largest
@@ -94,9 +97,10 @@ PATHS = {
 }
 # paths that are timed and profiled
 TIMED = ("mlp/jet_pallas_full", "piratenet/jet_pallas_full", "modified_mlp/jet_pallas", "aneurysm/jet_pallas_full")
-# cylinder2d's MLP 5x50 (bench.py:165): widths the kernels refuse
-REFUSED = dict(arch="mlp", num_layers=5, hidden_size=50)
-PDE_CONSTRAINT = {"mlp": "PDE", "piratenet": "PDE", "modified_mlp": "PDE", "aneurysm": "interior"}
+# cylinder2d's MLP 5x50 (bench.py:165): widths that are no multiple of 4, run zero-padded to 52
+PADDED = dict(arch="mlp", num_layers=5, hidden_size=50)
+PADDED_PATH, PADDED_STEPS = "mlp_5x50/jet_pallas_full", 2
+PDE_CONSTRAINT = {"mlp": "PDE", "mlp_5x50": "PDE", "piratenet": "PDE", "modified_mlp": "PDE", "aneurysm": "interior"}
 HERE = os.path.dirname(os.path.abspath(__file__))
 STL_DIR = os.path.join(HERE, "dataset", "aneurysm")  # listed in .gitignore
 CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
@@ -148,11 +152,16 @@ def check_close(what: str, got, ref) -> float:
 
 
 def jet_index(S):
-    """The jet of S streams a driven path runs: the Allen-Cahn index (u,
-    u_t, u_x, u_xx) cut to S, or the 3-D NavierStokes one at S = 7."""
+    """A jet of S streams: the Allen-Cahn index (u, u_t, u_x, u_xx) cut to
+    S <= 4 (what a driven path runs), a 2-D second-order one at S = 5, 6,
+    the 3-D NavierStokes one at S = 7 (the aneurysm's), with u_xy at S = 8."""
     from paddlescience_torch.autodiff import jet
 
-    return jet.build_index(NS3D if S == 7 else [(0,), (1,), (1, 1)][: S - 1])
+    if S <= 4:
+        return jet.build_index([(0,), (1,), (1, 1)][: S - 1])
+    if S <= 6:
+        return jet.build_index([(0,), (1,), (0, 0), (1, 1), (0, 1)][: S - 1])
+    return jet.build_index(NS3D + [(0, 1)] * (S - 7))
 
 
 def make_inputs(S, N, dims, seed=0):
@@ -465,7 +474,7 @@ def read_counts():
 
 def expected_kernels(path: str):
     """The kernels a driven path must launch."""
-    if path.startswith(("mlp/", "aneurysm/")):
+    if path.startswith(("mlp/", "aneurysm/", "mlp_5x50/")):
         return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
     if path.startswith(("piratenet/", "modified_mlp/")):
         return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad")
@@ -531,29 +540,22 @@ def run_cavity_path():
     return counts
 
 
-def run_refused_path():
-    """One train step of the Allen-Cahn solver with MLP 5x50 on
-    jet_pallas_full: the kernels refuse its widths (no multiple of 4), so
-    the dispatcher sends every segment to the plain jet path. The step must
-    run, with a finite loss, and launch no jet kernel."""
-    import torch
-
+def run_padded_path():
+    """The Allen-Cahn solver with MLP 5x50 on jet_pallas_full: its widths
+    are no multiple of 4, so its one 5-layer segment runs zero-padded to 52
+    through the MLP kernels. Every step must launch them, with finite
+    losses; on one batch its PDE loss and gradient must agree with the
+    plain jet path's. Returns the launch counts."""
     from paddlescience_torch.examples.allen_cahn import build_solver
 
+    solver = build_solver(deriv="jet_pallas_full", log_freq=1, device="cuda", **PADDED)
     with on_path("jet_pallas_full"):
-        solver = build_solver(deriv="jet_pallas_full", log_freq=1, device="cuda", **REFUSED)
         lengths = solver.model.jet_segment_lengths()
-        torch.cuda.synchronize()
-        reset_counts()
-        logs = solver.train(1)
-        torch.cuda.synchronize()
-        counts, plain = read_counts()
-    loss = logs[-1]["loss"]
-    if lengths or any(counts.values()) or any(plain.values()) or not math.isfinite(loss):
-        raise AssertionError(f"mlp 5x50/jet_pallas_full: segments {lengths}, launches {counts}, plain versions "
-                             f"on CUDA {plain}, loss {loss}")
-    log(f"[main] mlp 5x50/jet_pallas_full (widths the kernels refuse): 1 step on the plain jet path, loss "
-        f"{loss:.6f}, segments {lengths}, jet kernel launches {sum(counts.values())}")
+    if lengths != [PADDED["num_layers"]]:
+        raise AssertionError(f"{PADDED_PATH}: segments {lengths}, expected one of {PADDED['num_layers']} layers")
+    _, counts = run_path(solver, PADDED_PATH, "jet_pallas_full", PADDED_STEPS)
+    check_against_plain_path(solver, "mlp_5x50", ("jet_pallas_full",), ())
+    return counts
 
 
 def check_against_plain_path(solver, name: str, derivs, parts=("alpha", "embed_u", "embed_v")):
@@ -743,6 +745,19 @@ def time_kernels(errs, launches, device_ms):
     log(f"[timing] jet_gated_bwd, the same stages without gates and residuals: "
         f"{r['ms_without_gates_and_residuals']:.4f} ms; elementwise share (gates, residuals) "
         f"{r['ms_elementwise_share']:.4f} ms")
+    # the PirateNet program at the other stream counts: S = 6 (the widest S with two tiles at 256),
+    # S = 7 (one tile, the cotangent parked) and S = 8 at narrow widths
+    r["ms_by_shape"], r["bound_ms_by_shape"] = {}, {}
+    for s_, w_ in ((6, W), (7, W), (8, 64), (8, 128)):
+        key = f"S={s_} W={w_}" + (" parked" if J.gated_bwd_parks(s_, [w_]) else "")
+        a_ = make_gated_inputs(s_, N, w_, program)
+        _, bd_ = G.jet_gated_fwd(*a_[1:7], program, a_[0], save_bounds=True)
+        ba_ = (*a_[1:4], bd_, *a_[4:], program, a_[0])
+        r["ms_by_shape"][key] = cuda_ms(lambda: G.jet_gated_bwd(*ba_), 5)
+        r["bound_ms_by_shape"][key] = bound_ms(*gated_bound(s_, N, w_, program)[2:])[0]
+        del a_, bd_, ba_
+    log("[timing] jet_gated_bwd, PirateNet 9 blocks at other stream counts: " + ", ".join(
+        f"{k} {v:.4f} ms (bound {r['bound_ms_by_shape'][k]:.4f})" for k, v in r["ms_by_shape"].items()))
     # jet_wgrad over the 27 layers of the group, as the PirateNet backward calls it (with the d alpha
     # partials), without them, and without them followed by a separate sum of d alpha; in turns
     *_, gzs27, ins27, partials = G.jet_gated_bwd(*bargs)
@@ -883,6 +898,7 @@ def main() -> int:
         import paddlescience_torch  # noqa: F401
         from paddlescience_torch.ops import cuda_build
         from paddlescience_torch.ops import jet_gated as G
+        from paddlescience_torch.ops import jet_mlp as J
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 3
@@ -963,6 +979,10 @@ def main() -> int:
         merge(check_gated_kernels(S, N, W, G.modified_mlp_program(L), "modified_mlp"))
     check_gated_kernels(S, N - 1, W, G.piratenet_program(3), "piratenet")
     check_gated_kernels(S, N - 1, W, G.modified_mlp_program(3), "modified_mlp")
+    # S = 7 at W = 256: two tiles do not fit, the backward keeps one and parks the cotangent
+    if not J.gated_bwd_parks(len(NS3D) + 1, [W]):
+        raise AssertionError("the gated backward at S=7, W=256 was expected to park its cotangent")
+    check_gated_kernels(len(NS3D) + 1, N - 1, W, G.piratenet_program(3), "piratenet (parked)")
     check_wgrad_repeat()
     check_gated_bwd_repeat()
     errs["lbm_collide_stream"] = max(check_lbm_kernel(256, 256, 1), check_lbm_kernel(256, 256, 200),
@@ -972,7 +992,7 @@ def main() -> int:
     for path, (_, deriv, steps) in PATHS.items():
         _, launches[path] = run_path(solvers[path], path, deriv, steps)
     launches["cavity"] = run_cavity_path()
-    run_refused_path()
+    launches[PADDED_PATH] = run_padded_path()
 
     req = ane._jet_requests["interior"]
     n_streams = {len(jet.build_index(stack)) for reqs in req.values() for stack in reqs}

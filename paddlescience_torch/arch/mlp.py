@@ -10,12 +10,11 @@ ModifiedMLP layers and the PirateNet block groups through
 ``ops/jet_gated.py`` (CUDA kernels on the GPU, their plain versions on the
 CPU). As in the JAX package, ModifiedMLP and PirateNet take the segments
 whenever ``PSCI_JET_PALLAS`` is not "0", the MLP only with
-``PSCI_JET_PALLAS_MLP``. A segment runs on the kernels only where
-``ops/jet_mlp.py::kernels_take`` admits its stream count and widths (a
-decision by shape, made before any launch, as the JAX gate's lane rule
-is); any other segment takes the plain jet path (``autodiff/jet.py``),
-which the JAX package's kernel, taking any width, does not need. Weights
-keep the JAX layout, W of shape (in, out)
+``PSCI_JET_PALLAS_MLP``; layers narrower than ``PSCI_JET_PALLAS_MIN_LANES``
+take the plain jet path, as under the JAX gate, and nothing else does: a
+segment of any other shape goes to the kernels (widths that are no
+multiple of 4 zero-padded, a segment at most ``ops/jet_mlp.py::MAX_LAYERS``
+deep), whose wrappers raise where they cannot take it. Weights keep the JAX layout, W of shape (in, out)
 used as ``x @ W``, and parameters keep the JAX names, so they carry over
 key for key (``utils/jax_params.py``).
 
@@ -139,19 +138,10 @@ def _linear_eff(layer):
     return layer.weight, layer.bias
 
 
-def _weight_shape(layer) -> Tuple[int, int]:
-    """(in, out) widths of a linear layer, read without forming its weight."""
-    w = layer.weight_v if isinstance(layer, (RandomWeightFactorization, WeightNormLinear)) else layer.weight
-    return int(w.shape[0]), int(w.shape[-1])
-
-
 def _linear_out_features(layer) -> int:
-    return _weight_shape(layer)[1]
-
-
-def _layer_dims(linears) -> List[int]:
-    """Widths in -> out through consecutive linear layers."""
-    return [_weight_shape(linears[0])[0]] + [_linear_out_features(l) for l in linears]
+    """Output width of a linear layer, read without forming its weight."""
+    w = layer.weight_v if isinstance(layer, (RandomWeightFactorization, WeightNormLinear)) else layer.weight
+    return int(w.shape[-1])
 
 
 def _jet_linear(layer, jx: jet.Jet) -> jet.Jet:
@@ -186,65 +176,36 @@ def _jet_pallas_ok(linears, acts) -> bool:
 
 def _segment_lengths(model) -> List[int]:
     """Layers per fused segment: ``PSCI_JET_SEG`` each (default: the whole
-    stack for widths below 128, else 3), the last segment taking the rest.
+    stack for widths below 128, else 3; at most the kernels' MAX_LAYERS),
+    the last segment taking the rest.
 
     ``PSCI_JET_BLOCK_M`` has no counterpart: it sizes the TPU kernel's VMEM
     batch tile, while the Hopper kernels' row tile is fixed at 16 rows by
     shared memory (``ops/jet_mlp.py``)."""
+    from paddlescience_torch.ops.jet_mlp import MAX_LAYERS
+
     n = len(model.linears)
     width = max(_linear_out_features(l) for l in model.linears)
     seg_flag = deriv_path.flag("PSCI_JET_SEG", "")
-    g = int(seg_flag) if seg_flag else (n if width < 128 else 3)
+    g = min(int(seg_flag) if seg_flag else (n if width < 128 else 3), MAX_LAYERS)
     return [min(g, n - s) for s in range(0, n, g)]
 
 
-def _kernels_take(linears, S: int, gated: bool) -> bool:
-    """Whether the jet kernels take a segment of these layers at S streams
-    (``ops/jet_mlp.py::kernels_take``)."""
-    from paddlescience_torch.ops import jet_mlp
-
-    return jet_mlp.kernels_take(S, _layer_dims(linears), gated)
-
-
-def _segments(linears, lengths: List[int]) -> List[list]:
-    """The layers of each segment, in order."""
-    starts = [sum(lengths[:i]) for i in range(len(lengths))]
-    return [list(linears[a : a + n]) for a, n in zip(starts, lengths)]
-
-
-def _if_any_taken(lengths: List[int], linears, gated: bool) -> List[int]:
-    """``lengths``, or [] where the kernels take none of these segments at
-    any stream count (they take fewer streams more readily, so S = 1
-    decides)."""
-    return lengths if any(_kernels_take(seg, 1, gated) for seg in _segments(linears, lengths)) else []
-
-
-def _hidden_jet(model, jx: jet.Jet, uv=None) -> jet.Jet:
-    """The hidden (linear + activation [+ gate with the jets ``uv``])
-    layers of an MLP or ModifiedMLP: in the segments of
-    ``jet_segment_lengths()``, each as one fused segment where the kernels
-    take it at the jet's stream count, the rest layer by layer on the plain
-    jet path."""
+def _jet_pallas_segments(model, jx: jet.Jet, lengths: List[int], uv=None) -> jet.Jet:
+    """Run the hidden (linear + activation [+ gate with the jets ``uv``])
+    layers as fused segments of the given lengths."""
     from paddlescience_torch.ops import jet_gated, jet_mlp
 
     save_bounds = deriv_path.flag("PSCI_JET_SAVE_BOUNDS", "0") == "1"
     act = _segment_act(model.acts)
-    lengths = model.jet_segment_lengths()
     y, s = jx, 0
-    for layers in _segments(model.linears, lengths or [len(model.linears)]):
-        n = len(layers)
-        if lengths and _kernels_take(layers, len(y.index), gated=uv is not None):
-            ws, bs = zip(*(_linear_eff(l) for l in layers))
-            if uv is None:
-                y = jet_mlp.jet_mlp_segment(y, ws, bs, save_bounds=save_bounds, act=act)
-            else:
-                y = jet_gated.jet_gated_segment(y, uv[0], uv[1], ws, bs, (), jet_gated.modified_mlp_program(n),
-                                                save_bounds=save_bounds, act=act)
+    for n in lengths:
+        ws, bs = zip(*(_linear_eff(l) for l in model.linears[s : s + n]))
+        if uv is None:
+            y = jet_mlp.jet_mlp_segment(y, ws, bs, save_bounds=save_bounds, act=act)
         else:
-            for linear, a in zip(layers, model.acts[s : s + n]):
-                y = jet.elementwise(_jet_linear(linear, y), a)
-                if uv is not None:
-                    y = _jet_gate(y, *uv)
+            y = jet_gated.jet_gated_segment(y, uv[0], uv[1], ws, bs, (), jet_gated.modified_mlp_program(n),
+                                            save_bounds=save_bounds, act=act)
         s += n
     return y
 
@@ -364,17 +325,20 @@ class MLP(base.Arch):
 
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused jet segment on the current derivative path;
-        empty when the hidden layers take the plain jet path: the path runs
-        no segments, or the kernels take none of them at any stream count.
-        ``forward_jet`` then checks each segment at the jet's stream count
-        (``ops/jet_mlp.py::kernels_take``) and runs the ones the kernels
-        refuse on the plain jet path."""
+        empty when the hidden layers take the plain jet path."""
         if deriv_path.flag("PSCI_JET_PALLAS_MLP", "0") == "1" and _jet_pallas_ok(self.linears, self.acts):
-            return _if_any_taken(_segment_lengths(self), self.linears, gated=False)
+            return _segment_lengths(self)
         return []
 
     def forward_jet(self, jx: jet.Jet) -> jet.Jet:
-        return _jet_linear(self.last_fc, _hidden_jet(self, _jet_embed(self, jx)))
+        jx = _jet_embed(self, jx)
+        lengths = self.jet_segment_lengths()
+        if lengths:
+            jx = _jet_pallas_segments(self, jx, lengths)
+        else:
+            for linear, act in zip(self.linears, self.acts):
+                jx = jet.elementwise(_jet_linear(linear, jx), act)
+        return _jet_linear(self.last_fc, jx)
 
 
 class ModifiedMLP(base.Arch):
@@ -439,18 +403,22 @@ class ModifiedMLP(base.Arch):
 
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused gated segment on the current derivative path;
-        empty as for :meth:`MLP.jet_segment_lengths`, whose per-segment
-        check ``forward_jet`` makes too."""
+        empty when the hidden layers take the plain jet path."""
         acts = [*self.acts, self.embed_act_u, self.embed_act_v]
-        if not _jet_pallas_ok(self.linears, acts):
-            return []
-        return _if_any_taken(_segment_lengths(self), self.linears, gated=True)
+        return _segment_lengths(self) if _jet_pallas_ok(self.linears, acts) else []
 
     def forward_jet(self, jx: jet.Jet) -> jet.Jet:
         jx = _jet_embed(self, jx)
         u = jet.elementwise(_jet_linear(self.embed_u, jx), self.embed_act_u)
         v = jet.elementwise(_jet_linear(self.embed_v, jx), self.embed_act_v)
-        return _jet_linear(self.last_fc, _hidden_jet(self, jx, uv=(u, v)))
+        lengths = self.jet_segment_lengths()
+        if lengths:
+            y = _jet_pallas_segments(self, jx, lengths, uv=(u, v))
+        else:
+            y = jx
+            for linear, act in zip(self.linears, self.acts):
+                y = _jet_gate(jet.elementwise(_jet_linear(linear, y), act), u, v)
+        return _jet_linear(self.last_fc, y)
 
 
 class PirateNetBlock(nn.Module):
@@ -577,19 +545,21 @@ class PirateNet(base.Arch):
     def supports_jet(self) -> bool:
         return True
 
-    def _linears(self) -> list:
-        return [l for b in self.blocks for l in b.linears]
+    def _use_jet_pallas(self) -> bool:
+        return _jet_pallas_ok([l for b in self.blocks for l in b.linears],
+                              [a for b in self.blocks for a in b.acts])
 
     def jet_segment_lengths(self) -> List[int]:
-        """Layers per fused segment (three per block of a group) on the
-        current derivative path; empty as for
-        :meth:`MLP.jet_segment_lengths`, whose per-segment check
-        ``forward_jet`` makes too."""
-        if not _jet_pallas_ok(self._linears(), [a for b in self.blocks for a in b.acts]):
+        """Layers per fused segment (three per block of a group of
+        ``PSCI_JET_PBLOCK_GROUP`` blocks, at most the kernels' MAX_LAYERS)
+        on the current derivative path; empty on the plain jet path."""
+        if not self._use_jet_pallas():
             return []
         n = len(self.blocks)
-        grp = int(deriv_path.flag("PSCI_JET_PBLOCK_GROUP", "3"))
-        return _if_any_taken([3 * min(grp, n - i) for i in range(0, n, grp)], self._linears(), gated=True)
+        from paddlescience_torch.ops.jet_mlp import MAX_LAYERS
+
+        grp = min(int(deriv_path.flag("PSCI_JET_PBLOCK_GROUP", "3")), MAX_LAYERS // 3)
+        return [3 * min(grp, n - i) for i in range(0, n, grp)]
 
     def forward_jet(self, jx: jet.Jet) -> jet.Jet:
         jx = _jet_embed(self, jx)
@@ -597,25 +567,22 @@ class PirateNet(base.Arch):
         v = jet.elementwise(_jet_linear(self.embed_v, jx), self.embed_act_v)
         y = jx
         lengths = self.jet_segment_lengths()
+        if lengths:
+            from paddlescience_torch.ops import jet_gated
+
+            save_bounds = deriv_path.flag("PSCI_JET_SAVE_BOUNDS", "0") == "1"
+            act = _segment_act([a for b in self.blocks for a in b.acts])
+            i = 0
+            for n_layers in lengths:
+                group = self.blocks[i : i + n_layers // 3]
+                ws, bs = zip(*(_piratenet_block_ws(b) for b in group))
+                y = jet_gated.jet_gated_segment(
+                    y, u, v, [w for blk in ws for w in blk], [b for blk in bs for b in blk],
+                    [b.alpha for b in group], jet_gated.piratenet_program(len(group)), save_bounds=save_bounds,
+                    act=act)
+                i += len(group)
+            return _jet_linear(self.last_fc, y)
         remat = os.environ.get("PSCI_JET_REMAT", "1") == "1" and torch.is_grad_enabled()
-        i = 0
-        for layers in _segments(self._linears(), lengths or [3 * len(self.blocks)]):
-            group = self.blocks[i : i + len(layers) // 3]
-            i += len(group)
-            if lengths and _kernels_take(layers, len(y.index), gated=True):
-                y = self._fused_group(group, y, u, v)
-            else:
-                for block in group:
-                    y = _checkpointed_block_jet(block, y, u, v) if remat else block.forward_jet(y, u, v)
+        for block in self.blocks:
+            y = _checkpointed_block_jet(block, y, u, v) if remat else block.forward_jet(y, u, v)
         return _jet_linear(self.last_fc, y)
-
-    def _fused_group(self, group, y: jet.Jet, u: jet.Jet, v: jet.Jet) -> jet.Jet:
-        """A group of blocks as one fused gated segment."""
-        from paddlescience_torch.ops import jet_gated
-
-        ws, bs = zip(*(_piratenet_block_ws(b) for b in group))
-        return jet_gated.jet_gated_segment(
-            y, u, v, [w for blk in ws for w in blk], [b for blk in bs for b in blk], [b.alpha for b in group],
-            jet_gated.piratenet_program(len(group)),
-            save_bounds=deriv_path.flag("PSCI_JET_SAVE_BOUNDS", "0") == "1",
-            act=_segment_act([a for b in self.blocks for a in b.acts]))

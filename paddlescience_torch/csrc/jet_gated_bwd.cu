@@ -13,7 +13,8 @@
 //      memory for jet_wgrad.cu, and park its z in the layer's gz buffer;
 //   2. reverse phase, per layer from the stage's last: take z back from the
 //      gz buffer (the stage's last layer computes it here, from the input
-//      the forward phase left in shared memory) and f = act-jet(z); then,
+//      the forward phase left in shared memory, and parks it there too)
+//      and f = act-jet(z); then,
 //      with g the cotangent of the layer's output,
 //      RESIDUAL (out = alpha f + (1 - alpha) y_stage_in):
 //        d alpha += sum_s g_s (f_s - y_stage_in_s),
@@ -59,7 +60,15 @@
 //     reading) and the parked g_res as one float2, so a warp's accesses
 //     fill whole sectors. The cotangent micro-tile comes out of the
 //     transposed G tile as float4 columns and stays in registers for the
-//     layer.
+//     layer; z comes row by row from the gz buffer where it was parked,
+//     and each row's gz goes back there and over its cotangents in the
+//     micro-tile, which returns to G at the end: the elementwise part
+//     holds one micro-tile, not two (4-17% faster than holding z too, and
+//     less spill at S >= 5, PERF.md).
+//   * One tile where two do not fit (park; S >= 7 at width 256): G shares
+//     A's shared memory. The stage's input cotangent goes to the gz buffer
+//     of the previous stage's last layer, which reads it back into the
+//     tile once its z product no longer needs A.
 //   * Weight staging that overlaps the FMAs. Both products stage 16-row
 //     (z = y_in @ W) or 16-column (gz @ W^T) chunks of W with 16-byte
 //     cp.async copies into a ring of GB_STAGES chunks, one __syncthreads a
@@ -75,7 +84,7 @@
 //   outputs; the wrapper checks), so every weight row starts 16-byte
 //   aligned, the narrow first input (dims[0] = 3, 5) included.
 // What holds it back (PERF.md): each product runs at under half of the
-// float32 FMA rate. A thread executes S + 1 shared loads per 8S FMAs (the A
+// float32 FMA rate; from S = 5 a thread's 128 registers spill. A thread executes S + 1 shared loads per 8S FMAs (the A
 // fragment is one float4 per stream); with 128 registers it cannot hold
 // more accumulators to spread them over.
 #include "jet_common.cuh"
@@ -111,6 +120,7 @@ struct GatedBwdParams {
   JetIdx idx;
   Act act;
   int L, N, kmax, n_res;
+  int park;  // 1: one tile for A and G, the cotangent parked between stages (gated_bwd_smem)
 };
 
 // A thread's micro-tile of one stream: rows GB_RM ty + i, columns GB_CN tx + j.
@@ -190,18 +200,17 @@ __device__ __forceinline__ void gb_store_rows(float* const (&dst)[S], const Tile
     }
 }
 
-// The micro-tile rows back from what this thread wrote with gb_store_rows
-// (plain loads: written during the kernel); rows past N read as zero.
+// T[s][k][r] <- src[s][(row0 + r) * K + k], rows past N zero: load_tile
+// with plain loads, for rows this kernel may have written before a
+// __syncthreads().
 template <int S>
-__device__ __forceinline__ void gb_load_rows(Tile<S>& acc, const float* const (&src)[S], int D, int row0, int N,
-                                             int tx, int ty) {
+__device__ __forceinline__ void gb_load_tile(float* T, int kmax, const float* const (&src)[S], int K, int row0,
+                                             int N) {
 #pragma unroll
   for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < GB_RM; ++i) {
-      const int n = row0 + GB_RM * ty + i;
-      fill<GB_CN>(acc[s][i], 0.f);
-      if (n < N) ld<GB_CN>(src[s] + (size_t)n * D + GB_CN * tx, acc[s][i]);
+    for (int e = threadIdx.x; e < PSCI_BM * K; e += GB_THREADS) {
+      const int r = e / K, k = e - r * K, n = row0 + r;
+      T[((size_t)s * kmax + k) * PSCI_BM + r] = (n < N) ? src[s][(size_t)n * K + k] : 0.f;
     }
 }
 
@@ -374,18 +383,21 @@ __device__ __forceinline__ void ring_matmul_t(Tile<S>& acc, const float* G, int 
 // ------------------------------------------------ the elementwise rules --
 
 // The reverse phase's elementwise part of layer m on the thread's
-// micro-tile (GB_CN tx < D): acc holds the layer's pre-activations z on
-// entry and its gz on exit; the cotangents of the layer's output come from
-// G. Rows outer, columns inner: per (stream, row) the thread moves its
-// GB_CN contiguous columns of every elementwise operand as one access.
-// Residual: d alpha into asum, (1 - a) g parked in gin. Gate: g_u, g_v
-// written (first_gate) or added to.
+// micro-tile (GB_CN tx < D). The cotangents of the layer's output come
+// from G; the layer's pre-activations z come row by row from its gz buffer
+// zg (stream s at zg + s zs), where this thread parked them, and its gz
+// goes back there row by row
+// and into G in place of the cotangents (only the cotangent micro-tile is
+// held, not z's too). Rows outer, columns inner: per (stream, row) the
+// thread moves its GB_CN contiguous columns of every elementwise operand as
+// one access. Residual: d alpha into asum, (1 - a) g parked in gin. Gate:
+// g_u, g_v written (first_gate) or added to.
 template <int S>
-__device__ __forceinline__ void layer_vjp_tile(Tile<S>& acc, const float* G, const GatedBwdParams& p, const Act act,
-                                               int op, float a, const float* const (&xin)[S], bool first_gate, int D,
-                                               int row0, int tx, int ty, float& asum) {
+__device__ __forceinline__ void layer_vjp_tile(float* G, float* zg, size_t zs, const GatedBwdParams& p,
+                                               const Act act, int op, float a, const float* const (&xin)[S],
+                                               bool first_gate, int D, int row0, int tx, int ty, float& asum) {
   const JetIdx& idx = p.idx;
-  float gt[S][GB_CN][GB_RM];  // gt[s][j][i]: cotangent of row GB_RM ty + i, column GB_CN tx + j
+  float gt[S][GB_CN][GB_RM];  // gt[s][j][i]: cotangent (then gz) of row GB_RM ty + i, column GB_CN tx + j
 #pragma unroll
   for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -396,6 +408,12 @@ __device__ __forceinline__ void layer_vjp_tile(Tile<S>& acc, const float* G, con
     const int n = row0 + GB_RM * ty + i;
     const bool ok = n < p.N;
     const size_t off = (size_t)n * D + GB_CN * tx;
+    float zr[S][GB_CN];  // the row's z, then its gz
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      fill<GB_CN>(zr[s], 0.f);
+      if (ok) ld<GB_CN>(zg + s * zs + off, zr[s]);  // plain loads: parked during the kernel
+    }
     // the row's u - v, g_u, g_v (gate) or stage input, g_res (residual)
     float e1[S][GB_CN], e2[S][GB_CN], e3[S][GB_CN];
     if (op & PSCI_OP_RESIDUAL) {
@@ -429,7 +447,7 @@ __device__ __forceinline__ void layer_vjp_tile(Tile<S>& acc, const float* G, con
       float z[S], g[S];
 #pragma unroll
       for (int s = 0; s < S; ++s) {
-        z[s] = acc[s][i][j];
+        z[s] = zr[s][j];
         g[s] = gt[s][j][i];
       }
       float f0, f1, f2, f3;
@@ -482,7 +500,14 @@ __device__ __forceinline__ void layer_vjp_tile(Tile<S>& acc, const float* G, con
       }
       jet_rule_vjp<S>(z, g, f1, f2, f3, idx);  // VJP of the activation's jet rule
 #pragma unroll
-      for (int s = 0; s < S; ++s) acc[s][i][j] = z[s];
+      for (int s = 0; s < S; ++s) {
+        zr[s][j] = z[s];
+        gt[s][j][i] = z[s];
+      }
+    }
+    if (ok) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) st<GB_CN>(zg + s * zs + off, zr[s]);
     }
     if (ok && (op & PSCI_OP_RESIDUAL)) {
 #pragma unroll
@@ -495,6 +520,11 @@ __device__ __forceinline__ void layer_vjp_tile(Tile<S>& acc, const float* G, con
       }
     }
   }
+  // each thread overwrites only the cotangents it read from G
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < GB_CN; ++j) st<GB_RM>(G + ((size_t)s * p.kmax + GB_CN * tx + j) * PSCI_BM + GB_RM * ty, gt[s][j]);
 }
 
 // ------------------------------------------------------------- kernel --
@@ -505,14 +535,14 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const Gate
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[GB_THREADS / 32];
   const size_t tile = (size_t)S * p.kmax * PSCI_BM;
-  float* A = smem;                // layer input y_in, [S][kmax][BM]
-  float* G = smem + tile;         // running cotangent, [S][kmax][BM]
-  float* ring = smem + 2 * tile;  // GB_STAGES weight chunks
+  float* A = smem;                            // layer input y_in, [S][kmax][BM]
+  float* G = p.park ? smem : smem + tile;     // running cotangent, [S][kmax][BM]
+  float* ring = smem + (p.park ? 1 : 2) * tile;  // GB_STAGES weight chunks
   const int stage = PSCI_KC * p.kmax;
   const int row0 = blockIdx.x * PSCI_BM;
   const int tx = threadIdx.x % GB_TX, ty = threadIdx.x / GB_TX;
 
-  {
+  if (!p.park) {
     const float* src[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) src[s] = p.gout[s];
@@ -553,25 +583,37 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const Gate
     // ---- reverse phase
     for (int m = l1; m >= l0; --m) {
       const int K = p.dims[m], D = p.dims[m + 1], op = p.op[m];
-      Tile<S> acc;
+      float* const zg = p.gz[m];  // the layer's gz buffer (S, N, D): its z, parked, then its gz
+      const size_t zs = (size_t)p.N * D;
       if (m == l1) {
+        Tile<S> acc;
         // a one-layer stage starts from its boundary; otherwise A still
         // holds the input of layer l1 from the forward phase
         if (l0 == l1) load_tile<S, PSCI_BM, GB_THREADS>(A, p.kmax, stage_in, K, row0, p.N);
         gb_zero<S>(acc);
         ring_matmul<S>(acc, A, p.kmax, p.W[m], K, D, ring, stage, tx, ty);  // z
         if (GB_CN * tx < D) gb_add_bias<S>(acc, p.b[m], tx);
-      } else if (GB_CN * tx < D) {
-        // z as this thread parked it in the forward phase
-        const float* src[S];
+        if (p.park) {
+          // the cotangent of the stage's output into the tile A held: the
+          // segment's, or where the previous stage parked it (gz[l1])
+          const float* src[S];
 #pragma unroll
-        for (int s = 0; s < S; ++s) src[s] = p.gz[m] + (size_t)s * p.N * D;
-        gb_load_rows<S>(acc, src, D, row0, p.N, tx, ty);
+          for (int s = 0; s < S; ++s) src[s] = (m == p.L - 1) ? p.gout[s] : p.gz[m] + (size_t)s * p.N * D;
+          gb_load_tile<S>(G, p.kmax, src, D, row0, p.N);
+          __syncthreads();
+        }
+        // z parked as the forward phase parks an inner layer's (after the park's read-back of gz[l1])
+        if (GB_CN * tx < D) {
+          float* dst[S];
+#pragma unroll
+          for (int s = 0; s < S; ++s) dst[s] = zg + s * zs;
+          gb_store_rows<S>(dst, acc, D, row0, p.N, tx, ty);
+        }
       }
       float asum = 0.f;
       if (GB_CN * tx < D) {
         const float a = (op & PSCI_OP_RESIDUAL) ? __ldg(p.alpha[m]) : 0.f;
-        layer_vjp_tile<S>(acc, G, p, act, op, a, stage_in, first_gate, D, row0, tx, ty, asum);
+        layer_vjp_tile<S>(G, zg, zs, p, act, op, a, stage_in, first_gate, D, row0, tx, ty, asum);
       }
       if (op & PSCI_OP_GATE) first_gate = false;
       if (op & PSCI_OP_RESIDUAL) {
@@ -587,19 +629,15 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const Gate
         for (int w = 0; w < GB_THREADS / 32; ++w) tot += red[w];
         p.apart[(size_t)blockIdx.x * p.n_res + p.aidx[m]] = tot;
       }
-      if (GB_CN * tx < D) {
-        // each thread overwrites only the cotangents it read from G
-        gb_store_tile<S>(G, p.kmax, acc, tx, ty);
-        float* dst[S];
-#pragma unroll
-        for (int s = 0; s < S; ++s) dst[s] = p.gz[m] + (size_t)s * p.N * D;
-        gb_store_rows<S>(dst, acc, D, row0, p.N, tx, ty);
-      }
 
+      Tile<S> acc;
       gb_zero<S>(acc);
       ring_matmul_t<S>(acc, G, p.kmax, p.W[m], K, D, ring, stage, tx, ty);  // gz @ W^T
       // the residual's share, parked in gin (K == dims[l1+1]) in layer l1's elementwise part
       const bool add_res = m == l0 && (p.op[l1] & PSCI_OP_RESIDUAL);
+      // with park, the stage's input cotangent goes to gz[m-1], where the
+      // next stage's last layer m-1 reads it back before writing its gz
+      const bool park_out = p.park && m == l0 && m > 0;
 #pragma unroll
       for (int j = 0; j < GB_CN; ++j) {
         const int k = tx + GB_TX * j;
@@ -611,8 +649,9 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const Gate
             const int n = row0 + GB_RM * ty + i;
             if (add_res && n < p.N) acc[s][i][j] += p.gin[s][(size_t)n * K + k];
             if (m == 0 && n < p.N) p.gin[s][(size_t)n * K + k] = acc[s][i][j];
+            if (park_out && n < p.N) p.gz[m - 1][((size_t)s * p.N + n) * K + k] = acc[s][i][j];
           }
-          if (m > 0) gb_store_col<S>(G, p.kmax, acc, s, j, k, ty);
+          if (m > 0 && !park_out) gb_store_col<S>(G, p.kmax, acc, s, j, k, ty);
         }
       }
       __syncthreads();
@@ -621,15 +660,15 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const Gate
   }
 }
 
-// Dynamic shared memory: the A and G tiles and the weight ring
-// (ops/jet_mlp.py::gated_bwd_smem computes the same).
-__host__ __forceinline__ size_t gated_bwd_smem(int S, int kmax) {
-  return (2 * (size_t)S * kmax * PSCI_BM + (size_t)GB_STAGES * PSCI_KC * kmax) * sizeof(float);
+// Dynamic shared memory: the A and G tiles (one shared tile with park) and
+// the weight ring (ops/jet_mlp.py::gated_bwd_smem computes the same).
+__host__ __forceinline__ size_t gated_bwd_smem(int S, int kmax, int park) {
+  return ((park ? 1 : 2) * (size_t)S * kmax * PSCI_BM + (size_t)GB_STAGES * PSCI_KC * kmax) * sizeof(float);
 }
 
 template <int S, bool ANY>
 static cudaError_t launch(const GatedBwdParams& p, cudaStream_t stream) {
-  const size_t smem = gated_bwd_smem(S, p.kmax);
+  const size_t smem = gated_bwd_smem(S, p.kmax, p.park);
   cudaError_t err = cudaFuncSetAttribute(jet_gated_bwd_kernel<S, ANY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -659,17 +698,19 @@ static cudaError_t launch_s(const GatedBwdParams& p, int S, cudaStream_t st) {
 // scratch of ceil(N / 16) * n_res floats (null when there is no residual);
 // dims[L+1] (dims[1..L] multiples of 4); op[L]; kind/pa/pb[S]; act, act_w:
 // the activation's id and parameter. kmax >= every dims[l], rounded up to a
-// multiple of 4, and <= 256 (16-row tiles). A program with residuals has
-// one width throughout. Returns a cudaError_t code (0 = launched).
+// multiple of 4, and <= 256 (16-row tiles). park: 1 where the two tiles and
+// the ring exceed a CTA's shared memory (S >= 7 at width 256). A program
+// with residuals has one width throughout. Returns a cudaError_t code (0 =
+// launched).
 extern "C" int jet_gated_bwd(const void* const* x, const void* const* u, const void* const* v,
                              const void* const* gout, void* const* gin, void* const* gu,
                              void* const* gv, const void* const* W, const void* const* b,
                              const void* const* alpha, void* const* lin, void* const* gz, void* apart,
                              const int* dims, const int* op, const int* kind, const int* pa,
-                             const int* pb, int S, int L, int N, int kmax, int act, float act_w,
+                             const int* pb, int S, int L, int N, int kmax, int park, int act, float act_w,
                              void* stream) {
   if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 4 * 64 || kmax % 4 || act < 0 ||
-      act >= PSCI_N_ACTS)
+      act >= PSCI_N_ACTS || (park != 0 && park != 1))
     return (int)cudaErrorInvalidValue;
   if (!(op[0] & PSCI_OP_STAGE)) return (int)cudaErrorInvalidValue;
   GatedBwdParams p = {};
@@ -714,6 +755,7 @@ extern "C" int jet_gated_bwd(const void* const* x, const void* const* u, const v
   p.N = N;
   p.kmax = kmax;
   p.n_res = n_res;
+  p.park = park;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(act == PSCI_TANH ? launch_s<false>(p, S, st) : launch_s<true>(p, S, st));
 }

@@ -231,7 +231,7 @@ def jet_gated_bwd_plain(y, u, v, bounds, weights, biases, alphas, g_out, program
 # ----------------------------------------------------------- CUDA wrappers --
 
 cuda_build.declare("jet_gated_fwd", [P] * 13 + [I] * 5 + [F, P])
-cuda_build.declare("jet_gated_bwd", [P] * 18 + [I] * 5 + [F, P])
+cuda_build.declare("jet_gated_bwd", [P] * 18 + [I] * 6 + [F, P])
 
 
 def _gated_dims(y, u, v, weights, biases, alphas, program, index) -> List[int]:
@@ -338,7 +338,7 @@ def jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out, program: Prog
            ptrs(g_y), ptrs(g_u) if gated else None, ptrs(g_v) if gated else None, ptrs(weights),
            ptrs(biases), ptrs(_alpha_table(program, alphas)), ptrs(table), ptrs(gzs),
            partials.data_ptr() if n_res else None, ints(dims), ints(program), ints(kinds), ints(pa),
-           ints(pb), S, L, N, kmax, act_id, act_w, stream_handle(dev))
+           ints(pb), S, L, N, kmax, int(jet_mlp.gated_bwd_parks(S, dims)), act_id, act_w, stream_handle(dev))
     jet_gated_bwd.launches += 1
     ins = tuple(tuple(y) if l == 0 else tuple(t.unbind(0)) for l, t in enumerate(table))
     return g_y, g_u, g_v, gzs, ins, partials
@@ -405,8 +405,18 @@ def jet_gated_segment(jy: jetmod.Jet, ju: Optional[jetmod.Jet], jv: Optional[jet
     """Run a layer program on every stream of ``jy`` as one fused segment
     (kernels on CUDA, plain versions on the CPU), differentiable with
     respect to the ``y``, ``u``, ``v`` streams, weights, biases and alphas.
-    ``ju``/``jv`` may be None for a program without gates."""
+    ``ju``/``jv`` may be None for a program without gates. Widths that are
+    no multiple of 4 run zero-padded (``ops/jet_mlp.py::pad_widths``; a
+    program with residuals, one width throughout, pads ``y`` too): the
+    padded columns of ``u`` and ``v`` are 0, so the gate keeps them 0."""
     program = tuple(int(op) for op in program)
-    uv = (*ju.streams, *jv.streams) if _has_gates(program) else ()
-    outs = _JetGatedSegment.apply(jy.index, program, save_bounds, act, *jy.streams, *uv, *weights, *biases, *alphas)
-    return jetmod.Jet(outs, jy.index)
+    d_out = int(weights[-1].shape[1])
+    pad_in = _n_residuals(program) > 0
+    weights, biases = jet_mlp.pad_widths(weights, biases, pad_input=pad_in)
+    ys = tuple(jet_mlp.pad_cols(s, int(weights[0].shape[0])) for s in jy.streams)
+    uv = ()
+    if _has_gates(program):
+        wuv = jet_mlp._round4(int(ju.streams[0].shape[1]))
+        uv = tuple(jet_mlp.pad_cols(s, wuv) for s in (*ju.streams, *jv.streams))
+    outs = _JetGatedSegment.apply(jy.index, program, save_bounds, act, *ys, *uv, *weights, *biases, *alphas)
+    return jetmod.Jet(tuple(o[:, :d_out] for o in outs) if d_out % 4 else outs, jy.index)

@@ -39,12 +39,14 @@ and used as ``x @ W``; stage boundaries and ``gz`` are (S, N, D) per layer.
 Limits: :func:`kernels_take` is the one statement of what the jet kernels
 (these and ``ops/jet_gated.py``'s) take: 1..8 streams, 1..32 layers,
 widths <= 512 (<= 256 gated), layer outputs a multiple of 4, and the
-forward's and backward's shared memory within a CTA's. The segment
-dispatcher (``arch/mlp.py``) sends a segment to the kernels only where it
-holds; the wrappers raise where it does not. A CTA's row tile is 16 rows up
-to width 256 and 8 rows above (:func:`tile_rows`); the backward keeps the
-layer input and the running cotangent in shared memory where both fit and
-otherwise parks the cotangent in the ``gz`` buffers (:func:`bwd_parks`).
+forward's and backward's shared memory within a CTA's; the wrappers raise
+where it does not hold. :func:`jet_mlp_segment` (and
+``ops/jet_gated.py::jet_gated_segment``) zero-pad widths that are no
+multiple of 4 (:func:`pad_widths`). A CTA's row tile is 16 rows up to width
+256 and 8 rows above (:func:`tile_rows`); the backward keeps the layer
+input and the running cotangent in shared memory where both fit and
+otherwise parks the cotangent in the ``gz`` buffers (:func:`bwd_parks`,
+and :func:`gated_bwd_parks` for the gated backward).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ __all__ = [
     "index_tables",
     "tile_rows",
     "bwd_parks",
+    "gated_bwd_parks",
     "kernels_take",
     "kernel_refusal",
     "act_jet",
@@ -78,6 +81,7 @@ __all__ = [
     "jet_alpha_reduce_plain",
     "wgrad_plan",
     "jet_mlp_segment",
+    "pad_widths",
     "reset_counters",
 ]
 
@@ -284,19 +288,30 @@ def bwd_smem(S: int, dims: Sequence[int]) -> int:
     return (tiles * S * kmax * tile_rows(dims) + KC * (kmax + 4)) * 4
 
 
-def gated_bwd_smem(S: int, dims: Sequence[int]) -> int:
-    """Shared-memory bytes of jet_gated_bwd: the layer-input and cotangent
-    tiles (16 rows) and its ring of GB_STAGES weight chunks of KC x kmax."""
+def gated_bwd_parks(S: int, dims: Sequence[int]) -> bool:
+    """Whether jet_gated_bwd keeps one tile for the layer input and the
+    cotangent, parking the cotangent in device memory between stages: where
+    two 16-row tiles and its ring of GB_STAGES weight chunks of KC x kmax
+    do not fit (S >= 7 at width 256)."""
     kmax = _round4(max(dims))
-    return (2 * S * kmax * BM + GB_STAGES * KC * kmax) * 4
+    return (2 * S * kmax * BM + GB_STAGES * KC * kmax) * 4 > SMEM_LIMIT
+
+
+def gated_bwd_smem(S: int, dims: Sequence[int]) -> int:
+    """Shared-memory bytes of jet_gated_bwd: its tiles and its ring."""
+    kmax = _round4(max(dims))
+    tiles = 1 if gated_bwd_parks(S, dims) else 2
+    return (tiles * S * kmax * BM + GB_STAGES * KC * kmax) * 4
 
 
 def kernel_refusal(S: int, dims: Sequence[int], gated: bool = False) -> Optional[str]:
     """Why the jet kernels refuse a segment of S streams through layers
     dims[0] -> ... -> dims[L] (the ungated pair ``jet_mlp_{fwd,bwd}``, or
     with ``gated`` the pair of ``ops/jet_gated.py``), or None where they
-    take it. The one statement of the kernels' limits: the dispatcher reads
-    it before any launch, the wrappers raise on it."""
+    take it. The one statement of the kernels' limits, on which the
+    wrappers raise. (Within the stream and width limits every shape fits
+    shared memory: the backwards park their cotangent where two tiles do
+    not.)"""
     L, max_width = len(dims) - 1, GATED_MAX_WIDTH if gated else MAX_WIDTH
     if not 1 <= S <= MAX_STREAMS:
         return f"the kernels take 1..{MAX_STREAMS} streams, got {S}"
@@ -538,10 +553,35 @@ class _JetMLPSegment(torch.autograd.Function):
         return (None, None, None, None, *g_in, *dws, *dbs)
 
 
+def pad_cols(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` with its last dimension zero-padded to ``n`` (differentiable;
+    ``t`` itself where it has that width)."""
+    return t if t.shape[-1] == n else torch.nn.functional.pad(t, (0, n - t.shape[-1]))
+
+
+def pad_widths(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
+               pad_input: bool = False) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The layers with every output width zero-padded to a multiple of 4,
+    the kernels' float4 rows (cylinder2d's width 50 runs at 52), and the next
+    layer's input rows with it; with ``pad_input`` the first layer's input
+    rows too. A padded column's pre-activations are 0 on every stream, and
+    the zero weight rows below it add exact zeros to the real columns, so
+    the real outputs and every gradient are those of the unpadded layers."""
+    k_in = int(weights[0].shape[0])
+    ins = [_round4(k_in) if pad_input else k_in] + [_round4(int(w.shape[1])) for w in weights[:-1]]
+    ws = [w if tuple(w.shape) == (k, _round4(int(w.shape[1]))) else
+          torch.nn.functional.pad(w, (0, _round4(int(w.shape[1])) - int(w.shape[1]), 0, k - int(w.shape[0])))
+          for w, k in zip(weights, ins)]
+    return ws, [pad_cols(b, _round4(int(b.shape[0]))) for b in biases]
+
+
 def jet_mlp_segment(jx: jetmod.Jet, weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
                     save_bounds: bool = False, act: jetmod.Act = TANH) -> jetmod.Jet:
     """Run L ``linear + act`` layers on every stream of ``jx`` as one fused
     segment (kernels on CUDA, plain versions on the CPU), differentiable
-    with respect to the input streams, weights and biases."""
+    with respect to the input streams, weights and biases. Widths that are
+    no multiple of 4 run zero-padded (:func:`pad_widths`)."""
+    d_out = int(weights[-1].shape[1])
+    weights, biases = pad_widths(weights, biases)
     outs = _JetMLPSegment.apply(jx.index, save_bounds, len(weights), act, *jx.streams, *weights, *biases)
-    return jetmod.Jet(outs, jx.index)
+    return jetmod.Jet(tuple(o[:, :d_out] for o in outs) if d_out % 4 else outs, jx.index)

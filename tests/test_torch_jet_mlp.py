@@ -128,10 +128,10 @@ def test_index_tables():
 def test_refused_width_matches_the_pallas_kernel(multis):
     """cylinder2d's MLP 5x50 under ``jet_pallas_full``: the JAX package runs
     its hidden layers through the Pallas segment (interpreted), which takes
-    any width; the port's dispatcher sends them to the plain jet path, since
-    the Hopper kernels take layer outputs that are multiples of 4 only
-    (``ops/jet_mlp.py::kernels_take``). Same parameters, same inputs: the
-    jet streams and every parameter gradient agree."""
+    any width; the port runs them through its segment too, zero-padded to
+    width 52, since the Hopper kernels take layer outputs that are
+    multiples of 4 only (``ops/jet_mlp.py::pad_widths``). Same parameters,
+    same inputs: the jet streams and every parameter gradient agree."""
     import paddlescience_tpu as psci
     from paddlescience_tpu.nn.core import Rngs
     from paddlescience_torch.arch.mlp import MLP as TMLP
@@ -156,7 +156,7 @@ def test_refused_width_matches_the_pallas_kernel(multis):
         (_, j_streams), j_grads = jax.value_and_grad(jloss, has_aux=True)(jm.param_tree())
     assert getattr(jm, "_jet_specs", None), "the JAX model did not take its Pallas segment"
     with tpath.override(flags):
-        assert tm.jet_segment_lengths() == []
+        assert tm.jet_segment_lengths() == [5]
         out = tm.forward_jet(tjet.seed(torch.from_numpy(x), tjet.build_index(multis)))
         names, params = zip(*tm.named_parameters())
         t_grads = dict(zip(names, torch.autograd.grad(

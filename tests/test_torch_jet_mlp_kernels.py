@@ -5,20 +5,23 @@ On the CPU: the hand-derived backwards (tanh MLP segment, gated layer
 programs) against torch.autograd through the plain forward, the saved
 stage boundaries, jet_wgrad's unit plan (every output element and batch
 row covered once, the last wave nearly full), the wrappers' device rule,
-the one predicate of what the kernels take (``kernels_take``) and the
-segment dispatcher that reads it: a model whose widths the kernels refuse
-(MLP 5x50) trains on the plain jet path under ``jet_pallas_full``.
+the one predicate of what the kernels take (``kernels_take``), the
+segments' zero padding of widths that are no multiple of 4, and the
+dispatcher: only the lane gate sends layers to the plain jet path, so
+cylinder2d's MLP 5x50 trains through the padded segments under
+``jet_pallas_full`` and on the plain jet path where the gate holds.
 On a GPU (tests marked ``cuda``, skipped elsewhere): each kernel against its
 plain version at the main-path segment depths (MLP: L=4 and the 3+1 split;
 PirateNet groups of 3 and 9 blocks; ModifiedMLP segments of 3 and 1
 layers), with a ragged batch, and at a small shape; the gated backward
-also at S = 6 x width 256 (its shared-memory edge), a narrow first input,
-the bare program and bitwise the same from call to call; jet_wgrad also at the
+also at S = 6 x width 256 (the widest that keeps two tiles), S = 7 and 8
+(one tile, the cotangent parked), a narrow first input, the bare program
+and bitwise the same from call to call; padded segments of width 50; jet_wgrad also at the
 aneurysm's 3 -> 512 x 6 (S = 7), an input width that is not a multiple of
 4, and bitwise the same from call to call (dW, db, d alpha); the aneurysm
 MLP's segments (SiLU, S = 7, 3 -> 512 -> ... -> 512, 6 layers and 3 + 3);
 every activation, ungated and gated; MLP 5x50 trains under
-``jet_pallas_full`` with no kernel launch; the LBM kernel at square,
+``jet_pallas_full`` through the kernels; the LBM kernel at square,
 ragged and large lattices.
 This file imports only torch and the port, so it also runs where JAX is
 not installed:
@@ -32,6 +35,7 @@ import pytest
 import torch
 
 from paddlescience_torch.autodiff import jet as tjet
+from paddlescience_torch.autodiff import path as tpath
 from paddlescience_torch.ops import jet_gated as G
 from paddlescience_torch.ops import jet_mlp as J
 from paddlescience_torch.ops import lbm
@@ -169,16 +173,19 @@ def _index_of(S):
 
 
 @pytest.mark.parametrize("S,dims,gated,takes", [
-    (4, [256] + [50] * 5, False, False),        # cylinder2d's MLP 5x50: outputs not a multiple of 4
-    (1, [3] + [50] * 5, False, False),
+    (4, [256] + [50] * 5, False, False),        # cylinder2d's MLP 5x50 unpadded: outputs not a multiple of 4
+    (1, [3] + [50] * 5, False, False),          # (the segments pad them: pad_widths)
     (4, [516] * 3, False, False),               # wider than 512
     (4, [260] * 3, True, False),                # gated wider than 256
-    (7, PIRATENET_9, True, False),              # gated S = 7 at width 256: shared memory
+    (7, [264] * 28, True, False),               # the same at S = 7
     (9, [24] * 3, False, False),                # more than 8 streams
     (4, [256] * 34, False, False),              # more than 32 layers
     (4, [256] * 5, False, True),                # the Allen-Cahn MLP 4x256
     (4, PIRATENET_9, True, True),               # PirateNet 9 blocks
-    (6, PIRATENET_9, True, True),               # the gated backward's shared-memory edge
+    (6, PIRATENET_9, True, True),               # the widest S for two tiles in the gated backward
+    (7, PIRATENET_9, True, True),               # gated S = 7 at width 256: one tile, the cotangent parked
+    (8, PIRATENET_9, True, True),
+    (4, [256] + [52] * 5, False, True),         # MLP 5x50 padded
     (7, ANEURYSM_DIMS, False, True),            # the aneurysm MLP 3 -> 512 x 6
     (8, [5] + [64] * 3, True, True),            # a narrow first input, every stream count
 ])
@@ -203,23 +210,24 @@ def test_kernels_take(S, dims, gated, takes):
 def test_gated_backward_shared_memory_plan(S, w):
     """jet_gated_bwd's shared memory (the input and cotangent tiles, and its
     ring of weight chunks, as csrc/jet_gated_bwd.cu sizes them) against the
-    wrapper's check: a program is refused exactly where it exceeds a CTA."""
+    wrapper's plan: two tiles where they fit, else one tile with the
+    cotangent parked (S >= 7 at width 256); every stream count fits a CTA
+    and the wrapper takes it."""
     src = (J.cuda_build.CSRC / "jet_gated_bwd.cu").read_text()
     assert f"#define GB_STAGES {J.GB_STAGES} " in src
+    assert "((park ? 1 : 2) * (size_t)S * kmax * PSCI_BM + (size_t)GB_STAGES * PSCI_KC * kmax)" in src
     dims = [w] * 5
-    need = (2 * S * w * 16 + J.GB_STAGES * 16 * w) * 4
-    assert J.gated_bwd_smem(S, dims) == need
-    fits = max(need, J.fwd_smem(S, dims)) <= J.SMEM_LIMIT
-    assert J.kernels_take(S, dims, gated=True) is fits
-    assert fits is (w < 256 or S <= 6)
+    two_tiles = (2 * S * w * 16 + J.GB_STAGES * 16 * w) * 4
+    parks = two_tiles > J.SMEM_LIMIT
+    assert J.gated_bwd_parks(S, dims) is parks
+    assert parks is (w == 256 and S >= 7)
+    need = two_tiles - parks * S * w * 16 * 4
+    assert J.gated_bwd_smem(S, dims) == need <= J.SMEM_LIMIT
+    assert J.kernels_take(S, dims, gated=True) and max(need, J.fwd_smem(S, dims)) <= J.SMEM_LIMIT
     idx = _index_of(S)
     t = [torch.zeros(2, w)] * S
     args = (t, t, t, [torch.zeros(w, w)] * 4, [torch.zeros(w)] * 4, (), G.modified_mlp_program(4), idx)
-    if fits:
-        assert G._gated_dims(*args) == dims
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            G._gated_dims(*args)
+    assert G._gated_dims(*args) == dims
 
 
 def _mlp_5x50_solver():
@@ -231,32 +239,73 @@ def _mlp_5x50_solver():
                         deriv="jet_pallas_full", device="cpu")
 
 
+# jet_pallas_full with the lane gate at its default: layers narrower than 128 take the plain jet path
+LANE_GATED = {**tpath.CANDIDATES["jet_pallas_full"], "PSCI_JET_PALLAS_MIN_LANES": "128"}
+
+
 def test_refused_widths_send_no_segment_to_the_kernels(monkeypatch):
-    """Under jet_pallas_full MLP 5x50 gets no fused segment: its widths are
-    no multiple of 4 at any stream count, and forward_jet never calls the
-    segment kernels' autograd.Function."""
+    """Only the lane gate, as in the JAX package, sends layers to the plain
+    jet path: where it holds (128 lanes), MLP 5x50 gets no fused segment
+    and forward_jet never calls the segment function; under
+    jet_pallas_full, which lifts it, its 5 layers go to the kernels as one
+    segment, zero-padded to width 52."""
     from paddlescience_torch.arch.mlp import MLP
     from paddlescience_torch.autodiff import path as tpath
 
     saved = tpath.get_default()
+    real = J.jet_mlp_segment
+    calls = []
     try:
-        tpath.set_default(tpath.CANDIDATES["jet_pallas_full"])
+        tpath.set_default(LANE_GATED)
         model = MLP(("t", "x", "y"), ("u", "v", "p"), 5, 50, device="cpu")
         assert model.jet_segment_lengths() == []
-        wide = MLP(("t", "x", "y"), ("u", "v", "p"), 5, 52, device="cpu")
-        assert wide.jet_segment_lengths() == [5]
         monkeypatch.setattr(J, "jet_mlp_segment", lambda *a, **k: 1 / 0)
         out = model.forward_jet(tjet.seed(torch.rand(8, 3), tjet.build_index([(0,), (1,), (1, 1)])))
         assert len(out.streams) == 4 and tuple(out.streams[0].shape) == (8, 3)
+        tpath.set_default(tpath.CANDIDATES["jet_pallas_full"])
+        assert model.jet_segment_lengths() == [5]
         with pytest.raises(ZeroDivisionError):
-            wide.forward_jet(tjet.seed(torch.rand(8, 3), tjet.build_index([(0,)])))
+            model.forward_jet(tjet.seed(torch.rand(8, 3), tjet.build_index([(0,)])))
+        monkeypatch.setattr(J, "jet_mlp_segment", lambda *a, **k: calls.append(a[1]) or real(*a, **k))
+        monkeypatch.setattr(J, "jet_mlp_fwd", lambda s, w, *a, **k: calls.append(w) or J.jet_mlp_fwd_plain(s, w, *a))
+        out = model.forward_jet(tjet.seed(torch.rand(8, 3), tjet.build_index([(0,), (1,), (1, 1)])))
+        assert tuple(out.streams[3].shape) == (8, 3)
+        assert [tuple(w.shape) for w in calls[0]] == [(3, 50)] + [(50, 50)] * 4  # the model's layers
+        assert [tuple(w.shape) for w in calls[1]] == [(3, 52)] + [(52, 52)] * 4  # what the kernel gets
     finally:
         tpath.set_default(saved)
 
 
 def test_refused_widths_train_on_the_plain_jet_path():
-    """MLP 5x50 takes a train step under jet_pallas_full, and on one batch
-    its PDE loss and every parameter gradient equal the jet path's."""
+    """Where the lane gate holds, MLP 5x50 takes a train step on the plain
+    jet path, and on one batch its PDE loss and every parameter gradient
+    equal the jet path's bitwise."""
+    from paddlescience_torch.autodiff import path as tpath
+
+    saved = tpath.get_default()
+    try:
+        solver = _mlp_5x50_solver()
+        batches = solver._batches()
+        results = {}
+        for flags in (LANE_GATED, tpath.CANDIDATES["jet"]):
+            tpath.set_default(flags)
+            losses = solver._constraint_losses(batches)
+            results[len(results)] = (losses["PDE"].detach(), torch.autograd.grad(losses["PDE"], solver._params()))
+        (lk, gk), (lp, gp) = results[0], results[1]
+        assert torch.equal(lk, lp) and all(torch.equal(a, b) for a, b in zip(gk, gp))
+        assert any(float(g.abs().max()) > 0 for g in gp)
+        tpath.set_default(LANE_GATED)
+        logs = solver.train(2)
+        assert all(np.isfinite(entry["loss"]) for entry in logs)
+    finally:
+        tpath.set_default(saved)
+
+
+def test_padded_widths_train_through_the_segments():
+    """Under jet_pallas_full MLP 5x50 trains through its padded segment
+    (the kernels' plain versions here): on one batch its PDE loss and
+    every parameter gradient agree with the plain jet path's, and two train
+    steps give finite losses."""
     from paddlescience_torch.autodiff import path as tpath
 
     saved = tpath.get_default()
@@ -266,16 +315,77 @@ def test_refused_widths_train_on_the_plain_jet_path():
         results = {}
         for deriv in ("jet_pallas_full", "jet"):
             tpath.set_default(tpath.CANDIDATES[deriv])
+            J.reset_counters()
             losses = solver._constraint_losses(batches)
             results[deriv] = (losses["PDE"].detach(), torch.autograd.grad(losses["PDE"], solver._params()))
         (lk, gk), (lp, gp) = results["jet_pallas_full"], results["jet"]
-        assert torch.equal(lk, lp) and all(torch.equal(a, b) for a, b in zip(gk, gp))
-        assert any(float(g.abs().max()) > 0 for g in gp)
+        _close(lk, lp, 1e-5)
+        assert len(gk) == len(gp) and any(float(g.abs().max()) > 0 for g in gp)
+        for a, b in zip(gk, gp):
+            _close(a, b)
         tpath.set_default(tpath.CANDIDATES["jet_pallas_full"])
         logs = solver.train(2)
         assert all(np.isfinite(entry["loss"]) for entry in logs)
     finally:
         tpath.set_default(saved)
+
+
+PADDED = {  # program (None: the ungated jet_mlp_segment), width, first input width
+    "mlp_segment": (None, 10, 5),
+    "mlp_segment_narrow_in": (None, 6, 3),
+    "piratenet_2": (G.piratenet_program(2), 10, None),
+    "modified_mlp_3": (G.modified_mlp_program(3), 50, 5),
+    "mlp_program_2": (G.mlp_program(2), 10, 3),
+}
+
+
+def _padded_case(case, multis, n, dtype, seed=3):
+    """Inputs of a segment whose widths are no multiple of 4, as leaves."""
+    program, w, k_in = PADDED[case]
+    if program is None:
+        arrs = _case(multis, 3, n=n, w=w, seed=seed, k_in=k_in)
+        return program, [[torch.from_numpy(a.astype(dtype)) for a in part] for part in arrs]
+    arrs = _gated_case(multis, program, n=n, w=w, seed=seed, dtype=dtype, k_in=k_in)
+    return program, [[torch.from_numpy(a) for a in part] for part in arrs]
+
+
+def _padded_run(program, parts, idx, device):
+    """(output streams, cotangent leaves) of the padded segment, and the
+    same of autograd through the unpadded plain forward."""
+    runs = []
+    for padded in (True, False):
+        leaves = [[t.to(device).requires_grad_() for t in part] for part in parts[:-1]]
+        g_out = [t.to(device) for t in parts[-1]]
+        if program is None:
+            ss, ws, bs = leaves
+            outs = (J.jet_mlp_segment(tjet.Jet(ss, idx), ws, bs).streams if padded
+                    else J.jet_mlp_fwd_plain(ss, ws, bs, idx)[0])
+        else:
+            y, u, v, ws, bs, al = leaves
+            if not G._has_gates(program):
+                leaves[1:3] = [[], []]
+            outs = (G.jet_gated_segment(tjet.Jet(y, idx), tjet.Jet(u, idx), tjet.Jet(v, idx), ws, bs, al,
+                                        program).streams if padded
+                    else G.jet_gated_fwd_plain(y, u, v, ws, bs, al, program, idx)[0])
+        flat = [t for part in leaves for t in part]
+        grads = torch.autograd.grad(sum((o * g).sum() for o, g in zip(outs, g_out)), flat)
+        runs.append(([o.detach() for o in outs], grads))
+    return runs
+
+
+@pytest.mark.parametrize("multis", INDICES + [[]])
+@pytest.mark.parametrize("case", list(PADDED))
+def test_padded_segments_match_autograd(case, multis):
+    """A segment whose widths are no multiple of 4 runs zero-padded: its
+    outputs and the gradients of every input, weight, bias and alpha are
+    those of the unpadded layers (autograd through the plain forward, in
+    float64)."""
+    idx = tjet.build_index(multis)
+    program, parts = _padded_case(case, multis, 29, np.float64)
+    (outs, grads), (r_outs, r_grads) = _padded_run(program, parts, idx, "cpu")
+    assert [tuple(o.shape) for o in outs] == [tuple(o.shape) for o in r_outs]
+    for a, b in zip([*outs, *grads], [*r_outs, *r_grads]):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
 
 
 WGRAD_SHAPES = {  # (dims, S, N)
@@ -558,6 +668,9 @@ GATED_SHAPES += [
     (INDICES[1], G.modified_mlp_program(2), 70, 24, 5),
     (INDICES[0], BARE_PIRATENET_3, 4095, 256, None), (INDICES[1], G.mlp_program(3), 70, 24, 5),
     (INDICES[1], G.modified_mlp_program(4), 1001, 256, None),      # the ModifiedMLP program of the GPU run
+    (NS3D, G.piratenet_program(3), 1001, 256, None),                # S = 7 at 256: one tile, the cotangent parked
+    (NS3D + [(0, 1)], G.modified_mlp_program(2), 1001, 256, 5),     # S = 8, parked, a narrow first input
+    (NS3D + [(0, 1)], G.piratenet_program(2), 1001, 64, None),      # S = 8 narrow: two tiles
 ]
 
 
@@ -614,9 +727,10 @@ def test_gated_bwd_is_bitwise_repeatable_on_gpu(cuda_device, program):
 
 
 @pytest.mark.cuda
-def test_refused_widths_train_on_gpu_without_kernels(cuda_device):
-    """MLP 5x50 under jet_pallas_full trains on the card, on the plain jet
-    path: no error and no jet kernel launch."""
+def test_padded_widths_train_on_gpu_through_the_kernels(cuda_device):
+    """MLP 5x50 under jet_pallas_full trains on the card through the
+    ungated kernels (width 50 padded to 52): no error, every step launches
+    them, none of the plain versions runs."""
     from paddlescience_torch.autodiff import path as tpath
     from paddlescience_torch.examples.allen_cahn import build_solver
 
@@ -629,10 +743,31 @@ def test_refused_widths_train_on_gpu_without_kernels(cuda_device):
         logs = solver.train(2)
         torch.cuda.synchronize()
         assert all(np.isfinite(entry["loss"]) for entry in logs)
-        assert J.jet_mlp_fwd.launches == J.jet_mlp_bwd.launches == J.jet_wgrad.launches == 0
-        assert G.jet_gated_fwd.launches == G.jet_gated_bwd.launches == 0
+        assert J.jet_mlp_fwd.launches >= 2 and J.jet_mlp_bwd.launches >= 2 and J.jet_wgrad.launches >= 2
+        assert J.jet_mlp_fwd_plain.cuda_calls == J.jet_mlp_bwd_plain.cuda_calls == 0
     finally:
         tpath.set_default(saved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PADDED))
+def test_padded_segments_on_gpu(cuda_device, case):
+    """Segments whose widths are no multiple of 4, zero-padded onto the
+    kernels, against autograd through the unpadded plain forward on the
+    card."""
+    multis = INDICES[1]
+    idx = tjet.build_index(multis)
+    program, parts = _padded_case(case, multis, 1001, np.float32)
+    J.reset_counters()
+    G.reset_counters()
+    (outs, grads), (r_outs, r_grads) = _padded_run(program, parts, idx, cuda_device)
+    torch.cuda.synchronize()
+    assert (J.jet_mlp_fwd.launches if program is None else G.jet_gated_fwd.launches) >= 1
+    n_alpha = len(parts[5]) if program is not None else 0
+    for a, b in zip([*outs, *grads[: len(grads) - n_alpha]], [*r_outs, *r_grads[: len(r_grads) - n_alpha]]):
+        _close(a, b)
+    for a, b in zip(grads[len(grads) - n_alpha:], r_grads[len(r_grads) - n_alpha:]):
+        assert float((a - b).abs()) <= _alpha_tol(b, 1001 * PADDED[case][1] * len(idx))
 
 
 @pytest.mark.cuda
