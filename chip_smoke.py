@@ -19,7 +19,11 @@ on failure:
              jet_wgrad, against jet_alpha_reduce_plain; two jet_wgrad calls
              bitwise equal (dW, db, d alpha) at the PirateNet and aneurysm
              shapes, two jet_gated_bwd calls bitwise equal (every output)
-             on the PirateNet and ModifiedMLP programs; the gated kernels
+             on the PirateNet and ModifiedMLP programs, two jet_mlp_bwd
+             calls bitwise equal at the aneurysm and MLP 4x256 shapes;
+             the MLP kernels at width 512 with S=5 (two 8-row tiles in the
+             backward) and S=8 (one tile, the cotangent parked), 3 -> 512
+             x 3 at a ragged N; the gated kernels
              at S=7, W=256, where the backward keeps one tile and parks
              the cotangent; every activation at S=4, W=256, L=2, ungated
              and as a ModifiedMLP program; the LBM kernel for 1 and 200
@@ -46,7 +50,8 @@ on failure:
              ModifiedMLP solvers and of the aneurysm solver; device time per step by
              kernel and the device's busy share (torch.profiler); per
              kernel: time, plain-version time, bound, library time, at the
-             Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's;
+             Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's
+             (jet_mlp_bwd also at its unsteady S=8);
              jet_wgrad over the 27 PirateNet layers beside torch.bmm, with
              and without the d alpha sum and against a separate sum;
              jet_gated_bwd on the PirateNet stages without gates and
@@ -107,7 +112,8 @@ CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
 LBM_TIMED = 2048  # lattice edge at which the LBM kernel is timed
 TIMED_STEPS = 20
 KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "lbm_collide_stream")
-GATED_BWD_PTXAS = {}  # jet_gated_bwd kernel instance -> [registers, spill store bytes, spill load bytes]
+# kernel instance -> [registers, spill store bytes, spill load bytes], per backward kernel
+BWD_PTXAS = {"jet_mlp_bwd": {}, "jet_gated_bwd": {}}
 
 
 def log(msg: str) -> None:
@@ -387,6 +393,29 @@ def check_gated_bwd_repeat():
             raise AssertionError(f"jet_gated_bwd {name}: two calls on the same inputs differ")
     log("[kernels] jet_gated_bwd: two calls bitwise equal (every output) on the piratenet 9-block and "
         "modified_mlp 4-layer programs")
+
+
+def check_mlp_bwd_repeat():
+    """Two jet_mlp_bwd calls on the same inputs give bitwise the same input
+    cotangents and gz: the aneurysm's 6-layer segment (SiLU, S = 7, 8-row
+    tiles, the cotangent parked) and the Allen-Cahn MLP 4x256 (tanh, S = 4,
+    two 16-row tiles), at ragged batches."""
+    import torch
+
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.ops import jet_mlp as J
+
+    cases = {"aneurysm": (len(NS3D) + 1, ANEURYSM["N"] - 1, ANEURYSM["dims"], (jet.SILU, 0.0)),
+             "mlp 4x256": (MAIN["S"], MAIN["N"] - 1, (MAIN["W"],) * (MAIN["L"] + 1), J.TANH)}
+    for name, (S, N, dims, act) in cases.items():
+        idx, streams, weights, biases, g_out = make_inputs(S, N, dims)
+        _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=act)
+        first = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, act)
+        second = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, act)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip([*first[0], *first[1]], [*second[0], *second[1]])):
+            raise AssertionError(f"jet_mlp_bwd {name}: two calls on the same inputs differ")
+    log(f"[kernels] jet_mlp_bwd: two calls bitwise equal (input cotangents, every gz) at {', '.join(cases)}")
 
 
 def ptxas_by_function(text: str):
@@ -717,10 +746,21 @@ def time_kernels(errs, launches, device_ms):
         if r["name"] == "jet_mlp_fwd":
             r["aneurysm"]["ms_save_bounds"] = cuda_ms(lambda: J.jet_mlp_fwd(streams, weights, biases, idx, True,
                                                                             silu), 10)
+        if r["name"] == "jet_mlp_bwd":
+            r["aneurysm"]["registers_spills"] = BWD_PTXAS["jet_mlp_bwd"]
         log(f"[timing] {r['name']} at the aneurysm shape: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms "
             f"by {by}" + (f", library {r['aneurysm']['library_ms']:.4f} ms" if library is not None else "")
             + f"), launches per step {per_step}")
     del Y, GZ, ys, gzs, bounds, streams
+    # jet_mlp_bwd at the unsteady aneurysm's S = 8 (its NavierStokes jet adds u_xy), the same widths
+    S8 = S7 + 1
+    idx, streams, weights, biases, g_out = make_inputs(S8, NA, dims)
+    _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=silu)
+    r = rows[1]["aneurysm"]
+    r["ms_S8"] = cuda_ms(lambda: J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, silu), 10)
+    r["bound_ms_S8"] = bound_ms(2 * a_flops * S8 / S7, (2 * a_stream[0] + 2 * sum(a_stream[1:])) * S8 / S7 + a_w)[0]
+    log(f"[timing] jet_mlp_bwd at the aneurysm widths, S={S8}: {r['ms_S8']:.4f} ms (bound {r['bound_ms_S8']:.4f} ms)")
+    del bounds, streams
 
     program = G.piratenet_program(9)
     idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
@@ -741,7 +781,7 @@ def time_kernels(errs, launches, device_ms):
     r["ms_without_gates_and_residuals"] = cuda_ms(
         lambda: G.jet_gated_bwd(y, (), (), bounds, weights, biases, (), g_out, bare, idx), 5)
     r["ms_elementwise_share"] = r["ms"] - r["ms_without_gates_and_residuals"]
-    r["registers_spills"] = GATED_BWD_PTXAS
+    r["registers_spills"] = BWD_PTXAS["jet_gated_bwd"]
     log(f"[timing] jet_gated_bwd, the same stages without gates and residuals: "
         f"{r['ms_without_gates_and_residuals']:.4f} ms; elementwise share (gates, residuals) "
         f"{r['ms_elementwise_share']:.4f} ms")
@@ -749,7 +789,7 @@ def time_kernels(errs, launches, device_ms):
     # S = 7 (one tile, the cotangent parked) and S = 8 at narrow widths
     r["ms_by_shape"], r["bound_ms_by_shape"] = {}, {}
     for s_, w_ in ((6, W), (7, W), (8, 64), (8, 128)):
-        key = f"S={s_} W={w_}" + (" parked" if J.gated_bwd_parks(s_, [w_]) else "")
+        key = f"S={s_} W={w_}" + (" parked" if J.bwd_parks(s_, [w_]) else "")
         a_ = make_gated_inputs(s_, N, w_, program)
         _, bd_ = G.jet_gated_fwd(*a_[1:7], program, a_[0], save_bounds=True)
         ba_ = (*a_[1:4], bd_, *a_[4:], program, a_[0])
@@ -913,11 +953,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    for name in ("jet_wgrad", "jet_gated_bwd"):
+    for name in ("jet_wgrad", "jet_mlp_bwd", "jet_gated_bwd"):
         for fn, (regs, st, ld) in ptxas_by_function(build_logs.get(name, "")).items():
             log(f"[build] {name}.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-            if name == "jet_gated_bwd":
-                GATED_BWD_PTXAS[fn] = [regs, st, ld]
+            if name in BWD_PTXAS:
+                BWD_PTXAS[name][fn] = [regs, st, ld]
 
     from paddlescience_torch.autodiff import jet
     from paddlescience_torch.autodiff import path as deriv_path
@@ -980,11 +1020,17 @@ def main() -> int:
     check_gated_kernels(S, N - 1, W, G.piratenet_program(3), "piratenet")
     check_gated_kernels(S, N - 1, W, G.modified_mlp_program(3), "modified_mlp")
     # S = 7 at W = 256: two tiles do not fit, the backward keeps one and parks the cotangent
-    if not J.gated_bwd_parks(len(NS3D) + 1, [W]):
+    if not J.bwd_parks(len(NS3D) + 1, [W]):
         raise AssertionError("the gated backward at S=7, W=256 was expected to park its cotangent")
     check_gated_kernels(len(NS3D) + 1, N - 1, W, G.piratenet_program(3), "piratenet (parked)")
+    # jet_mlp_bwd at width 512: S = 5 keeps two 8-row tiles, S = 8 (the unsteady aneurysm) parks
+    for s_ in (5, len(NS3D) + 2):
+        if J.bwd_parks(s_, dims) is not (s_ > 5):
+            raise AssertionError(f"jet_mlp_bwd at S={s_}, width 512: unexpected cotangent placement")
+        merge(check_kernels(s_, ANEURYSM["N"] - 3, dims[:4], silu))
     check_wgrad_repeat()
     check_gated_bwd_repeat()
+    check_mlp_bwd_repeat()
     errs["lbm_collide_stream"] = max(check_lbm_kernel(256, 256, 1), check_lbm_kernel(256, 256, 200),
                                      check_lbm_kernel(1000, 1000, 1))
 

@@ -9,11 +9,18 @@
 //   * a row tile of BM rows of all S streams lives in shared memory
 //     transposed, as A[s][k][r] (k = feature, r = row in the tile), so a
 //     thread reads the 4 rows of its micro-tile as one float4;
-//   * a CTA has 256 threads, TX = 1024 / BM across the columns and BM / 4
-//     down the rows: tx = tid % TX owns output columns 4tx..4tx+3, ty =
-//     tid / TX owns tile rows 4ty..4ty+3, for every stream. BM = 16 (64 x 4
-//     threads) covers widths up to 256, BM = 8 (128 x 2) widths up to 512;
-//     the gated kernels use BM = 16 only.
+//   * a forward CTA (jet_mlp_fwd.cu, jet_gated_fwd.cu) has 256 threads,
+//     TX = 1024 / BM across the columns and BM / 4 down the rows: tx = tid
+//     % TX owns output columns 4tx..4tx+3, ty = tid / TX owns tile rows
+//     4ty..4ty+3, for every stream. BM = 16 (64 x 4 threads) covers widths
+//     up to 256, BM = 8 (128 x 2) widths up to 512; the gated kernels use
+//     BM = 16 only;
+//   * a backward CTA (jet_mlp_bwd.cu, jet_gated_bwd.cu) has 512 threads,
+//     each owning a 4-row x 2-column micro-tile (Tile) of every stream:
+//     GB_TX<BM> = 2048 / BM threads across the columns, BM / 4 down the
+//     rows, so 128 x 4 threads cover 16 rows x 256 columns and 256 x 2
+//     threads 8 rows x 512 columns. Its products stage the weights through
+//     a cp.async ring (ring_matmul, ring_matmul_t at the end of this file).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -296,26 +303,6 @@ __device__ __forceinline__ void store_rows(float* const (&dst)[S], const float (
     }
 }
 
-// Read the micro-tile rows back from S global (N, D) streams that this
-// thread wrote with store_rows earlier in the kernel (plain loads, not the
-// read-only path); rows past N read as zero.
-template <int S>
-__device__ __forceinline__ void load_rows(float (&acc)[S][4][4], const float* const (&src)[S],
-                                          int D, int row0, int N, int tx, int ty) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = row0 + 4 * ty + i;
-      const float4 r = n < N ? *reinterpret_cast<const float4*>(src[s] + (size_t)n * D + 4 * tx)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      acc[s][i][0] = r.x;
-      acc[s][i][1] = r.y;
-      acc[s][i][2] = r.z;
-      acc[s][i][3] = r.w;
-    }
-}
-
 // Add the bias to the primal stream's pre-activations.
 template <int S>
 __device__ __forceinline__ void add_bias(float (&acc)[S][4][4], const float* __restrict__ b, int tx) {
@@ -326,43 +313,6 @@ __device__ __forceinline__ void add_bias(float (&acc)[S][4][4], const float* __r
     acc[0][i][1] += bias.y;
     acc[0][i][2] += bias.z;
     acc[0][i][3] += bias.w;
-  }
-}
-
-// acc[s][i][j] += sum_c G[s][c][4ty+i] * W[4tx+j][c], c < D: the product
-// with W^T. W is (K, D); columns are staged KC at a time, transposed, into
-// Wt[cc][k] with row stride kpad. Ends with __syncthreads().
-template <int S, int BM = PSCI_BM>
-__device__ __forceinline__ void tile_matmul_t(float (&acc)[S][4][4], const float* G, int kmax,
-                                              const float* __restrict__ W, int K, int D,
-                                              float* Wt, int kpad, int tx, int ty) {
-  for (int c0 = 0; c0 < D; c0 += PSCI_KC) {
-    const int cn = min(PSCI_KC, D - c0);
-    for (int e = threadIdx.x; e < K * cn; e += PSCI_THREADS) {
-      const int k = e / cn, cc = e - k * cn;
-      Wt[cc * kpad + k] = __ldg(W + (size_t)k * D + c0 + cc);
-    }
-    __syncthreads();
-    if (4 * tx < K) {
-#pragma unroll 4
-      for (int cc = 0; cc < cn; ++cc) {
-        const float4 w = *reinterpret_cast<const float4*>(Wt + cc * kpad + 4 * tx);
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float4 a =
-              *reinterpret_cast<const float4*>(G + ((size_t)s * kmax + c0 + cc) * BM + 4 * ty);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[s][i][0] = fmaf(av[i], w.x, acc[s][i][0]);
-            acc[s][i][1] = fmaf(av[i], w.y, acc[s][i][1]);
-            acc[s][i][2] = fmaf(av[i], w.z, acc[s][i][2]);
-            acc[s][i][3] = fmaf(av[i], w.w, acc[s][i][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
   }
 }
 
@@ -498,6 +448,251 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------- the backward kernels' 512-thread tiles --
+
+#define GB_THREADS 512  // threads of a backward CTA
+#define GB_RM 4         // rows of a thread's micro-tile
+#define GB_CN 2         // columns of a thread's micro-tile
+#define GB_STAGES 2     // weight chunks in the cp.async ring
+
+// Column threads of a BM-row tile: 128 at BM = 16, 256 at BM = 8.
+template <int BM>
+constexpr int GB_TX = GB_THREADS * GB_RM / BM;
+
+// A thread's micro-tile of one stream: rows GB_RM ty + i, columns GB_CN tx + j
+// (from ring_matmul_t: columns tx + GB_TX j).
+template <int S>
+using Tile = float[S][GB_RM][GB_CN];
+
+// N (2 or 4) contiguous floats as one access.
+template <int N>
+__device__ __forceinline__ void ld(const float* p, float (&v)[N]) {
+  static_assert(N == 2 || N == 4, "float2 or float4");
+  if constexpr (N == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+// The same through the read-only path (data the kernel does not write).
+template <int N>
+__device__ __forceinline__ void ldg(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void st(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fill(float (&v)[N], float x) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = x;
+}
+
+// Column j of the micro-tile into a transposed tile A[s][c][r] at column c.
+template <int S, int BM = PSCI_BM>
+__device__ __forceinline__ void gb_store_col(float* A, int kmax, const Tile<S>& acc, int s, int j, int c, int ty) {
+  float v[GB_RM];
+#pragma unroll
+  for (int i = 0; i < GB_RM; ++i) v[i] = acc[s][i][j];
+  st<GB_RM>(A + ((size_t)s * kmax + c) * BM + GB_RM * ty, v);
+}
+
+// The micro-tile into a transposed tile A[s][c][r] (c = GB_CN tx + j).
+template <int S, int BM = PSCI_BM>
+__device__ __forceinline__ void gb_store_tile(float* A, int kmax, const Tile<S>& acc, int tx, int ty) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < GB_CN; ++j) gb_store_col<S, BM>(A, kmax, acc, s, j, GB_CN * tx + j, ty);
+}
+
+// The micro-tile rows to S (N, D) streams in device memory.
+template <int S>
+__device__ __forceinline__ void gb_store_rows(float* const (&dst)[S], const Tile<S>& acc, int D, int row0, int N,
+                                              int tx, int ty) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int i = 0; i < GB_RM; ++i) {
+      const int n = row0 + GB_RM * ty + i;
+      if (n < N) st<GB_CN>(dst[s] + (size_t)n * D + GB_CN * tx, acc[s][i]);
+    }
+}
+
+template <int S>
+__device__ __forceinline__ void gb_zero(Tile<S>& acc) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int i = 0; i < GB_RM; ++i) fill<GB_CN>(acc[s][i], 0.f);
+}
+
+// The bias on the primal stream's pre-activations.
+template <int S>
+__device__ __forceinline__ void gb_add_bias(Tile<S>& acc, const float* __restrict__ b, int tx) {
+  float bias[GB_CN];
+  ldg<GB_CN>(b + GB_CN * tx, bias);
+#pragma unroll
+  for (int i = 0; i < GB_RM; ++i)
+#pragma unroll
+    for (int j = 0; j < GB_CN; ++j) acc[0][i][j] += bias[j];
+}
+
+// ------------------------------------------------ ring-staged products --
+
+// load_tile through cp.async, for a backward CTA: 4-byte copies into the
+// transposed tile, rows past N zero-filled, all in flight at once and
+// committed as one group, which the next ring product's first wait takes
+// in (no thread waits on a load in between).
+template <int S, int BM>
+__device__ __forceinline__ void stage_tile(float* A, int kmax, const float* const (&src)[S], int K, int row0,
+                                           int N) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    for (int e = threadIdx.x; e < BM * K; e += GB_THREADS) {
+      const int r = e / K, k = e - r * K, n = row0 + r;
+      cp_async4(A + ((size_t)s * kmax + k) * BM + r, n < N ? src[s] + (size_t)n * K + k : src[s], n < N);
+    }
+  cp_async_commit();
+}
+
+// Rows k0 .. k0+kc-1 of W (K, D): one contiguous block of kc * D floats.
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ W, int k0, int kc, int D) {
+  const float* src = W + (size_t)k0 * D;
+  for (int e = threadIdx.x; e < kc * D / 4; e += GB_THREADS) cp_async16(dst + 4 * e, src + 4 * e, true);
+}
+
+// Columns c0 .. c0+cn-1 (cn <= 16, a multiple of 4) of every row of W
+// (K, D), row-major as dst[k][16]; the 16-byte piece p of row k sits at
+// piece p ^ ((k >> 1) & 3). Pieces past cn are zero.
+__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ W, int c0, int cn, int K, int D) {
+  for (int e = threadIdx.x; e < 4 * K; e += GB_THREADS) {
+    const int k = e >> 2, p = e & 3;
+    const bool ok = 4 * p < cn;
+    cp_async16(dst + k * PSCI_KC + 4 * (p ^ ((k >> 1) & 3)), ok ? W + (size_t)k * D + c0 + 4 * p : W, ok);
+  }
+}
+
+// acc[s][i][j] += sum_k A[s][k][GB_RM ty + i] * W[k][GB_CN tx + j], k < K;
+// A a transposed BM-row tile, W (K, D), D % 4 == 0. Chunks of 16 weight
+// rows go through the ring (stage floats each). Enter with the ring free;
+// the first barrier also publishes A, written before the call. Ends with
+// __syncthreads(), so A and the ring may be overwritten after it.
+template <int S, int BM = PSCI_BM>
+__device__ __forceinline__ void ring_matmul(Tile<S>& acc, const float* A, int kmax, const float* __restrict__ W,
+                                            int K, int D, float* ring, int stage, int tx, int ty) {
+  const int n = (K + PSCI_KC - 1) / PSCI_KC;
+  auto fetch = [&](int c) {
+    if (c < n) stage_rows(ring + (c % GB_STAGES) * stage, W, c * PSCI_KC, min(PSCI_KC, K - c * PSCI_KC), D);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < GB_STAGES - 1; ++c) fetch(c);
+  for (int c = 0; c < n; ++c) {
+    cp_async_wait<GB_STAGES - 2>();
+    __syncthreads();  // chunk c has landed for every thread; chunk c-1's slot is free
+    fetch(c + GB_STAGES - 1);
+    const float* Wc = ring + (c % GB_STAGES) * stage;
+    const int k0 = c * PSCI_KC, kc = min(PSCI_KC, K - k0);
+    if (GB_CN * tx < D) {
+#pragma unroll 4
+      for (int kk = 0; kk < kc; ++kk) {
+        float w[GB_CN];
+        ld<GB_CN>(Wc + kk * D + GB_CN * tx, w);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          float a[GB_RM];
+          ld<GB_RM>(A + ((size_t)s * kmax + k0 + kk) * BM + GB_RM * ty, a);
+#pragma unroll
+          for (int i = 0; i < GB_RM; ++i)
+#pragma unroll
+            for (int j = 0; j < GB_CN; ++j) acc[s][i][j] = fmaf(a[i], w[j], acc[s][i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// acc[s][i][j] += sum_c G[s][c][GB_RM ty + i] * W[tx + TX j][c], c < D
+// (TX = GB_TX<BM>): the product with W^T, output column tx + TX j (rows
+// past K read row K-1; their sums are not used). With SKIP a thread with
+// no column below K skips the FMAs: a narrow K, such as a first layer's 3
+// inputs, then costs no full product; jet_gated_bwd.cu leaves it off, as
+// it changes that kernel's registers. Chunks of 16 columns of W go through
+// the ring as stage_cols lays them out: the 8 lanes of an LDS.128 phase
+// read 8 consecutive rows, whose swizzled pieces cover the 32 banks. Enter
+// with the ring free; the first barrier also publishes G, written before
+// the call. Ends with __syncthreads(), so G and the ring may be
+// overwritten after it.
+template <int S, int BM = PSCI_BM, bool SKIP = false>
+__device__ __forceinline__ void ring_matmul_t(Tile<S>& acc, const float* G, int kmax, const float* __restrict__ W,
+                                              int K, int D, float* ring, int stage, int tx, int ty) {
+  constexpr int TX = GB_TX<BM>;
+  const int n = (D + PSCI_KC - 1) / PSCI_KC;
+  const int sw = (tx >> 1) & 3;  // the swizzle of rows tx + TX j
+  int wrow[GB_CN];
+#pragma unroll
+  for (int j = 0; j < GB_CN; ++j) wrow[j] = min(tx + TX * j, K - 1) * PSCI_KC;
+  auto fetch = [&](int c) {
+    if (c < n) stage_cols(ring + (c % GB_STAGES) * stage, W, c * PSCI_KC, min(PSCI_KC, D - c * PSCI_KC), K, D);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int c = 0; c < GB_STAGES - 1; ++c) fetch(c);
+  for (int c = 0; c < n; ++c) {
+    cp_async_wait<GB_STAGES - 2>();
+    __syncthreads();
+    fetch(c + GB_STAGES - 1);
+    const float* Wt = ring + (c % GB_STAGES) * stage;
+    const int c0 = c * PSCI_KC, cn = min(PSCI_KC, D - c0);
+    if (!SKIP || tx < K) {
+#pragma unroll 1
+      for (int q4 = 0; q4 < cn / 4; ++q4) {
+        float w[GB_CN][4];
+#pragma unroll
+        for (int j = 0; j < GB_CN; ++j) ld<4>(Wt + wrow[j] + 4 * (q4 ^ sw), w[j]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            float a[GB_RM];
+            ld<GB_RM>(G + ((size_t)s * kmax + c0 + 4 * q4 + q) * BM + GB_RM * ty, a);
+#pragma unroll
+            for (int i = 0; i < GB_RM; ++i)
+#pragma unroll
+              for (int j = 0; j < GB_CN; ++j) acc[s][i][j] = fmaf(a[i], w[j][q], acc[s][i][j]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Dynamic shared memory of a backward kernel: the layer-input and
+// cotangent tiles of BM rows (one shared tile with park) and the weight
+// ring (ops/jet_mlp.py::bwd_smem computes the same).
+__host__ __forceinline__ size_t bwd_smem(int S, int kmax, int bm, int park) {
+  return ((park ? 1 : 2) * (size_t)S * kmax * bm + (size_t)GB_STAGES * PSCI_KC * kmax) * sizeof(float);
 }
 
 #define PSCI_ERROR_STRING_FN                                   \

@@ -69,8 +69,9 @@
 //     A's shared memory. The stage's input cotangent goes to the gz buffer
 //     of the previous stage's last layer, which reads it back into the
 //     tile once its z product no longer needs A.
-//   * Weight staging that overlaps the FMAs. Both products stage 16-row
-//     (z = y_in @ W) or 16-column (gz @ W^T) chunks of W with 16-byte
+//   * Weight staging that overlaps the FMAs (jet_common.cuh's ring_matmul
+//     and ring_matmul_t, shared with jet_mlp_bwd.cu). Both products stage
+//     16-row (z = y_in @ W) or 16-column (gz @ W^T) chunks of W with 16-byte
 //     cp.async copies into a ring of GB_STAGES chunks, one __syncthreads a
 //     chunk: the copy of chunk c+1 is in flight while chunk c is computed.
 //     The W^T chunk lands in W's own row-major layout ([k][16], no element
@@ -84,19 +85,17 @@
 //   outputs; the wrapper checks), so every weight row starts 16-byte
 //   aligned, the narrow first input (dims[0] = 3, 5) included.
 // What holds it back (PERF.md): each product runs at under half of the
-// float32 FMA rate; from S = 5 a thread's 128 registers spill. A thread executes S + 1 shared loads per 8S FMAs (the A
-// fragment is one float4 per stream); with 128 registers it cannot hold
-// more accumulators to spread them over.
+// float32 FMA rate; from S = 5 a thread's 128 registers spill. A thread
+// executes S + 1 shared loads per 8S FMAs (the A fragment is one float4 per
+// stream); with 128 registers it cannot hold more accumulators to spread
+// them over.
 #include "jet_common.cuh"
 
-// A CTA of 512 threads covers a 16-row tile: 4 rows of threads (ty), each
-// owning GB_RM = 4 tile rows, by GB_TX = 128 columns of threads (tx), each
-// owning GB_CN = 2 contiguous columns (widths up to 256).
-#define GB_THREADS 512
-#define GB_RM 4
-#define GB_CN 2
-#define GB_TX 128
-#define GB_STAGES 2  // weight chunks in the ring
+// A CTA of 512 threads covers a 16-row tile (jet_common.cuh): 4 rows of
+// threads (ty), each owning GB_RM = 4 tile rows, by GB_TX<16> = 128 columns
+// of threads (tx), each owning GB_CN = 2 contiguous columns (widths up to
+// 256).
+constexpr int TX = GB_TX<PSCI_BM>;
 
 struct GatedBwdParams {
   const float* x[PSCI_MAX_S];      // segment input streams, (N, dims[0])
@@ -120,85 +119,8 @@ struct GatedBwdParams {
   JetIdx idx;
   Act act;
   int L, N, kmax, n_res;
-  int park;  // 1: one tile for A and G, the cotangent parked between stages (gated_bwd_smem)
+  int park;  // 1: one tile for A and G, the cotangent parked between stages (bwd_smem)
 };
-
-// A thread's micro-tile of one stream: rows GB_RM ty + i, columns GB_CN tx + j.
-template <int S>
-using Tile = float[S][GB_RM][GB_CN];
-
-// N (2 or 4) contiguous floats as one access.
-template <int N>
-__device__ __forceinline__ void ld(const float* p, float (&v)[N]) {
-  static_assert(N == 2 || N == 4, "float2 or float4");
-  if constexpr (N == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  }
-}
-
-// The same through the read-only path (data the kernel does not write).
-template <int N>
-__device__ __forceinline__ void ldg(const float* p, float (&v)[N]) {
-  if constexpr (N == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    v[0] = t.x, v[1] = t.y;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void st(float* p, const float (&v)[N]) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void fill(float (&v)[N], float x) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = x;
-}
-
-// ------------------------------------------------------ tile movement --
-
-// Column j of the micro-tile into a transposed tile A[s][c][r] at column c.
-template <int S>
-__device__ __forceinline__ void gb_store_col(float* A, int kmax, const Tile<S>& acc, int s, int j, int c, int ty) {
-  float v[GB_RM];
-#pragma unroll
-  for (int i = 0; i < GB_RM; ++i) v[i] = acc[s][i][j];
-  st<GB_RM>(A + ((size_t)s * kmax + c) * PSCI_BM + GB_RM * ty, v);
-}
-
-// The micro-tile into a transposed tile A[s][c][r] (c = GB_CN tx + j).
-template <int S>
-__device__ __forceinline__ void gb_store_tile(float* A, int kmax, const Tile<S>& acc, int tx, int ty) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int j = 0; j < GB_CN; ++j) gb_store_col<S>(A, kmax, acc, s, j, GB_CN * tx + j, ty);
-}
-
-// The micro-tile rows to S (N, D) streams in device memory.
-template <int S>
-__device__ __forceinline__ void gb_store_rows(float* const (&dst)[S], const Tile<S>& acc, int D, int row0, int N,
-                                              int tx, int ty) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < GB_RM; ++i) {
-      const int n = row0 + GB_RM * ty + i;
-      if (n < N) st<GB_CN>(dst[s] + (size_t)n * D + GB_CN * tx, acc[s][i]);
-    }
-}
 
 // T[s][k][r] <- src[s][(row0 + r) * K + k], rows past N zero: load_tile
 // with plain loads, for rows this kernel may have written before a
@@ -214,24 +136,7 @@ __device__ __forceinline__ void gb_load_tile(float* T, int kmax, const float* co
     }
 }
 
-template <int S>
-__device__ __forceinline__ void gb_zero(Tile<S>& acc) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < GB_RM; ++i) fill<GB_CN>(acc[s][i], 0.f);
-}
-
-// The bias on the primal stream's pre-activations.
-template <int S>
-__device__ __forceinline__ void gb_add_bias(Tile<S>& acc, const float* __restrict__ b, int tx) {
-  float bias[GB_CN];
-  ldg<GB_CN>(b + GB_CN * tx, bias);
-#pragma unroll
-  for (int i = 0; i < GB_RM; ++i)
-#pragma unroll
-    for (int j = 0; j < GB_CN; ++j) acc[0][i][j] += bias[j];
-}
+// ------------------------------------------------ the elementwise rules --
 
 // The activation's jet rule, then (gated) v + f (u - v) by the jet product
 // rule, on the micro-tile in place; u, v rows read GB_CN floats at a time.
@@ -273,114 +178,6 @@ __device__ __forceinline__ void gb_act_gate(Tile<S>& acc, const GatedBwdParams& 
     }
   }
 }
-
-// ------------------------------------------------ ring-staged products --
-
-// Rows k0 .. k0+kc-1 of W (K, D): one contiguous block of kc * D floats.
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ W, int k0, int kc, int D) {
-  const float* src = W + (size_t)k0 * D;
-  for (int e = threadIdx.x; e < kc * D / 4; e += GB_THREADS) cp_async16(dst + 4 * e, src + 4 * e, true);
-}
-
-// Columns c0 .. c0+cn-1 (cn <= 16, a multiple of 4) of every row of W
-// (K, D), row-major as dst[k][16]; the 16-byte piece p of row k sits at
-// piece p ^ ((k >> 1) & 3). Pieces past cn are zero.
-__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ W, int c0, int cn, int K, int D) {
-  for (int e = threadIdx.x; e < 4 * K; e += GB_THREADS) {
-    const int k = e >> 2, p = e & 3;
-    const bool ok = 4 * p < cn;
-    cp_async16(dst + k * PSCI_KC + 4 * (p ^ ((k >> 1) & 3)), ok ? W + (size_t)k * D + c0 + 4 * p : W, ok);
-  }
-}
-
-// acc[s][i][j] += sum_k A[s][k][GB_RM ty + i] * W[k][GB_CN tx + j], k < K;
-// W (K, D), D % 4 == 0. Chunks of 16 weight rows go through the ring
-// (stage floats each). Enter with the ring free; ends with
-// __syncthreads(), so A and the ring may be overwritten after it.
-template <int S>
-__device__ __forceinline__ void ring_matmul(Tile<S>& acc, const float* A, int kmax, const float* __restrict__ W,
-                                            int K, int D, float* ring, int stage, int tx, int ty) {
-  const int n = (K + PSCI_KC - 1) / PSCI_KC;
-  auto fetch = [&](int c) {
-    if (c < n) stage_rows(ring + (c % GB_STAGES) * stage, W, c * PSCI_KC, min(PSCI_KC, K - c * PSCI_KC), D);
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int c = 0; c < GB_STAGES - 1; ++c) fetch(c);
-  for (int c = 0; c < n; ++c) {
-    cp_async_wait<GB_STAGES - 2>();
-    __syncthreads();  // chunk c has landed for every thread; chunk c-1's slot is free
-    fetch(c + GB_STAGES - 1);
-    const float* Wc = ring + (c % GB_STAGES) * stage;
-    const int k0 = c * PSCI_KC, kc = min(PSCI_KC, K - k0);
-    if (GB_CN * tx < D) {
-#pragma unroll 4
-      for (int kk = 0; kk < kc; ++kk) {
-        float w[GB_CN];
-        ld<GB_CN>(Wc + kk * D + GB_CN * tx, w);
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          float a[GB_RM];
-          ld<GB_RM>(A + ((size_t)s * kmax + k0 + kk) * PSCI_BM + GB_RM * ty, a);
-#pragma unroll
-          for (int i = 0; i < GB_RM; ++i)
-#pragma unroll
-            for (int j = 0; j < GB_CN; ++j) acc[s][i][j] = fmaf(a[i], w[j], acc[s][i][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// acc[s][i][j] += sum_c G[s][c][GB_RM ty + i] * W[tx + GB_TX j][c], c < D:
-// the product with W^T, output column tx + GB_TX j (rows past K read row
-// K-1; their sums are not used). Chunks of 16 columns of W go through the
-// ring as stage_cols lays them out. Enter with the ring free; ends with
-// __syncthreads(), so G and the ring may be overwritten after it.
-template <int S>
-__device__ __forceinline__ void ring_matmul_t(Tile<S>& acc, const float* G, int kmax, const float* __restrict__ W,
-                                              int K, int D, float* ring, int stage, int tx, int ty) {
-  const int n = (D + PSCI_KC - 1) / PSCI_KC;
-  const int sw = (tx >> 1) & 3;  // the swizzle of rows tx + GB_TX j
-  int wrow[GB_CN];
-#pragma unroll
-  for (int j = 0; j < GB_CN; ++j) wrow[j] = min(tx + GB_TX * j, K - 1) * PSCI_KC;
-  auto fetch = [&](int c) {
-    if (c < n) stage_cols(ring + (c % GB_STAGES) * stage, W, c * PSCI_KC, min(PSCI_KC, D - c * PSCI_KC), K, D);
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int c = 0; c < GB_STAGES - 1; ++c) fetch(c);
-  for (int c = 0; c < n; ++c) {
-    cp_async_wait<GB_STAGES - 2>();
-    __syncthreads();
-    fetch(c + GB_STAGES - 1);
-    const float* Wt = ring + (c % GB_STAGES) * stage;
-    const int c0 = c * PSCI_KC, cn = min(PSCI_KC, D - c0);
-#pragma unroll 1
-    for (int q4 = 0; q4 < cn / 4; ++q4) {
-      float w[GB_CN][4];
-#pragma unroll
-      for (int j = 0; j < GB_CN; ++j) ld<4>(Wt + wrow[j] + 4 * (q4 ^ sw), w[j]);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          float a[GB_RM];
-          ld<GB_RM>(G + ((size_t)s * kmax + c0 + 4 * q4 + q) * PSCI_BM + GB_RM * ty, a);
-#pragma unroll
-          for (int i = 0; i < GB_RM; ++i)
-#pragma unroll
-            for (int j = 0; j < GB_CN; ++j) acc[s][i][j] = fmaf(a[i], w[j][q], acc[s][i][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// ------------------------------------------------ the elementwise rules --
 
 // The reverse phase's elementwise part of layer m on the thread's
 // micro-tile (GB_CN tx < D). The cotangents of the layer's output come
@@ -540,7 +337,7 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const Gate
   float* ring = smem + (p.park ? 1 : 2) * tile;  // GB_STAGES weight chunks
   const int stage = PSCI_KC * p.kmax;
   const int row0 = blockIdx.x * PSCI_BM;
-  const int tx = threadIdx.x % GB_TX, ty = threadIdx.x / GB_TX;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
 
   if (!p.park) {
     const float* src[S];
@@ -640,7 +437,7 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const Gate
       const bool park_out = p.park && m == l0 && m > 0;
 #pragma unroll
       for (int j = 0; j < GB_CN; ++j) {
-        const int k = tx + GB_TX * j;
+        const int k = tx + TX * j;
         if (k >= K) continue;
 #pragma unroll
         for (int s = 0; s < S; ++s) {
@@ -660,15 +457,9 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_gated_bwd_kernel(const Gate
   }
 }
 
-// Dynamic shared memory: the A and G tiles (one shared tile with park) and
-// the weight ring (ops/jet_mlp.py::gated_bwd_smem computes the same).
-__host__ __forceinline__ size_t gated_bwd_smem(int S, int kmax, int park) {
-  return ((park ? 1 : 2) * (size_t)S * kmax * PSCI_BM + (size_t)GB_STAGES * PSCI_KC * kmax) * sizeof(float);
-}
-
 template <int S, bool ANY>
 static cudaError_t launch(const GatedBwdParams& p, cudaStream_t stream) {
-  const size_t smem = gated_bwd_smem(S, p.kmax, p.park);
+  const size_t smem = bwd_smem(S, p.kmax, PSCI_BM, p.park);
   cudaError_t err = cudaFuncSetAttribute(jet_gated_bwd_kernel<S, ANY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -338,7 +338,7 @@ def jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out, program: Prog
            ptrs(g_y), ptrs(g_u) if gated else None, ptrs(g_v) if gated else None, ptrs(weights),
            ptrs(biases), ptrs(_alpha_table(program, alphas)), ptrs(table), ptrs(gzs),
            partials.data_ptr() if n_res else None, ints(dims), ints(program), ints(kinds), ints(pa),
-           ints(pb), S, L, N, kmax, int(jet_mlp.gated_bwd_parks(S, dims)), act_id, act_w, stream_handle(dev))
+           ints(pb), S, L, N, kmax, int(jet_mlp.bwd_parks(S, dims)), act_id, act_w, stream_handle(dev))
     jet_gated_bwd.launches += 1
     ins = tuple(tuple(y) if l == 0 else tuple(t.unbind(0)) for l, t in enumerate(table))
     return g_y, g_u, g_v, gzs, ins, partials

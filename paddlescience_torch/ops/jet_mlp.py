@@ -43,10 +43,11 @@ forward's and backward's shared memory within a CTA's; the wrappers raise
 where it does not hold. :func:`jet_mlp_segment` (and
 ``ops/jet_gated.py::jet_gated_segment``) zero-pad widths that are no
 multiple of 4 (:func:`pad_widths`). A CTA's row tile is 16 rows up to width
-256 and 8 rows above (:func:`tile_rows`); the backward keeps the layer
-input and the running cotangent in shared memory where both fit and
-otherwise parks the cotangent in the ``gz`` buffers (:func:`bwd_parks`,
-and :func:`gated_bwd_parks` for the gated backward).
+256 and 8 rows above (:func:`tile_rows`); both backward kernels keep the
+layer input and the running cotangent in shared memory where both fit
+beside their weight ring and otherwise park the cotangent in the ``gz``
+buffers (:func:`bwd_parks`; the gated backward's widths stop at 256, so
+its tiles are always 16 rows).
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ __all__ = [
     "index_tables",
     "tile_rows",
     "bwd_parks",
-    "gated_bwd_parks",
+    "bwd_smem",
     "kernels_take",
     "kernel_refusal",
     "act_jet",
@@ -94,7 +95,7 @@ MAX_WIDTH = 512
 GATED_MAX_WIDTH = 256  # the gated kernels keep the 16-row tile of the narrow case
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
 KC = 16  # weight rows (or columns) staged per chunk
-GB_STAGES = 2  # jet_gated_bwd: weight chunks in its cp.async ring
+GB_STAGES = 2  # the backward kernels: weight chunks in their cp.async ring
 WG_T, WG_RC, WG_NARROW = 128, 32, 8  # jet_wgrad: tile edge, rows per stage, widest layer of narrow units
 WG_PART = WG_T * WG_T + WG_T  # floats of one jet_wgrad unit's partial (its dW tile, then db)
 WG_NARROW_COST = 0.25  # time per row of a narrow unit, in rows of a 128 x 128 unit
@@ -262,9 +263,11 @@ def act_args(act: jetmod.Act) -> Tuple[int, float]:
 
 
 def tile_rows(dims: Sequence[int]) -> int:
-    """Rows of a CTA's tile: 16 up to NARROW_WIDTH (64 threads across the
-    columns, 4 down the rows), 8 above (128 across, 2 down), so a thread
-    always owns a 4x4 micro-tile of every stream."""
+    """Rows of a CTA's tile: 16 up to NARROW_WIDTH, 8 above. In the
+    forward kernels (256 threads) a thread owns a 4x4 micro-tile of every
+    stream: 64 threads across the columns by 4 down the rows, or 128 by 2;
+    in the backward kernels (512 threads) a 4x2 one: 128 by 4, or 256 by
+    2."""
     return BM if max(dims) <= NARROW_WIDTH else BM_WIDE
 
 
@@ -275,33 +278,22 @@ def fwd_smem(S: int, dims: Sequence[int]) -> int:
 
 
 def bwd_parks(S: int, dims: Sequence[int]) -> bool:
-    """Whether jet_mlp_bwd parks the running cotangent in device memory
-    (in the gz buffers) instead of a second shared-memory tile: where the
-    layer-input tile, the cotangent tile and a weight chunk do not fit."""
+    """Whether a backward kernel keeps one tile for the layer input and the
+    running cotangent, parking the cotangent in device memory (in the gz
+    buffers): where two tiles of ``tile_rows`` rows and the ring of
+    GB_STAGES weight chunks of KC x kmax do not fit. At width 256 that is
+    S >= 7, at width 512 S >= 6."""
     kmax = _round4(max(dims))
-    return (2 * S * kmax * tile_rows(dims) + KC * (kmax + 4)) * 4 > SMEM_LIMIT
+    return (2 * S * kmax * tile_rows(dims) + GB_STAGES * KC * kmax) * 4 > SMEM_LIMIT
 
 
 def bwd_smem(S: int, dims: Sequence[int]) -> int:
+    """Shared-memory bytes of a backward kernel (``csrc/jet_common.cuh::
+    bwd_smem``): its tiles and its ring."""
     kmax = _round4(max(dims))
     tiles = 1 if bwd_parks(S, dims) else 2
-    return (tiles * S * kmax * tile_rows(dims) + KC * (kmax + 4)) * 4
+    return (tiles * S * kmax * tile_rows(dims) + GB_STAGES * KC * kmax) * 4
 
-
-def gated_bwd_parks(S: int, dims: Sequence[int]) -> bool:
-    """Whether jet_gated_bwd keeps one tile for the layer input and the
-    cotangent, parking the cotangent in device memory between stages: where
-    two 16-row tiles and its ring of GB_STAGES weight chunks of KC x kmax
-    do not fit (S >= 7 at width 256)."""
-    kmax = _round4(max(dims))
-    return (2 * S * kmax * BM + GB_STAGES * KC * kmax) * 4 > SMEM_LIMIT
-
-
-def gated_bwd_smem(S: int, dims: Sequence[int]) -> int:
-    """Shared-memory bytes of jet_gated_bwd: its tiles and its ring."""
-    kmax = _round4(max(dims))
-    tiles = 1 if gated_bwd_parks(S, dims) else 2
-    return (tiles * S * kmax * BM + GB_STAGES * KC * kmax) * 4
 
 
 def kernel_refusal(S: int, dims: Sequence[int], gated: bool = False) -> Optional[str]:
@@ -319,7 +311,7 @@ def kernel_refusal(S: int, dims: Sequence[int], gated: bool = False) -> Optional
         return f"the kernels take 1..{MAX_LAYERS} layers, got {L}"
     if max(dims) > max_width or any(d % 4 for d in dims[1:]):
         return f"the kernels take widths <= {max_width}, layer outputs a multiple of 4; got {list(dims)}"
-    smem = max(fwd_smem(S, dims), (gated_bwd_smem if gated else bwd_smem)(S, dims))
+    smem = max(fwd_smem(S, dims), bwd_smem(S, dims))
     if smem > SMEM_LIMIT:
         return (f"{S} streams of width {_round4(max(dims))} need {smem} bytes of shared memory, "
                 f"more than a CTA's {SMEM_LIMIT}")

@@ -3,7 +3,8 @@ jet_mlp.py, jet_gated.py, lbm.py), without JAX.
 
 On the CPU: the hand-derived backwards (tanh MLP segment, gated layer
 programs) against torch.autograd through the plain forward, the saved
-stage boundaries, jet_wgrad's unit plan (every output element and batch
+stage boundaries, the backward kernels' tile and shared-memory plan,
+jet_wgrad's unit plan (every output element and batch
 row covered once, the last wave nearly full), the wrappers' device rule,
 the one predicate of what the kernels take (``kernels_take``), the
 segments' zero padding of widths that are no multiple of 4, and the
@@ -18,8 +19,10 @@ also at S = 6 x width 256 (the widest that keeps two tiles), S = 7 and 8
 (one tile, the cotangent parked), a narrow first input, the bare program
 and bitwise the same from call to call; padded segments of width 50; jet_wgrad also at the
 aneurysm's 3 -> 512 x 6 (S = 7), an input width that is not a multiple of
-4, and bitwise the same from call to call (dW, db, d alpha); the aneurysm
-MLP's segments (SiLU, S = 7, 3 -> 512 -> ... -> 512, 6 layers and 3 + 3);
+4, and bitwise the same from call to call (dW, db, d alpha); jet_mlp_bwd
+at width 512 with S = 5 (two tiles) and S = 8 (parked), and bitwise the
+same from call to call (aneurysm, MLP 4x256); the aneurysm MLP's
+segments (SiLU, S = 7, 3 -> 512 -> ... -> 512, 6 layers and 3 + 3);
 every activation, ungated and gated; MLP 5x50 trains under
 ``jet_pallas_full`` through the kernels; the LBM kernel at square,
 ragged and large lattices.
@@ -141,18 +144,33 @@ def test_wrappers_take_plain_versions_only_on_cpu():
     assert J.jet_mlp_fwd.launches == 0 and J.jet_mlp_fwd_plain.cuda_calls == 0
 
 
-def test_tiling_and_shared_memory_plan():
+# (streams, width) -> the backward's (tile rows, parks, shared-memory bytes): two tiles and the ring of
+# GB_STAGES chunks of 16 x kmax where they fit, else one tile and the cotangent parked
+BWD_PLANS = {
+    (4, 256): (16, False, 2 * 4 * 256 * 16 * 4 + 32768),
+    (6, 256): (16, False, 229376),   # the widest S for two 16-row tiles at 256
+    (7, 256): (16, True, 147456),    # two 7-stream tiles and the ring would need 262,144 bytes
+    (8, 256): (16, True, 163840),
+    (5, 512): (8, False, 229376),    # two 8-row tiles at 512
+    (6, 512): (8, True, 163840),
+    (7, 512): (8, True, 180224),     # the aneurysm: 114,688 for the tile + 65,536 for the ring
+    (8, 512): (8, True, 196608),     # its unsteady form
+}
+
+
+@pytest.mark.parametrize("S,w", list(BWD_PLANS))
+def test_tiling_and_shared_memory_plan(S, w):
     """Which row tile and cotangent placement each shape gets, and that
     every shape the wrappers admit (S <= 8, widths <= 512; gated <= 256)
     fits the shared memory of one CTA."""
-    aneurysm = [3] + [512] * 6
-    assert J.tile_rows(aneurysm) == J.BM_WIDE and J.bwd_parks(7, aneurysm)
-    assert J.tile_rows([256] * 5) == J.BM and not J.bwd_parks(4, [256] * 5) and not J.bwd_parks(6, [256] * 5)
-    assert J.bwd_parks(7, [256] * 5)  # two 7-stream tiles of 256 would need 246,016 bytes
-    for S in range(1, J.MAX_STREAMS + 1):
-        for w in (24, 256, 260, 512):
-            dims = [3] + [w] * 4
-            assert J.fwd_smem(S, dims) <= J.SMEM_LIMIT and J.bwd_smem(S, dims) <= J.SMEM_LIMIT, (S, w)
+    rows, parks, smem = BWD_PLANS[(S, w)]
+    dims = [3] + [w] * 6
+    assert J.tile_rows(dims) == rows and J.bwd_parks(S, dims) is parks and J.bwd_smem(S, dims) == smem
+    assert parks is ((2 * S * w * rows + J.GB_STAGES * 16 * w) * 4 > J.SMEM_LIMIT)
+    for S_ in range(1, J.MAX_STREAMS + 1):
+        for w_ in (24, 256, 260, 512):
+            dims = [3] + [w_] * 4
+            assert J.fwd_smem(S_, dims) <= J.SMEM_LIMIT and J.bwd_smem(S_, dims) <= J.SMEM_LIMIT, (S_, w_)
     idx = tjet.build_index([(0,)])
     t = [torch.zeros(4, 516)] * 2
     with pytest.raises(ValueError, match="widths <= 512"):
@@ -161,6 +179,23 @@ def test_tiling_and_shared_memory_plan():
         G._gated_dims(t[:1] * 2, (), (), [torch.zeros(516, 260)], [torch.zeros(260)], (), G.mlp_program(1), idx)
     with pytest.raises(ValueError, match="unknown activation"):
         J.act_args((99, 0.0))
+
+
+def test_backward_shared_memory_matches_the_kernels():
+    """The plan's byte count is the one both backward kernels launch with
+    (csrc/jet_common.cuh::bwd_smem), with the ring's stage count, and only
+    the parked instances that the plan can ask for exist (S >= 6)."""
+    common = (J.cuda_build.CSRC / "jet_common.cuh").read_text()
+    mlp_bwd = (J.cuda_build.CSRC / "jet_mlp_bwd.cu").read_text()
+    assert f"#define GB_STAGES {J.GB_STAGES} " in common
+    assert "((park ? 1 : 2) * (size_t)S * kmax * bm + (size_t)GB_STAGES * PSCI_KC * kmax) * sizeof(float)" in common
+    assert "bwd_smem(S, p.kmax, BM, PARK)" in mlp_bwd
+    assert "bwd_smem(S, p.kmax, PSCI_BM, p.park)" in (J.cuda_build.CSRC / "jet_gated_bwd.cu").read_text()
+    parked = {(S, w) for S in range(1, J.MAX_STREAMS + 1) for w in range(4, J.MAX_WIDTH + 1, 4)
+              if J.bwd_parks(S, [w] * 3)}
+    assert min(S for S, _ in parked) == 6 and {S for S, w in parked if w <= J.NARROW_WIDTH} == {7, 8}
+    for S in range(6, J.MAX_STREAMS + 1):
+        assert f"case {S}: return launch<{S}, BM, true, true>(p, st);" in mlp_bwd
 
 
 PIRATENET_9 = [256] * 28
@@ -209,20 +244,18 @@ def test_kernels_take(S, dims, gated, takes):
 @pytest.mark.parametrize("S", range(1, J.MAX_STREAMS + 1))
 def test_gated_backward_shared_memory_plan(S, w):
     """jet_gated_bwd's shared memory (the input and cotangent tiles, and its
-    ring of weight chunks, as csrc/jet_gated_bwd.cu sizes them) against the
-    wrapper's plan: two tiles where they fit, else one tile with the
+    ring of weight chunks, as csrc/jet_common.cuh::bwd_smem sizes them;
+    test_backward_shared_memory_matches_the_kernels) against the wrapper's
+    plan: two tiles where they fit, else one tile with the
     cotangent parked (S >= 7 at width 256); every stream count fits a CTA
     and the wrapper takes it."""
-    src = (J.cuda_build.CSRC / "jet_gated_bwd.cu").read_text()
-    assert f"#define GB_STAGES {J.GB_STAGES} " in src
-    assert "((park ? 1 : 2) * (size_t)S * kmax * PSCI_BM + (size_t)GB_STAGES * PSCI_KC * kmax)" in src
     dims = [w] * 5
     two_tiles = (2 * S * w * 16 + J.GB_STAGES * 16 * w) * 4
     parks = two_tiles > J.SMEM_LIMIT
-    assert J.gated_bwd_parks(S, dims) is parks
+    assert J.bwd_parks(S, dims) is parks
     assert parks is (w == 256 and S >= 7)
     need = two_tiles - parks * S * w * 16 * 4
-    assert J.gated_bwd_smem(S, dims) == need <= J.SMEM_LIMIT
+    assert J.bwd_smem(S, dims) == need <= J.SMEM_LIMIT
     assert J.kernels_take(S, dims, gated=True) and max(need, J.fwd_smem(S, dims)) <= J.SMEM_LIMIT
     idx = _index_of(S)
     t = [torch.zeros(2, w)] * S
@@ -486,6 +519,10 @@ SEGMENT_SHAPES = [(multis, n, L, w, None) for multis in INDICES
 # 3, batches that are not a multiple of the 32 staged rows
 SEGMENT_SHAPES += [(NS3D, 2048, 6, 512, 3), (NS3D, 2047, 2, 512, 3), (INDICES[0], 1000, 2, 64, 5),
                    (INDICES[1], 4095, 3, 256, 3)]
+# jet_mlp_bwd at width 512: S = 8 (the aneurysm's unsteady jet; one tile, the cotangent parked) and S = 5
+# (two 8-row tiles), at batches that are not a multiple of the 8-row tile
+S5 = [(0,), (1,), (0, 0), (1, 1)]
+SEGMENT_SHAPES += [(NS3D + [(0, 1)], 2045, 3, 512, 3), (S5, 1001, 3, 512, 3), (S5, 2046, 2, 512, None)]
 
 
 @pytest.mark.cuda
@@ -508,6 +545,26 @@ def test_kernels_match_plain_versions_on_gpu(cuda_device, multis, n, L, w, k_in)
     for got, ref in zip([*outs, *bounds, *g_in, *gzs, *dws, *dbs],
                         [*r_outs, *r_bounds, *r_gin, *r_gzs, *r_dws, *r_dbs]):
         _close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["aneurysm", "mlp_4x256"])
+def test_mlp_bwd_is_bitwise_repeatable_on_gpu(cuda_device, shape):
+    """Two jet_mlp_bwd calls on the same inputs give bitwise the same input
+    cotangents and gz: no atomics, a fixed summation order. The aneurysm's
+    3 -> 512 x 6 at S = 7 (8-row tiles, the cotangent parked; SiLU) and
+    the Allen-Cahn MLP 4x256 at S = 4 (two 16-row tiles; tanh)."""
+    multis, n, L, w, k_in, act = ((NS3D, 2047, 6, 512, 3, (tjet.SILU, 0.0)) if shape == "aneurysm"
+                                  else (INDICES[0], 4095, 4, 256, None, J.TANH))
+    idx = tjet.build_index(multis)
+    ss, ws, bs, gs = ([torch.from_numpy(a).to(cuda_device) for a in arrs]
+                      for arrs in _case(multis, L, n=n, w=w, k_in=k_in))
+    _, bounds = J.jet_mlp_fwd(ss, ws, bs, idx, save_bounds=True, act=act)
+    first = J.jet_mlp_bwd(ss, bounds, ws, bs, gs, idx, act)
+    second = J.jet_mlp_bwd(ss, bounds, ws, bs, gs, idx, act)
+    torch.cuda.synchronize()
+    for a, b in zip([*first[0], *first[1]], [*second[0], *second[1]]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
