@@ -20,7 +20,10 @@ on failure:
              bitwise equal (dW, db, d alpha) at the PirateNet and aneurysm
              shapes, two jet_gated_bwd calls bitwise equal (every output)
              on the PirateNet and ModifiedMLP programs, two jet_mlp_bwd
-             calls bitwise equal at the aneurysm and MLP 4x256 shapes;
+             calls bitwise equal at the aneurysm and MLP 4x256 shapes, two
+             calls of each forward bitwise equal in both modes (PirateNet
+             and ModifiedMLP programs; aneurysm and MLP 4x256); each
+             kernel's largest error over the main-path checks;
              the MLP kernels at width 512 with S=5 (two 8-row tiles in the
              backward) and S=8 (one tile, the cotangent parked), 3 -> 512
              x 3 at a ragged N; the gated kernels
@@ -54,9 +57,14 @@ on failure:
              (jet_mlp_bwd also at its unsteady S=8);
              jet_wgrad over the 27 PirateNet layers beside torch.bmm, with
              and without the d alpha sum and against a separate sum;
-             jet_gated_bwd on the PirateNet stages without gates and
-             residuals, and so the share of the elementwise traffic, and
-             on the PirateNet program at S=6, 7 (parked) and 8 (W=64, 128).
+             jet_gated_fwd and jet_gated_bwd on the PirateNet stages
+             without gates and residuals, and so the share of the
+             elementwise traffic, and jet_gated_bwd on the PirateNet
+             program at S=6, 7 (parked) and 8 (W=64, 128); every jet
+             kernel instance's registers and spills (-Xptxas -v). The
+             forwards' bound is that of their 3xTF32 tensor-core route
+             (3 TF32 products per float32 product at 495 TFLOP/s, or the
+             bytes), with the float32 one (67 TFLOP/s) beside it.
 
 Tolerance (kernels against plain versions): the float32 sums run in
 another order, so each output may differ by at most 1e-4 times the largest
@@ -84,6 +92,7 @@ import traceback
 
 REL_TOL = 1e-4
 FP32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak
 HBM_BYTES = 3.35e12  # H100 SXM device-memory rate
 MAIN = dict(S=4, N=4096, W=256, L=4)
 ANEURYSM = dict(N=2048, dims=(3,) + (512,) * 6)  # the interior batch and the hidden layers' widths
@@ -112,8 +121,8 @@ CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
 LBM_TIMED = 2048  # lattice edge at which the LBM kernel is timed
 TIMED_STEPS = 20
 KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "lbm_collide_stream")
-# kernel instance -> [registers, spill store bytes, spill load bytes], per backward kernel
-BWD_PTXAS = {"jet_mlp_bwd": {}, "jet_gated_bwd": {}}
+# kernel instance -> [registers, spill store bytes, spill load bytes], per jet kernel
+PTXAS = {"jet_mlp_fwd": {}, "jet_gated_fwd": {}, "jet_mlp_bwd": {}, "jet_gated_bwd": {}}
 
 
 def log(msg: str) -> None:
@@ -143,6 +152,13 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tc_bound_ms(flops: float, nbytes: float):
+    """The bound of a float32 product on the 3xTF32 tensor-core route: three
+    TF32 products per float32 one at the TF32 peak, or the bytes."""
+    t_ops, t_bytes = 3 * flops / TF32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -418,6 +434,39 @@ def check_mlp_bwd_repeat():
     log(f"[kernels] jet_mlp_bwd: two calls bitwise equal (input cotangents, every gz) at {', '.join(cases)}")
 
 
+def check_fwd_repeat():
+    """Two calls of each forward on the same inputs give bitwise the same
+    outputs and boundaries, in both modes: jet_gated_fwd on the PirateNet
+    group of 9 blocks and the ModifiedMLP program of 4 layers, jet_mlp_fwd
+    on the aneurysm's 6-layer segment (SiLU, S = 7, 8-row tiles) and the
+    Allen-Cahn MLP 4x256 (tanh, S = 4, 16-row tiles), at ragged batches."""
+    import torch
+
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.ops import jet_gated as G
+    from paddlescience_torch.ops import jet_mlp as J
+
+    S, N, W = MAIN["S"], MAIN["N"] - 1, MAIN["W"]
+    calls = {}
+    for name, program in (("piratenet 9 blocks", G.piratenet_program(9)), ("modified_mlp 4", G.modified_mlp_program(4))):
+        idx, y, u, v, weights, biases, alphas, _ = make_gated_inputs(S, N, W, program)
+        args = (y, u, v, weights, biases, alphas, program, idx)
+        calls[f"jet_gated_fwd {name}"] = lambda sb, args=args: G.jet_gated_fwd(*args, save_bounds=sb)
+    for name, (S_, N_, dims, act) in (("aneurysm", (len(NS3D) + 1, ANEURYSM["N"] - 1, ANEURYSM["dims"], (jet.SILU, 0.0))),
+                                      ("mlp 4x256", (S, N, (W,) * (MAIN["L"] + 1), J.TANH))):
+        idx, streams, weights, biases, _ = make_inputs(S_, N_, dims)
+        calls[f"jet_mlp_fwd {name}"] = (lambda sb, a=(streams, weights, biases, idx), act=act:
+                                        J.jet_mlp_fwd(*a, save_bounds=sb, act=act))
+    for name, call in calls.items():
+        for sb in (False, True):
+            first, second = call(sb), call(sb)
+            torch.cuda.synchronize()
+            a, b = [*first[0], *first[1]], [*second[0], *second[1]]
+            if not (len(a) == len(b) > 0 and all(torch.equal(x, y) for x, y in zip(a, b))):
+                raise AssertionError(f"{name} (save_bounds={sb}): two calls on the same inputs differ")
+    log(f"[kernels] forwards: two calls bitwise equal (outputs and boundaries, both modes) at {', '.join(calls)}")
+
+
 def ptxas_by_function(text: str):
     """(registers, spill store bytes, spill load bytes) by kernel function
     from nvcc's -Xptxas -v report."""
@@ -663,7 +712,7 @@ def time_kernels(errs, launches, device_ms):
 
     def row(name, source, fn, plain, flops, nbytes, library=None, extra=None, reps=20):
         ms, plain_ms = cuda_ms(fn, reps), cuda_ms(plain, reps)
-        b, by = bound_ms(flops, nbytes)
+        b, by = (tc_bound_ms if name in TC_KERNELS else bound_ms)(flops, nbytes)
         r = {"name": name, "route": "cuda", "source": f"paddlescience_torch/csrc/{source}.cu",
              "replaces": REPLACES[name], "launches": sum(c[name] for c in launches.values()),
              "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
@@ -671,9 +720,13 @@ def time_kernels(errs, launches, device_ms):
              "launches_by_path": {p: c[name] for p, c in launches.items() if c[name]},
              "device_ms_per_step": {p: {fn: v for fn, v in d.items() if fn.startswith(name)}
                                     for p, d in device_ms.items()}}
+        if name in TC_KERNELS:
+            r["bound_ms_fp32"] = bound_ms(flops, nbytes)[0]
+            r["registers_spills"] = PTXAS[name]
         r.update(extra or {})
         rows.append(r)
         log(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms by {by}"
+            + (f" (3xTF32; float32 {r['bound_ms_fp32']:.4f} ms)" if name in TC_KERNELS else "")
             + (f", library {r['library_ms']:.4f} ms" if library is not None else "") + ")")
 
     idx, streams, weights, biases, g_out = make_inputs(S, N, (W,) * (L + 1))
@@ -737,7 +790,7 @@ def time_kernels(errs, launches, device_ms):
     for r in rows:
         fn, plain, flops, nbytes, library = a_rows[r["name"]]
         ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 3, 1)
-        b, by = bound_ms(flops, nbytes)
+        b, by = (tc_bound_ms if r["name"] in TC_KERNELS else bound_ms)(flops, nbytes)
         per_step = {p: launches[p][r["name"]] / steps[p] for p in launches if p.startswith("aneurysm/")}
         r["aneurysm"] = {"shape": f"silu S={S7} N={NA} dims={'->'.join(map(str, dims))}", "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
@@ -746,8 +799,9 @@ def time_kernels(errs, launches, device_ms):
         if r["name"] == "jet_mlp_fwd":
             r["aneurysm"]["ms_save_bounds"] = cuda_ms(lambda: J.jet_mlp_fwd(streams, weights, biases, idx, True,
                                                                             silu), 10)
+            r["aneurysm"]["bound_ms_fp32"] = bound_ms(flops, nbytes)[0]
         if r["name"] == "jet_mlp_bwd":
-            r["aneurysm"]["registers_spills"] = BWD_PTXAS["jet_mlp_bwd"]
+            r["aneurysm"]["registers_spills"] = PTXAS["jet_mlp_bwd"]
         log(f"[timing] {r['name']} at the aneurysm shape: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms "
             f"by {by}" + (f", library {r['aneurysm']['library_ms']:.4f} ms" if library is not None else "")
             + f"), launches per step {per_step}")
@@ -771,17 +825,25 @@ def time_kernels(errs, launches, device_ms):
         lambda: G.jet_gated_fwd(*args), lambda: G.jet_gated_fwd_plain(*args), f_flops, f_bytes, reps=5,
         extra={"program": "piratenet 9 blocks (L=27)",
                "ms_save_bounds": cuda_ms(lambda: G.jet_gated_fwd(*args, save_bounds=True), 5)})
+    # the same stages with no gate and no residual: the products and the jet rule alone
+    bare = tuple(op & G.STAGE for op in program)
+    r = rows[-1]
+    r["ms_without_gates_and_residuals"] = cuda_ms(
+        lambda: G.jet_gated_fwd(y, (), (), weights, biases, (), bare, idx), 10)
+    r["ms_elementwise_share"] = r["ms"] - r["ms_without_gates_and_residuals"]
+    log(f"[timing] jet_gated_fwd, the same stages without gates and residuals: "
+        f"{r['ms_without_gates_and_residuals']:.4f} ms; elementwise share (gates, residuals) "
+        f"{r['ms_elementwise_share']:.4f} ms")
     bargs = (y, u, v, bounds, weights, biases, alphas, g_out, program, idx)
     row("jet_gated_bwd", "jet_gated_bwd",
         lambda: G.jet_gated_bwd(*bargs), lambda: G.jet_gated_bwd_plain(*bargs), b_flops, b_bytes, reps=5,
         extra={"program": "piratenet 9 blocks (L=27)"})
     # the same stages with no gate and no residual: the products, gz and layer inputs alone
-    bare = tuple(op & G.STAGE for op in program)
     r = rows[-1]
     r["ms_without_gates_and_residuals"] = cuda_ms(
         lambda: G.jet_gated_bwd(y, (), (), bounds, weights, biases, (), g_out, bare, idx), 5)
     r["ms_elementwise_share"] = r["ms"] - r["ms_without_gates_and_residuals"]
-    r["registers_spills"] = BWD_PTXAS["jet_gated_bwd"]
+    r["registers_spills"] = PTXAS["jet_gated_bwd"]
     log(f"[timing] jet_gated_bwd, the same stages without gates and residuals: "
         f"{r['ms_without_gates_and_residuals']:.4f} ms; elementwise share (gates, residuals) "
         f"{r['ms_elementwise_share']:.4f} ms")
@@ -917,6 +979,7 @@ def time_steps(solver, name: str):
     return dt / TIMED_STEPS * 1e3, counts
 
 
+TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
     "jet_mlp_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
     "jet_mlp_bwd": "paddlescience_tpu/ops/jet_pallas.py:557",
@@ -953,11 +1016,11 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    for name in ("jet_wgrad", "jet_mlp_bwd", "jet_gated_bwd"):
+    for name in ("jet_wgrad", "jet_mlp_fwd", "jet_gated_fwd", "jet_mlp_bwd", "jet_gated_bwd"):
         for fn, (regs, st, ld) in ptxas_by_function(build_logs.get(name, "")).items():
             log(f"[build] {name}.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-            if name in BWD_PTXAS:
-                BWD_PTXAS[name][fn] = [regs, st, ld]
+            if name in PTXAS:
+                PTXAS[name][fn] = [regs, st, ld]
 
     from paddlescience_torch.autodiff import jet
     from paddlescience_torch.autodiff import path as deriv_path
@@ -1031,8 +1094,10 @@ def main() -> int:
     check_wgrad_repeat()
     check_gated_bwd_repeat()
     check_mlp_bwd_repeat()
+    check_fwd_repeat()
     errs["lbm_collide_stream"] = max(check_lbm_kernel(256, 256, 1), check_lbm_kernel(256, 256, 200),
                                      check_lbm_kernel(1000, 1000, 1))
+    log("[kernels] max abs err over the main-path checks: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
 
     launches = {}
     for path, (_, deriv, steps) in PATHS.items():

@@ -6,21 +6,22 @@
 //   * a jet stream is an (N, W) row-major float32 tensor; S streams ride
 //     together (stream 0 = primal, then singles, then pairs);
 //   * weights are (K, D) row-major and used as x @ W (the JAX layout);
-//   * a row tile of BM rows of all S streams lives in shared memory
-//     transposed, as A[s][k][r] (k = feature, r = row in the tile), so a
-//     thread reads the 4 rows of its micro-tile as one float4;
-//   * a forward CTA (jet_mlp_fwd.cu, jet_gated_fwd.cu) has 256 threads,
-//     TX = 1024 / BM across the columns and BM / 4 down the rows: tx = tid
-//     % TX owns output columns 4tx..4tx+3, ty = tid / TX owns tile rows
-//     4ty..4ty+3, for every stream. BM = 16 (64 x 4 threads) covers widths
-//     up to 256, BM = 8 (128 x 2) widths up to 512; the gated kernels use
-//     BM = 16 only;
+//   * a forward CTA (jet_mlp_fwd.cu, jet_gated_fwd.cu) has FW_WARPS<BM>
+//     warps and keeps a tile of BM rows of all S streams row-major in
+//     shared memory, Y[s][r][k] with swizzled columns (fwd_at); its product
+//     runs on the tensor cores in 3xTF32 (fwd_matmul, "the forward
+//     kernels' product" below): warp w owns the 16-column m-tiles w and w +
+//     FW_WARPS<BM> of every stream and every row. BM = 16 (8 warps) covers
+//     widths up to 256, BM = 8 (16 warps) widths up to 512; the gated
+//     kernels use BM = 16 only;
 //   * a backward CTA (jet_mlp_bwd.cu, jet_gated_bwd.cu) has 512 threads,
-//     each owning a 4-row x 2-column micro-tile (Tile) of every stream:
-//     GB_TX<BM> = 2048 / BM threads across the columns, BM / 4 down the
-//     rows, so 128 x 4 threads cover 16 rows x 256 columns and 256 x 2
-//     threads 8 rows x 512 columns. Its products stage the weights through
-//     a cp.async ring (ring_matmul, ring_matmul_t at the end of this file).
+//     keeps its tiles transposed, as A[s][k][r] (k = feature, r = row in
+//     the tile), and each thread owns a 4-row x 2-column micro-tile (Tile)
+//     of every stream: GB_TX<BM> = 2048 / BM threads across the columns,
+//     BM / 4 down the rows, so 128 x 4 threads cover 16 rows x 256 columns
+//     and 256 x 2 threads 8 rows x 512 columns. Its products stage the
+//     weights through a cp.async ring (ring_matmul, ring_matmul_t at the end
+//     of this file).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -213,19 +214,9 @@ __device__ __forceinline__ void add_at(float (&g)[S], int a, float v) {
     if (q == a) g[q] += v;
 }
 
-template <int S>
-__device__ __forceinline__ void zero_acc(float (&acc)[S][4][4]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[s][i][j] = 0.f;
-}
-
 // A[s][k][r] <- src[s][(row0 + r) * K + k]; rows past N read as zero. src
 // is not written during the kernel (the loads take the read-only path).
-// THREADS: the CTA's threads.
+// THREADS: the CTA's threads. (jet_gated_bwd.cu)
 template <int S, int BM = PSCI_BM, int THREADS = PSCI_THREADS>
 __device__ __forceinline__ void load_tile(float* A, int kmax, const float* const (&src)[S],
                                           int K, int row0, int N) {
@@ -237,82 +228,6 @@ __device__ __forceinline__ void load_tile(float* A, int kmax, const float* const
       const float* q = src[s] + (size_t)n * K + k;
       A[((size_t)s * kmax + k) * BM + r] = (n < N) ? __ldg(q) : 0.f;
     }
-  }
-}
-
-// acc[s][i][j] += sum_k A[s][k][4ty+i] * W[k][4tx+j], k < K; W is (K, D)
-// with D % 4 == 0 and 16-byte aligned. Weight rows are staged KC at a time
-// through Wc. Ends with __syncthreads(), so A may be overwritten after it.
-template <int S, int BM = PSCI_BM>
-__device__ __forceinline__ void tile_matmul(float (&acc)[S][4][4], const float* A, int kmax,
-                                            const float* __restrict__ W, int K, int D,
-                                            float* Wc, int tx, int ty) {
-  for (int k0 = 0; k0 < K; k0 += PSCI_KC) {
-    const int kc = min(PSCI_KC, K - k0);
-    const float4* src = reinterpret_cast<const float4*>(W + (size_t)k0 * D);
-    float4* dst = reinterpret_cast<float4*>(Wc);
-    for (int e = threadIdx.x; e < kc * D / 4; e += PSCI_THREADS) dst[e] = __ldg(src + e);
-    __syncthreads();
-    if (4 * tx < D) {
-#pragma unroll 4
-      for (int kk = 0; kk < kc; ++kk) {
-        const float4 w = *reinterpret_cast<const float4*>(Wc + kk * D + 4 * tx);
-#pragma unroll
-        for (int s = 0; s < S; ++s) {
-          const float4 a =
-              *reinterpret_cast<const float4*>(A + ((size_t)s * kmax + k0 + kk) * BM + 4 * ty);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[s][i][0] = fmaf(av[i], w.x, acc[s][i][0]);
-            acc[s][i][1] = fmaf(av[i], w.y, acc[s][i][1]);
-            acc[s][i][2] = fmaf(av[i], w.z, acc[s][i][2]);
-            acc[s][i][3] = fmaf(av[i], w.w, acc[s][i][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Write the thread's micro-tile back into a tile A[s][c][r] (c = 4tx+j).
-template <int S, int BM = PSCI_BM>
-__device__ __forceinline__ void store_tile(float* A, int kmax, const float (&acc)[S][4][4],
-                                           int tx, int ty) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(A + ((size_t)s * kmax + 4 * tx + j) * BM + 4 * ty) =
-          make_float4(acc[s][0][j], acc[s][1][j], acc[s][2][j], acc[s][3][j]);
-}
-
-// Store the micro-tile rows to S global (N, D) streams dst[s]; D % 4 == 0.
-template <int S>
-__device__ __forceinline__ void store_rows(float* const (&dst)[S], const float (&acc)[S][4][4],
-                                           int D, int row0, int N, int tx, int ty) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = row0 + 4 * ty + i;
-      if (n < N)
-        *reinterpret_cast<float4*>(dst[s] + (size_t)n * D + 4 * tx) =
-            make_float4(acc[s][i][0], acc[s][i][1], acc[s][i][2], acc[s][i][3]);
-    }
-}
-
-// Add the bias to the primal stream's pre-activations.
-template <int S>
-__device__ __forceinline__ void add_bias(float (&acc)[S][4][4], const float* __restrict__ b, int tx) {
-  const float4 bias = __ldg(reinterpret_cast<const float4*>(b) + tx);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc[0][i][0] += bias.x;
-    acc[0][i][1] += bias.y;
-    acc[0][i][2] += bias.z;
-    acc[0][i][3] += bias.w;
   }
 }
 
@@ -333,19 +248,6 @@ __device__ __forceinline__ void jet_rule_elem(float (&z)[S], float f, float f1, 
   }
 #pragma unroll
   for (int s = 0; s < S; ++s) z[s] = y[s];
-}
-
-// The activation's jet rule on element (i, j) of the thread's micro-tile.
-template <int S>
-__device__ __forceinline__ void act_jet(float (&acc)[S][4][4], const JetIdx& idx, const Act act, int i, int j) {
-  float z[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) z[s] = acc[s][i][j];
-  float f, f1, f2, f3;
-  psci_act(act, z[0], f, f1, f2, f3);
-  jet_rule_elem<S>(z, f, f1, f2, idx);
-#pragma unroll
-  for (int s = 0; s < S; ++s) acc[s][i][j] = z[s];
 }
 
 // VJP of the jet rule: z holds the pre-activations on entry and their
@@ -396,41 +298,6 @@ __device__ __forceinline__ void gate_jet_elem(float (&f)[S], const float (&u)[S]
   for (int s = 0; s < S; ++s) f[s] = o[s];
 }
 
-// Gate the thread's micro-tile in place; u[s], v[s] are (N, D) in device
-// memory, read once per element by the thread that owns it. Rows past N
-// take u = v = 0.
-template <int S>
-__device__ __forceinline__ void gate_tile(float (&acc)[S][4][4], const float* const (&u)[S],
-                                          const float* const (&v)[S], int D, int row0, int N,
-                                          const JetIdx& idx, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = row0 + 4 * ty + i;
-    float4 uu[S], vv[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      uu[s] = vv[s] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (n < N) {
-        uu[s] = __ldg(reinterpret_cast<const float4*>(u[s] + (size_t)n * D) + tx);
-        vv[s] = __ldg(reinterpret_cast<const float4*>(v[s] + (size_t)n * D) + tx);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float f[S], ue[S], ve[S];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        f[s] = acc[s][i][j];
-        ue[s] = j == 0 ? uu[s].x : j == 1 ? uu[s].y : j == 2 ? uu[s].z : uu[s].w;
-        ve[s] = j == 0 ? vv[s].x : j == 1 ? vv[s].y : j == 2 ? vv[s].z : vv[s].w;
-      }
-      gate_jet_elem<S>(f, ue, ve, idx);
-#pragma unroll
-      for (int s = 0; s < S; ++s) acc[s][i][j] = f[s];
-    }
-  }
-}
-
 // Asynchronous copies from device to shared memory (cp.async): 16 bytes
 // through L2 only, or 4; ok = false writes zeros (source size 0).
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
@@ -449,22 +316,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-
-// ---------------------------------- the backward kernels' 512-thread tiles --
-
-#define GB_THREADS 512  // threads of a backward CTA
-#define GB_RM 4         // rows of a thread's micro-tile
-#define GB_CN 2         // columns of a thread's micro-tile
-#define GB_STAGES 2     // weight chunks in the cp.async ring
-
-// Column threads of a BM-row tile: 128 at BM = 16, 256 at BM = 8.
-template <int BM>
-constexpr int GB_TX = GB_THREADS * GB_RM / BM;
-
-// A thread's micro-tile of one stream: rows GB_RM ty + i, columns GB_CN tx + j
-// (from ring_matmul_t: columns tx + GB_TX j).
-template <int S>
-using Tile = float[S][GB_RM][GB_CN];
 
 // N (2 or 4) contiguous floats as one access.
 template <int N>
@@ -505,6 +356,297 @@ __device__ __forceinline__ void fill(float (&v)[N], float x) {
 #pragma unroll
   for (int j = 0; j < N; ++j) v[j] = x;
 }
+
+// ------------------------------------------- the forward kernels' product --
+//
+// z_s = y_s W for every stream s of a BM-row tile, on the tensor cores:
+// mma.sync m16n8k8 TF32 with float32 accumulators, taken transposed,
+// z^T = W^T y^T, so that the output columns are mma's M (16), the tile's
+// rows its N (8) and the layer input its K (8). Each float32 operand x is
+// split into big = tf32(x) (rounded to nearest) and small = x - big (exact
+// in float32; mma reads its 19 high bits), and a b ~ a_small b_big + a_big
+// b_small + a_big b_big ("3xTF32"): what is dropped is below 2^-20 |a b|.
+// The tensor cores align the terms of an mma to the largest and truncate,
+// so a product added to a large running sum loses up to an ulp of the sum:
+// accumulated over K = 512 that was 3e-5 of the result on an H100, and
+// exp, whose relative error is the absolute error of its input, missed
+// its limit. So each k-step's three products start from zero (the two
+// small ones first) and the partial joins the running sum by a float32
+// add, rounded to nearest.
+//
+// Fragments (g = lane >> 2, t = lane & 3; PTX ISA, mma.m16n8k8 .tf32):
+// A a0 = (m g, k t), a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4);
+// B b0 = (k t, n g), b1 = (t + 4, g); C c0 = (m g, n 2t), c1 = (g, 2t + 1),
+// c2 = (g + 8, 2t), c3 = (g + 8, 2t + 1). A k-step and an m-tile may
+// number their k and m in any order, as long as A, B and C agree: here
+// logical k = t, t + 4 are the physical features kb + 2t, kb + 2t + 1 and
+// logical m = g, g + 8 the physical columns c0 + 2g, c0 + 2g + 1. Then
+// (a0, a1), (a2, a3) and (b0, b1) are each one 8-byte shared load, and a
+// thread's accumulators of an (m-tile, n-tile) are the 2 x 2 block at
+// rows 8j + 2t + h (h = 0, 1) and columns c0 + 2g, c0 + 2g + 1:
+// acc[h] (column c0 + 2g) and acc[2 + h] (column c0 + 2g + 1).
+//
+// Shared memory: the tile Y[s][r][k] at fwd_at(s, r, k) with row stride
+// kst = the widest layer rounded up to 32, its columns swizzled by row
+// (fwd_swz), so that the 8 rows of a B load and the 4 rows of an epilogue
+// store meet 32 different banks; the weights through a ring of FW_STAGES
+// chunks of PSCI_KC rows, row stride rs = fwd_ring_stride(the widest
+// output) = 4 mod 16 floats, so that the 4 k-rows of an A load meet
+// different banks. Chunks are copied by cp.async with rows past K and
+// columns past D (to the next multiple of 16) zero-filled, and the tile's
+// columns past a layer's width are zero too (fwd_load_tile, the
+// epilogues): a k-step or m-tile that overhangs a layer adds exact zeros.
+
+#define FW_STAGES 3  // weight chunks in the forward ring
+
+// Warps of a forward CTA at tile height BM, and a warp's n-tiles (8 rows)
+// and m-tiles (16 columns): 2 x 2 at BM = 16 (8 warps x 32 columns =
+// 256), 1 x 2 at BM = 8 (16 warps x 32 columns = 512; with 8 warps of 4
+// m-tiles, one CTA an SM, the aneurysm's product was 20% slower on an
+// H100).
+template <int BM>
+constexpr int FW_WARPS = BM == 8 ? 16 : 8;
+template <int BM>
+constexpr int FW_THREADS = 32 * FW_WARPS<BM>;
+template <int BM>
+constexpr int FW_NT = BM / 8;
+template <int BM>
+constexpr int FW_MT = 256 / (BM * FW_WARPS<BM>);
+
+// The accumulators of a warp's outputs: [m-tile][n-tile][stream][c0..c3].
+template <int S, int BM>
+using FwdAcc = float[FW_MT<BM>][FW_NT<BM>][S][4];
+
+__host__ __device__ __forceinline__ int fwd_ring_stride(int dmax) { return (dmax + 15) / 16 * 16 + 4; }
+
+// Dynamic shared memory of a forward kernel: the S-stream tile of bm rows
+// and row stride kst, and the weight ring (ops/jet_mlp.py::fwd_smem
+// computes the same).
+__host__ __forceinline__ size_t fwd_smem(int S, int kst, int bm, int dmax) {
+  return ((size_t)S * bm * kst + (size_t)FW_STAGES * PSCI_KC * fwd_ring_stride(dmax)) * sizeof(float);
+}
+
+// The column swizzle of tile row r: an XOR of bits 3-4 of the column.
+__device__ __forceinline__ int fwd_swz(int r) { return ((r ^ (r >> 2)) & 3) << 3; }
+
+// Offset of element (stream s, row r, column k) of a BM-row tile.
+template <int BM>
+__device__ __forceinline__ int fwd_at(int s, int r, int k, int kst) {
+  return (s * BM + r) * kst + (k ^ fwd_swz(r));
+}
+
+// big = tf32(x), rounded to nearest with ties away from zero by integer
+// arithmetic on the bits (cvt.rna.tf32.f32 did the same 14% slower on the
+// PirateNet program on an H100), and small = x - big.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a b for one warp: a 16 x 8 x 8 product of TF32 fragments.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b, the same product from a zero accumulator.
+__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// The first layer's input into the tile: columns 0 .. K-1 of rows row0 ..
+// row0+BM-1 of every stream, zero past N and from K to the next multiple
+// of 8. src is not written during the kernel.
+template <int S, int BM>
+__device__ __forceinline__ void fwd_load_tile(float* Y, int kst, const float* const (&src)[PSCI_MAX_S], int K,
+                                              int row0, int N) {
+  const int K8 = (K + 7) & ~7;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    for (int e = threadIdx.x; e < BM * K8; e += FW_THREADS<BM>) {
+      const int r = e / K8, k = e - r * K8, n = row0 + r;
+      Y[fwd_at<BM>(s, r, k, kst)] = (n < N && k < K) ? __ldg(src[s] + (size_t)n * K + k) : 0.f;
+    }
+}
+
+// Rows k0 .. k0+PSCI_KC-1 of W (K, D) into a ring stage [PSCI_KC][rs], by
+// 16-byte cp.async (a warp copies one row at a time; the trip counts are
+// those of the widest layer, 4096 / BM columns), zero past K and from D to
+// the next multiple of 16. Commits one group, empty past the layer.
+template <int BM>
+__device__ __forceinline__ void fwd_fetch(float* dst, const float* __restrict__ W, int k0, int K, int D, int rs) {
+  if (k0 < K) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int pieces = (D + 15) / 16 * 4;
+#pragma unroll
+    for (int rr = 0; rr < PSCI_KC / FW_WARPS<BM>; ++rr) {
+      const int r = warp + FW_WARPS<BM> * rr, k = k0 + r;
+#pragma unroll
+      for (int m = 0; m < 1024 / BM / 32; ++m) {
+        const int q = lane + 32 * m;
+        const bool ok = k < K && 4 * q < D;
+        if (q < pieces) cp_async16(dst + r * rs + 4 * q, W + (ok ? k * D + 4 * q : 0), ok);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// The first FW_STAGES - 1 chunks of a layer, which fwd_matmul expects in
+// flight. Issue it once the ring is free: after the previous product.
+template <int BM>
+__device__ __forceinline__ void fwd_prologue(float* ring, const float* __restrict__ W, int K, int D, int rs) {
+#pragma unroll
+  for (int c = 0; c < FW_STAGES - 1; ++c) fwd_fetch<BM>(ring + c * PSCI_KC * rs, W, c * PSCI_KC, K, D, rs);
+}
+
+// acc = y W over the tile for the warp's m-tiles, K inputs, W (K, D)
+// row-major with D % 4 == 0. In a narrow layer an m-tile at or past D gets
+// zero weights and adds zeros (a predicate on the products would make the
+// compiler fence every mma with a warp sync), and a warp with no m-tile
+// below D runs no k-step (a trip count of 0, the same for the whole warp:
+// MLP 5x50 at width 52 took 25% less time on an H100). Enter with the layer's
+// fwd_prologue issued; the first barrier also publishes Y, written before
+// the call. Ends with __syncthreads(), so Y and the ring may be
+// overwritten after it.
+template <int S, int BM>
+__device__ __forceinline__ void fwd_matmul(FwdAcc<S, BM>& acc, const float* Y, int kst,
+                                           const float* __restrict__ W, int K, int D, float* ring, int rs) {
+  constexpr int MT = FW_MT<BM>, NT = FW_NT<BM>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int K8 = (K + 7) & ~7, n = (K8 + PSCI_KC - 1) / PSCI_KC;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][j][s][q] = 0.f;
+  bool live[MT];  // the warp's m-tiles that hold columns of this layer, in the ring's rows
+#pragma unroll
+  for (int i = 0; i < MT; ++i) live[i] = 16 * (warp + FW_WARPS<BM> * i) < D;
+  int yrow[NT], ysw[NT];  // the thread's B row g of each n-tile: offset and swizzle
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    yrow[j] = (8 * j + g) * kst + 2 * t;
+    ysw[j] = fwd_swz(8 * j + g);
+  }
+  const int wcol = 16 * warp + 2 * g + 2 * t * rs;  // A: column 2g of m-tile 0, k-row 2t
+  for (int c = 0; c < n; ++c) {
+    cp_async_wait<FW_STAGES - 2>();
+    __syncthreads();  // chunk c has landed for every thread; chunk c-1's slot is free
+    fwd_fetch<BM>(ring + ((c + FW_STAGES - 1) % FW_STAGES) * PSCI_KC * rs, W, (c + FW_STAGES - 1) * PSCI_KC, K, D,
+                  rs);
+    const float* Wc = ring + (c % FW_STAGES) * PSCI_KC * rs;
+    const int k0 = c * PSCI_KC, steps = live[0] ? min(PSCI_KC, K8 - k0) / 8 : 0;
+    for (int ks = 0; ks < steps; ++ks) {
+      uint32_t ab[MT][4], as[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        float2 lo = make_float2(0.f, 0.f), hi = lo;
+        if (live[i]) {
+          const float* w = Wc + 8 * ks * rs + wcol + 16 * FW_WARPS<BM> * i;
+          lo = *reinterpret_cast<const float2*>(w);       // k-row 2t: (a0, a1)
+          hi = *reinterpret_cast<const float2*>(w + rs);  // k-row 2t + 1: (a2, a3)
+        }
+        tf32_split(lo.x, ab[i][0], as[i][0]);
+        tf32_split(lo.y, ab[i][1], as[i][1]);
+        tf32_split(hi.x, ab[i][2], as[i][2]);
+        tf32_split(hi.y, ab[i][3], as[i][3]);
+      }
+      const int kb = k0 + 8 * ks;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 y = *reinterpret_cast<const float2*>(Y + s * BM * kst + yrow[j] + (kb ^ ysw[j]));
+          tf32_split(y.x, bb[j][0], bs[j][0]);
+          tf32_split(y.y, bb[j][1], bs[j][1]);
+        }
+        // the k-step's partial sums from zero, small products first, each
+        // term over the stream's MT x NT tiles before the next, so no
+        // product waits on the last; then into the running sums
+        float part[MT][NT][4];
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              if (term == 0)
+                mma_tf32_first(part[i][j], as[i], bb[j]);
+              else
+                mma_tf32(part[i][j], ab[i], term == 1 ? bs[j] : bb[j]);
+            }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][s][q] += part[i][j][q];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+
+// The epilogue's unit: row 8j + 2t + h of m-tile i, columns c, c + 1
+// (c = 16 m + 2g), every stream. z[e][s] <- the activation's jet rule on
+// the pre-activations of column c + e (the bias on the primal stream).
+template <int S, int BM>
+__device__ __forceinline__ void fwd_rule(float (&z)[2][S], const FwdAcc<S, BM>& acc, int i, int j, int h,
+                                         const float (&bias)[2], const Act act, const JetIdx& idx) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) z[e][s] = acc[i][j][s][2 * e + h];
+    z[e][0] += bias[e];
+    float f, f1, f2, f3;
+    psci_act(act, z[e][0], f, f1, f2, f3);
+    jet_rule_elem<S>(z[e], f, f1, f2, idx);
+  }
+}
+
+// The unit's outputs into the tile as the next layer's input (unless this
+// is the last layer), zero for columns past D (col_ok false), and into
+// dst[s] + o (a segment output or a boundary) where there is one and the
+// element exists (ok).
+template <int S, int BM>
+__device__ __forceinline__ void fwd_put(const float (&z)[2][S], float* Y, int kst, int r, int c, bool col_ok,
+                                        bool last, float* const (&dst)[S], bool ok, size_t o) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float v[2] = {col_ok ? z[0][s] : 0.f, col_ok ? z[1][s] : 0.f};
+    if (!last) st<2>(Y + fwd_at<BM>(s, r, c, kst), v);
+    if (dst[s] != nullptr && ok) st<2>(dst[s] + o, v);
+  }
+}
+
+// ---------------------------------- the backward kernels' 512-thread tiles --
+
+#define GB_THREADS 512  // threads of a backward CTA
+#define GB_RM 4         // rows of a thread's micro-tile
+#define GB_CN 2         // columns of a thread's micro-tile
+#define GB_STAGES 2     // weight chunks in the cp.async ring
+
+// Column threads of a BM-row tile: 128 at BM = 16, 256 at BM = 8.
+template <int BM>
+constexpr int GB_TX = GB_THREADS * GB_RM / BM;
+
+// A thread's micro-tile of one stream: rows GB_RM ty + i, columns GB_CN tx + j
+// (from ring_matmul_t: columns tx + GB_TX j).
+template <int S>
+using Tile = float[S][GB_RM][GB_CN];
 
 // Column j of the micro-tile into a transposed tile A[s][c][r] at column c.
 template <int S, int BM = PSCI_BM>

@@ -53,8 +53,7 @@
 //     threads, 4 x 4 micro-tiles, 255 registers and 8 warps, the
 //     elementwise part below was latency-bound on the card.
 //   * Elementwise traffic in whole rows. The reverse phase walks the
-//     micro-tile rows outer and columns inner, as the forward's gate_tile
-//     does: per (stream, row) a thread moves its 2 contiguous columns of u,
+//     micro-tile rows outer and columns inner: per (stream, row) a thread moves its 2 contiguous columns of u,
 //     v, the residual's stage input, g_u, g_v (read before the row's
 //     arithmetic, written after it; the first gate walked writes without
 //     reading) and the parked g_res as one float2, so a warp's accesses

@@ -11,20 +11,30 @@
 // Optionally writes the stage boundaries (the carry entering every stage
 // but the first) for the backward kernel.
 //
-// What bounds it on an H100: operations, L*S*2*N*K*D FLOPs in float32
-// (58 GFLOP for a PirateNet group of 9 blocks = 27 layers at S=4, N=4096,
-// K=D=256: 0.87 ms at the 67 TFLOP/s float32 non-tensor-core peak); the
-// y, u, v, output and weight bytes (~90 MB) take 0.03 ms at 3.35 TB/s.
+// What bounds it on an H100: the tensor cores. The products are
+// L*S*2*N*K*D FLOPs (58 GFLOP for a PirateNet group of 9 blocks = 27
+// layers at S=4, N=4096, K=D=256), taken as three TF32 products each
+// (3xTF32, float32 accuracy): 3 x 58 GFLOP at the 495 TFLOP/s TF32 peak is
+// 0.35 ms, against 0.87 ms for the same FLOPs at the 67 TFLOP/s float32
+// rate outside the tensor cores; the y, u, v, output and weight bytes
+// (~90 MB) take 0.03 ms at 3.35 TB/s. Weights stream from L2 once per
+// 16-row tile and layer (1.8 GB a PirateNet call).
 //
-// Design: as jet_mlp_fwd.cu, one CTA per 16-row tile keeps the carry of
-// all S streams in shared memory for the whole program and each thread a
-// 4x4 micro-tile of every stream in registers. u, v and the residual's
-// stage input are only ever used elementwise, never as a matmul operand,
-// so they get no shared-memory tile: each thread reads its own micro-tile
-// of them from device memory (L2) where a gate or residual needs it. A
-// stage input that is not the segment input is read back from where the
-// same thread wrote it at the end of the previous stage (the boundary
-// buffer, or a scratch the wrapper passes when boundaries are not saved).
+// Design: one CTA of 8 warps per 16-row tile keeps the carry of all S
+// streams in shared memory for the whole program (the TPU kernel's VMEM
+// residency). Each layer's product is jet_common.cuh's fwd_matmul:
+// mma.sync m16n8k8 in 3xTF32, the weights through a 3-stage cp.async ring
+// with one barrier a chunk, conflict-free fragment loads. Warp w owns the
+// 16-column m-tiles w and w + 8 of every stream and row, so a thread holds
+// all S streams of its 2 x 2 output blocks and the jet rule, the gate and
+// the residual run in registers. The next layer's first weight chunks are
+// in flight during the epilogue. u, v and the residual's stage input are
+// read at the thread's own elements, 8 bytes a row from device memory (L2;
+// every 32-byte sector read whole); a stage input that is not the segment
+// input is read back from where the same thread wrote it at the end of
+// the previous stage (the boundary buffer, or a scratch the wrapper
+// passes when boundaries are not saved). Up to 4 streams two CTAs share an
+// SM (115,456 bytes of shared memory each at width 256).
 #include "jet_common.cuh"
 
 struct GatedFwdParams {
@@ -41,89 +51,94 @@ struct GatedFwdParams {
   int sfirst[PSCI_MAX_L];          // first layer of the stage that holds layer l
   JetIdx idx;
   Act act;
-  int L, N, kmax;
+  int L, N, kmax, rs;  // kmax: the tile's row stride; rs: the ring's (fwd_ring_stride)
 };
 
 template <int S, bool ANY>
-__global__ void __launch_bounds__(PSCI_THREADS, S <= 4 ? 2 : 1) jet_gated_fwd_kernel(const GatedFwdParams p) {
+__global__ void __launch_bounds__(FW_THREADS<PSCI_BM>, S <= 4 ? 2 : 1) jet_gated_fwd_kernel(const GatedFwdParams p) {
+  constexpr int BM = PSCI_BM, MT = FW_MT<BM>, NT = FW_NT<BM>;
   const Act act = ANY ? p.act : Act{PSCI_TANH, 0.f};
   extern __shared__ __align__(16) float smem[];
-  float* A = smem;                                   // [S][kmax][BM]
-  float* Wc = smem + (size_t)S * p.kmax * PSCI_BM;   // [KC][D]
-  const int row0 = blockIdx.x * PSCI_BM;
-  const int tx = threadIdx.x & 63, ty = threadIdx.x >> 6;
+  float* Y = smem;                                  // [S][BM][kst], swizzled (fwd_at)
+  float* ring = smem + (size_t)S * BM * p.kmax;     // FW_STAGES x [PSCI_KC][rs]
+  const int row0 = blockIdx.x * BM, kst = p.kmax, rs = p.rs;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 
-  const float* src[S];
-  const float* us[S];
-  const float* vs[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    src[s] = p.x[s];
-    us[s] = p.u[s];
-    vs[s] = p.v[s];
-  }
-  load_tile<S>(A, p.kmax, src, p.dims[0], row0, p.N);
-  __syncthreads();
+  fwd_prologue<BM>(ring, p.W[0], p.dims[0], p.dims[1], rs);
+  fwd_load_tile<S, BM>(Y, kst, p.x, p.dims[0], row0, p.N);
 
   for (int l = 0; l < p.L; ++l) {
-    const int K = p.dims[l], D = p.dims[l + 1], op = p.op[l];
-    float acc[S][4][4];
-    zero_acc<S>(acc);
-    tile_matmul<S>(acc, A, p.kmax, p.W[l], K, D, Wc, tx, ty);
-    if (4 * tx < D) {
-      add_bias<S>(acc, p.b[l], tx);
+    const int D = p.dims[l + 1], op = p.op[l];
+    FwdAcc<S, BM> acc;
+    fwd_matmul<S, BM>(acc, Y, kst, p.W[l], p.dims[l], D, ring, rs);
+    const bool last = l == p.L - 1;
+    if (!last) fwd_prologue<BM>(ring, p.W[l + 1], D, p.dims[l + 2], rs);
+    // where the layer's output goes in device memory: the segment output,
+    // or the boundary of the stage that starts next, or nowhere (null)
+    float* const next = !last && (p.op[l + 1] & PSCI_OP_STAGE) ? p.lin[l + 1] : nullptr;
+    float* dst[S];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int s = 0; s < S; ++s) dst[s] = last ? p.out[s] : next != nullptr ? next + (size_t)s * p.N * D : nullptr;
+    const float a = (op & PSCI_OP_RESIDUAL) ? __ldg(p.alpha[l]) : 0.f;
+    const int sf = p.sfirst[l];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) act_jet<S>(acc, p.idx, act, i, j);
-      if (op & PSCI_OP_GATE) gate_tile<S>(acc, us, vs, D, row0, p.N, p.idx, tx, ty);
-      if (op & PSCI_OP_RESIDUAL) {
-        const float a = __ldg(p.alpha[l]);
-        const int sf = p.sfirst[l];
+    for (int i = 0; i < MT; ++i) {
+      const int c = 16 * (warp + FW_WARPS<BM> * i) + 2 * g;  // the thread's columns c, c + 1
+      if (c - 2 * g >= D) continue;
+      const bool col_ok = c < D;
+      float bias[2] = {0.f, 0.f};
+      if (col_ok) ldg<2>(p.b[l] + c, bias);
 #pragma unroll
-        for (int s = 0; s < S; ++s) {
-          // written by this thread at the end of the previous stage when sf > 0
-          const float* q = sf == 0 ? p.x[s] : p.lin[sf] + (size_t)s * p.N * D;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int n = row0 + 4 * ty + i;
-            if (n >= p.N) continue;
-            const float4 xin = *(reinterpret_cast<const float4*>(q + (size_t)n * D) + tx);
-            acc[s][i][0] = a * acc[s][i][0] + (1.f - a) * xin.x;
-            acc[s][i][1] = a * acc[s][i][1] + (1.f - a) * xin.y;
-            acc[s][i][2] = a * acc[s][i][2] + (1.f - a) * xin.z;
-            acc[s][i][3] = a * acc[s][i][3] + (1.f - a) * xin.w;
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * j + 2 * t + h, n = row0 + r;
+          const bool ok = col_ok && n < p.N;
+          const size_t e = (size_t)n * D + c;
+          float z[2][S];
+          fwd_rule<S, BM>(z, acc, i, j, h, bias, act, p.idx);
+          if (op & PSCI_OP_GATE) {
+            float u[2][S], v[2][S];
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              float uu[2] = {0.f, 0.f}, vv[2] = {0.f, 0.f};
+              if (ok) {
+                ldg<2>(p.u[s] + e, uu);
+                ldg<2>(p.v[s] + e, vv);
+              }
+              u[0][s] = uu[0], u[1][s] = uu[1], v[0][s] = vv[0], v[1][s] = vv[1];
+            }
+            gate_jet_elem<S>(z[0], u[0], v[0], p.idx);
+            gate_jet_elem<S>(z[1], u[1], v[1], p.idx);
           }
+          if (op & PSCI_OP_RESIDUAL) {
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              // written by this thread at the end of the previous stage when sf > 0
+              const float* q = sf == 0 ? p.x[s] : p.lin[sf] + (size_t)s * p.N * D;
+              float xin[2] = {0.f, 0.f};
+              if (ok) ld<2>(q + e, xin);
+              z[0][s] = a * z[0][s] + (1.f - a) * xin[0];
+              z[1][s] = a * z[1][s] + (1.f - a) * xin[1];
+            }
+          }
+          fwd_put<S, BM>(z, Y, kst, r, c, col_ok, last, dst, ok, e);
         }
-      }
-      store_tile<S>(A, p.kmax, acc, tx, ty);
-      float* dst[S];
-      bool write = true;
-      if (l == p.L - 1) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) dst[s] = p.out[s];
-      } else if ((p.op[l + 1] & PSCI_OP_STAGE) && p.lin[l + 1] != nullptr) {
-#pragma unroll
-        for (int s = 0; s < S; ++s) dst[s] = p.lin[l + 1] + (size_t)s * p.N * D;
-      } else {
-        write = false;
-      }
-      if (write) store_rows<S>(dst, acc, D, row0, p.N, tx, ty);
     }
-    __syncthreads();
   }
 }
+
 
 template <int S, bool ANY>
 static cudaError_t launch(const GatedFwdParams& p, cudaStream_t stream) {
   int dmax = 0;
   for (int l = 1; l <= p.L; ++l) dmax = p.dims[l] > dmax ? p.dims[l] : dmax;
-  const size_t smem = ((size_t)S * p.kmax * PSCI_BM + (size_t)PSCI_KC * dmax) * sizeof(float);
+  const size_t smem = fwd_smem(S, p.kmax, PSCI_BM, dmax);
   cudaError_t err = cudaFuncSetAttribute(jet_gated_fwd_kernel<S, ANY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + PSCI_BM - 1) / PSCI_BM);
-  jet_gated_fwd_kernel<S, ANY><<<grid, PSCI_THREADS, smem, stream>>>(p);
+  jet_gated_fwd_kernel<S, ANY><<<grid, FW_THREADS<PSCI_BM>, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -149,13 +164,14 @@ static cudaError_t launch_s(const GatedFwdParams& p, int S, cudaStream_t st) {
 // lin[L] (null entries = do not write). dims[L+1]; op[L]; kind/pa/pb[S];
 // act, act_w: the activation's id and parameter. A residual in a stage
 // that does not start the segment needs lin[] of that stage's first layer.
-// Widths <= 256 (16-row tiles). Returns a cudaError_t code (0 = launched).
+// kmax: the tile's row stride, the widest layer rounded up to 32 (<= 256:
+// 16-row tiles). Returns a cudaError_t code (0 = launched).
 extern "C" int jet_gated_fwd(const void* const* x, const void* const* u, const void* const* v,
                              const void* const* W, const void* const* b, const void* const* alpha,
                              void* const* out, void* const* lin, const int* dims, const int* op,
                              const int* kind, const int* pa, const int* pb, int S, int L, int N,
                              int kmax, int act, float act_w, void* stream) {
-  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 4 * 64 || act < 0 ||
+  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 256 || kmax % 32 || act < 0 ||
       act >= PSCI_N_ACTS)
     return (int)cudaErrorInvalidValue;
   if (!(op[0] & PSCI_OP_STAGE)) return (int)cudaErrorInvalidValue;
@@ -182,11 +198,17 @@ extern "C" int jet_gated_fwd(const void* const* x, const void* const* u, const v
     if ((op[l] & PSCI_OP_RESIDUAL) && (alpha[l] == nullptr || (sfirst > 0 && lin[sfirst] == nullptr)))
       return (int)cudaErrorInvalidValue;
   }
-  for (int l = 0; l <= L; ++l) p.dims[l] = dims[l];
+  int dmax = 0;
+  for (int l = 0; l <= L; ++l) {
+    if (dims[l] < 1 || dims[l] > kmax || (l > 0 && dims[l] % 4)) return (int)cudaErrorInvalidValue;
+    p.dims[l] = dims[l];
+    if (l > 0 && dims[l] > dmax) dmax = dims[l];
+  }
   p.act = Act{act, act_w};
   p.L = L;
   p.N = N;
   p.kmax = kmax;
+  p.rs = fwd_ring_stride(dmax);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(act == PSCI_TANH ? launch_s<false>(p, S, st) : launch_s<true>(p, S, st));
 }

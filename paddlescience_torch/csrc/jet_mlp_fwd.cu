@@ -9,26 +9,33 @@
 // Optionally writes the stage boundaries (the jets entering layers 1..L-1)
 // for the backward kernel.
 //
-// What bounds it on an H100: operations. A segment does L*S*2*N*K*D FLOPs
-// in float32: 8.6 GFLOP for S=4, N=4096, L=4, K=D=256 (0.13 ms at the
-// 67 TFLOP/s float32 non-tensor-core peak) against ~84 MB of stream,
-// boundary and weight traffic (0.025 ms at 3.35 TB/s); 37.6 GFLOP for the
-// aneurysm MLP's five 512-wide layers at S=7, N=2048 (0.56 ms).
+// What bounds it on an H100: the tensor cores. A segment does L*S*2*N*K*D
+// FLOPs, taken as three TF32 products each (3xTF32, float32 accuracy):
+// 8.6 GFLOP for S=4, N=4096, L=4, K=D=256 (3 x 8.6 GFLOP at the 495
+// TFLOP/s TF32 peak: 0.052 ms) against ~84 MB of stream, boundary and
+// weight traffic (0.025 ms at 3.35 TB/s); 37.6 GFLOP for the aneurysm
+// MLP's 3 -> 512 x 6 at S=7, N=2048 (0.23 ms). The same FLOPs at the 67
+// TFLOP/s float32 rate outside the tensor cores would take 0.13 and 0.56
+// ms.
 //
 // Design: one CTA per row tile holds all S streams of its rows in shared
 // memory for the whole segment, so layer-to-layer activations never touch
-// device memory (the TPU kernel's VMEM residency). Weights (up to 1 MB per
-// layer in float32, more than shared memory) stream from L2 in chunks of
-// 16 rows shared by all S streams. Each thread keeps a 4x4 micro-tile of
-// every stream in registers (S*16 accumulators), so the jet rule for an
-// element finds all its streams in one thread. Up to width 256 the tile is
-// 16 rows (64 threads across the columns); above, 8 rows (128 across), so
-// that 8 streams of 512 columns (128 KB) still fit with a weight chunk.
-// The activation is a runtime id (a uniform switch); the 16-row kernels
-// also come specialised to tanh (ANY = false), the Allen-Cahn paths'
-// activation, so that its code and registers are those of a tanh-only
-// kernel. Plain FP32 FFMA, no tensor cores: the port's reference precision
-// is true float32.
+// device memory (the TPU kernel's VMEM residency). Each layer's product is
+// jet_common.cuh's fwd_matmul: mma.sync m16n8k8 in 3xTF32 with the weights
+// (up to 1 MB per layer, more than shared memory) streamed from L2 through
+// a 3-stage cp.async ring of 16-row chunks shared by all S streams, one
+// barrier a chunk; the next layer's first chunks are in flight during the
+// epilogue. Up to width 256 the tile is 16 rows, the CTA 8 warps, and a
+// warp owns two 16-column m-tiles x two 8-row n-tiles of every stream;
+// above, 8 rows (so that 8 streams of 512 columns, 128 KB, still fit
+// beside the ring), 16 warps and two m-tiles x one n-tile: one CTA fills
+// an SM there, and 16 warps hide the product's latencies better than 8 of
+// four m-tiles (20% at the aneurysm on an H100). Either way a thread holds
+// all S streams of its 2 x 2 output blocks, so the jet rule for an element
+// runs in registers. The activation is a runtime id (a uniform switch);
+// the 16-row kernels also come specialised to tanh (ANY = false), the
+// Allen-Cahn paths' activation, so that its code and registers are those
+// of a tanh-only kernel.
 #include "jet_common.cuh"
 
 struct FwdParams {
@@ -40,51 +47,49 @@ struct FwdParams {
   int dims[PSCI_MAX_L + 1];
   JetIdx idx;
   Act act;
-  int L, N, kmax;
+  int L, N, kmax, rs;  // kmax: the tile's row stride; rs: the ring's (fwd_ring_stride)
 };
 
 template <int S, int BM, bool ANY>
-__global__ void __launch_bounds__(PSCI_THREADS, S <= 4 ? 2 : 1) jet_mlp_fwd_kernel(const FwdParams p) {
-  constexpr int TX = 4 * PSCI_THREADS / BM;
+__global__ void __launch_bounds__(FW_THREADS<BM>, BM == PSCI_BM && S <= 4 ? 2 : 1) jet_mlp_fwd_kernel(const FwdParams p) {
+  constexpr int MT = FW_MT<BM>, NT = FW_NT<BM>;
   const Act act = ANY ? p.act : Act{PSCI_TANH, 0.f};
   extern __shared__ __align__(16) float smem[];
-  float* A = smem;                              // [S][kmax][BM]
-  float* Wc = smem + (size_t)S * p.kmax * BM;   // [KC][D]
-  const int row0 = blockIdx.x * BM;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  float* Y = smem;                                  // [S][BM][kst], swizzled (fwd_at)
+  float* ring = smem + (size_t)S * BM * p.kmax;     // FW_STAGES x [PSCI_KC][rs]
+  const int row0 = blockIdx.x * BM, kst = p.kmax, rs = p.rs;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 
-  const float* src[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) src[s] = p.x[s];
-  load_tile<S, BM>(A, p.kmax, src, p.dims[0], row0, p.N);
-  __syncthreads();
+  fwd_prologue<BM>(ring, p.W[0], p.dims[0], p.dims[1], rs);
+  fwd_load_tile<S, BM>(Y, kst, p.x, p.dims[0], row0, p.N);
 
   for (int l = 0; l < p.L; ++l) {
-    const int K = p.dims[l], D = p.dims[l + 1];
-    float acc[S][4][4];
-    zero_acc<S>(acc);
-    tile_matmul<S, BM>(acc, A, p.kmax, p.W[l], K, D, Wc, tx, ty);
-    if (4 * tx < D) {
-      add_bias<S>(acc, p.b[l], tx);
+    const int D = p.dims[l + 1];
+    FwdAcc<S, BM> acc;
+    fwd_matmul<S, BM>(acc, Y, kst, p.W[l], p.dims[l], D, ring, rs);
+    const bool last = l == p.L - 1;
+    if (!last) fwd_prologue<BM>(ring, p.W[l + 1], D, p.dims[l + 2], rs);
+    float* dst[S];  // the segment output, a saved boundary, or nowhere (null)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int s = 0; s < S; ++s)
+      dst[s] = last ? p.out[s] : p.bounds[l] != nullptr ? p.bounds[l] + (size_t)s * p.N * D : nullptr;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) act_jet<S>(acc, p.idx, act, i, j);
-      store_tile<S, BM>(A, p.kmax, acc, tx, ty);
-      float* dst[S];
-      bool write = true;
-      if (l == p.L - 1) {
+    for (int i = 0; i < MT; ++i) {
+      const int c = 16 * (warp + FW_WARPS<BM> * i) + 2 * g;  // the thread's columns c, c + 1
+      if (c - 2 * g >= D) continue;
+      const bool col_ok = c < D;
+      float bias[2] = {0.f, 0.f};
+      if (col_ok) ldg<2>(p.b[l] + c, bias);
 #pragma unroll
-        for (int s = 0; s < S; ++s) dst[s] = p.out[s];
-      } else if (p.bounds[l] != nullptr) {
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int s = 0; s < S; ++s) dst[s] = p.bounds[l] + (size_t)s * p.N * D;
-      } else {
-        write = false;
-      }
-      if (write) store_rows<S>(dst, acc, D, row0, p.N, tx, ty);
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * j + 2 * t + h, n = row0 + r;
+          float z[2][S];
+          fwd_rule<S, BM>(z, acc, i, j, h, bias, act, p.idx);
+          fwd_put<S, BM>(z, Y, kst, r, c, col_ok, last, dst, col_ok && n < p.N, (size_t)n * D + c);
+        }
     }
-    __syncthreads();
   }
 }
 
@@ -92,12 +97,12 @@ template <int S, int BM, bool ANY>
 static cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
   int dmax = 0;
   for (int l = 1; l <= p.L; ++l) dmax = p.dims[l] > dmax ? p.dims[l] : dmax;
-  const size_t smem = ((size_t)S * p.kmax * BM + (size_t)PSCI_KC * dmax) * sizeof(float);
+  const size_t smem = fwd_smem(S, p.kmax, BM, dmax);
   cudaError_t err = cudaFuncSetAttribute(jet_mlp_fwd_kernel<S, BM, ANY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.N + BM - 1) / BM);
-  jet_mlp_fwd_kernel<S, BM, ANY><<<grid, PSCI_THREADS, smem, stream>>>(p);
+  jet_mlp_fwd_kernel<S, BM, ANY><<<grid, FW_THREADS<BM>, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -117,8 +122,9 @@ static cudaError_t launch_s(const FwdParams& p, int S, cudaStream_t st) {
 
 // Host entry point. Pointer arguments are host arrays of device pointers:
 // x[S], W[L], b[L], out[S], bounds[L-1] (bounds may be null = do not save).
-// dims[L+1]; kind/pa/pb[S]. bm: rows per tile, 16 (every width <= 256) or
-// 8 (widths <= 512); act, act_w: the activation's id and parameter.
+// dims[L+1]; kind/pa/pb[S]. kmax: the tile's row stride, the widest layer
+// rounded up to 32; bm: rows per tile, 16 (every width <= 256) or 8
+// (widths <= 512); act, act_w: the activation's id and parameter.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int jet_mlp_fwd(const void* const* x, const void* const* W, const void* const* b,
                            void* const* out, void* const* bounds, const int* dims,
@@ -126,7 +132,7 @@ extern "C" int jet_mlp_fwd(const void* const* x, const void* const* W, const voi
                            int kmax, int bm, int act, float act_w, void* stream) {
   if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || act < 0 || act >= PSCI_N_ACTS)
     return (int)cudaErrorInvalidValue;
-  if (!(bm == PSCI_BM && kmax <= 4 * 64) && !(bm == PSCI_BM_WIDE && kmax <= 4 * 128))
+  if ((!(bm == PSCI_BM && kmax <= 256) && !(bm == PSCI_BM_WIDE && kmax <= 512)) || kmax % 32)
     return (int)cudaErrorInvalidValue;
   FwdParams p = {};
   for (int s = 0; s < S; ++s) {
@@ -141,11 +147,17 @@ extern "C" int jet_mlp_fwd(const void* const* x, const void* const* W, const voi
     p.b[l] = static_cast<const float*>(b[l]);
     p.bounds[l] = (bounds != nullptr && l < L - 1) ? static_cast<float*>(bounds[l]) : nullptr;
   }
-  for (int l = 0; l <= L; ++l) p.dims[l] = dims[l];
+  int dmax = 0;
+  for (int l = 0; l <= L; ++l) {
+    if (dims[l] < 1 || dims[l] > kmax || (l > 0 && dims[l] % 4)) return (int)cudaErrorInvalidValue;
+    p.dims[l] = dims[l];
+    if (l > 0 && dims[l] > dmax) dmax = dims[l];
+  }
   p.act = Act{act, act_w};
   p.L = L;
   p.N = N;
   p.kmax = kmax;
+  p.rs = fwd_ring_stride(dmax);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bm == PSCI_BM_WIDE) return (int)launch_s<PSCI_BM_WIDE, true>(p, S, st);
   return (int)(act == PSCI_TANH ? launch_s<PSCI_BM, false>(p, S, st) : launch_s<PSCI_BM, true>(p, S, st));

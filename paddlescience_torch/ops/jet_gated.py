@@ -279,7 +279,6 @@ def jet_gated_fwd(y, u, v, weights, biases, alphas, program: Program, index: jet
     dims = _gated_dims(y, u, v, weights, biases, alphas, program, index)
     act_id, act_w = act_args(act)
     S, L, N = len(y), len(weights), int(y[0].shape[0])
-    kmax = jet_mlp._round4(max(dims))
     y, u, v, weights, biases, alphas = ([on_device(t, dev) for t in ts] for ts in (y, u, v, weights, biases, alphas))
     outs = tuple(torch.empty(N, dims[-1], device=dev) for _ in range(S))
     starts = [l for l, op in enumerate(program) if op & STAGE and l > 0]
@@ -297,7 +296,8 @@ def jet_gated_fwd(y, u, v, weights, biases, alphas, program: Program, index: jet
     kinds, pa, pb = index_tables(index)
     launch("jet_gated_fwd", ptrs(y), ptrs(u) if u else None, ptrs(v) if v else None, ptrs(weights),
            ptrs(biases), ptrs(_alpha_table(program, alphas)), ptrs(outs), ptrs(table), ints(dims),
-           ints(program), ints(kinds), ints(pa), ints(pb), S, L, N, kmax, act_id, act_w, stream_handle(dev))
+           ints(program), ints(kinds), ints(pa), ints(pb), S, L, N, jet_mlp.fwd_kst(dims), act_id, act_w,
+           stream_handle(dev))
     jet_gated_fwd.launches += 1
     return outs, bounds
 

@@ -30,8 +30,11 @@ there; for a CUDA tensor it launches its kernel or raises. ``<wrapper>.launches`
 counts kernel launches; ``<plain>.cuda_calls`` counts calls of a plain
 version on CUDA tensors (which only a comparison run makes).
 
-Precision: the kernels compute in true float32 (FFMA, no TF32), which is
-what the JAX package calls "highest".
+Precision: float32, what the JAX package calls "highest". The backward
+kernels and ``jet_wgrad`` compute in FFMA; the forward kernels' products
+run on the tensor cores in 3xTF32 (each float32 operand split into two
+TF32 parts, three TF32 products; ``csrc/jet_common.cuh::fwd_matmul``),
+which keeps float32 accuracy.
 
 Stream layout: a stream is an (N, W) float32 tensor; weights are (K, D)
 and used as ``x @ W``; stage boundaries and ``gz`` are (S, N, D) per layer.
@@ -68,6 +71,8 @@ __all__ = [
     "index_tables",
     "tile_rows",
     "bwd_parks",
+    "fwd_kst",
+    "fwd_smem",
     "bwd_smem",
     "kernels_take",
     "kernel_refusal",
@@ -95,6 +100,7 @@ MAX_WIDTH = 512
 GATED_MAX_WIDTH = 256  # the gated kernels keep the 16-row tile of the narrow case
 SMEM_LIMIT = 232448  # bytes of shared memory a block can use on Hopper
 KC = 16  # weight rows (or columns) staged per chunk
+FW_STAGES = 3  # the forward kernels: weight chunks in their cp.async ring
 GB_STAGES = 2  # the backward kernels: weight chunks in their cp.async ring
 WG_T, WG_RC, WG_NARROW = 128, 32, 8  # jet_wgrad: tile edge, rows per stage, widest layer of narrow units
 WG_PART = WG_T * WG_T + WG_T  # floats of one jet_wgrad unit's partial (its dW tile, then db)
@@ -232,6 +238,10 @@ def _round4(x: int) -> int:
     return -(-x // 4) * 4
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 def _segment_dims(streams, weights, biases, index, gated: bool = False) -> List[int]:
     """The segment's widths dims[0] -> ... -> dims[L]; raises ValueError
     where the shapes do not chain or the kernels refuse them."""
@@ -264,17 +274,28 @@ def act_args(act: jetmod.Act) -> Tuple[int, float]:
 
 def tile_rows(dims: Sequence[int]) -> int:
     """Rows of a CTA's tile: 16 up to NARROW_WIDTH, 8 above. In the
-    forward kernels (256 threads) a thread owns a 4x4 micro-tile of every
-    stream: 64 threads across the columns by 4 down the rows, or 128 by 2;
-    in the backward kernels (512 threads) a 4x2 one: 128 by 4, or 256 by
-    2."""
+    forward kernels a warp owns two 16-column m-tiles of every stream and
+    row: 8 warps at 16 rows (256 columns), 16 warps at 8 rows (512);
+    in the backward kernels (512 threads) a thread owns a 4x2 micro-tile:
+    128 threads across the columns by 4 down the rows, or 256 by 2."""
     return BM if max(dims) <= NARROW_WIDTH else BM_WIDE
 
 
+def fwd_kst(dims: Sequence[int]) -> int:
+    """Row stride (floats) of the forward kernels' shared tile: the widest
+    layer rounded up to 32, the span of its column swizzle
+    (``csrc/jet_common.cuh::fwd_at``)."""
+    return _round_up(max(dims), 32)
+
+
 def fwd_smem(S: int, dims: Sequence[int]) -> int:
-    """Shared-memory bytes of the forward kernels: the S-stream row tile
-    at the widest layer and one weight chunk."""
-    return (S * _round4(max(dims)) * tile_rows(dims) + KC * max(dims[1:])) * 4
+    """Shared-memory bytes of the forward kernels (``csrc/jet_common.cuh::
+    fwd_smem``): the S-stream row tile at row stride :func:`fwd_kst` and a
+    ring of FW_STAGES weight chunks of KC rows at the widest output rounded
+    up to 16, plus 4 (``fwd_ring_stride``, which keeps the fragment loads
+    free of bank conflicts). At S = 4, width 256 that is 115,456 bytes, so
+    two CTAs share an SM."""
+    return (S * tile_rows(dims) * fwd_kst(dims) + FW_STAGES * KC * (_round_up(max(dims[1:]), 16) + 4)) * 4
 
 
 def bwd_parks(S: int, dims: Sequence[int]) -> bool:
@@ -332,7 +353,6 @@ def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.
     dev = streams[0].device
     dims = _segment_dims(streams, weights, biases, index)
     S, L, N = len(streams), len(weights), int(streams[0].shape[0])
-    kmax = _round4(max(dims))
     act_id, act_w = act_args(act)
     streams = [on_device(s, dev) for s in streams]
     weights = [on_device(w, dev) for w in weights]
@@ -342,7 +362,7 @@ def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.
     kinds, pa, pb = index_tables(index)
     launch("jet_mlp_fwd", ptrs(streams), ptrs(weights), ptrs(biases), ptrs(outs),
            ptrs(bounds) if bounds else None, ints(dims), ints(kinds), ints(pa), ints(pb),
-           S, L, N, kmax, tile_rows(dims), act_id, act_w, stream_handle(dev))
+           S, L, N, fwd_kst(dims), tile_rows(dims), act_id, act_w, stream_handle(dev))
     jet_mlp_fwd.launches += 1
     return outs, bounds
 
@@ -374,10 +394,6 @@ def jet_mlp_bwd(streams, bounds, weights, biases, g_out,
            stream_handle(dev))
     jet_mlp_bwd.launches += 1
     return g_in, gzs
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def wgrad_tiles(K: int, D: int) -> Tuple[int, int]:
