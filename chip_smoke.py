@@ -49,6 +49,23 @@ on failure:
 4. check   - on one batch, the PDE loss and its gradient through the
              kernels, on each driven training path (MLP 5x50 too), agree
              with the plain-PyTorch jet path on the card;
+   graph   - the Allen-Cahn example's run through its entry points:
+             ``build_solver(arch="mlp", epochs=2, iters_per_epoch=200,
+             eval_freq=1)`` and ``train()``, auto-fused into one chunk of
+             K = 200 steps an epoch, captured once in a CUDA graph and
+             replayed, eval against the ETDRK4 solution every epoch,
+             ``best_model`` and ``latest`` saved; PirateNet 9x256 (3 chunks
+             of 20) and the aneurysm (3 of 10) for one epoch; the launch
+             counts set to 0 before each train() (a replay launches through
+             no wrapper: the counts are the warm-up's and the capture's);
+             ``eval()``: the final L2Rel, finite, and the aneurysm's residual
+             validator through the forward kernel; two graphed chunks
+             against eager steps across a GradNorm refresh (MLP 4x256 and
+             PirateNet 9x256: parameters to 1e-6 relative, bitwise or not,
+             the same generator state); three replays drawing three
+             different batches; a run resumed from ``latest`` bitwise equal
+             to an uninterrupted one; graphed against eager steps/s with
+             device busy and idle per step, on one solver each;
 5. timing  - train steps per second of the Allen-Cahn MLP, PirateNet and
              ModifiedMLP solvers and of the aneurysm solver; device time per step by
              kernel and the device's busy share (torch.profiler); per
@@ -87,6 +104,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -120,6 +138,7 @@ STL_DIR = os.path.join(HERE, "dataset", "aneurysm")  # listed in .gitignore
 CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
 LBM_TIMED = 2048  # lattice edge at which the LBM kernel is timed
 TIMED_STEPS = 20
+T0 = 0.0  # when main() started
 KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "lbm_collide_stream")
 # kernel instance -> [registers, spill store bytes, spill load bytes], per jet kernel
 PTXAS = {"jet_mlp_fwd": {}, "jet_gated_fwd": {}, "jet_mlp_bwd": {}, "jet_gated_bwd": {}}
@@ -578,7 +597,7 @@ def run_path(solver, path: str, deriv: str, steps: int):
     deriv_path.set_default(deriv_path.CANDIDATES[deriv])
     torch.cuda.synchronize()
     reset_counts()
-    logs = solver.train(steps)
+    logs = solver.train_steps(steps)
     torch.cuda.synchronize()
     counts, plain = read_counts()
     for entry in logs:
@@ -915,20 +934,26 @@ def time_kernels(errs, launches, device_ms):
     return rows
 
 
-def profile_steps(solver, name: str, step_ms: float, steps: int = 5, top: int = 12) -> dict:
+def profile_steps(solver, name: str, step_ms: float, steps: int = 5, top: int = 12, run=None,
+                  steps_per_run: int = 1):
     """Device time per train step by kernel (torch.profiler), and the
-    device's busy share of the unprofiled step time. Returns the ms per
-    step of each device kernel of the port (a wrapper may launch more than
-    one), by kernel function name."""
+    device's busy share of the unprofiled step time ``step_ms``, over
+    ``steps`` calls of ``run`` (default ``solver.train_step``), each
+    ``steps_per_run`` train steps. Returns (the ms per step of each device
+    kernel of the port (a wrapper may launch more than one) by kernel
+    function name, device busy ms per step, kernels per step); busy None
+    when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run = run or solver.train_step
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            solver.train_step()
+            run()
         torch.cuda.synchronize()
+    steps *= steps_per_run
     rows = []
     for e in prof.key_averages():
         # device-side kernels only: CPU-side ranges (aten ops, autograd
@@ -945,7 +970,7 @@ def profile_steps(solver, name: str, step_ms: float, steps: int = 5, top: int = 
     busy = sum(r[0] for r in rows)
     if busy == 0:
         log(f"[profile] {name}: the profiler recorded no device time: not measured")
-        return {}
+        return {}, None, 0
     log(f"[profile] {name}: device busy {busy:.3f} ms per step of {step_ms:.3f} ms wall "
         f"({100 * busy / step_ms:.1f}% busy, {100 * (1 - busy / step_ms):.1f}% idle); "
         f"{sum(r[1] for r in rows):.0f} kernels per step")
@@ -957,7 +982,7 @@ def profile_steps(solver, name: str, step_ms: float, steps: int = 5, top: int = 
             port[fn] = port.get(fn, 0.0) + ms
         if i < top or ours:
             log(f"[profile]   {ms:8.4f} ms  x{count:5.1f}  {kname[:90]}")
-    return port
+    return port, busy, sum(r[1] for r in rows)
 
 
 def time_steps(solver, name: str):
@@ -977,6 +1002,233 @@ def time_steps(solver, name: str):
     log(f"[timing] {name} train step: {TIMED_STEPS / dt:.2f} steps/s ({dt / TIMED_STEPS * 1e3:.3f} ms/step), "
         f"launches per step { {k: v / TIMED_STEPS for k, v in counts.items() if v} }")
     return dt / TIMED_STEPS * 1e3, counts
+
+
+# ------------------------------------------------------- the graphed run --
+
+# the Allen-Cahn example's train(): epochs of one auto-fused chunk (K = iters_per_epoch) each, eval every epoch
+GRAPH_MLP = dict(arch="mlp", epochs=2, iters_per_epoch=200, eval_freq=1)
+# one epoch of a few chunks: (build arguments, K)
+GRAPH_PIRATENET = (dict(arch="piratenet", piratenet_blocks=9, epochs=1, iters_per_epoch=60), 20)
+GRAPH_ANEURYSM = (dict(epochs=1, iters_per_epoch=30), 10)
+CHECK_K = 8  # graphed against eager: 2 chunks of 8 steps, a GradNorm refresh (update_freq 8) between them
+RESUME_K = 10  # resume: 1 epoch of one 10-step chunk saved, then the second epoch
+GRAPH_TIMED = {"mlp": 2, "piratenet": 2, "aneurysm": 3}  # replays timed per solver
+
+
+def graph_train(solver, name: str, num_fused_steps=None):
+    """``solver.train()`` on the card with the launch counters set to 0 just
+    before: every kernel of the path launched (at the warm-up and the
+    capture; a replay launches through no wrapper), none of the plain
+    versions, finite losses, the checkpoints written. Returns the counts."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = solver.train(num_fused_steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    check_counts(f"{name}/graph", counts, plain)
+    bad = [e for e in logged if not all(math.isfinite(v) for k, v in e.items() if k.startswith("loss"))]
+    if bad or not logged:
+        raise AssertionError(f"{name}: non-finite or no logged losses {bad or logged}")
+    (k, stats), = solver.graph_stats.items()
+    steps = solver.epochs * solver.iters_per_epoch
+    if stats["replays"] != steps // k:
+        raise AssertionError(f"{name}: {stats['replays']} replays of {k} steps for {steps} steps")
+    ckpts = sorted(os.listdir(os.path.join(solver.output_dir, "checkpoints")))
+    if "latest" not in ckpts:
+        raise AssertionError(f"{name}: checkpoints {ckpts}, no latest")
+    log(f"[graph] {name}: train() {solver.epochs} epoch(s) x {solver.iters_per_epoch} steps, K={k} steps a graph, "
+        f"warm-up {stats['warmup_s']:.2f} s, capture {stats['capture_s']:.2f} s, {stats['replays']} replays; "
+        f"{dt:.2f} s in all (evals and checkpoints included); final loss {logged[-1]['loss']:.6f}; checkpoints "
+        f"{ckpts}; best {solver.best_metric}; launches at the warm-up and capture "
+        f"{ {n: v for n, v in counts.items() if v} }, plain versions on CUDA {sum(plain.values())}")
+    return counts
+
+
+def graph_solver(arch_kwargs, k, **extra):
+    from paddlescience_torch.examples.allen_cahn import build_solver
+
+    args = dict(deriv="jet_pallas_full", with_validator=False, output_dir=None, update_freq=k, device="cuda")
+    return build_solver(**{**args, **arch_kwargs, **extra})
+
+
+def flat_params(solver):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in solver.model.parameters()])
+
+
+def check_graph_against_eager(name: str, arch_kwargs, k=CHECK_K):
+    """The same seed and state through 2 chunks of k steps graphed and 2k
+    eager steps, with a GradNorm refresh at step 0 and between the chunks
+    (update_freq = k): parameters to 1e-6 relative (and whether bitwise),
+    the same generator state and aggregator weights."""
+    import torch
+
+    graphed, eager = graph_solver(arch_kwargs, k), graph_solver(arch_kwargs, k)
+    for _ in range(2):
+        graphed.train_chunk(k)
+    eager.train_steps(2 * k)
+    torch.cuda.synchronize()
+    a, b = flat_params(graphed), flat_params(eager)
+    rel = float((a - b).norm() / b.norm())
+    same_gen = torch.equal(graphed.generator.get_state(), eager.generator.get_state())
+    w_a, w_b = graphed.agg_state["weight"], eager.agg_state["weight"]
+    w_rel = float((w_a - w_b).abs().max() / w_b.abs().max())
+    log(f"[graph] {name}: 2 graphed chunks of {k} steps vs {2 * k} eager steps, GradNorm refreshed at steps 0 and "
+        f"{k}: parameters rel err {rel:.3e}, bitwise {torch.equal(a, b)}; generator state equal {same_gen}; "
+        f"GradNorm weights {w_a.tolist()} vs {w_b.tolist()} (rel {w_rel:.3e}); step {graphed.step} / {eager.step}")
+    if not (rel <= 1e-6 and same_gen and w_rel <= 1e-6 and graphed.step == eager.step == 2 * k):
+        raise AssertionError(f"{name}: the graphed chunks disagree with the eager steps")
+
+
+def check_batches_change(k=CHECK_K):
+    """Consecutive replays draw new collocation batches: the PDE batch is
+    copied out inside the graph and read after each replay."""
+    import torch
+
+    solver = graph_solver(dict(arch="mlp"), 1000)
+    ds = solver.constraint["PDE"].dataset
+    draw, seen = ds.sample_fn, {}
+
+    def spy(gen):
+        out = draw(gen)
+        for key, v in out[0].items():
+            seen.setdefault(key, torch.empty_like(v)).copy_(v)
+        return out
+
+    ds.sample_fn = spy
+    batches = []
+    for _ in range(3):
+        solver.train_chunk(k)
+        batches.append({key: v.clone() for key, v in seen.items()})
+    torch.cuda.synchronize()
+    same = [key for key in batches[0] for i in range(2) if torch.equal(batches[i][key], batches[i + 1][key])]
+    if same or solver.graph_stats[k]["replays"] != 3:
+        raise AssertionError(f"replays drew the same batch ({same}) or did not replay: {solver.graph_stats}")
+    log(f"[graph] batches: 3 replays of {k} steps, each last step's PDE batch (t, x) differs from the previous "
+        f"replay's (t[:3] {[round(float(v), 5) for v in batches[0]['t'][:3, 0]]} -> "
+        f"{[round(float(v), 5) for v in batches[1]['t'][:3, 0]]})")
+
+
+def check_resume(tmp: str, k=RESUME_K):
+    """One epoch of one graphed chunk saved as ``latest``, a new solver
+    built from it (``checkpoint_path``) trains the second epoch: bitwise the
+    parameters, Adam state, GradNorm weights, generator state, step and
+    last_epoch of one uninterrupted two-epoch run."""
+    import torch
+
+    kw = dict(arch="mlp", iters_per_epoch=k)
+    first = graph_solver(kw, k, epochs=1, output_dir=os.path.join(tmp, "first"))
+    first.train()
+    latest = os.path.join(tmp, "first", "checkpoints", "latest")
+    resumed = graph_solver(kw, k, epochs=2, output_dir=os.path.join(tmp, "resumed"), checkpoint_path=latest)
+    if resumed.last_epoch != 1 or resumed.step != k:
+        raise AssertionError(f"resume: last_epoch {resumed.last_epoch}, step {resumed.step}")
+    resumed.train()
+    whole = graph_solver(kw, k, epochs=2, output_dir=os.path.join(tmp, "whole"))
+    whole.train()
+    torch.cuda.synchronize()
+    sa, sb = resumed.state_dict(), whole.state_dict()
+    diff = [f"params.{n}" for n in sa["params"] if not torch.equal(sa["params"][n], sb["params"][n])]
+    diff += [f"opt.{i}.{key}" for i in sa["opt_state"] for key in sa["opt_state"][i]
+             if not torch.equal(sa["opt_state"][i][key], sb["opt_state"][i][key])]
+    diff += [key for key in ("generator",) if not torch.equal(sa[key], sb[key])]
+    diff += ["agg"] * (not torch.equal(sa["agg_state"]["weight"], sb["agg_state"]["weight"]))
+    diff += ["step/last_epoch"] * (not (sa["step"] == sb["step"] == 2 * k and resumed.last_epoch == whole.last_epoch == 2))
+    if diff:
+        raise AssertionError(f"resume: differs from the uninterrupted run in {diff}")
+    log(f"[graph] resume: epoch 1 saved ({k} steps, one graphed chunk), rebuilt from checkpoints/latest, epoch 2 "
+        f"trained: bitwise the parameters, Adam state, GradNorm weights, generator state, step {sa['step']} and "
+        f"last_epoch 2 of an uninterrupted run")
+
+
+def time_graphed(solver, name: str, k: int, replays: int):
+    """Eager train_step against graphed chunks of k steps on one solver, in
+    this call: steps/s (host clock around whole calls ending in a
+    synchronize) and, from the profile, device busy and idle per step.
+    Returns the numbers."""
+    import torch
+
+    eager_ms, _ = time_steps(solver, f"{name} eager")
+    _, eager_busy, eager_kernels = profile_steps(solver, f"{name} eager", eager_ms, top=5)
+    solver.train_chunk(k)  # the capture if this k is new, and one replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        solver.train_chunk(k)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) / (replays * k) * 1e3
+    _, graph_busy, graph_kernels = profile_steps(solver, f"{name} graphed (K={k})", graph_ms, steps=1, top=5,
+                                                 run=lambda: solver.train_chunk(k), steps_per_run=k)
+    # busy comes from a profiled run, the step time from an unprofiled one: their ratio may pass 100%
+    share = lambda busy, ms: "not measured" if busy is None else f"{100 * busy / ms:.1f}% busy"
+    out = {"eager_steps_per_s": 1e3 / eager_ms, "eager_ms": eager_ms, "eager_busy_ms": eager_busy,
+           "graphed_steps_per_s": 1e3 / graph_ms, "graphed_ms": graph_ms, "graphed_busy_ms": graph_busy,
+           "kernels_per_step": [eager_kernels, graph_kernels], "K": k}
+    log(f"[graph] timing {name}: eager {1e3 / eager_ms:.2f} steps/s ({eager_ms:.3f} ms, {share(eager_busy, eager_ms)}), "
+        f"graphed {1e3 / graph_ms:.2f} steps/s ({graph_ms:.3f} ms, {share(graph_busy, graph_ms)}), K={k}, "
+        f"{replays} replays timed; speed-up {eager_ms / graph_ms:.2f}x")
+    return out
+
+
+def run_graph_phase(ane, tmp: str):
+    """The slice's run through the example's entry points on the card:
+    train() by epochs in CUDA-graph chunks (MLP 4x256 two epochs with eval,
+    PirateNet 9x256 and the aneurysm one epoch of a few chunks), graphed
+    against eager, batches per replay, eval against the ETDRK4 solution and
+    the aneurysm residual validator, resume, and the step rates. Returns
+    (launch counts by run, timings)."""
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples.allen_cahn import build_solver, get_reference_solution
+
+    t0 = time.perf_counter()
+    get_reference_solution()
+    log(f"[graph] the ETDRK4 reference solution (201 x 512) ready in {time.perf_counter() - t0:.1f} s")
+    launches, timing = {}, {}
+    mlp = build_solver(output_dir=os.path.join(tmp, "mlp"), device="cuda", **GRAPH_MLP)
+    launches["graph mlp"] = graph_train(mlp, "mlp")
+    metric, group = mlp.eval()
+    n_eval = len(mlp.validator["u_validator"].data_loader) * 16384
+    log(f"[graph] eval mlp: final L2Rel.u = {metric:.4e} against the ETDRK4 solution after {mlp.step} steps "
+        f"({n_eval} of the 201 x 512 points, batches of 16384); best {mlp.best_metric}; {group}")
+    if not math.isfinite(metric):
+        raise AssertionError(f"mlp: L2Rel {metric}")
+
+    kwargs, k = GRAPH_PIRATENET
+    pn = build_solver(output_dir=os.path.join(tmp, "piratenet"), with_validator=False, device="cuda", **kwargs)
+    launches["graph piratenet"] = graph_train(pn, "piratenet", k)
+
+    kwargs, k = GRAPH_ANEURYSM
+    deriv_path.set_default(deriv_path.CANDIDATES["jet_pallas_full"])
+    ane.epochs, ane.iters_per_epoch, ane.last_epoch = kwargs["epochs"], kwargs["iters_per_epoch"], 0
+    ane.output_dir = os.path.join(tmp, "aneurysm")
+    launches["graph aneurysm"] = graph_train(ane, "aneurysm", k)
+    torch.cuda.synchronize()
+    reset_counts()
+    metric, group = ane.eval()
+    torch.cuda.synchronize()
+    counts, plain = read_counts()
+    if not (math.isfinite(metric) and counts["jet_mlp_fwd"] > 0) or any(plain.values()):
+        raise AssertionError(f"aneurysm eval: MSE {metric}, launches {counts}, plain on CUDA {plain}")
+    log(f"[graph] eval aneurysm residual validator: {group}, jet_mlp_fwd launches {counts['jet_mlp_fwd']} "
+        f"(forward only), plain versions on CUDA {sum(plain.values())}")
+
+    check_graph_against_eager("mlp 4x256", dict(arch="mlp"))
+    check_graph_against_eager("piratenet 9x256", dict(arch="piratenet", piratenet_blocks=9))
+    check_batches_change()
+    check_resume(tmp)
+
+    for name, solver in (("mlp", mlp), ("piratenet", pn), ("aneurysm", ane)):
+        k = next(iter(solver.graph_stats))
+        timing[name] = time_graphed(solver, name, k, GRAPH_TIMED[name])
+    return launches, timing
 
 
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
@@ -1005,6 +1257,8 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 3
+    global T0
+    T0 = time.perf_counter()
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -1119,12 +1373,18 @@ def main() -> int:
         parts = ("weight_g", "weight_v", "bias") if arch == "aneurysm" else ("alpha", "embed_u", "embed_v")
         check_against_plain_path(solver, arch, tuple(PATHS[p][1] for p in paths), parts)
 
+    with tempfile.TemporaryDirectory(prefix="psci_smoke_") as tmp:
+        graph_launches, graph_timing = run_graph_phase(ane, tmp)
+    launches.update(graph_launches)
+    log("[graph] summary " + json.dumps(graph_timing))
+
     device_ms = {}
     for path in TIMED:
         deriv_path.set_default(deriv_path.CANDIDATES[PATHS[path][1]])
         step_ms, _ = time_steps(solvers[path], path)
-        device_ms[path] = profile_steps(solvers[path], path, step_ms)
+        device_ms[path] = profile_steps(solvers[path], path, step_ms)[0]
     rows = time_kernels(errs, launches, device_ms)
+    log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

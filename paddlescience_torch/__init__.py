@@ -1,7 +1,7 @@
 """paddlescience_torch — the PyTorch/CUDA port of paddlescience_tpu.
 
 Same ppsci-style surface (arch, autodiff, equation, geometry, constraint,
-loss, optimizer, solver), written in PyTorch for one NVIDIA H100. Each Pallas
+data, loss, metric, optimizer, solver, validate), written in PyTorch for one NVIDIA H100. Each Pallas
 kernel of the JAX package on a ported path has a hand-written CUDA kernel
 here (``csrc/``), built with nvcc at first use, plus a plain PyTorch
 version that the CPU runs. Entry points run on CUDA unless given a device.
@@ -16,10 +16,10 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from paddlescience_torch import (arch, autodiff, constraint, data, equation, geometry, loss, optimizer,  # noqa: E402
-                                 solver, utils)
+from paddlescience_torch import (arch, autodiff, constraint, data, equation, geometry, loss, metric,  # noqa: E402
+                                 optimizer, solver, utils, validate)
 from paddlescience_torch.device import resolve_device  # noqa: E402
 
-__all__ = ["arch", "autodiff", "constraint", "data", "equation", "geometry", "loss", "optimizer", "solver",
-           "utils", "resolve_device"]
+__all__ = ["arch", "autodiff", "constraint", "data", "equation", "geometry", "loss", "metric", "optimizer",
+           "solver", "utils", "validate", "resolve_device"]
 __version__ = "0.1.0"

@@ -135,7 +135,7 @@ def seed(x: torch.Tensor, index: JetIndex) -> Jet:
     for m in index.multis[1:]:
         if len(m) == 1:
             e = x.new_zeros((d,))
-            e[m[0]] = 1.0
+            e[m[0]].fill_(1.0)  # a kernel, no host copy: the seed runs inside captured steps
             streams.append(e.expand_as(x))
         else:
             streams.append(torch.zeros_like(x))

@@ -1,3 +1,4 @@
-from paddlescience_torch.data.dataset.array_dataset import DeviceSampledDataset, IterableNamedArrayDataset
+from paddlescience_torch.data.dataset.array_dataset import (DeviceSampledDataset, IterableNamedArrayDataset,
+                                                            NamedArrayDataset)
 
-__all__ = ["DeviceSampledDataset", "IterableNamedArrayDataset"]
+__all__ = ["DeviceSampledDataset", "IterableNamedArrayDataset", "NamedArrayDataset"]

@@ -1,6 +1,9 @@
 """Array-backed datasets (counterpart of
 ``paddlescience_tpu/data/dataset/array_dataset.py``).
 
+* ``NamedArrayDataset`` is finite and indexed: a loader
+  (``data/__init__.py::BatchLoader``) draws batches of rows from it, as the
+  validators do;
 * ``IterableNamedArrayDataset`` yields the complete arrays every step
   (full-batch training); the solver stages them on the device once.
 * ``DeviceSampledDataset`` draws a fresh batch on the device each step:
@@ -14,7 +17,34 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-__all__ = ["IterableNamedArrayDataset", "DeviceSampledDataset"]
+__all__ = ["NamedArrayDataset", "IterableNamedArrayDataset", "DeviceSampledDataset"]
+
+
+class NamedArrayDataset:
+    """Finite dataset over aligned ``{key: (N, ...)}`` arrays, indexed by
+    rows. Per-dataset transforms are not ported."""
+
+    batch_mode = "indexed"
+
+    def __init__(self, input: Dict[str, np.ndarray], label: Optional[Dict[str, np.ndarray]] = None,
+                 weight: Optional[Dict[str, np.ndarray]] = None, transforms=None):
+        if transforms is not None:
+            raise NotImplementedError("dataset transforms are not ported yet")
+        self.input = {k: np.asarray(v) for k, v in input.items()}
+        self.label = {k: np.asarray(v) for k, v in (label or {}).items()}
+        self.weight = {k: np.asarray(v) for k, v in (weight or {}).items()}
+        self.transforms = None
+        lens = {len(v) for v in self.input.values()}
+        if len(lens) != 1:
+            raise ValueError(f"input arrays must share leading dim, got {lens}")
+        self._len = lens.pop()
+
+    def __len__(self):
+        return self._len
+
+    def __getitem__(self, idx):
+        return ({k: v[idx] for k, v in self.input.items()}, {k: v[idx] for k, v in self.label.items()},
+                {k: v[idx] for k, v in self.weight.items()})
 
 
 class IterableNamedArrayDataset:

@@ -20,20 +20,24 @@ device each step, plus the initial-condition MSE on 512 points; GradNorm
 (update_freq 1000, momentum 0.9); Adam with ExponentialDecay (1e-3, gamma
 0.9 every 2000 steps). The derivative path is pinned to ``jet_pallas_full``:
 the hidden layers (all PirateNet blocks) run as one fused jet segment (CUDA
-kernels on the GPU).
+kernels on the GPU). ``Solver.train()`` runs whole epochs as one chunk of
+steps each, a CUDA graph replay on the GPU.
 
-The initial-condition labels are x^2 cos(pi x) on
-``linspace(-1, 1, 512, endpoint=False)``, which is row 0 of the JAX
-example's ETDRK4 reference solution. The L2Rel validator against that
-solution and the NTK aggregator of the JAX example's ``sota`` variant are
-not ported yet.
+The reference solution is the JAX example's: a Fourier pseudo-spectral
+ETDRK4 solve on 512 points x 201 times (:func:`solve_allen_cahn_spectral`,
+a numpy copy), cached in an ``.npz`` file. The ``u_validator`` holds the
+model against it (L2Rel, in batches of 16384; the loader drops the short
+last batch as the JAX package's does, so 6 batches, the first 192 of the
+201 time rows). The initial-condition labels are row 0 of that solution.
+The NTK aggregator of the JAX example's ``sota`` variant is not ported yet.
 
-Run on the GPU:
-``python -m paddlescience_torch.examples.allen_cahn [steps] [arch]``.
+Run on the GPU (train, then eval against the reference):
+``python -m paddlescience_torch.examples.allen_cahn [epochs] [iters_per_epoch] [arch]``.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Optional
 
@@ -49,15 +53,88 @@ from paddlescience_torch.device import DeviceLike, resolve_device
 from paddlescience_torch.equation.pde.basic import AllenCahn
 from paddlescience_torch.loss import mtl
 from paddlescience_torch.loss.losses import CausalMSELoss, MSELoss
+from paddlescience_torch.metric import L2Rel
 from paddlescience_torch.optimizer.lr_scheduler import ExponentialDecay
 from paddlescience_torch.optimizer.optimizer import Adam
 from paddlescience_torch.solver.solver import Solver
+from paddlescience_torch.validate import SupervisedValidator
 
-__all__ = ["build_solver", "ic_data"]
+__all__ = ["build_solver", "ic_data", "solve_allen_cahn_spectral", "get_reference_solution", "train", "evaluate",
+           "REFERENCE_PATH"]
+
+REFERENCE_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                              "dataset", "allen_cahn_ref.npz")
+
+
+def solve_allen_cahn_spectral(nx: int = 512, nt: int = 201, t_max: float = 1.0, eps2: float = 1e-4):
+    """Reference solution by Fourier pseudo-spectral ETDRK4 (the Kassam and
+    Trefethen 2005 scheme), periodic on [-1, 1], time step 1e-4; returns
+    (t (nt,), x (nx,), u (nt, nx)) in float32. A copy of the JAX example's
+    solver: the same numpy operations in the same order."""
+    L = 2.0
+    x = np.linspace(-1, 1, nx, endpoint=False)
+    u = (x**2) * np.cos(np.pi * x)
+    k = 2 * np.pi * np.fft.fftfreq(nx, d=L / nx)  # wavenumbers
+
+    lin = -eps2 * k**2 + 5.0  # linear operator in Fourier space (from +5u)
+    dt = 1e-4
+    steps_total = int(round(t_max / dt))
+    save_every = max(steps_total // (nt - 1), 1)
+
+    E = np.exp(dt * lin)
+    E2 = np.exp(dt * lin / 2)
+    M = 32  # quadrature points on the unit circle for the phi functions
+    r = np.exp(1j * np.pi * (np.arange(1, M + 1) - 0.5) / M)
+    LR = dt * lin[:, None] + r[None, :]
+    Q = dt * np.real(np.mean((np.exp(LR / 2) - 1) / LR, axis=1))
+    f1 = dt * np.real(np.mean((-4 - LR + np.exp(LR) * (4 - 3 * LR + LR**2)) / LR**3, axis=1))
+    f2 = dt * np.real(np.mean((2 + LR + np.exp(LR) * (-2 + LR)) / LR**3, axis=1))
+    f3 = dt * np.real(np.mean((-4 - 3 * LR - LR**2 + np.exp(LR) * (4 - LR)) / LR**3, axis=1))
+
+    def N_of(v_hat):
+        v = np.real(np.fft.ifft(v_hat))
+        return np.fft.fft(-5.0 * v**3)
+
+    v = np.fft.fft(u)
+    out = [u.copy()]
+    for step in range(1, steps_total + 1):
+        Nv = N_of(v)
+        a = E2 * v + Q * Nv
+        Na = N_of(a)
+        b = E2 * v + Q * Na
+        Nb = N_of(b)
+        c = E2 * a + Q * (2 * Nb - Nv)
+        Nc = N_of(c)
+        v = E * v + Nv * f1 + 2 * (Na + Nb) * f2 + Nc * f3
+        if step % save_every == 0 and len(out) < nt:
+            out.append(np.real(np.fft.ifft(v)))
+    while len(out) < nt:
+        out.append(out[-1])
+    t = np.linspace(0, t_max, nt)
+    return t.astype(np.float32), x.astype(np.float32), np.stack(out).astype(np.float32)
+
+
+def get_reference_solution(cache_path: Optional[str] = None):
+    """(t, x, u) of :func:`solve_allen_cahn_spectral` at its defaults, read
+    from the ``.npz`` cache at ``cache_path`` (default
+    :data:`REFERENCE_PATH`, the repository's ``dataset/``) or solved (about
+    3 s) and written there."""
+    cache_path = REFERENCE_PATH if cache_path is None else cache_path
+    if os.path.exists(cache_path):
+        d = np.load(cache_path)
+        return d["t"], d["x"], d["usol"]
+    t, x, usol = solve_allen_cahn_spectral()
+    os.makedirs(os.path.dirname(os.path.abspath(cache_path)), exist_ok=True)
+    tmp = f"{cache_path}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, t=t, x=x, usol=usol)
+    os.replace(tmp, cache_path)  # whole, for a concurrent reader
+    return t, x, usol
 
 
 def ic_data(nx: int = 512):
-    """(t, x, u0) columns of the initial condition, float32."""
+    """(t, x, u0) columns of the initial condition, float32: row 0 of
+    :func:`solve_allen_cahn_spectral` at ``nx`` points (bitwise; its
+    initial state x^2 cos(pi x) on ``linspace(-1, 1, nx, endpoint=False)``)."""
     x = np.linspace(-1, 1, nx, endpoint=False)
     u0 = (x**2) * np.cos(np.pi * x)
     col = lambda a: a.astype(np.float32).reshape(-1, 1)
@@ -84,12 +161,22 @@ def build_solver(
     piratenet_blocks: int = 3,
     fourier_scale: Optional[float] = None,
     rwf_mean: Optional[float] = None,
+    output_dir: Optional[str] = "./output_allen_cahn",
+    eval_during_train: bool = True,
+    with_validator: bool = True,
+    eval_freq: int = 10,
+    checkpoint_path: Optional[str] = None,
+    reference_path: Optional[str] = None,
 ) -> Solver:
     """The Allen-Cahn solver with backbone ``arch`` ("mlp", "modified_mlp"
     or "piratenet"); sizes are knobs so tests can shrink it. ``deriv``
     names the derivative-path candidate to pin. ``fourier_scale`` and
     ``rwf_mean`` default per arch (2.0 and 1.0 for the gated archs, 1.0
-    and 0.5 for the MLP)."""
+    and 0.5 for the MLP). With ``with_validator`` the solver holds the
+    ``u_validator`` against the reference solution (read from or written
+    to ``reference_path``, see :func:`get_reference_solution`), evaluated
+    every ``eval_freq`` epochs under ``eval_during_train``; checkpoints go
+    under ``output_dir``; ``checkpoint_path`` resumes from one."""
     device = resolve_device(device)
     if arch not in ("mlp", "modified_mlp", "piratenet"):
         raise ValueError(f"arch '{arch}' not found; available: mlp, modified_mlp, piratenet")
@@ -133,13 +220,51 @@ def build_solver(
     constraint = {"PDE": pde, "IC": ic}
     lr = ExponentialDecay(epochs=epochs, iters_per_epoch=iters_per_epoch, learning_rate=learning_rate,
                           gamma=gamma, decay_steps=decay_steps)()
+    validator = None
+    if with_validator:
+        t_star, x_star, u_ref = get_reference_solution(reference_path)
+        tt, xx = np.meshgrid(t_star, x_star, indexing="ij")  # row-major over (t, x), as cartesian_product
+        validator = {"u_validator": SupervisedValidator(
+            {"dataset": {"name": "NamedArrayDataset",
+                         "input": {"t": tt.reshape(-1, 1), "x": xx.reshape(-1, 1)},
+                         "label": {"u": u_ref.reshape(-1, 1)}},
+             "batch_size": 16384},
+            MSELoss("mean"), {"u": lambda out: out["u"]}, metric={"L2Rel": L2Rel()}, name="u_validator")}
     return Solver(
-        model, constraint, Adam(lr)(model), epochs=epochs, iters_per_epoch=iters_per_epoch,
-        log_freq=log_freq, seed=seed, equation=equation,
+        model, constraint, output_dir, Adam(lr)(model), epochs=epochs, iters_per_epoch=iters_per_epoch,
+        log_freq=log_freq, eval_during_train=eval_during_train, eval_freq=eval_freq, seed=seed, equation=equation,
+        validator=validator, checkpoint_path=checkpoint_path,
         loss_aggregator=mtl.GradNorm(model, len(constraint), update_freq, 0.9), device=device,
     )
 
 
+def train(**kwargs) -> float:
+    """Train a :func:`build_solver` solver (``kwargs`` are its arguments),
+    evaluate it, print the final and the best L2Rel against the reference
+    as the JAX example does, and return the smaller."""
+    solver = build_solver(**kwargs)
+    solver.train()
+    metric, _ = solver.eval()
+    print(f"final L2Rel.u = {metric:.4e}")
+    best = solver.best_metric.get("metric", float("inf"))
+    if best < float("inf"):
+        print(f"best  L2Rel.u = {best:.4e} @ epoch {solver.best_metric['epoch']}")
+        metric = min(metric, best)
+    return metric
+
+
+def evaluate(pretrained_model_path: Optional[str] = None, **kwargs) -> float:
+    """L2Rel of a :func:`build_solver` model against the reference, with
+    the parameters of the checkpoint at ``pretrained_model_path`` if given."""
+    solver = build_solver(eval_during_train=False, **kwargs)
+    if pretrained_model_path:
+        solver.load_pretrain(pretrained_model_path)
+    metric, _ = solver.eval()
+    print(f"eval L2Rel.u = {metric:.4e}")
+    return metric
+
+
 if __name__ == "__main__":
-    steps = int(sys.argv[1]) if len(sys.argv) > 1 else 1000
-    build_solver(arch=sys.argv[2] if len(sys.argv) > 2 else "mlp").train(steps)
+    argv = sys.argv[1:]
+    train(epochs=int(argv[0]) if argv else 200, iters_per_epoch=int(argv[1]) if len(argv) > 1 else 1000,
+          arch=argv[2] if len(argv) > 2 else "mlp")

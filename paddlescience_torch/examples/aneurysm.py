@@ -19,8 +19,12 @@ fed whole every step:
 All losses MSE/IntegralLoss with "sum" reduction, summed with unit weights;
 Adam with ExponentialDecay(1e-3, gamma 0.95 every 15000 steps). The
 derivative path is ``deriv`` (default ``jet_pallas_full``: the six hidden
-layers as one fused jet segment, CUDA kernels on the GPU). The JAX
-example's residual validator is not ported yet.
+layers as one fused jet segment, CUDA kernels on the GPU). The validator
+is the JAX example's: the four NavierStokes residuals against 0 on
+``val_total_size`` interior points (sampled after the constraints, from the
+same ``np.random`` stream), MSE "sum" loss and an MSE metric, in batches of
+``val_batch_size``; its derivatives go through the same jet path (the
+forward kernel only, under ``torch.no_grad``).
 
 The STLs are not in the repository: ``python tools/gen_aneurysm_stl.py
 --out <dir>`` writes them (``dataset/aneurysm`` by default, which is where
@@ -42,9 +46,11 @@ from paddlescience_torch.device import DeviceLike, resolve_device
 from paddlescience_torch.equation.pde.basic import NavierStokes, NormalDotVec
 from paddlescience_torch.geometry.mesh import Mesh
 from paddlescience_torch.loss.losses import IntegralLoss, MSELoss
+from paddlescience_torch.metric import MSE
 from paddlescience_torch.optimizer.lr_scheduler import ExponentialDecay
 from paddlescience_torch.optimizer.optimizer import Adam
 from paddlescience_torch.solver.solver import Solver
+from paddlescience_torch.validate import GeometryValidator
 
 __all__ = ["build_solver", "STL_DIR"]
 
@@ -75,6 +81,9 @@ def build_solver(
     num_layers: int = 6,
     seed: int = 42,
     log_freq: int = 100,
+    output_dir: Optional[str] = "./output_aneurysm",
+    val_total_size: int = 4096,
+    val_batch_size: int = 2048,
 ) -> Solver:
     """The aneurysm solver; sizes are knobs so tests can shrink it.
     ``deriv`` names the derivative-path candidate to pin. The host samples
@@ -128,5 +137,9 @@ def build_solver(
 
     lr = ExponentialDecay(epochs=epochs, iters_per_epoch=iters_per_epoch, learning_rate=1e-3, gamma=0.95,
                           decay_steps=15000)()
-    return Solver(model, constraint, Adam(lr)(model), epochs=epochs, iters_per_epoch=iters_per_epoch,
-                  log_freq=log_freq, seed=seed, equation=equation, device=device)
+    validator = {"residual": GeometryValidator(
+        equation["NavierStokes"].equations, {"continuity": 0, "momentum_x": 0, "momentum_y": 0, "momentum_z": 0},
+        geom["closed"], {"dataset": "NamedArrayDataset", "total_size": val_total_size, "batch_size": val_batch_size},
+        MSELoss("sum"), metric={"MSE": MSE()}, name="residual")}
+    return Solver(model, constraint, output_dir, Adam(lr)(model), epochs=epochs, iters_per_epoch=iters_per_epoch,
+                  log_freq=log_freq, seed=seed, equation=equation, validator=validator, device=device)

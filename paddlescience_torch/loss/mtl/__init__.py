@@ -4,7 +4,9 @@
 An aggregator holds its state in a dict the solver keeps
 (``init_state``); ``aggregate(losses, state)`` returns the total with the
 weights detached. GradNorm's weights are refreshed by the solver every
-``update_freq`` steps from per-loss gradient norms (``update_weights``).
+``update_freq`` steps from per-loss gradient norms (``update_weights``)
+and copied into the weight tensor it holds, the one a captured train step
+reads.
 """
 
 from __future__ import annotations

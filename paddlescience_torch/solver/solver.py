@@ -1,65 +1,109 @@
 """Solver — the training engine (counterpart of
 ``paddlescience_tpu/solver/solver.py``).
 
-The JAX package jits one train step over all constraints. The port runs
-the same step eagerly (no CUDA graph yet):
+A train step:
 
 1. sample each device-sampled constraint's batch from the solver's
    ``torch.Generator`` (full-batch constraints were staged once);
-2. every ``update_freq`` steps, refresh the loss aggregator's weights from
-   per-loss gradient norms on a batch of their own, as the JAX solver's
-   amortized refresh does before its step;
-3. evaluate every constraint's expressions and loss
+2. evaluate every constraint's expressions and loss
    (``_constraint_losses``);
-4. aggregate with detached weights, back-propagate, and take the
-   optimizer step at the schedule's learning rate.
+3. aggregate with the aggregator's weights (detached), back-propagate, and
+   take the optimizer step at the schedule's learning rate.
 
-Not ported yet: validators/eval, predict, checkpoints, learnable equation
-parameters, EMA, microbatching and the autotuner.
+Every ``update_freq`` steps a GradNorm-style aggregator's weights are
+refreshed, outside the step, from per-loss gradient norms on a batch of
+their own (``_maybe_refresh_agg_weights``, as the JAX solver's amortized
+refresh).
+
+``train()`` runs epochs ``last_epoch + 1 .. epochs`` in chunks of K steps,
+as the JAX solver's ``_train_fused_static`` runs K steps per ``lax.scan``
+dispatch. On CUDA a chunk of K > 1 steps is captured once in a
+``torch.cuda.CUDAGraph`` and replayed once per chunk: the graph holds the
+batch draws (the generator is registered with it), the kernels, the
+backward and the optimizer update, so a chunk is one host call. Between
+chunks the aggregator refresh runs eagerly and writes its weights into the
+tensor the graph reads. On the CPU (and for K = 1) a chunk runs K eager
+steps. After each epoch: eval every ``eval_freq`` epochs from
+``start_eval_epoch`` (keeping ``best_model``), ``epoch_<k>`` every
+``save_freq`` epochs, and ``latest``. ``eval()`` runs the validators,
+``predict()`` the model (and expressions) on given inputs, and
+``output_dir/checkpoints/`` holds the checkpoints that ``checkpoint_path``
+resumes from.
+
+Not ported yet: learnable equation parameters, EMA, microbatching,
+gradient accumulation, the multi-process branches and the autotuner.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from paddlescience_torch.autodiff import ad
+from paddlescience_torch.autodiff import path as deriv_path
 from paddlescience_torch.device import DeviceLike, resolve_device
 from paddlescience_torch.loss import mtl
-from paddlescience_torch.utils import expression
+from paddlescience_torch.utils import expression, save_load
 
 __all__ = ["Solver"]
 
+WARMUP_STEPS = 3  # eager steps on a side stream before a capture (then undone)
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree
+
 
 class Solver:
-    """Trains ``model`` on ``constraint`` with ``optimizer``.
-
-    ``device`` is where batches are drawn and the model runs (CUDA when
-    None); ``seed`` seeds the solver's batch generator on that device.
-    """
+    """Trains ``model`` on ``constraint`` with ``optimizer``, evaluates it
+    on ``validator`` and saves checkpoints under ``output_dir`` (None: no
+    checkpoints). ``device`` is where batches are drawn and the model runs
+    (CUDA when None); ``seed`` seeds the solver's batch generator there."""
 
     def __init__(
         self,
         model,
-        constraint: Dict[str, object],
-        optimizer,
+        constraint: Optional[Dict[str, object]] = None,
+        output_dir: Optional[str] = "./output",
+        optimizer=None,
         epochs: int = 5,
         iters_per_epoch: int = 20,
+        save_freq: int = 0,
         log_freq: int = 10,
+        eval_during_train: bool = False,
+        start_eval_epoch: int = 1,
+        eval_freq: int = 1,
         seed: int = 42,
         equation: Optional[Dict[str, object]] = None,
+        validator: Optional[Dict[str, object]] = None,
+        pretrained_model_path: Optional[str] = None,
+        checkpoint_path: Optional[str] = None,
+        compute_metric_by_batch: bool = False,
         loss_aggregator: Optional[mtl.LossAggregator] = None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
-        self.constraint = dict(constraint)
+        self.constraint = dict(constraint or {})
+        self.output_dir = output_dir
         self.optimizer = optimizer
         self.epochs = epochs
         self.iters_per_epoch = iters_per_epoch
+        self.save_freq = save_freq
         self.log_freq = log_freq
+        self.eval_during_train = eval_during_train
+        self.start_eval_epoch = start_eval_epoch
+        self.eval_freq = eval_freq
+        self.validator = validator
+        self.compute_metric_by_batch = compute_metric_by_batch
         self.equation = equation or {}
         for name, eq in self.equation.items():
             if getattr(eq, "learnable_parameters", None):
@@ -69,18 +113,93 @@ class Solver:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.models = [model]
         self.step = 0
+        # the schedule's step counter on the device, advanced inside each (captured) step
+        self._step_t = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.best_metric = {"metric": float("inf"), "epoch": 0}
+        self.last_epoch = 0
         self.loss_history: List[Tuple[int, float]] = []
-        # per constraint: the derivative components its expressions request
+        # per constraint / validator: the derivative components its expressions request
         self._jet_requests: Dict[str, dict] = {name: {} for name in self.constraint}
+        self._eval_requests: Dict[str, dict] = {}
         # full-batch constraints feed the same arrays every step: stage once
         self._static_batches = {
             name: tuple(self._to_device(part) for part in next(cst.data_iter))
             for name, cst in self.constraint.items()
             if cst.data_iter is not None
         }
+        # (K, derivative path) -> (CUDA graph of K steps, its last step's logs)
+        self._graphs: Dict[tuple, Tuple[torch.cuda.CUDAGraph, Dict[str, torch.Tensor]]] = {}
+        self.graph_stats: Dict[int, Dict[str, float]] = {}
+        self._last_save_t: Optional[float] = None
+
+        if pretrained_model_path is not None:
+            self.load_pretrain(pretrained_model_path)
+        if checkpoint_path is not None:
+            restored = save_load.load_checkpoint(checkpoint_path)
+            metric = restored.pop("_metric", {})
+            self._load_state(restored)
+            if "metric" in metric:
+                self.best_metric = {"metric": metric["metric"], "epoch": int(metric.get("epoch", 0))}
+            self.last_epoch = int(metric.get("last_epoch", metric.get("epoch", 0)))
+
+    # ------------------------------------------------------------ state --
 
     def _to_device(self, tree: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=self.device) for k, v in tree.items()}
+
+    def _opt_params(self) -> List[torch.Tensor]:
+        if self.optimizer is None:
+            return []
+        return [p for group in self.optimizer.torch_opt.param_groups for p in group["params"]]
+
+    def state_dict(self) -> Dict[str, object]:
+        """The training state, as live tensors: model parameters and
+        buffers, the optimizer's state per parameter (in the optimizer's
+        order), the aggregator's state, the batch generator's state and the
+        step."""
+        opt = self.optimizer.torch_opt.state if self.optimizer is not None else {}
+        return {
+            "params": dict(self.model.named_parameters()),
+            "buffers": dict(self.model.named_buffers()),
+            "opt_state": {str(i): dict(opt[p]) for i, p in enumerate(self._opt_params())},
+            "agg_state": dict(self.agg_state),
+            "generator": self.generator.get_state(),
+            "step": self.step,
+        }
+
+    @torch.no_grad()
+    def _load_state(self, state: Dict[str, object], params_only: bool = False) -> None:
+        """Copy ``state`` (as :meth:`state_dict` gives it) into the live
+        tensors in place, so a captured graph keeps reading them."""
+        named = dict(self.model.named_parameters())
+        if set(state["params"]) != set(named):
+            raise KeyError(f"checkpoint parameters {sorted(state['params'])} != model's {sorted(named)}")
+        for n, v in state["params"].items():
+            named[n].copy_(v)
+        if params_only:
+            return
+        buffers = dict(self.model.named_buffers())
+        for n, v in state["buffers"].items():
+            buffers[n].copy_(v)
+        opt = self.optimizer.torch_opt.state if self.optimizer is not None else {}
+        for i, p in enumerate(self._opt_params()):
+            for k, v in state["opt_state"][str(i)].items():
+                opt[p][k].copy_(v)
+        for k, v in state["agg_state"].items():
+            self.agg_state[k].copy_(v)
+        self.generator.set_state(state["generator"])
+        self.step = int(state["step"])
+        self._step_t.fill_(self.step)
+
+    def load_pretrain(self, pretrained_model_path: str) -> None:
+        """Load the model parameters of a checkpoint (nothing else)."""
+        params = save_load.load_pretrain(pretrained_model_path, dict(self.model.named_parameters()))
+        self._load_state({"params": params}, params_only=True)
+
+    def _save(self, prefix: str, metric=None, print_log: bool = True) -> None:
+        save_load.save_checkpoint(self.state_dict(), self.output_dir, prefix, metric=metric, print_log=print_log)
+
+    # ------------------------------------------------------- train step --
 
     def _batches(self) -> Dict[str, tuple]:
         batches = dict(self._static_batches)
@@ -103,7 +222,8 @@ class Solver:
         return [p for p in self.model.parameters() if p.requires_grad]
 
     def _refresh_agg_weights(self) -> None:
-        """Per-loss gradient norms over all parameters -> aggregator weights."""
+        """Per-loss gradient norms over all parameters -> aggregator weights,
+        written into the aggregator's tensors in place."""
         losses = self._constraint_losses(self._batches())
         params = self._params()
         norms = []
@@ -111,29 +231,51 @@ class Solver:
             grads = torch.autograd.grad(losses[name], params, retain_graph=i < len(losses) - 1,
                                         allow_unused=True)
             norms.append(torch.sqrt(sum((g * g).sum() for g in grads if g is not None)))
-        self.agg_state = self.loss_aggregator.update_weights(self.agg_state, torch.stack(norms))
+        new = self.loss_aggregator.update_weights(self.agg_state, torch.stack(norms))
+        with torch.no_grad():
+            for k, v in new.items():
+                self.agg_state[k].copy_(v)
 
-    def train_step(self) -> Dict[str, torch.Tensor]:
-        """One optimizer step. Returns the step's logs as tensors on the
-        device (reading them synchronises)."""
+    def _maybe_refresh_agg_weights(self, global_step: int, span: int = 1) -> None:
+        """Refresh the aggregator's weights if [global_step, global_step +
+        span) holds a multiple of its update frequency."""
         agg = self.loss_aggregator
-        if agg.needs_grad_norms and self.step % agg.update_freq == 0:
+        if not agg.needs_grad_norms:
+            return
+        freq = agg.update_freq
+        first_multiple = ((global_step + freq - 1) // freq) * freq
+        if global_step <= first_multiple < global_step + span:
             self._refresh_agg_weights()
+
+    def _step(self, step: int) -> Dict[str, torch.Tensor]:
+        """One optimizer step at global step ``step``, touching no host
+        state: what a CUDA graph captures. Returns the step's logs as
+        tensors."""
         losses = self._constraint_losses(self._batches())
         names = list(self.constraint)
-        total, self.agg_state = agg.aggregate([losses[n] for n in names], self.agg_state)
+        total, _ = self.loss_aggregator.aggregate([losses[n] for n in names], self.agg_state)
         self.optimizer.zero_grad()
         total.backward()
-        lr = self.optimizer.step(self.step)
-        self.step += 1
+        lr = self.optimizer.step(self._step_t if self.optimizer.lr_t is not None else step)
+        self._step_t += 1
         logs = {"loss": total.detach(), **{f"loss/{n}": losses[n].detach() for n in names}}
-        logs["lr"] = torch.tensor(lr)
+        logs["lr"] = lr.detach() if isinstance(lr, torch.Tensor) else torch.tensor(lr)
         return logs
 
-    def train(self, num_steps: Optional[int] = None) -> List[Dict[str, float]]:
-        """Run ``num_steps`` train steps (default: epochs * iters_per_epoch
-        from the current step). Every ``log_freq`` steps and at the end the
-        logs are read back and printed; returns those logged values."""
+    def train_step(self) -> Dict[str, torch.Tensor]:
+        """One eager optimizer step (after the aggregator refresh when one
+        is due). Returns the step's logs as tensors on the device (reading
+        them synchronises)."""
+        self._maybe_refresh_agg_weights(self.step)
+        logs = self._step(self.step)
+        self.step += 1
+        return logs
+
+    def train_steps(self, num_steps: Optional[int] = None) -> List[Dict[str, float]]:
+        """Run ``num_steps`` eager train steps (default: epochs *
+        iters_per_epoch from the current step). Every ``log_freq`` steps and
+        at the end the logs are read back and printed; returns those logged
+        values."""
         if num_steps is None:
             num_steps = self.epochs * self.iters_per_epoch - self.step
         logged = []
@@ -141,11 +283,226 @@ class Solver:
         for i in range(num_steps):
             logs = self.train_step()
             if self.step % self.log_freq == 0 or i == num_steps - 1:
-                vals = {k: float(v) for k, v in logs.items()}
-                vals["step"] = self.step
-                self.loss_history.append((self.step, vals["loss"]))
+                vals = self._read_logs(logs, self.step)
                 logged.append(vals)
                 parts = ", ".join(f"{k.split('/', 1)[1]}: {v:.5f}" for k, v in vals.items() if k.startswith("loss/"))
                 print(f"[Train][Step {self.step}] lr: {vals['lr']:.2e}, loss: {vals['loss']:.5f} "
                       f"({parts}), {time.perf_counter() - t0:.1f}s", flush=True)
         return logged
+
+    def _read_logs(self, logs: Dict[str, torch.Tensor], step: int) -> Dict[str, float]:
+        vals = {k: float(v) for k, v in logs.items()}
+        vals["step"] = step
+        self.loss_history.append((step, vals["loss"]))
+        return vals
+
+    # ------------------------------------------------- captured chunks --
+
+    def _snapshot(self) -> Dict[str, object]:
+        return _clone(self.state_dict())
+
+    def _graph(self, k: int) -> Tuple[torch.cuda.CUDAGraph, Dict[str, torch.Tensor]]:
+        """The CUDA graph of ``k`` train steps on the current derivative
+        path, captured at first use: ``WARMUP_STEPS`` eager steps on a side
+        stream (building and loading the kernels, their first launches and
+        attributes, the expressions' derivative requests), the training
+        state restored in place, then the capture of ``k`` steps with the
+        batch generator registered. Raises ``RuntimeError`` if the capture
+        fails; there is no eager fallback."""
+        key = (k, tuple(sorted(deriv_path.get_default().items())))
+        if key in self._graphs:
+            return self._graphs[key]
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError("this torch cannot register a generator with a CUDA graph "
+                               "(CUDAGraph.register_generator_state); train with num_fused_steps=1")
+        snap = self._snapshot()
+        t0 = time.perf_counter()
+        try:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for i in range(WARMUP_STEPS):
+                    self._step(self.step + i)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._load_state(snap)
+            torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            with torch.cuda.graph(graph):
+                for i in range(k):
+                    logs = self._step(self.step + i)
+            torch.cuda.synchronize(self.device)
+        except Exception as e:
+            self._load_state(snap)
+            raise RuntimeError(f"capturing {k} train steps in one CUDA graph failed: {e}") from e
+        self.graph_stats[k] = {"warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1, "replays": 0}
+        self._graphs[key] = (graph, logs)
+        return graph, logs
+
+    def train_chunk(self, k: int, global_step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """One chunk of ``k`` steps from the current step: the aggregator
+        refresh if [global_step, global_step + k) holds a refresh step
+        (``global_step`` defaults to the current step), then the ``k``
+        steps: one replay of the captured graph on CUDA when k > 1, else
+        eager steps. Returns the last step's logs as device tensors."""
+        self._maybe_refresh_agg_weights(self.step if global_step is None else global_step, span=k)
+        if self.device.type == "cuda" and k > 1:
+            graph, logs = self._graph(k)
+            graph.replay()
+            self.graph_stats[k]["replays"] += 1
+        else:
+            for i in range(k):
+                logs = self._step(self.step + i)
+        self.step += k
+        return logs
+
+    def _all_constraints_static(self) -> bool:
+        """True when every constraint samples on the device or feeds the
+        same full batch every step (no transforms): then a chunk of K steps
+        needs no batch from the host."""
+        for cst in self.constraint.values():
+            if cst.data_iter is None:
+                continue
+            ds = getattr(cst, "dataset", None)
+            if getattr(ds, "batch_mode", "indexed") != "full" or getattr(ds, "transforms", None) is not None:
+                return False
+        return True
+
+    def _auto_fuse_steps(self) -> int:
+        """The largest divisor of iters_per_epoch up to ``PSCI_FUSE_CAP``
+        (default: the whole epoch, one chunk and one log line per epoch)."""
+        cap = max(1, min(int(os.environ.get("PSCI_FUSE_CAP", self.iters_per_epoch)), self.iters_per_epoch))
+        for k in range(cap, 1, -1):
+            if self.iters_per_epoch % k == 0:
+                return k
+        return 1
+
+    # ------------------------------------------------------------ train --
+
+    def train(self, num_fused_steps: Optional[int] = None) -> List[Dict[str, float]]:
+        """Train epochs ``last_epoch + 1 .. epochs`` in chunks of
+        ``num_fused_steps`` steps (None: :meth:`_auto_fuse_steps` when every
+        constraint is static, else 1; 1: eager steps). Logs at every chunk
+        that reaches a multiple of ``log_freq`` and at each epoch's end;
+        returns those logged values."""
+        if self.optimizer is None:
+            raise ValueError("no optimizer: this solver can eval and predict only")
+        k = num_fused_steps
+        if k is None:
+            k = self._auto_fuse_steps() if self.iters_per_epoch > 1 and self._all_constraints_static() else 1
+        if self.iters_per_epoch % k != 0:
+            raise ValueError(f"num_fused_steps({k}) must divide iters_per_epoch({self.iters_per_epoch})")
+        n_chunks = self.iters_per_epoch // k
+        total_steps = self.epochs * self.iters_per_epoch
+        start_epoch = int(self.last_epoch) + 1
+        logged = []
+        global_start = time.perf_counter()
+        for epoch in range(start_epoch, self.epochs + 1):
+            for chunk in range(n_chunks):
+                logs = self.train_chunk(k, (epoch - 1) * self.iters_per_epoch + chunk * k)
+                step = (epoch - 1) * self.iters_per_epoch + (chunk + 1) * k
+                if step % max(self.log_freq, k) < k or chunk == n_chunks - 1:
+                    vals = self._read_logs(logs, step)
+                    logged.append(vals)
+                    done = max(step - (start_epoch - 1) * self.iters_per_epoch, 1)
+                    eta = (time.perf_counter() - global_start) / done * (total_steps - step)
+                    parts = ", ".join(f"{n.split('/', 1)[1]}: {v:.5f}" for n, v in vals.items()
+                                      if n.startswith("loss/"))
+                    print(f"[Train][Epoch {epoch}/{self.epochs}][Iter {(chunk + 1) * k}/{self.iters_per_epoch}] "
+                          f"lr: {vals['lr']:.2e}, loss: {vals['loss']:.5f} ({parts}), eta: {eta:.0f}s", flush=True)
+            self.last_epoch = epoch
+            if (self.eval_during_train and self.validator and epoch % self.eval_freq == 0
+                    and epoch >= self.start_eval_epoch):
+                target_metric, _ = self.eval(epoch)
+                if target_metric < self.best_metric["metric"]:
+                    self.best_metric = {"metric": target_metric, "epoch": epoch}
+                    self._save("best_model", metric={**self.best_metric, "last_epoch": epoch})
+            if self.save_freq > 0 and epoch % self.save_freq == 0:
+                self._save(f"epoch_{epoch}")
+            now = time.perf_counter()
+            if epoch == self.epochs or self._last_save_t is None or now - self._last_save_t > 60.0:
+                self._save("latest", metric={"metric": self.best_metric["metric"],
+                                             "epoch": self.best_metric["epoch"], "last_epoch": epoch},
+                           print_log=False)
+                self._last_save_t = now
+        return logged
+
+    # ------------------------------------------------------------- eval --
+
+    @torch.no_grad()
+    def eval(self, epoch_id: Optional[int] = None) -> Tuple[float, Dict[str, Dict[str, float]]]:
+        """Run every validator batch by batch; metrics on the concatenated
+        outputs (or per batch, averaged, under ``compute_metric_by_batch``).
+        Returns (the first metric value, {validator: {metric.key: value}})."""
+        if not self.validator:
+            raise ValueError("no validator available")
+        metric_group: Dict[str, Dict[str, float]] = {}
+        target_metric = None
+        all_losses: List[float] = []
+        for name, v in self.validator.items():
+            cache = self._eval_requests.setdefault(name, {})
+            all_out: Dict[str, List[torch.Tensor]] = {}
+            all_lab: Dict[str, List[torch.Tensor]] = {}
+            losses = []
+            it = iter(v.data_loader)
+            for _ in range(max(len(v.data_loader), 1)):
+                inp, lab, _ = next(it)
+                inp, lab = self._to_device(inp), self._to_device(lab)
+                out = expression.evaluate_expressions(self.models, inp, v.output_expr, request_cache=cache)
+                losses.append(float(sum(v.loss(out, lab, None).values())))
+                for k in v.output_keys:
+                    all_out.setdefault(k, []).append(out[k])
+                for k in lab:
+                    all_lab.setdefault(k, []).append(lab[k])
+            metric_group[name] = {}
+            if self.compute_metric_by_batch:
+                accum: Dict[str, List[float]] = {}
+                for m_name, metric_fn in v.metric.items():
+                    for bo, bl in zip(zip(*all_out.values()), zip(*all_lab.values())):
+                        for key, val in metric_fn(dict(zip(all_out, bo)), dict(zip(all_lab, bl))).items():
+                            accum.setdefault(f"{m_name}.{key}", []).append(float(val))
+                for key, vals in accum.items():
+                    metric_group[name][key] = float(np.mean(vals))
+            else:
+                full_out = {k: torch.cat(t, 0) for k, t in all_out.items()}
+                full_lab = {k: torch.cat(t, 0) for k, t in all_lab.items()}
+                for m_name, metric_fn in v.metric.items():
+                    for key, val in metric_fn(full_out, full_lab).items():
+                        metric_group[name][f"{m_name}.{key}"] = float(val)
+            if target_metric is None and metric_group[name]:
+                target_metric = next(iter(metric_group[name].values()))
+            all_losses.extend(losses)
+            loss_str = f"{np.mean(losses):.5f}" if losses else "n/a"
+            print(f"[Eval][{name}] loss: {loss_str}, "
+                  + ", ".join(f"{k}: {val:.5f}" for k, val in metric_group[name].items()), flush=True)
+        if target_metric is None:
+            target_metric = float(np.mean(all_losses)) if all_losses else float("nan")
+        return target_metric, metric_group
+
+    # ---------------------------------------------------------- predict --
+
+    @torch.no_grad()
+    def predict(self, input_dict: Dict[str, np.ndarray], expr_dict: Optional[Dict[str, Callable]] = None,
+                batch_size: Optional[int] = 64, return_numpy: bool = False) -> Dict[str, object]:
+        """The model's outputs (or, given ``expr_dict``, those expressions)
+        on ``input_dict``, in batches of ``batch_size`` rows (all at once
+        when None); numpy arrays with ``return_numpy``, else tensors on the
+        device. Single process only."""
+        num = len(next(iter(input_dict.values())))
+        if batch_size is None or batch_size >= num:
+            batch_size = num
+        cache: Dict = {}
+        outs: Dict[str, List[torch.Tensor]] = {}
+        for lo in range(0, num, batch_size):
+            batch = self._to_device({k: np.asarray(v)[lo: lo + batch_size] for k, v in input_dict.items()})
+            if expr_dict is None:
+                with ad.tape_context() as tape:
+                    out = expression.forward_with_derivatives(self.models, batch, tape)
+                out = {k: out[k] for m in self.models for k in m.output_keys}
+            else:
+                out = expression.evaluate_expressions(self.models, batch, expr_dict, request_cache=cache)
+            for k, val in out.items():
+                outs.setdefault(k, []).append(val)
+        result = {k: torch.cat(v, 0) for k, v in outs.items()}
+        return {k: v.cpu().numpy() for k, v in result.items()} if return_numpy else result

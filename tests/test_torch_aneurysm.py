@@ -9,19 +9,19 @@ optional C++ ray cast where that library is built; the tests pin it to its
 numpy branch, which the port copies, so that one ``np.random`` seed gives
 bitwise the same points, SDF, normals and areas in both packages.
 
-The solver test builds the JAX example itself (``examples/aneurysm.py``,
-its MLP cut to 3 x 32 and its residual validator, which the port does not
-have yet, left out) and the port's ``build_solver`` with the same batch
-sizes, loads the JAX weights into the port, and runs both on the
-``jet_pallas`` candidate (the JAX Pallas kernels interpreted, the port's
-plain versions). Tolerances: residuals and losses 1e-4 relative (float32,
-other summation orders), as the Allen-Cahn slice's tests.
+The solver tests build the JAX example itself (``examples/aneurysm.py``,
+its MLP cut to 3 x 32 and its residual validator to ``VAL`` points) and
+the port's ``build_solver`` with the same sizes, load the JAX weights into
+the port, and run both on the ``jet_pallas`` candidate (the JAX Pallas
+kernels interpreted, the port's plain versions): three train steps, and
+the residual validator's eval. Tolerances: residuals, losses and the
+validator's MSE 1e-4 relative (float32, other summation orders), as the
+Allen-Cahn slice's tests.
 """
 
 import os
 import subprocess
 import sys
-import types
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +50,7 @@ sys.path.insert(0, os.path.join(ROOT, "examples"))
 import aneurysm as janeurysm  # noqa: E402  (the JAX example)
 
 BS = dict(bs_pde=64, bs_bc=32, bs_igc=1, integral_bs=32)
+VAL = dict(total_size=96, batch_size=40)  # the residual validator: 2 batches of 40 (drop_last), a third of 16 left out
 WIDTH, LAYERS, STEPS, LR = 32, 3, 3, 1e-3
 
 
@@ -216,15 +217,20 @@ def test_build_solver_needs_the_stls(tmp_path):
 
 
 def _jax_solver(monkeypatch, stl_dir, tmp_path):
-    """The JAX example's solver at MLP 3 x 32 with the test's batch sizes;
-    its validator (not ported) replaced by a stand-in that samples
-    nothing."""
-    mlp = psci.arch.MLP
+    """The JAX example's solver at MLP 3 x 32 with the test's batch sizes
+    and its residual validator cut to ``VAL`` points."""
+    mlp, geo_validator = psci.arch.MLP, psci.validate.GeometryValidator
     monkeypatch.setattr(janeurysm, "_STL", stl_dir)
     monkeypatch.setattr(psci.arch, "MLP", lambda i, o, n, w, **kw: mlp(i, o, LAYERS, WIDTH, **kw))
     monkeypatch.setattr(psci.validate, "GeometryValidator",
-                        lambda expr, *a, **kw: types.SimpleNamespace(output_expr=expr))
+                        lambda expr, label, geom, cfg, *a, **kw: geo_validator(expr, label, geom, {**cfg, **VAL}, *a, **kw))
     return janeurysm.build_solver(epochs=1, iters_per_epoch=STEPS, output_dir=str(tmp_path), **BS)
+
+
+def _port_solver(stl_dir, tmp_path):
+    return taneurysm.build_solver(stl_dir, epochs=1, iters_per_epoch=STEPS, deriv="jet_pallas", width=WIDTH,
+                                  num_layers=LAYERS, device="cpu", output_dir=str(tmp_path),
+                                  val_total_size=VAL["total_size"], val_batch_size=VAL["batch_size"], **BS)
 
 
 def test_three_train_steps_match_jax_solver(monkeypatch, stl_dir, tmp_path):
@@ -244,8 +250,7 @@ def test_three_train_steps_match_jax_solver(monkeypatch, stl_dir, tmp_path):
             j_losses.append([float(logs["loss"])] + [float(logs[f"loss/{n}"]) for n in names])
     j_params = flatten_tree(jax.tree.map(np.asarray, js.state["params"]))
 
-    ts = taneurysm.build_solver(stl_dir, epochs=1, iters_per_epoch=STEPS, deriv="jet_pallas", width=WIDTH,
-                                num_layers=LAYERS, device="cpu", **BS)
+    ts = _port_solver(stl_dir, tmp_path)
     assert list(ts.constraint) == names
     assert ts.model.jet_segment_lengths() == [LAYERS]
     load_jax_params(ts.model, params0)
@@ -267,3 +272,28 @@ def test_three_train_steps_match_jax_solver(monkeypatch, stl_dir, tmp_path):
     np.testing.assert_allclose(np.array(t_losses), np.array(j_losses), rtol=1e-4)
     diffs = np.concatenate([np.abs(p.detach().numpy() - j_params[n]).ravel() for n, p in ts.model.named_parameters()])
     assert diffs.max() <= 1e-2 * LR
+
+
+def test_residual_validator_matches_jax(monkeypatch, stl_dir, tmp_path):
+    """The residual GeometryValidator: bitwise the same points and labels
+    as the JAX example's, and from the same weights the same eval (each
+    residual's MSE, the loss) within 1e-4, through the jet path."""
+    js = _jax_solver(monkeypatch, stl_dir, tmp_path / "jax")
+    ts = _port_solver(stl_dir, tmp_path / "port")
+    load_jax_params(ts.model, flatten_tree(jax.tree.map(np.asarray, js.state["params"])))
+    jv, tv = js.validator["residual"], ts.validator["residual"]
+    assert len(tv.data_loader) == len(jv.data_loader) == VAL["total_size"] // VAL["batch_size"]
+    for part in ("input", "label"):
+        j_arrs, t_arrs = getattr(jv.dataset, part), getattr(tv.dataset, part)
+        assert set(t_arrs) == set(j_arrs)
+        for k in j_arrs:
+            np.testing.assert_array_equal(t_arrs[k], j_arrs[k], err_msg=f"{part} {k}")
+    with jpath.override(jpath.CANDIDATES["jet_pallas"]):
+        j_metric, j_group = js.eval()
+    t_metric, t_group = ts.eval()
+    assert set(t_group["residual"]) == set(j_group["residual"]) == {
+        f"MSE.{k}" for k in ("continuity", "momentum_x", "momentum_y", "momentum_z")}
+    for key, ref in j_group["residual"].items():
+        np.testing.assert_allclose(t_group["residual"][key], ref, rtol=1e-4, err_msg=key)
+    np.testing.assert_allclose(t_metric, j_metric, rtol=1e-4)
+    assert ts._eval_requests["residual"]  # the derivatives were served by the jet
