@@ -66,12 +66,30 @@ on failure:
              different batches; a run resumed from ``latest`` bitwise equal
              to an uninterrupted one; graphed against eager steps/s with
              device busy and idle per step, on one solver each;
+   cylinder - the cylinder2d TIPC workload (``build_matched_solver``:
+             299,280 points a step, MLP 5x50 zero-padded to 52) on
+             jet_pallas_full: host build time; the MLP kernels at S=6,
+             N=282,600 (and a ragged N) against their plain versions;
+             3 eager steps through the kernels and the peak device
+             memory; one batch's PDE loss and gradient against the plain
+             jet path and against nested jvp; 2 graphed chunks of 10
+             steps against 20 eager steps; graphed and eager steps/s,
+             points/s, busy and capture time on jet_pallas_full and on
+             the plain jet path;
+   euler_beam - the example's ``train()`` at its defaults (100 epochs of
+             one 10-step graph: u, u_x, u_xx through the MLP kernels,
+             u_xxx and the fourth-order residual by nested jvp inside the
+             graph) and its L2Rel against the analytic solution; the
+             boundary loss and gradient against the plain jet path and
+             nested jvp; at the TIPC shape (100 + 4 points) graphed
+             chunks against eager steps and the step rates;
 5. timing  - train steps per second of the Allen-Cahn MLP, PirateNet and
              ModifiedMLP solvers and of the aneurysm solver; device time per step by
              kernel and the device's busy share (torch.profiler); per
              kernel: time, plain-version time, bound, library time, at the
              Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's
-             (jet_mlp_bwd also at its unsteady S=8);
+             (jet_mlp_bwd also at its unsteady S=8) and at the cylinder
+             workload's (S=6, N=282,600, 3 -> 52 x 5);
              jet_wgrad over the 27 PirateNet layers beside torch.bmm, with
              and without the d alpha sum and against a separate sum;
              jet_gated_fwd and jet_gated_bwd on the PirateNet stages
@@ -132,7 +150,18 @@ TIMED = ("mlp/jet_pallas_full", "piratenet/jet_pallas_full", "modified_mlp/jet_p
 # cylinder2d's MLP 5x50 (bench.py:165): widths that are no multiple of 4, run zero-padded to 52
 PADDED = dict(arch="mlp", num_layers=5, hidden_size=50)
 PADDED_PATH, PADDED_STEPS = "mlp_5x50/jet_pallas_full", 2
-PDE_CONSTRAINT = {"mlp": "PDE", "mlp_5x50": "PDE", "piratenet": "PDE", "modified_mlp": "PDE", "aneurysm": "interior"}
+# the constraint whose loss and gradient each kernel path is held to the plain jet path on
+PDE_CONSTRAINT = {"mlp": "PDE", "mlp_5x50": "PDE", "piratenet": "PDE", "modified_mlp": "PDE", "aneurysm": "interior",
+                  "cylinder": "EQ", "euler_beam": "BC"}
+# the cylinder2d TIPC workload (bench.py:148-207) at its full size: MLP 5x50 (padded to 52) on
+# 282,600 + 4,830 + 2,430 + 9,420 points a step; its residual jet has S = 6 streams (u, u_t, u_x,
+# u_xx, u_y, u_yy); the kernels are checked at its interior batch and at a second ragged N
+CYLINDER = dict(S=6, N=282600, points=299280, dims=(3,) + (52,) * 5, check_n=(282600, 9419), eager_steps=3, K=10,
+                replays=3)
+CYLINDER_PATH = "cylinder/jet_pallas_full"
+# euler_beam: the example's train() at its defaults (100 epochs x 10 steps, one graph of 10 steps
+# an epoch), then the TIPC shape (one iteration per epoch: 100 + 4 points a step) in graphed chunks
+EULER_TIPC_K, EULER_REPLAYS = 10, 5
 HERE = os.path.dirname(os.path.abspath(__file__))
 STL_DIR = os.path.join(HERE, "dataset", "aneurysm")  # listed in .gitignore
 CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
@@ -571,7 +600,7 @@ def read_counts():
 
 def expected_kernels(path: str):
     """The kernels a driven path must launch."""
-    if path.startswith(("mlp/", "aneurysm/", "mlp_5x50/")):
+    if path.startswith(("mlp/", "aneurysm/", "mlp_5x50/", "cylinder/", "euler_beam/")):
         return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
     if path.startswith(("piratenet/", "modified_mlp/")):
         return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad")
@@ -655,37 +684,40 @@ def run_padded_path():
     return counts
 
 
-def check_against_plain_path(solver, name: str, derivs, parts=("alpha", "embed_u", "embed_v")):
+def check_against_plain_path(solver, name: str, derivs, parts=("alpha", "embed_u", "embed_v"), refs=("jet",)):
     """PDE loss and parameter gradient on one batch: each kernel path in
-    ``derivs`` vs the plain jet path (plain PyTorch on the card), over all
-    parameters and for the parameters named by ``parts`` alone (PirateNet's
-    gates and residuals, the weight-normed layers' g, v and biases)."""
+    ``derivs`` vs each reference path in ``refs`` (the plain jet path,
+    plain PyTorch on the card; ``jvp``, nested jvp of the plain forward),
+    over all parameters and for the parameters named by ``parts`` alone
+    (PirateNet's gates and residuals, the weight-normed layers' g, v and
+    biases)."""
     import torch
 
     batches = solver._batches()
     names = [n for n, p in solver.model.named_parameters() if p.requires_grad]
     pde = PDE_CONSTRAINT[name]
     results = {}
-    for deriv in (*derivs, "jet"):
+    for deriv in (*derivs, *refs):
         with on_path(deriv):
             losses = solver._constraint_losses(batches)
             grads = torch.autograd.grad(losses[pde], solver._params())
         results[deriv] = (losses[pde].detach(), grads)
-    lp, gp = results["jet"]
-    rel = lambda gk, keep: float(
-        torch.cat([(a - b).reshape(-1) for a, b, n in zip(gk, gp, names) if keep(n)]).norm()
-        / torch.cat([b.reshape(-1) for b, n in zip(gp, names) if keep(n)]).norm())
-    for deriv in derivs:
-        lk, gk = results[deriv]
-        loss_err = float((lk - lp).abs() / lp.abs())
-        errs = {"all": rel(gk, lambda n: True)}
-        for part in parts:
-            if any(part in n for n in names):
-                errs[part] = rel(gk, lambda n, _p=part: _p in n)
-        log(f"[check] {name} {deriv}: PDE loss kernels {float(lk):.8f} vs plain {float(lp):.8f} "
-            f"(rel {loss_err:.2e}); gradient rel err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-        if not (loss_err < 1e-4 and all(v < 1e-3 for v in errs.values())):
-            raise AssertionError(f"{name} {deriv} disagrees with the plain jet path")
+    for ref in refs:
+        lp, gp = results[ref]
+        rel = lambda gk, keep: float(
+            torch.cat([(a - b).reshape(-1) for a, b, n in zip(gk, gp, names) if keep(n)]).norm()
+            / torch.cat([b.reshape(-1) for b, n in zip(gp, names) if keep(n)]).norm())
+        for deriv in derivs:
+            lk, gk = results[deriv]
+            loss_err = float((lk - lp).abs() / lp.abs())
+            errs = {"all": rel(gk, lambda n: True)}
+            for part in parts:
+                if any(part in n for n in names):
+                    errs[part] = rel(gk, lambda n, _p=part: _p in n)
+            log(f"[check] {name} {deriv} vs {ref}: {pde} loss {float(lk):.8f} vs {float(lp):.8f} "
+                f"(rel {loss_err:.2e}); gradient rel err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            if not (loss_err < 1e-4 and all(v < 1e-3 for v in errs.values())):
+                raise AssertionError(f"{name} {deriv} disagrees with the {ref} path")
 
 
 def gated_bound(S, N, W, program):
@@ -705,6 +737,57 @@ def gated_bound(S, N, W, program):
     # boundaries; writes g_y, g_u, g_v, L gz and the inner layer inputs
     bwd = (2 * L * mm, (4 + stages - 1 + 3 + L + inner) * stream + w_bytes)
     return fwd + bwd
+
+
+def time_mlp_shape(rows, key, S, N, dims, act, per_step):
+    """The MLP kernels' rows (the first three of ``rows``) at one more
+    shape, under ``key``: time, plain-version time, bound, the library time
+    (``torch.bmm`` over the layers after the first, whose input is the few
+    coordinates, for jet_wgrad) and ``per_step[name]``, the launches per
+    step. Returns (FLOPs, stream bytes per layer boundary, weight bytes) of
+    the forward for further bounds."""
+    import torch
+
+    from paddlescience_torch.ops import jet_mlp as J
+
+    L = len(dims) - 1
+    idx, streams, weights, biases, g_out = make_inputs(S, N, dims)
+    _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=act)
+    _, gzs = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, act)
+    ys = [streams] + [b.unbind(0) for b in bounds]
+    flops = sum(S * 2.0 * N * dims[l] * dims[l + 1] for l in range(L))
+    stream = [S * N * d * 4.0 for d in dims]
+    w = sum((dims[l] * dims[l + 1] + dims[l + 1]) * 4.0 for l in range(L))
+    Y = torch.stack([torch.cat(y, 0) for y in ys[1:]])  # (L - 1, S*N, width)
+    GZ = torch.stack([g.reshape(S * N, -1) for g in gzs[1:]])
+    work = {
+        "jet_mlp_fwd": (lambda: J.jet_mlp_fwd(streams, weights, biases, idx, act=act),
+                        lambda: J.jet_mlp_fwd_plain(streams, weights, biases, idx, act=act),
+                        flops, stream[0] + stream[-1] + w, None),
+        "jet_mlp_bwd": (lambda: J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, act),
+                        lambda: J.jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out, idx, act),
+                        2 * flops, 2 * stream[0] + 2 * sum(stream[1:]) + w, None),
+        "jet_wgrad": (lambda: J.jet_wgrad(ys, gzs), lambda: J.jet_wgrad_plain(ys, gzs),
+                      flops + L * N * dims[-1], sum(stream[:-1]) + sum(stream[1:]) + w,
+                      lambda: torch.bmm(Y.transpose(1, 2), GZ)),
+    }
+    for r in rows[:3]:
+        fn, plain, fl, nbytes, library = work[r["name"]]
+        ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 3, 1)
+        b, by = (tc_bound_ms if r["name"] in TC_KERNELS else bound_ms)(fl, nbytes)
+        r[key] = {"shape": f"{act_name(act)} S={S} N={N} dims={'->'.join(map(str, dims))}", "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                  "library_ms": cuda_ms(library, 10) if library is not None else None,
+                  "launches_per_step": per_step[r["name"]]}
+        if r["name"] == "jet_mlp_fwd":
+            r[key]["ms_save_bounds"] = cuda_ms(lambda: J.jet_mlp_fwd(streams, weights, biases, idx, True, act), 10)
+            r[key]["bound_ms_fp32"] = bound_ms(fl, nbytes)[0]
+        log(f"[timing] {r['name']} at the {key} shape: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms "
+            f"by {by}" + (f", library {r[key]['library_ms']:.4f} ms" if library is not None else "")
+            + f"), launches per step {per_step[r['name']]}")
+    del Y, GZ, ys, gzs, bounds, streams
+    torch.cuda.empty_cache()
+    return flops, stream, w
 
 
 def time_kernels(errs, launches, device_ms):
@@ -784,47 +867,11 @@ def time_kernels(errs, launches, device_ms):
     # the MLP kernels at the aneurysm shape: SiLU, S = 7, N = 2048, the six hidden layers as one segment
     silu = (jet.SILU, 0.0)
     dims = ANEURYSM["dims"]
-    S7, NA, LA = len(NS3D) + 1, ANEURYSM["N"], len(ANEURYSM["dims"]) - 1
-    idx, streams, weights, biases, g_out = make_inputs(S7, NA, dims)
-    _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=silu)
-    _, gzs = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, silu)
-    ys = [streams] + [b.unbind(0) for b in bounds]
-    a_flops = sum(S7 * 2.0 * NA * dims[l] * dims[l + 1] for l in range(LA))
-    a_stream = [S7 * NA * d * 4.0 for d in dims]
-    a_w = sum((dims[l] * dims[l + 1] + dims[l + 1]) * 4.0 for l in range(LA))
-    # library: one bmm over the five 512 -> 512 layers (the 3 -> 512 one is 0.6% of the products)
-    Y = torch.stack([torch.cat(y, 0) for y in ys[1:]])        # (5, S*N, 512)
-    GZ = torch.stack([g.reshape(S7 * NA, -1) for g in gzs[1:]])
-    a_rows = {
-        "jet_mlp_fwd": (lambda: J.jet_mlp_fwd(streams, weights, biases, idx, act=silu),
-                        lambda: J.jet_mlp_fwd_plain(streams, weights, biases, idx, act=silu),
-                        a_flops, a_stream[0] + a_stream[-1] + a_w, None),
-        "jet_mlp_bwd": (lambda: J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, silu),
-                        lambda: J.jet_mlp_bwd_plain(streams, bounds, weights, biases, g_out, idx, silu),
-                        2 * a_flops, 2 * a_stream[0] + 2 * sum(a_stream[1:]) + a_w, None),
-        "jet_wgrad": (lambda: J.jet_wgrad(ys, gzs), lambda: J.jet_wgrad_plain(ys, gzs),
-                      a_flops + LA * NA * dims[-1], sum(a_stream[:-1]) + sum(a_stream[1:]) + a_w,
-                      lambda: torch.bmm(Y.transpose(1, 2), GZ)),
-    }
-    for r in rows:
-        fn, plain, flops, nbytes, library = a_rows[r["name"]]
-        ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 3, 1)
-        b, by = (tc_bound_ms if r["name"] in TC_KERNELS else bound_ms)(flops, nbytes)
-        per_step = {p: launches[p][r["name"]] / steps[p] for p in launches if p.startswith("aneurysm/")}
-        r["aneurysm"] = {"shape": f"silu S={S7} N={NA} dims={'->'.join(map(str, dims))}", "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                         "library_ms": cuda_ms(library, 10) if library is not None else None,
-                         "launches_per_step": per_step}
-        if r["name"] == "jet_mlp_fwd":
-            r["aneurysm"]["ms_save_bounds"] = cuda_ms(lambda: J.jet_mlp_fwd(streams, weights, biases, idx, True,
-                                                                            silu), 10)
-            r["aneurysm"]["bound_ms_fp32"] = bound_ms(flops, nbytes)[0]
-        if r["name"] == "jet_mlp_bwd":
-            r["aneurysm"]["registers_spills"] = PTXAS["jet_mlp_bwd"]
-        log(f"[timing] {r['name']} at the aneurysm shape: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms "
-            f"by {by}" + (f", library {r['aneurysm']['library_ms']:.4f} ms" if library is not None else "")
-            + f"), launches per step {per_step}")
-    del Y, GZ, ys, gzs, bounds, streams
+    S7, NA = len(NS3D) + 1, ANEURYSM["N"]
+    per_step = {name: {p: launches[p][name] / steps[p] for p in launches if p.startswith("aneurysm/")}
+                for name in ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")}
+    a_flops, a_stream, a_w = time_mlp_shape(rows, "aneurysm", S7, NA, dims, silu, per_step)
+    rows[1]["aneurysm"]["registers_spills"] = PTXAS["jet_mlp_bwd"]
     # jet_mlp_bwd at the unsteady aneurysm's S = 8 (its NavierStokes jet adds u_xy), the same widths
     S8 = S7 + 1
     idx, streams, weights, biases, g_out = make_inputs(S8, NA, dims)
@@ -1155,7 +1202,7 @@ def time_graphed(solver, name: str, k: int, replays: int):
     import torch
 
     eager_ms, _ = time_steps(solver, f"{name} eager")
-    _, eager_busy, eager_kernels = profile_steps(solver, f"{name} eager", eager_ms, top=5)
+    eager_port, eager_busy, eager_kernels = profile_steps(solver, f"{name} eager", eager_ms, top=5)
     solver.train_chunk(k)  # the capture if this k is new, and one replay
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1163,13 +1210,14 @@ def time_graphed(solver, name: str, k: int, replays: int):
         solver.train_chunk(k)
     torch.cuda.synchronize()
     graph_ms = (time.perf_counter() - t0) / (replays * k) * 1e3
-    _, graph_busy, graph_kernels = profile_steps(solver, f"{name} graphed (K={k})", graph_ms, steps=1, top=5,
-                                                 run=lambda: solver.train_chunk(k), steps_per_run=k)
+    graph_port, graph_busy, graph_kernels = profile_steps(solver, f"{name} graphed (K={k})", graph_ms, steps=1,
+                                                          top=5, run=lambda: solver.train_chunk(k), steps_per_run=k)
     # busy comes from a profiled run, the step time from an unprofiled one: their ratio may pass 100%
     share = lambda busy, ms: "not measured" if busy is None else f"{100 * busy / ms:.1f}% busy"
     out = {"eager_steps_per_s": 1e3 / eager_ms, "eager_ms": eager_ms, "eager_busy_ms": eager_busy,
            "graphed_steps_per_s": 1e3 / graph_ms, "graphed_ms": graph_ms, "graphed_busy_ms": graph_busy,
-           "kernels_per_step": [eager_kernels, graph_kernels], "K": k}
+           "kernels_per_step": [eager_kernels, graph_kernels], "K": k,
+           "kernel_ms_per_step": {"eager": eager_port, "graphed": graph_port}}
     log(f"[graph] timing {name}: eager {1e3 / eager_ms:.2f} steps/s ({eager_ms:.3f} ms, {share(eager_busy, eager_ms)}), "
         f"graphed {1e3 / graph_ms:.2f} steps/s ({graph_ms:.3f} ms, {share(graph_busy, graph_ms)}), K={k}, "
         f"{replays} replays timed; speed-up {eager_ms / graph_ms:.2f}x")
@@ -1230,6 +1278,143 @@ def run_graph_phase(ane, tmp: str):
         timing[name] = time_graphed(solver, name, k, GRAPH_TIMED[name])
     return launches, timing
 
+
+def check_graph_against_eager_rewound(solver, name: str, k: int):
+    """Two graphed chunks of k steps against 2k eager steps from the same
+    state on one solver (its state snapshot restored in place between the
+    two runs; a second solver of the cylinder's size would cost seconds of
+    host sampling): parameters to 1e-6 relative, and whether bitwise."""
+    import torch
+
+    snap = solver._snapshot()
+    for _ in range(2):
+        solver.train_chunk(k)
+    graphed = flat_params(solver).clone()
+    solver._load_state(snap)
+    solver.train_steps(2 * k)
+    torch.cuda.synchronize()
+    eager = flat_params(solver)
+    rel = float((graphed - eager).norm() / eager.norm())
+    log(f"[graph] {name}: 2 graphed chunks of {k} steps vs {2 * k} eager steps from the same state: parameters "
+        f"rel err {rel:.3e}, bitwise {torch.equal(graphed, eager)}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"{name}: the graphed chunks disagree with the eager steps (rel {rel:.3e})")
+
+
+def run_cylinder_phase():
+    """The cylinder2d TIPC workload at its full size through
+    ``build_matched_solver`` on jet_pallas_full: host build time and points
+    per step; the MLP kernels at its shape (S = 6, 3 -> 52 x 5) against
+    their plain versions in both forward modes; eager train steps through
+    the kernels (every kernel launched each step, the peak device memory);
+    the PDE loss and gradient of one full batch against the plain jet path
+    and against nested jvp; graphed chunks against eager steps; graphed and
+    eager steps/s with device busy, on jet_pallas_full and on the plain jet
+    path. Returns (kernel errors, launches of the eager steps, timings)."""
+    import torch
+
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.examples.cylinder2d_unsteady import build_matched_solver
+
+    c = CYLINDER
+    t0 = time.perf_counter()
+    solver, points = build_matched_solver(c["K"], deriv="jet_pallas_full", device="cuda")
+    build_s = time.perf_counter() - t0
+    shapes = {n: tuple(b[0]["t"].shape) for n, b in solver._static_batches.items()}
+    log(f"[cylinder] matched solver built in {build_s:.2f} s (host sampling of every constraint): {points} points "
+        f"a step, {shapes}")
+    if points != c["points"] or shapes["EQ"][0] != c["N"]:
+        raise AssertionError(f"cylinder: {points} points a step, batches {shapes}")
+    with on_path("jet_pallas_full"):
+        lengths = solver.model.jet_segment_lengths()
+    if lengths != [5]:
+        raise AssertionError(f"cylinder: segments {lengths}, expected one of 5 layers")
+
+    errs = {"jet_mlp_fwd": 0.0, "jet_mlp_bwd": 0.0, "jet_wgrad": 0.0}
+    for n in c["check_n"]:
+        for key, v in check_kernels(c["S"], n, c["dims"]).items():
+            errs[key] = max(errs[key], v)
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _, counts = run_path(solver, CYLINDER_PATH, "jet_pallas_full", c["eager_steps"])
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n_streams = {len(jet.build_index(r)) for reqs in solver._jet_requests["EQ"].values() for r in reqs}
+    log(f"[cylinder] residual jet: {n_streams} streams; peak device memory over {c['eager_steps']} eager steps "
+        f"{peak_gb:.2f} GiB (torch.cuda.max_memory_allocated)")
+    if n_streams != {c["S"]}:
+        raise AssertionError(f"cylinder: the residual jet has {n_streams} streams, expected {c['S']}")
+    check_against_plain_path(solver, "cylinder", ("jet_pallas_full",), (), refs=("jet", "jvp"))
+    torch.cuda.empty_cache()
+
+    with on_path("jet_pallas_full"):
+        check_graph_against_eager_rewound(solver, "cylinder", c["K"])
+    timing = {"points_per_step": points, "build_s": build_s, "peak_memory_gib_eager": peak_gb}
+    for deriv in ("jet_pallas_full", "jet"):
+        torch.cuda.reset_peak_memory_stats()
+        with on_path(deriv):
+            t = time_graphed(solver, f"cylinder {deriv}", c["K"], c["replays"])
+        t["capture_s"] = solver.graph_stats[c["K"]]["capture_s"]
+        t["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        t["graphed_points_per_s"] = points * t["graphed_steps_per_s"]
+        t["eager_points_per_s"] = points * t["eager_steps_per_s"]
+        timing[deriv] = t
+        log(f"[cylinder] {deriv}: graphed {t['graphed_points_per_s']:.0f} points/s, eager "
+            f"{t['eager_points_per_s']:.0f} points/s; capture {t['capture_s']:.2f} s; peak device memory "
+            f"{t['peak_memory_gib']:.2f} GiB; device ms per step by kernel {t['kernel_ms_per_step']}")
+    del solver
+    torch.cuda.empty_cache()
+    return errs, counts, timing
+
+
+def run_euler_beam_phase(tmp: str):
+    """The euler_beam example on jet_pallas_full: ``train()`` at its
+    defaults (one CUDA graph of 10 steps an epoch: the boundary's u, u_x,
+    u_xx through the MLP kernels, u_xxx and the fourth-order residual by
+    nested jvp, all inside the graph) and the L2Rel against the analytic
+    solution; the boundary loss and gradient against the plain jet path
+    and nested jvp; at the TIPC shape (100 + 4 points a step) graphed
+    chunks against eager steps and the step rates. Returns (launches of
+    the train() run, timings)."""
+    import torch
+
+    from paddlescience_torch.examples import euler_beam
+
+    solver = euler_beam.build_solver(output_dir=os.path.join(tmp, "euler_beam"), device="cuda")
+    counts = graph_train(solver, "euler_beam")
+    metric, group = solver.eval()
+    reqs = {n: sorted({m for rs in r.values() for stack in rs for m in stack}) for n, r in solver._jet_requests.items()}
+    log(f"[euler_beam] after train() ({solver.epochs} epochs x {solver.iters_per_epoch} steps): L2Rel.u = "
+        f"{metric:.4e} against the analytic solution; derivative requests by constraint {reqs} (orders above 2 "
+        f"by nested jvp)")
+    if not math.isfinite(metric):
+        raise AssertionError(f"euler_beam: L2Rel {metric}")
+    check_against_plain_path(solver, "euler_beam", ("jet_pallas_full",), (), refs=("jet", "jvp"))
+
+    tipc = euler_beam.build_solver(epochs=1, iters_per_epoch=1, output_dir=None, device="cuda")
+    points = sum(next(iter(b[0].values())).shape[0] for b in tipc._static_batches.values())
+    check_graph_against_eager_rewound(tipc, "euler_beam (TIPC shape)", EULER_TIPC_K)
+    timing = time_graphed(tipc, "euler_beam", EULER_TIPC_K, EULER_REPLAYS)
+    timing.update(points_per_step=points, l2rel=metric, capture_s=tipc.graph_stats[EULER_TIPC_K]["capture_s"],
+                  graphed_points_per_s=points * timing["graphed_steps_per_s"])
+    log(f"[euler_beam] TIPC shape: {points} points a step, graphed {timing['graphed_points_per_s']:.0f} points/s; "
+        f"capture of {EULER_TIPC_K} steps {timing['capture_s']:.2f} s")
+    torch.cuda.synchronize()
+    return counts, timing
+
+
+def time_cylinder_kernels(rows, errs, launches, device_ms):
+    """The MLP kernels' rows at the cylinder workload's shape (tanh, S = 6,
+    N = 282,600, 3 -> 52 x 5), under the key "cylinder", with their errors
+    there and their device time per step from the eager profile."""
+    from paddlescience_torch.ops import jet_mlp as J
+
+    c = CYLINDER
+    per_step = {name: launches[name] / c["eager_steps"] for name in errs}
+    time_mlp_shape(rows, "cylinder", c["S"], c["N"], c["dims"], J.TANH, per_step)
+    for r in rows[:3]:
+        r["cylinder"].update(max_abs_err=errs[r["name"]],
+                             device_ms_per_step={f: v for f, v in device_ms.items() if f.startswith(r["name"])})
 
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
@@ -1375,8 +1560,12 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="psci_smoke_") as tmp:
         graph_launches, graph_timing = run_graph_phase(ane, tmp)
-    launches.update(graph_launches)
-    log("[graph] summary " + json.dumps(graph_timing))
+        launches.update(graph_launches)
+        log("[graph] summary " + json.dumps(graph_timing))
+        cyl_errs, launches[CYLINDER_PATH], cyl_timing = run_cylinder_phase()
+        log("[cylinder] summary " + json.dumps(cyl_timing))
+        launches["graph euler_beam"], euler_timing = run_euler_beam_phase(tmp)
+        log("[euler_beam] summary " + json.dumps(euler_timing))
 
     device_ms = {}
     for path in TIMED:
@@ -1384,6 +1573,8 @@ def main() -> int:
         step_ms, _ = time_steps(solvers[path], path)
         device_ms[path] = profile_steps(solvers[path], path, step_ms)[0]
     rows = time_kernels(errs, launches, device_ms)
+    time_cylinder_kernels(rows, cyl_errs, launches[CYLINDER_PATH],
+                          cyl_timing["jet_pallas_full"]["kernel_ms_per_step"]["eager"])
     log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -4,14 +4,26 @@
 Equations are written as ``jacobian(out["u"], out["x"])`` on the tensors
 of an evaluation. A :class:`Tape` records, for every tensor that a model
 forward or a derivative request produced, which derivative-stack entry it
-is; ``jacobian`` looks the tensor up and returns the requested component.
+is; ``jacobian`` and ``hessian`` look the tensor up and return the
+requested component.
 
-Components come from the model's fused Taylor-jet forward
-(``_DerivStack.jet_fn``), which serves every multi-index of order <= 2 in
-one pass (``precompute``). The nested-jvp path of the JAX package, which
-serves higher orders, models without a jet forward and derivatives of
-composed expressions, is not ported yet: such a request raises
-``NotImplementedError``.
+A :class:`_DerivStack` serves the components of one model over a point
+batch in two ways, as the JAX package does:
+
+* the model's fused Taylor-jet forward (``jet_fn``) serves every
+  multi-index of order <= 2 in one pass (``precompute``);
+* nested forward-mode derivatives (``torch.func.jvp``) of the model's
+  plain batched forward along one-hot tangents serve any order, on stacks
+  without a jet (the ``jvp`` candidate, ``PSCI_JET=0``; models without a
+  jet forward; models with per-point extras) and above order 2 on stacks
+  with one. This path never runs a fused jet segment: those are once
+  differentiable and have no forward-mode rule.
+
+Composed expressions stay differentiable: a :class:`TapeArray` carries,
+beside its batched value, its point function ``pf(x, extras)`` (the same
+quantity as a function of the stack's coordinates), and differentiating
+it applies a jvp to that function. The parameter gradient of every
+component flows through the nested dual tensors by ordinary autograd.
 """
 
 from __future__ import annotations
@@ -28,35 +40,71 @@ __all__ = [
     "current_tape",
     "tape_context",
     "jacobian",
+    "hessian",
+    "clear",
+    "jacobian_fn",
+    "hessian_fn",
     "unwrap",
+    "stop_gradient",
     "wrap_tape_outputs",
 ]
 
-_NESTED_JVP = (
-    "the nested-jvp derivative path (order > 2, models without a jet "
-    "forward, derivatives of composed expressions) is not ported to "
-    "paddlescience_torch yet; it comes with a later slice"
-)
+PointFn = Callable[[torch.Tensor, Dict[str, torch.Tensor]], torch.Tensor]
+
+
+def _one_hot(x: torch.Tensor, j: int) -> torch.Tensor:
+    """The tangent e_j on every row of ``x`` (filled on the device: no host
+    copy, so a CUDA graph can capture it)."""
+    t = torch.zeros_like(x)
+    t.select(-1, j).fill_(1.0)
+    return t
+
+
+def _jvp_along(g: Callable[[torch.Tensor], torch.Tensor], j: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """v -> d g(v) / d v_j, a forward-mode derivative along coordinate j."""
+    return lambda v: torch.func.jvp(g, (v,), (_one_hot(v, j),))[1]
+
+
+def _nested_jvp(fn: PointFn, x: torch.Tensor, extras: Dict[str, torch.Tensor],
+                dmulti: Sequence[int]) -> torch.Tensor:
+    """d^k fn / dx_{j1}..dx_{jk} on the (N, d) batch ``x``, as (N, m).
+
+    The JAX package vmaps a per-point nested jvp over the batch. Here ``fn``
+    is the model's batched forward and the one-hot tangent is broadcast over
+    the rows: every model on this path maps each row on its own (no batch
+    statistics, no mixing of rows), so row i of the batched jvp is the jvp
+    of the point function at row i, and no vmap is needed. Per-point
+    extras ride along unchanged, as constants of the derivative."""
+    g = lambda v: fn(v, extras)
+    for j in dmulti:
+        g = _jvp_along(g, j)
+    return g(x)
 
 
 class _DerivStack:
-    """Derivative components of one model over a point batch.
+    """Derivative components of one pointwise function over a point batch.
 
-    ``x``: (N, d) coordinates; ``jet_fn(x, dmultis) -> {dmulti: (N, m)}``
-    is the model's fused jet forward, or None.
+    ``fn(x, extras) -> (N, m)``: the model's plain batched forward as a
+    function of the (N, d) coordinates ``x`` (and the per-point ``extras``);
+    ``jet_fn(x, dmultis) -> {dmulti: (N, m)}`` the model's fused jet forward,
+    or None.
     """
 
     def __init__(
         self,
+        fn: PointFn,
         x: torch.Tensor,
         key_index: Dict[str, int],
         out_index: Dict[str, int],
+        extras: Optional[Dict[str, torch.Tensor]] = None,
         jet_fn: Optional[Callable] = None,
         out_width: Optional[int] = None,
     ):
+        self.fn = fn
         self.x = x
         self.key_index = key_index  # coordinate key -> input column
         self.out_index = out_index  # output key -> output column
+        self.extras = extras if extras is not None else {}
         self.jet_fn = jet_fn
         self.requested: Dict[Tuple[int, ...], None] = {}  # ordered set
         self.collect_only = False  # request-collection replay
@@ -67,28 +115,31 @@ class _DerivStack:
 
     def get_component(self, dmulti: Tuple[int, ...]) -> torch.Tensor:
         """d^k f / dx_{i1}..dx_{ik} as (N, m). Mixed partials commute, so the
-        multi-index is sorted."""
+        multi-index is sorted. Order <= 2 comes from the jet where the stack
+        has one; anything else from nested jvp."""
         dmulti = tuple(sorted(dmulti))
         self.requested[dmulti] = None
         if self.collect_only:
             return self.x.new_zeros(self.x.shape[:-1] + (self.out_width,))
         if dmulti not in self._components:
-            if self.jet_fn is None or not 0 < len(dmulti) <= 2:
-                raise NotImplementedError(
-                    f"derivative component {dmulti} cannot be served by the jet "
-                    f"forward: {_NESTED_JVP}"
-                )
-            self._components.update(self.jet_fn(self.x, [dmulti]))
+            if self.jet_fn is not None and 0 < len(dmulti) <= 2:
+                self._components.update(self.jet_fn(self.x, [dmulti]))
+            else:
+                self._components[dmulti] = _nested_jvp(self.fn, self.x, self.extras, dmulti)
         return self._components[dmulti]
 
     def precompute(self, dmultis) -> None:
         """Fill the component cache for all order <= 2 requests in one fused
-        Taylor-jet forward."""
+        Taylor-jet forward; higher orders (and stacks without a jet) stay on
+        the nested-jvp path."""
         if self.jet_fn is None:
             return
         eligible = [m for m in dmultis if 0 < len(m) <= 2 and m not in self._components]
         if eligible:
             self._components.update(self.jet_fn(self.x, eligible))
+
+    def clear(self) -> None:
+        self._components.clear()
 
 
 class _Record:
@@ -116,8 +167,8 @@ class Tape:
     def register_coord(self, name: str, arr: torch.Tensor) -> None:
         self._coords[id(arr)] = (arr, name)
 
-    def add_stack(self, x, key_index, out_index, jet_fn=None, out_width=None) -> _DerivStack:
-        stack = _DerivStack(x, key_index, out_index, jet_fn=jet_fn, out_width=out_width)
+    def add_stack(self, fn, x, key_index, out_index, extras=None, jet_fn=None, out_width=None) -> _DerivStack:
+        stack = _DerivStack(fn, x, key_index, out_index, extras=extras, jet_fn=jet_fn, out_width=out_width)
         stack.collect_only = self.collecting
         self._stacks.append(stack)
         return stack
@@ -133,6 +184,11 @@ class Tape:
         hit = self._coords.get(id(arr))
         return hit[1] if hit is not None else None
 
+    def clear(self) -> None:
+        for stack in self._stacks:
+            stack.clear()
+        self._records.clear()
+
     def derivative(self, rec: _Record, j: int) -> torch.Tensor:
         dmulti = rec.dmulti + (j,)
         comp = rec.stack.get_component(dmulti)
@@ -142,29 +198,54 @@ class Tape:
 
 
 class TapeArray:
-    """A batched tensor tied to the derivative stack it came from.
+    """A batched tensor paired with its point function, tied to the
+    derivative stack it came from.
 
-    A TapeArray around a registered tensor (a model output, a coordinate or
-    a derivative) can be differentiated further through the tape. Arithmetic
-    on TapeArrays yields a *composed* TapeArray: its value is exact, but
-    differentiating it needs the nested-jvp path, so ``jacobian`` of one
-    raises ``NotImplementedError``.
+    ``value``: the (N, w) tensor an expression uses; ``pf(x, extras)`` the
+    same quantity as a function of the stack's (N, d) coordinates.
+    Arithmetic on TapeArrays of one stack (and with numbers) composes both,
+    so ``jacobian``/``hessian`` can differentiate the result; mixing with a
+    batched tensor or another stack's TapeArray gives a plain tensor, whose
+    later ``jacobian`` raises. ``torch`` functions do not take a TapeArray:
+    use its methods (``.sin()``, ``abs()``, ...) or :func:`unwrap`.
     """
 
-    __slots__ = ("value", "stack")
+    __slots__ = ("value", "pf", "stack")
 
-    def __init__(self, value: torch.Tensor, stack: _DerivStack):
+    def __init__(self, value: torch.Tensor, pf: PointFn, stack: _DerivStack):
         self.value = value
+        self.pf = pf
         self.stack = stack
+
+    @property
+    def shape(self):
+        return self.value.shape
+
+    @property
+    def ndim(self):
+        return self.value.ndim
+
+    @property
+    def dtype(self):
+        return self.value.dtype
+
+    def __getitem__(self, idx):
+        return self.value[idx]
 
     def __repr__(self):
         return f"TapeArray({self.value!r})"
 
     def _binop(self, other, op, reflected=False):
-        a, b = self.value, unwrap(other)
-        res = op(b, a) if reflected else op(a, b)
-        same_stack = not isinstance(other, TapeArray) or other.stack is self.stack
-        return TapeArray(res, self.stack) if same_stack else res
+        apply = (lambda a, b: op(b, a)) if reflected else op
+        if isinstance(other, TapeArray):
+            if other.stack is not self.stack:
+                return apply(self.value, other.value)
+            f, g = self.pf, other.pf
+            return TapeArray(apply(self.value, other.value), lambda x, ex: apply(f(x, ex), g(x, ex)), self.stack)
+        if isinstance(other, (int, float)) or getattr(other, "ndim", None) == 0:
+            f = self.pf
+            return TapeArray(apply(self.value, other), lambda x, ex: apply(f(x, ex), other), self.stack)
+        return apply(self.value, other)  # a batched tensor: a plain result
 
     def __add__(self, o):
         return self._binop(o, lambda a, b: a + b)
@@ -191,15 +272,62 @@ class TapeArray:
         return self._binop(o, lambda a, b: a / b, reflected=True)
 
     def __pow__(self, e):
-        return self._binop(e, lambda a, b: a**b)
+        if isinstance(e, (int, float)):
+            f = self.pf
+            return TapeArray(self.value**e, lambda x, ex: f(x, ex) ** e, self.stack)
+        return self.value ** unwrap(e)
 
     def __neg__(self):
-        return TapeArray(-self.value, self.stack)
+        return self._unary(torch.neg)
+
+    def __abs__(self):
+        return self._unary(torch.abs)
+
+    def _unary(self, fn):
+        f = self.pf
+        return TapeArray(fn(self.value), lambda x, ex: fn(f(x, ex)), self.stack)
+
+    def tanh(self):
+        return self._unary(torch.tanh)
+
+    def exp(self):
+        return self._unary(torch.exp)
+
+    def sin(self):
+        return self._unary(torch.sin)
+
+    def cos(self):
+        return self._unary(torch.cos)
+
+    def sqrt(self):
+        return self._unary(torch.sqrt)
+
+    # comparisons give plain boolean tensors
+    def __lt__(self, o):
+        return self.value < unwrap(o)
+
+    def __le__(self, o):
+        return self.value <= unwrap(o)
+
+    def __gt__(self, o):
+        return self.value > unwrap(o)
+
+    def __ge__(self, o):
+        return self.value >= unwrap(o)
 
 
 def unwrap(v):
     """TapeArray -> its tensor; anything else passes through."""
     return v.value if isinstance(v, TapeArray) else v
+
+
+def stop_gradient(v):
+    """``detach`` that keeps a TapeArray composable (its derivatives are
+    then those of a constant)."""
+    if isinstance(v, TapeArray):
+        f = v.pf
+        return TapeArray(v.value.detach(), lambda x, ex: f(x, ex).detach(), v.stack)
+    return v.detach()
 
 
 def wrap_tape_outputs(tape: Tape, out: Dict[str, torch.Tensor]) -> Dict[str, object]:
@@ -209,13 +337,16 @@ def wrap_tape_outputs(tape: Tape, out: Dict[str, torch.Tensor]) -> Dict[str, obj
     wrapped: Dict[str, object] = {}
     for k, v in out.items():
         rec = tape.lookup(v)
-        name = tape.coord_name(v)
         if rec is not None and rec.dmulti == ():
-            wrapped[k] = TapeArray(v, rec.stack)
-        elif name is not None and single is not None and name in single.key_index:
-            wrapped[k] = TapeArray(v, single)
-        else:
-            wrapped[k] = v
+            stack, col, w = rec.stack, rec.out_col, int(v.shape[-1])
+            wrapped[k] = TapeArray(v, lambda x, ex, _s=stack, _c=col, _w=w: _s.fn(x, ex)[..., _c : _c + _w], stack)
+            continue
+        name = tape.coord_name(v)
+        if name is not None and single is not None and name in single.key_index:
+            i = single.key_index[name]
+            wrapped[k] = TapeArray(v, lambda x, ex, _i=i: x[..., _i : _i + 1], single)
+            continue
+        wrapped[k] = v
     return wrapped
 
 
@@ -242,18 +373,28 @@ def _require_tape() -> Tape:
     tape = current_tape()
     if tape is None:
         raise RuntimeError(
-            "No active autodiff tape. `jacobian` on tensors only works inside "
-            "constraint/equation evaluation (the expression evaluator opens a tape)."
+            "No active autodiff tape. `jacobian`/`hessian` on tensors only work inside "
+            "constraint/equation evaluation (the expression evaluator opens a tape). "
+            "For standalone use, see `jacobian_fn`/`hessian_fn`."
         )
     return tape
 
 
-def _resolve_input_col(tape: Tape, rec: _Record, xs, j: Optional[int]) -> int:
-    name = tape.coord_name(xs)
+def _record_pf(stack: _DerivStack, out_col: int, dmulti: Tuple[int, ...]) -> PointFn:
+    """Point function of a registered derivative component: evaluated only
+    when a composed expression built from it is differentiated further
+    (the component's value itself comes from the stack)."""
+    return lambda x, ex: _nested_jvp(stack.fn, x, ex, dmulti)[..., out_col : out_col + 1]
+
+
+def _input_col(tape: Tape, stack: _DerivStack, xs, j: Optional[int]) -> int:
+    """The stack's input column of the coordinate ``xs`` (or column ``j``
+    of the concatenated coordinates)."""
+    name = tape.coord_name(unwrap(xs))
     if name is not None:
-        if name not in rec.stack.key_index:
+        if name not in stack.key_index:
             raise ValueError(f"coordinate '{name}' is not an input of the differentiated model")
-        return rec.stack.key_index[name]
+        return stack.key_index[name]
     if j is not None:
         return int(j)
     raise ValueError(
@@ -270,23 +411,98 @@ def jacobian(
 ):
     """d(ys)/d(xs) on tape-registered tensors. ``xs`` may be a list of
     coordinate columns, in which case a list of derivatives is returned.
-    ``jacobian(jacobian(u, x), x)`` resolves to the (x, x) jet component."""
+    ``jacobian(jacobian(u, x), x)`` resolves to the (x, x) component; the
+    jacobian of a composed TapeArray (``u * v``) differentiates its point
+    function."""
     tape = _require_tape()
     if isinstance(xs, (list, tuple)):
         return [jacobian(ys, x, i, j) for x in xs]
-    wrap_result = isinstance(ys, TapeArray)
-    ys = unwrap(ys)
-    xs = unwrap(xs)
-    rec = tape.lookup(ys)
+    rec = tape.lookup(unwrap(ys))
     if rec is None:
-        if wrap_result:
-            raise NotImplementedError(
-                f"jacobian of a composed expression: {_NESTED_JVP}"
-            )
+        if isinstance(ys, TapeArray):
+            return _tracked_jacobian(tape, ys, xs, i, j)
         raise ValueError(
             "ys is not on the autodiff tape; differentiate model outputs or "
             "derivatives thereof (tensors produced inside equation evaluation)"
         )
-    col = _resolve_input_col(tape, rec, xs, j)
-    out = tape.derivative(_Record(rec.stack, rec.out_col + i, rec.dmulti), col)
-    return TapeArray(out, rec.stack) if wrap_result else out
+    col = _input_col(tape, rec.stack, xs, j)
+    rec = _Record(rec.stack, rec.out_col + i, rec.dmulti)
+    out = tape.derivative(rec, col)
+    if isinstance(ys, TapeArray):
+        return TapeArray(out, _record_pf(rec.stack, rec.out_col, rec.dmulti + (col,)), rec.stack)
+    return out
+
+
+def _tracked_jacobian(tape: Tape, ys: TapeArray, xs, i: int, j: Optional[int]) -> TapeArray:
+    """Derivative of a composed expression: a jvp of its point function
+    over the stack's batch."""
+    stack = ys.stack
+    col = _input_col(tape, stack, xs, j)
+    dpf = lambda x, ex, _f=ys.pf: _jvp_along(lambda v: _f(v, ex), col)(x)[..., i : i + 1]
+    return TapeArray(dpf(stack.x, stack.extras), dpf, stack)
+
+
+def hessian(ys, xs, component: Optional[int] = None, i: int = 0, j: int = 0):
+    """Second derivative d2(ys)/d(xs_i)d(xs_j). With single-column
+    coordinates (the convention) it equals ``jacobian(jacobian(ys, xs),
+    xs)``, taken directly as the order-2 component; ``xs=None`` takes input
+    columns ``i`` and ``j``."""
+    tape = _require_tape()
+    rec = tape.lookup(unwrap(ys))
+    if rec is None:
+        if isinstance(ys, TapeArray):
+            first = _tracked_jacobian(tape, ys, xs, component or 0, i if xs is None else None)
+            return _tracked_jacobian(tape, first, xs, 0, j if xs is None else None)
+        raise ValueError("ys is not on the autodiff tape")
+    out_col = rec.out_col + (component if component is not None else 0)
+    if xs is None:
+        ci, cj = int(i), int(j)
+    else:
+        ci = cj = _input_col(tape, rec.stack, xs, None)
+    dmulti = rec.dmulti + (ci, cj)
+    out = rec.stack.get_component(dmulti)[..., out_col : out_col + 1]
+    tape.register_output(out, rec.stack, out_col, dmulti)
+    if isinstance(ys, TapeArray):
+        return TapeArray(out, _record_pf(rec.stack, out_col, dmulti), rec.stack)
+    return out
+
+
+def clear() -> None:
+    """Drop the cached derivative components of the current tape. Each
+    evaluation opens a fresh tape, so this is only needed for manual loops
+    that share one."""
+    tape = current_tape()
+    if tape is not None:
+        tape.clear()
+
+
+# -- standalone functional API -------------------------------------------------
+
+
+def jacobian_fn(fn: Callable, argnums: int = 0) -> Callable:
+    """Functional jacobian of a pointwise ``fn`` (d,) -> (m,), mapped over a
+    leading batch axis: returns g(x: (N, d)) -> (N, m, d).
+
+    Examples:
+        >>> import torch
+        >>> from paddlescience_torch.autodiff import jacobian_fn
+        >>> g = jacobian_fn(lambda x: x ** 3)
+        >>> g(torch.tensor([[2.0]])).shape
+        torch.Size([1, 1, 1])
+        >>> float(g(torch.tensor([[2.0]]))[0, 0, 0])  # d(x^3)/dx at x=2
+        12.0
+    """
+    return torch.func.vmap(torch.func.jacfwd(fn, argnums=argnums))
+
+
+def hessian_fn(fn: Callable, argnums: int = 0) -> Callable:
+    """Functional hessian (forward over forward): g(x: (N, d)) -> (N, m, d, d).
+
+    Examples:
+        >>> import torch
+        >>> from paddlescience_torch.autodiff import hessian_fn
+        >>> h = hessian_fn(lambda x: x ** 3)
+        >>> float(h(torch.tensor([[2.0]]))[0, 0, 0, 0])  # d2(x^3)/dx2 at x=2
+        12.0
+    """
+    return torch.func.vmap(torch.func.jacfwd(torch.func.jacfwd(fn, argnums=argnums), argnums=argnums))

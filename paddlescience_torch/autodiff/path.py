@@ -5,7 +5,8 @@ The candidate bundles keep the JAX package's names, so a configuration
 pins the same path in both packages, and hold only the flags the port
 reads:
 
-* ``PSCI_JET``                  - "0": no jet forward (nested jvp);
+* ``PSCI_JET``                  - "0": no jet forward, every derivative
+  by nested jvp (``autodiff/ad.py``);
 * ``PSCI_JET_PALLAS``           - "0": no fused segments at all. Otherwise
   (the default) ModifiedMLP and PirateNet run their hidden layers as fused
   segments, as in the JAX package;
@@ -28,9 +29,10 @@ The JAX package's TPU tiling flags (``PSCI_JET_BLOCK_M``,
 * ``jet_pallas_full_sb`` - as above, with the forward kernel saving the
   stage boundaries so the backward skips its recompute pass.
 
-The ``jvp`` candidate (nested jvp) and the autotuner that picks a winner
-are not ported yet; a derivative request that the jet cannot serve raises
-``NotImplementedError``.
+* ``jvp``              - no jet: every derivative component by nested
+  forward-mode derivatives of the models' plain batched forward.
+
+The autotuner that picks a winner among them is not ported yet.
 
 Flags resolve as: context override > process default > environment >
 built-in default. :func:`override` sets only the flags of the bundle it is

@@ -1,5 +1,6 @@
 from paddlescience_torch.constraint.base import Constraint
-from paddlescience_torch.constraint.constraints import (BoundaryConstraint, IntegralConstraint, InteriorConstraint,
-                                                        SupervisedConstraint)
+from paddlescience_torch.constraint.constraints import (BoundaryConstraint, InitialConstraint, IntegralConstraint,
+                                                        InteriorConstraint, SupervisedConstraint)
 
-__all__ = ["Constraint", "BoundaryConstraint", "IntegralConstraint", "InteriorConstraint", "SupervisedConstraint"]
+__all__ = ["Constraint", "BoundaryConstraint", "InitialConstraint", "IntegralConstraint", "InteriorConstraint",
+           "SupervisedConstraint"]

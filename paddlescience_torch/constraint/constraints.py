@@ -1,16 +1,19 @@
 """Constraints (counterpart of
 ``paddlescience_tpu/constraint/constraints.py``). Ported:
-``InteriorConstraint``, ``BoundaryConstraint`` and ``IntegralConstraint``
-over a geometry, and ``SupervisedConstraint`` in its dict-config form.
+``InteriorConstraint``, ``BoundaryConstraint``, ``InitialConstraint`` and
+``IntegralConstraint`` over a geometry, and ``SupervisedConstraint`` in
+its dict-config form.
 
 Geometry sampling happens on the host when the constraint is built, with
 the JAX package's ``np.random`` calls in its order; the sampled arrays
 become an ``IterableNamedArrayDataset`` (the solver moves them to the
-device once and feeds them every step). Labels and weights are numbers or
-callables of the input dict: the sympy forms need sympy, which is not
-installed where the port runs. The indexed ``NamedArrayDataset`` (batches
-drawn from a larger sample) and ``criteria`` given as strings are not
-ported yet.
+device once and feeds them every step). ``criteria`` is a callable of the
+coordinate columns or a string that evaluates to one here, as in the JAX
+package (``"lambda t, x, y: np.isclose(x, -4.0)"``). Labels and weights
+are numbers or callables of the input dict: the sympy forms need sympy,
+which is not installed where the port runs. Not ported yet:
+``PeriodicConstraint`` and the indexed ``NamedArrayDataset`` (batches drawn
+from a larger sample), ROADMAP Queue A 11.
 """
 
 from __future__ import annotations
@@ -22,16 +25,25 @@ import numpy as np
 from paddlescience_torch.constraint.base import Constraint
 from paddlescience_torch.data.dataset.array_dataset import IterableNamedArrayDataset
 
-__all__ = ["InteriorConstraint", "BoundaryConstraint", "IntegralConstraint", "SupervisedConstraint",
-           "prepare_label", "prepare_weight"]
+__all__ = ["InteriorConstraint", "BoundaryConstraint", "InitialConstraint", "IntegralConstraint",
+           "SupervisedConstraint", "prepare_label", "prepare_weight"]
 
 _DATASETS = {"IterableNamedArrayDataset": IterableNamedArrayDataset}
 Spec = Union[float, int, Callable]
 
 
-def prepare_label(label_dict: Dict[str, Spec], input: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+def _criteria(criteria: Optional[Union[Callable, str]]) -> Optional[Callable]:
+    """A string criteria is evaluated here, where ``np`` is numpy, as the
+    JAX package evaluates it."""
+    return eval(criteria) if isinstance(criteria, str) else criteria  # noqa: S307 (configuration strings)
+
+
+def prepare_label(label_dict: Dict[str, Spec], input: Dict[str, np.ndarray],
+                  dim_keys=()) -> Dict[str, np.ndarray]:
     """Label arrays aligned with the sampled inputs: a number fills the
-    shape of the inputs, a callable of the input dict gives the array."""
+    shape of the inputs, a callable of the input dict gives the array.
+    ``dim_keys`` are the geometry's coordinates, over which the JAX package
+    evaluates a sympy label (not ported: anything else raises)."""
     ref = next(iter(input.values()))
     label = {}
     for key, value in label_dict.items():
@@ -42,13 +54,16 @@ def prepare_label(label_dict: Dict[str, Spec], input: Dict[str, np.ndarray]) -> 
             if isinstance(label[key], (int, float)):
                 label[key] = np.full_like(ref, label[key])
         else:
-            raise NotImplementedError(f"label of type {type(value)} is not ported (numbers and callables are)")
+            raise NotImplementedError(f"label of type {type(value)} is not ported (numbers and callables are; "
+                                      f"a sympy expression over {tuple(dim_keys)} needs ROADMAP Queue A 9)")
     return label
 
 
-def prepare_weight(weight_dict: Optional[Dict[str, Union[Spec, str]]], input, label) -> Optional[Dict[str, np.ndarray]]:
+def prepare_weight(weight_dict: Optional[Dict[str, Union[Spec, str]]], input, label,
+                   dim_keys=()) -> Optional[Dict[str, np.ndarray]]:
     """Weight arrays: ones for every label key, then a number, a callable
-    of the input dict, or "sdf" (the sampled sdf column) per given key."""
+    of the input dict, or "sdf" (the sampled sdf column) per given key;
+    ``dim_keys`` as for :func:`prepare_label`."""
     if weight_dict is None:
         return None
     ref = next(iter(label.values()))
@@ -65,7 +80,8 @@ def prepare_weight(weight_dict: Optional[Dict[str, Union[Spec, str]]], input, la
             if isinstance(weight[key], (int, float)):
                 weight[key] = np.full_like(ref, weight[key])
         else:
-            raise NotImplementedError(f"weight of type {type(value)} is not ported (numbers and callables are)")
+            raise NotImplementedError(f"weight of type {type(value)} is not ported (numbers and callables are; "
+                                      f"a sympy expression over {tuple(dim_keys)} needs ROADMAP Queue A 9)")
     return weight
 
 
@@ -87,21 +103,28 @@ def _select_outputs(cst, output_expr, label_dict):
     cst.output_expr = {k: v for k, v in output_expr.items() if k in cst.output_keys}
 
 
+def _finish(cst, geom, input, label_dict, weight_dict, dataloader_cfg, loss, name) -> None:
+    """Labels and weights of the sampled ``input``, its dataset, and the
+    base constructor."""
+    label = prepare_label(label_dict, input, geom.dim_keys)
+    weight = prepare_weight(weight_dict, input, label, geom.dim_keys)
+    Constraint.__init__(cst, _build_geom_dataset(input, label, weight, dataloader_cfg), dataloader_cfg, loss, name)
+
+
 class InteriorConstraint(Constraint):
     """PDE residuals over interior points of ``geom`` (with the "sdf"
     column)."""
 
     def __init__(self, output_expr: Dict[str, Callable], label_dict: Dict[str, Spec], geom,
                  dataloader_cfg: Dict[str, Any], loss, random: str = "pseudo",
-                 criteria: Optional[Callable] = None, evenly: bool = False,
+                 criteria: Optional[Union[Callable, str]] = None, evenly: bool = False,
                  weight_dict: Optional[Dict[str, Union[Spec, str]]] = None,
                  compute_sdf_derivatives: bool = False, name: str = "EQ"):
         _select_outputs(self, output_expr, label_dict)
         self.input_keys = geom.dim_keys
-        input = geom.sample_interior(_n_samples(dataloader_cfg), random, criteria, evenly, compute_sdf_derivatives)
-        label = prepare_label(label_dict, input)
-        weight = prepare_weight(weight_dict, input, label)
-        super().__init__(_build_geom_dataset(input, label, weight, dataloader_cfg), dataloader_cfg, loss, name)
+        input = geom.sample_interior(_n_samples(dataloader_cfg), random, _criteria(criteria), evenly,
+                                     compute_sdf_derivatives)
+        _finish(self, geom, input, label_dict, weight_dict, dataloader_cfg, loss, name)
 
 
 class BoundaryConstraint(Constraint):
@@ -110,14 +133,28 @@ class BoundaryConstraint(Constraint):
 
     def __init__(self, output_expr: Dict[str, Callable], label_dict: Dict[str, Spec], geom,
                  dataloader_cfg: Dict[str, Any], loss, random: str = "pseudo",
-                 criteria: Optional[Callable] = None, evenly: bool = False,
+                 criteria: Optional[Union[Callable, str]] = None, evenly: bool = False,
                  weight_dict: Optional[Dict[str, Union[Spec, str]]] = None, name: str = "BC"):
         _select_outputs(self, output_expr, label_dict)
         self.input_keys = geom.dim_keys
-        input = geom.sample_boundary(_n_samples(dataloader_cfg), random, criteria, evenly)
-        label = prepare_label(label_dict, input)
-        weight = prepare_weight(weight_dict, input, label)
-        super().__init__(_build_geom_dataset(input, label, weight, dataloader_cfg), dataloader_cfg, loss, name)
+        input = geom.sample_boundary(_n_samples(dataloader_cfg), random, _criteria(criteria), evenly)
+        _finish(self, geom, input, label_dict, weight_dict, dataloader_cfg, loss, name)
+
+
+class InitialConstraint(Constraint):
+    """Initial conditions over interior points at t = t0 of a
+    ``TimeXGeometry`` (its ``sample_initial_interior``)."""
+
+    def __init__(self, output_expr: Dict[str, Callable], label_dict: Dict[str, Spec], geom,
+                 dataloader_cfg: Dict[str, Any], loss, random: str = "pseudo",
+                 criteria: Optional[Union[Callable, str]] = None, evenly: bool = False,
+                 weight_dict: Optional[Dict[str, Union[Spec, str]]] = None,
+                 compute_sdf_derivatives: bool = False, name: str = "IC"):
+        _select_outputs(self, output_expr, label_dict)
+        self.input_keys = geom.dim_keys
+        input = geom.sample_initial_interior(_n_samples(dataloader_cfg), random, _criteria(criteria), evenly,
+                                             compute_sdf_derivatives)
+        _finish(self, geom, input, label_dict, weight_dict, dataloader_cfg, loss, name)
 
 
 class IntegralConstraint(Constraint):
@@ -128,11 +165,12 @@ class IntegralConstraint(Constraint):
 
     def __init__(self, output_expr: Dict[str, Callable], label_dict: Dict[str, Spec], geom,
                  dataloader_cfg: Dict[str, Any], loss, random: str = "pseudo",
-                 criteria: Optional[Callable] = None,
+                 criteria: Optional[Union[Callable, str]] = None,
                  weight_dict: Optional[Dict[str, Union[Spec, str]]] = None,
                  integral_batch_size: int = 1024, name: str = "IgC"):
         _select_outputs(self, output_expr, label_dict)
         self.input_keys = geom.dim_keys
+        criteria = _criteria(criteria)
         n_sets = _n_samples(dataloader_cfg)
         samples = [geom.sample_boundary(integral_batch_size, random, criteria) for _ in range(n_sets)]
         input = {k: np.stack([s[k] for s in samples], axis=0) for k in samples[0]}  # (n_sets, m, 1)
@@ -147,7 +185,7 @@ class IntegralConstraint(Constraint):
                 label[key] = np.asarray(value(input), np.float32).reshape(n_sets, 1)
             else:
                 raise NotImplementedError(f"integral label of type {type(value)} unsupported")
-        weight = prepare_weight(weight_dict, input, label)
+        weight = prepare_weight(weight_dict, input, label, geom.dim_keys)
         super().__init__(_build_geom_dataset(input, label, weight, dataloader_cfg), dataloader_cfg, loss, name)
 
 

@@ -1,19 +1,19 @@
 """Named PDEs (counterpart of ``paddlescience_tpu/equation/pde/basic.py``).
 
-Ported: ``AllenCahn``, ``NavierStokes`` (constant nu and rho) and
-``NormalDotVec``, in closure form: sympy is not installed where the port
-runs. The other sympy-form PDEs (Laplace, Poisson, ...) need the same
-lowering first.
+Ported: ``AllenCahn``, ``Biharmonic`` (constant q and D), ``NavierStokes``
+(constant nu and rho) and ``NormalDotVec``, in closure form: sympy is not
+installed where the port runs. The other sympy-form PDEs (Laplace,
+Poisson, ...) need the same lowering first (ROADMAP Queue A 9).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
-from paddlescience_torch.autodiff.ad import jacobian
+from paddlescience_torch.autodiff.ad import hessian, jacobian
 from paddlescience_torch.equation.pde.base import PDE
 
-__all__ = ["AllenCahn", "NavierStokes", "NormalDotVec"]
+__all__ = ["AllenCahn", "Biharmonic", "NavierStokes", "NormalDotVec"]
 
 
 class AllenCahn(PDE):
@@ -32,6 +32,42 @@ class AllenCahn(PDE):
             return u__t - (self.eps**2) * u__x__x + 5 * u * u * u - 5 * u
 
         self.add_equation("allen_cahn", allen_cahn)
+
+
+class Biharmonic(PDE):
+    """The biharmonic residual in closure form, for a constant ``q`` and
+    ``D`` (the JAX package's sympy form, ``basic.py:111-137``):
+
+        biharmonic = sum_ij d4u / dx_i^2 dx_j^2 - q / D
+
+    over the first ``dim`` of x, y, z. Each term is ``hessian`` of
+    ``hessian(u, x_i)`` along x_j, one component of order 4: the nested-jvp
+    path serves it (the jet serves order <= 2). A string ``q`` or ``D`` (a
+    sympy function of the coordinates) raises ``NotImplementedError``: its
+    lowering is ROADMAP Queue A 9."""
+
+    def __init__(self, dim: int, q: Union[float, str], D: Union[float, str],
+                 detach_keys: Optional[Tuple[str, ...]] = None):
+        super().__init__()
+        if isinstance(q, str) or isinstance(D, str):
+            raise NotImplementedError("Biharmonic with a string q or D (a sympy function) is not ported: its "
+                                      "sympy-free lowering is ROADMAP Queue A 9; pass numbers")
+        if dim not in (1, 2, 3):
+            raise ValueError(f"dim must be 1, 2 or 3, got {dim}")
+        self.detach_keys = detach_keys
+        self.dim, self.q, self.D = dim, float(q), float(D)
+        axes = ("x", "y", "z")[:dim]
+
+        def biharmonic(out):
+            u = out["u"]
+            result = -self.q / self.D
+            for a in axes:
+                u_aa = hessian(u, out[a])
+                for b in axes:
+                    result = result + hessian(u_aa, out[b])
+            return result
+
+        self.add_equation("biharmonic", biharmonic)
 
 
 class NavierStokes(PDE):

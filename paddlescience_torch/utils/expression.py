@@ -3,20 +3,22 @@
 
 For one constraint: run the models on the inputs, register everything on a
 derivative tape, serve the derivative components the expressions ask for
-from one fused jet forward per model, and evaluate the expressions.
+(order <= 2 from one fused jet forward per model, the rest by nested jvp,
+``autodiff/ad.py``), and evaluate the expressions.
 
 The JAX package discovers which components the expressions request by
 replaying the evaluation under ``jax.eval_shape``. The port replays it on
 a one-row slice of the batch under ``torch.no_grad()`` with the tape in
 collecting mode: derivative requests are recorded and answered with zero
-stand-ins, so the replay runs no jet forward and no kernel. A caller that
+stand-ins, so the replay runs no jet forward and no kernel (the jvp of a
+composed expression runs the plain forward on that row). A caller that
 evaluates the same expressions every step (the solver) passes a cache, so
 the replay runs once.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,18 +38,33 @@ def _jet_fn(model):
     return jet_fn
 
 
+def _pointwise_fn(model, diff_keys: Tuple[str, ...], out_keys: Tuple[str, ...]):
+    """The model's plain batched forward as a function of the (N, d)
+    coordinates (columns in ``diff_keys`` order) and the per-point extras:
+    what the nested-jvp path differentiates."""
+
+    def fn(x: torch.Tensor, extras: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        feed = {k: x[..., i : i + 1] for i, k in enumerate(diff_keys)}
+        feed.update(extras)
+        o = model(feed)
+        return torch.cat([o[k] for k in out_keys], dim=-1)
+
+    return fn
+
+
 def forward_with_derivatives(models: Sequence, input_dict: Mapping[str, torch.Tensor],
                              tape: ad.Tape) -> Dict[str, torch.Tensor]:
     """Run each model on the constraint inputs and register everything on
     the tape so ``jacobian`` works on the results. Returns the input
     coordinates plus all model outputs.
 
-    A model whose inputs are all (N, 1) coordinate columns gets a
-    derivative stack (the dense-stack case). A model with no such column,
-    e.g. on the (sets, points, 1) inputs of an integral constraint, runs
-    its batched forward only and its outputs take no derivatives, as in
-    the JAX package. Coordinate columns mixed with per-point extras belong
-    to the nested-jvp path, not ported yet.
+    A model's (N, 1) input columns are the coordinates it is differentiated
+    along; its other inputs ride along as per-point extras. A model with
+    such columns gets a derivative stack (with its jet forward where the
+    derivative path has one and there are no extras). A model with none,
+    e.g. on the (sets, points, 1) inputs of an integral constraint, runs its
+    batched forward only and its outputs take no derivatives, as in the JAX
+    package.
     """
     out: Dict[str, torch.Tensor] = {}
     for k, v in input_dict.items():
@@ -60,27 +77,24 @@ def forward_with_derivatives(models: Sequence, input_dict: Mapping[str, torch.Te
         if missing:
             raise KeyError(f"model inputs {missing} not found in constraint inputs {list(input_dict)}")
         feed = {k: input_dict[k] for k in in_keys}
-        extra_keys = [k for k in in_keys if not (feed[k].ndim == 2 and feed[k].shape[-1] == 1)]
-        if len(extra_keys) == len(in_keys):
-            out.update(model(feed))
-            continue
-        if extra_keys:
-            raise NotImplementedError(
-                f"model inputs {extra_keys} are not (N, 1) coordinate columns; per-point "
-                "extras need the nested-jvp path, which is not ported yet"
-            )
         batched_out = model(feed)
-        x = torch.cat([input_dict[k] for k in in_keys], dim=-1)
-        key_index = {k: i for i, k in enumerate(in_keys)}
+        diff_keys = tuple(k for k in in_keys if feed[k].ndim == 2 and feed[k].shape[-1] == 1)
+        if not diff_keys:
+            out.update(batched_out)
+            continue
+        extras = {k: feed[k] for k in in_keys if k not in diff_keys}
+        x = torch.cat([input_dict[k] for k in diff_keys], dim=-1)
+        key_index = {k: i for i, k in enumerate(diff_keys)}
         out_keys = tuple(model.output_keys)
         out_index, ofs = {}, 0
         for k in out_keys:
             out_index[k] = ofs
             ofs += int(batched_out[k].shape[-1])
         jet_fn = None
-        if deriv_path.flag("PSCI_JET", "1") == "1" and model.supports_jet():
+        if deriv_path.flag("PSCI_JET", "1") == "1" and not extras and model.supports_jet():
             jet_fn = _jet_fn(model)
-        stack = tape.add_stack(x, key_index, out_index, jet_fn=jet_fn, out_width=ofs)
+        stack = tape.add_stack(_pointwise_fn(model, diff_keys, out_keys), x, key_index, out_index,
+                               extras=extras, jet_fn=jet_fn, out_width=ofs)
         for k in out_keys:
             tape.register_output(batched_out[k], stack, out_index[k])
             out[k] = batched_out[k]

@@ -49,7 +49,7 @@ class GeometryValidator(Validator):
             input = geom.sample_initial_interior(nx, random, criteria, evenly)
         else:
             input = geom.sample_interior(nx, random, criteria, evenly)
-        label = prepare_label(label_dict, input)
+        label = prepare_label(label_dict, input, geom.dim_keys)
         ds_cfg = dataloader_cfg.get("dataset", {"name": "NamedArrayDataset"})
         ds_cfg = dict({"name": ds_cfg} if isinstance(ds_cfg, str) else ds_cfg)
         ds_cfg.update({"input": input, "label": label})

@@ -167,13 +167,17 @@ def test_request_cache_replays_once_per_signature(monkeypatch):
             ref = texpr.evaluate_expressions([tm], inp, eqs)
         torch.testing.assert_close(got["allen_cahn"], ref["allen_cahn"], rtol=0, atol=0)
     assert len(replays) == 1 + 3  # one cached replay, three uncached ones
-    with tpath.override(tpath.CANDIDATES["jvp"]), pytest.raises(NotImplementedError):
-        texpr.evaluate_expressions([tm], inp, eqs, request_cache=cache)
+    with tpath.override(tpath.CANDIDATES["jvp"]):  # nested jvp: a signature of its own
+        got = texpr.evaluate_expressions([tm], inp, eqs, request_cache=cache)
+    torch.testing.assert_close(got["allen_cahn"], ref["allen_cahn"], rtol=1e-5, atol=1e-5)
     assert len(cache) == 2
 
 
 def test_underived_requests_raise_not_implemented():
-    """What the jet cannot serve names the nested-jvp path as not ported."""
+    """What the jet cannot serve (a third order, a composed expression, any
+    request under the ``jvp`` candidate) used to raise here; the nested-jvp
+    path now serves it (``autodiff/ad.py``), equal to torch.autograd on the
+    plain forward."""
     tm = TMLP(("t", "x"), ("u",), 1, 8, device="cpu")
     inp = {"t": torch.rand(6, 1), "x": torch.rand(6, 1)}
 
@@ -184,11 +188,18 @@ def test_underived_requests_raise_not_implemented():
     def composed(out):
         return tad.jacobian(out["u"] * out["u"], out["x"])
 
+    x = inp["x"].clone().requires_grad_()
+    u = tm({"t": inp["t"], "x": x})["u"]
+    du = torch.autograd.grad(u.sum(), x, create_graph=True)[0]
+    d2u = torch.autograd.grad(du.sum(), x, create_graph=True)[0]
+    d3u = torch.autograd.grad(d2u.sum(), x)[0]
+    refs = {"third_order": d3u, "composed": (2 * u * du).detach()}
     for expr in (third_order, composed):
-        with pytest.raises(NotImplementedError, match="nested-jvp"):
-            texpr.evaluate_expressions([tm], inp, {"r": expr})
-    with tpath.override(tpath.CANDIDATES["jvp"]), pytest.raises(NotImplementedError, match="nested-jvp"):
-        texpr.evaluate_expressions([tm], inp, {"r": lambda out: tad.jacobian(out["u"], out["x"])})
+        got = texpr.evaluate_expressions([tm], inp, {"r": expr})["r"]
+        torch.testing.assert_close(got, refs[expr.__name__], rtol=1e-5, atol=1e-5)
+    with tpath.override(tpath.CANDIDATES["jvp"]):
+        got = texpr.evaluate_expressions([tm], inp, {"r": lambda out: tad.jacobian(out["u"], out["x"])})["r"]
+    torch.testing.assert_close(got, du.detach(), rtol=1e-5, atol=1e-5)
 
 
 # -------------------------------------------------------- device policy --

@@ -159,3 +159,25 @@ def test_chip_smoke_runs_the_stl_generator_only_as_a_subprocess():
             and isinstance(n.func.value, ast.Name) and n.func.value.id == "subprocess"]
     inside = {id(c) for call in runs for c in ast.walk(call)}
     assert all(id(m) in inside for m in mentions), "the STL generator is named outside a subprocess call"
+
+
+TENTH_SLICE_MODULES = ("autodiff/ad.py", "utils/expression.py", "geometry/geometry_1d.py", "geometry/geometry_2d.py",
+                       "geometry/geometry_3d.py", "geometry/geometry_nd.py", "geometry/csg.py",
+                       "geometry/timedomain.py", "geometry/pointcloud.py", "optimizer/lr_scheduler.py",
+                       "examples/euler_beam.py", "examples/cylinder2d_unsteady.py")
+
+
+def test_the_nested_jvp_geometry_and_tipc_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(TENTH_SLICE_MODULES) <= checked
+
+
+@pytest.mark.parametrize("rel", TENTH_SLICE_MODULES)
+def test_the_new_modules_import_alone_without_jax(rel):
+    """Each new module, imported first in a fresh process, loads no JAX,
+    sympy, optax or JAX-package module."""
+    mod = "paddlescience_torch." + rel[:-3].replace("/", ".")
+    code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\nassert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
