@@ -29,8 +29,10 @@ on failure:
              x 3 at a ragged N; the gated kernels
              at S=7, W=256, where the backward keeps one tile and parks
              the cotangent; every activation at S=4, W=256, L=2, ungated
-             and as a ModifiedMLP program; the LBM kernel for 1 and 200
-             steps at 256 x 256 and 1 step at 1000 x 1000;
+             and as a ModifiedMLP program (the relu family by the
+             either-side check of ``ops/kinks.py`` at kinks); the LBM
+             kernel for 1 and 200 steps at 256 x 256 and 1 step at
+             1000 x 1000;
 3. main    - train the port's solvers at full width: the Allen-Cahn MLP
              4x256 on jet_pallas_full and jet_pallas (segments of 3+1
              layers), PirateNet 9 blocks x 256 on jet_pallas_full (one
@@ -83,6 +85,22 @@ on failure:
              boundary loss and gradient against the plain jet path and
              nested jvp; at the TIPC shape (100 + 4 points) graphed
              chunks against eager steps and the step rates;
+   laplace2d, ldc2d, deeponet - each BASELINE example's ``train()`` at
+             the JAX defaults with no derivative path pinned (laplace2d
+             20 x 1 eager steps, ldc2d_steady 50 x 50 as 50-step graphs,
+             DeepONet 100 x 32 eager steps over its indexed data set),
+             the final metric (MSE.u, the residual MSE, L2Rel.G), graphed
+             and eager steps/s of the same solver with device busy, and
+             the peak memory; one DeepONet epoch as one 32-step graph
+             (32 host batches staged a replay) bitwise equal to 32 eager
+             steps;
+   autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
+             candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
+             PirateNet 9x256, the aneurysm, cylinder2d matched,
+             euler_beam, laplace2d and ldc2d_steady: every candidate's
+             ms/step, the winner the argmin, the kernel candidates
+             through their kernels, the solver's state bitwise unchanged,
+             a second call served from the cache without timing;
 5. timing  - train steps per second of the Allen-Cahn MLP, PirateNet and
              ModifiedMLP solvers and of the aneurysm solver; device time per step by
              kernel and the device's busy share (torch.profiler); per
@@ -90,7 +108,8 @@ on failure:
              Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's
              (jet_mlp_bwd also at its unsteady S=8) and at the cylinder
              workload's (S=6, N=282,600, 3 -> 52 x 5);
-             jet_wgrad over the 27 PirateNet layers beside torch.bmm, with
+             jet_wgrad over the 27 PirateNet layers beside one torch.mm a
+             layer (the library time of every jet_wgrad row) and torch.bmm, with
              and without the d alpha sum and against a separate sum;
              jet_gated_fwd and jet_gated_bwd on the PirateNet stages
              without gates and residuals, and so the share of the
@@ -257,10 +276,17 @@ def act_name(act) -> str:
 
 def check_kernels(S, N, dims, act=None, log_it=True):
     """Kernels against plain versions at one shape, activation ``act``
-    (tanh when None); returns max abs errors."""
+    (tanh when None); returns max abs errors. For the relu family the
+    forward and backward outputs are held by the either-side check of
+    ``ops/kinks.py`` (a row with a pre-activation within float32 rounding
+    of a kink may take either side, at the same limit), and the checks
+    after it run on output cotangents that are 0 on those rows, which makes
+    them independent of the side taken."""
     import torch
 
+    from paddlescience_torch.ops import jet_gated as G
     from paddlescience_torch.ops import jet_mlp as J
+    from paddlescience_torch.ops import kinks as K
 
     act = act or J.TANH
     idx, streams, weights, biases, g_out = make_inputs(S, N, dims)
@@ -270,11 +296,22 @@ def check_kernels(S, N, dims, act=None, log_it=True):
     ref_outs, ref_bounds = J.jet_mlp_fwd_plain(streams, weights, biases, idx, save_bounds=True, act=act)
     outs, _ = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=False, act=act)
     outs_sb, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=act)
-    for s in range(S):
-        errs["jet_mlp_fwd"] = max(errs["jet_mlp_fwd"], check_close(f"fwd {tag} out[{s}]", outs[s], ref_outs[s]),
-                                  check_close(f"fwd(save) {tag} out[{s}]", outs_sb[s], ref_outs[s]))
-    for l, (b, rb) in enumerate(zip(bounds, ref_bounds)):
-        errs["jet_mlp_fwd"] = max(errs["jet_mlp_fwd"], check_close(f"fwd {tag} bound[{l}]", b, rb))
+    if act[0] in K.KINKS:
+        case = dict(y=streams, u=[], v=[], ws=weights, bs=biases, alphas=[], g_out=g_out, bounds=ref_bounds)
+        ref = dict(zip(("out", "bound", "g_y", "gz"), (ref_outs, ref_bounds, *J.jet_mlp_bwd_plain(
+            streams, ref_bounds, weights, biases, g_out, idx, act))))
+        g_in, gzs = J.jet_mlp_bwd(streams, ref_bounds, weights, biases, g_out, idx, act)
+        for o in (outs, outs_sb):
+            K.kink_aware_close(case, {"out": o, "bound": bounds, "g_y": g_in, "gz": gzs}, ref, G.mlp_program(L), idx,
+                               act, REL_TOL)
+        g_out = K.zero_rows(g_out, K.kink_rows(case, G.mlp_program(L), idx, act))
+    else:
+        for s in range(S):
+            errs["jet_mlp_fwd"] = max(errs["jet_mlp_fwd"],
+                                      check_close(f"fwd {tag} out[{s}]", outs[s], ref_outs[s]),
+                                      check_close(f"fwd(save) {tag} out[{s}]", outs_sb[s], ref_outs[s]))
+        for l, (b, rb) in enumerate(zip(bounds, ref_bounds)):
+            errs["jet_mlp_fwd"] = max(errs["jet_mlp_fwd"], check_close(f"fwd {tag} bound[{l}]", b, rb))
 
     ref_gin, ref_gz = J.jet_mlp_bwd_plain(streams, ref_bounds, weights, biases, g_out, idx, act)
     g_in, gzs = J.jet_mlp_bwd(streams, ref_bounds, weights, biases, g_out, idx, act)
@@ -337,8 +374,10 @@ def check_gated_kernels(S, N, W, program, tag, act=None, log_it=True):
     from paddlescience_torch.autodiff import jet
     from paddlescience_torch.ops import jet_gated as G
     from paddlescience_torch.ops import jet_mlp as J
+    from paddlescience_torch.ops import kinks as K
 
     act = act or J.TANH
+    kinky = act[0] in K.KINKS
     idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
     L = len(program)
     tag = f"{tag} {act_name(act)} S={S} N={N} W={W} L={L}"
@@ -352,11 +391,22 @@ def check_gated_kernels(S, N, W, program, tag, act=None, log_it=True):
     outs_sb, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, True, act)
     if none or len(bounds) != len(ref_bounds):
         raise AssertionError(f"{tag}: {len(none)} / {len(bounds)} boundaries, expected 0 / {len(ref_bounds)}")
-    for s in range(S):
-        hold("jet_gated_fwd", f"fwd out[{s}]", outs[s], ref_outs[s])
-        hold("jet_gated_fwd", f"fwd(save) out[{s}]", outs_sb[s], ref_outs[s])
-    for l, (b, rb) in enumerate(zip(bounds, ref_bounds)):
-        hold("jet_gated_fwd", f"fwd bound[{l}]", b, rb)
+    if kinky:  # the either-side check; what follows runs on cotangents that are 0 on the kink rows
+        names = ("g_y", "g_u", "g_v", "gz", "in")
+        case = dict(y=y, u=u, v=v, ws=weights, bs=biases, alphas=alphas, g_out=g_out, bounds=ref_bounds)
+        got = G.jet_gated_bwd(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx, act)
+        ref = G.jet_gated_bwd_plain(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx, act)
+        for o in (outs, outs_sb):
+            K.kink_aware_close(case, {"out": o, "bound": bounds, **dict(zip(names, got[:5]))},
+                               {"out": ref_outs, "bound": ref_bounds, **dict(zip(names, ref[:5]))}, program, idx,
+                               act, REL_TOL)
+        g_out = K.zero_rows(g_out, K.kink_rows(case, program, idx, act))
+    else:
+        for s in range(S):
+            hold("jet_gated_fwd", f"fwd out[{s}]", outs[s], ref_outs[s])
+            hold("jet_gated_fwd", f"fwd(save) out[{s}]", outs_sb[s], ref_outs[s])
+        for l, (b, rb) in enumerate(zip(bounds, ref_bounds)):
+            hold("jet_gated_fwd", f"fwd bound[{l}]", b, rb)
 
     ref = G.jet_gated_bwd_plain(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx, act)
     got = G.jet_gated_bwd(y, u, v, ref_bounds, weights, biases, alphas, g_out, program, idx, act)
@@ -365,8 +415,9 @@ def check_gated_kernels(S, N, W, program, tag, act=None, log_it=True):
             raise AssertionError(f"{tag}: {len(gs)} {name} tensors, expected {len(rs)}")
         for k, (g, r) in enumerate(zip(gs, rs)):
             hold("jet_gated_bwd", f"bwd {name}[{k}]", g, r)
-    for l, (g, r) in enumerate(zip(got[4], ref[4])):
-        hold("jet_gated_bwd", f"bwd layer input[{l}]", torch.stack(g), torch.stack(r))
+    if not kinky:  # the layer inputs are values: held by the either-side check above for the relu family
+        for l, (g, r) in enumerate(zip(got[4], ref[4])):
+            hold("jet_gated_bwd", f"bwd layer input[{l}]", torch.stack(g), torch.stack(r))
     dws, dbs, d_alpha = J.jet_wgrad(got[4], got[3], alpha_partials=got[5])
     if alphas:
         hold("d_alpha", "d alpha vs jet_alpha_reduce_plain", d_alpha, G.jet_alpha_reduce_plain(got[5]))
@@ -742,10 +793,12 @@ def gated_bound(S, N, W, program):
 def time_mlp_shape(rows, key, S, N, dims, act, per_step):
     """The MLP kernels' rows (the first three of ``rows``) at one more
     shape, under ``key``: time, plain-version time, bound, the library time
-    (``torch.bmm`` over the layers after the first, whose input is the few
-    coordinates, for jet_wgrad) and ``per_step[name]``, the launches per
-    step. Returns (FLOPs, stream bytes per layer boundary, weight bytes) of
-    the forward for further bounds."""
+    (for jet_wgrad one ``torch.mm`` a layer with the streams folded into
+    the inner dimension, Y_l^T GZ_l of (S*N, K) and (S*N, J); beside it
+    ``torch.bmm`` over the layers after the first, whose input is the few
+    coordinates) and ``per_step[name]``, the launches per step. Returns
+    (FLOPs, stream bytes per layer boundary, weight bytes) of the forward
+    for further bounds."""
     import torch
 
     from paddlescience_torch.ops import jet_mlp as J
@@ -760,6 +813,7 @@ def time_mlp_shape(rows, key, S, N, dims, act, per_step):
     w = sum((dims[l] * dims[l + 1] + dims[l + 1]) * 4.0 for l in range(L))
     Y = torch.stack([torch.cat(y, 0) for y in ys[1:]])  # (L - 1, S*N, width)
     GZ = torch.stack([g.reshape(S * N, -1) for g in gzs[1:]])
+    Ys, GZs = [torch.cat(y, 0) for y in ys], [g.reshape(S * N, -1) for g in gzs]  # per layer (S*N, K), (S*N, J)
     work = {
         "jet_mlp_fwd": (lambda: J.jet_mlp_fwd(streams, weights, biases, idx, act=act),
                         lambda: J.jet_mlp_fwd_plain(streams, weights, biases, idx, act=act),
@@ -769,7 +823,7 @@ def time_mlp_shape(rows, key, S, N, dims, act, per_step):
                         2 * flops, 2 * stream[0] + 2 * sum(stream[1:]) + w, None),
         "jet_wgrad": (lambda: J.jet_wgrad(ys, gzs), lambda: J.jet_wgrad_plain(ys, gzs),
                       flops + L * N * dims[-1], sum(stream[:-1]) + sum(stream[1:]) + w,
-                      lambda: torch.bmm(Y.transpose(1, 2), GZ)),
+                      lambda: [torch.mm(a.T, b) for a, b in zip(Ys, GZs)]),
     }
     for r in rows[:3]:
         fn, plain, fl, nbytes, library = work[r["name"]]
@@ -782,10 +836,14 @@ def time_mlp_shape(rows, key, S, N, dims, act, per_step):
         if r["name"] == "jet_mlp_fwd":
             r[key]["ms_save_bounds"] = cuda_ms(lambda: J.jet_mlp_fwd(streams, weights, biases, idx, True, act), 10)
             r[key]["bound_ms_fp32"] = bound_ms(fl, nbytes)[0]
+        if r["name"] == "jet_wgrad":
+            r[key]["library_ms_bmm_after_the_first_layer"] = cuda_ms(lambda: torch.bmm(Y.transpose(1, 2), GZ), 10)
         log(f"[timing] {r['name']} at the {key} shape: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms "
             f"by {by}" + (f", library {r[key]['library_ms']:.4f} ms" if library is not None else "")
+            + (f" (one torch.mm a layer; torch.bmm over the layers after the first "
+               f"{r[key]['library_ms_bmm_after_the_first_layer']:.4f} ms)" if r["name"] == "jet_wgrad" else "")
             + f"), launches per step {per_step[r['name']]}")
-    del Y, GZ, ys, gzs, bounds, streams
+    del Y, GZ, Ys, GZs, ys, gzs, bounds, streams
     torch.cuda.empty_cache()
     return flops, stream, w
 
@@ -849,11 +907,13 @@ def time_kernels(errs, launches, device_ms):
         2 * mm_flops, (2 * L + 2) * stream_bytes + w_bytes)
     Y = torch.stack([torch.cat(y, 0) for y in ys])          # (L, S*N, W)
     GZ = torch.stack([g.reshape(S * N, W) for g in gzs])    # (L, S*N, W)
+    # the library yardstick: one torch.mm a layer, the streams folded into the inner dimension
     row("jet_wgrad", "jet_wgrad",
         lambda: J.jet_wgrad(ys, gzs),
         lambda: J.jet_wgrad_plain(ys, gzs),
         mm_flops + L * N * W, 2 * L * stream_bytes + w_bytes,
-        library=lambda: torch.bmm(Y.transpose(1, 2), GZ))
+        library=lambda: [torch.mm(Y[l].T, GZ[l]) for l in range(L)],
+        extra={"library_ms_bmm": cuda_ms(lambda: torch.bmm(Y.transpose(1, 2), GZ))})
     # the gated kernels on the same ungated program and inputs: what the MLP path would pay for them
     ungated = G.mlp_program(L)
     rows[0]["gated_kernel_ms"] = cuda_ms(lambda: G.jet_gated_fwd(streams, (), (), weights, biases, (), ungated, idx))
@@ -947,13 +1007,15 @@ def time_kernels(errs, launches, device_ms):
     r["ms_27_layers_then_separate_d_alpha_sum"] = [ms for k, ms in turns if k == "separate"]
     r["host_ms_per_call_27_layers"] = host_ms
     r["bound_ms_27_layers"] = bound_ms(27 * S * 2.0 * N * W * W, 2 * 27 * stream_bytes + 27 * (W * W + W) * 4.0)[0]
-    r["library_ms_27_layers"] = cuda_ms(lambda: torch.bmm(Y.transpose(1, 2), GZ), 20)
+    r["library_ms_27_layers"] = cuda_ms(lambda: [torch.mm(Y[l].T, GZ[l]) for l in range(27)], 20)
+    r["library_ms_27_layers_bmm"] = cuda_ms(lambda: torch.bmm(Y.transpose(1, 2), GZ), 20)
     r["d_alpha_max_abs_err"] = errs["d_alpha"]
     r["d_alpha_plain_ms"] = cuda_ms(lambda: J.jet_alpha_reduce_plain(partials))
     log(f"[timing] jet_wgrad over the 27 PirateNet layers (one launch, with d alpha): {r['ms_27_layers']} ms, "
         f"without d alpha {r['ms_27_layers_without_d_alpha']} ms, then a separate partials.sum(0) "
         f"{r['ms_27_layers_then_separate_d_alpha_sum']} ms; host {host_ms:.4f} ms per call; bound "
-        f"{r['bound_ms_27_layers']:.4f} ms; torch.bmm {r['library_ms_27_layers']:.4f} ms; inputs gz + layer "
+        f"{r['bound_ms_27_layers']:.4f} ms; one torch.mm a layer {r['library_ms_27_layers']:.4f} ms, torch.bmm "
+        f"{r['library_ms_27_layers_bmm']:.4f} ms; inputs gz + layer "
         f"inputs {2 * 27 * stream_bytes / 1e6:.0f} MB; d alpha vs jet_alpha_reduce_plain max abs err "
         f"{errs['d_alpha']:.3e} (plain {r['d_alpha_plain_ms']:.4f} ms)")
     del Y, GZ, gzs27, ins27, bounds
@@ -1403,6 +1465,207 @@ def run_euler_beam_phase(tmp: str):
     return counts, timing
 
 
+# ------------------------------------- the BASELINE configs and the autotuner --
+
+# the JAX examples' train() at their defaults, no derivative path pinned: (graphed chunk K and replays timed)
+EXAMPLE_TIMED = {"laplace2d": (10, 5), "ldc2d": (50, 3), "deeponet": (32, 5)}
+AUTOTUNE_ENV = {"PSCI_AUTOTUNE_FUSED": "10", "PSCI_AUTOTUNE_CALLS": "3"}
+
+
+def state_diff(a, b):
+    """The entries of two ``Solver.state_dict()``s that are not bitwise equal."""
+    import torch
+
+    diff = [f"params.{n}" for n in a["params"] if not torch.equal(a["params"][n], b["params"][n])]
+    diff += [f"buffers.{n}" for n in a["buffers"] if not torch.equal(a["buffers"][n], b["buffers"][n])]
+    diff += [f"opt.{i}.{k}" for i in a["opt_state"] for k in a["opt_state"][i]
+             if not torch.equal(a["opt_state"][i][k], b["opt_state"][i][k])]
+    diff += [f"agg.{k}" for k in a["agg_state"] if not torch.equal(a["agg_state"][k], b["agg_state"][k])]
+    diff += ["generator"] * (not torch.equal(a["generator"], b["generator"]))
+    diff += ["step"] * (a["step"] != b["step"])
+    return diff
+
+
+def run_example(name: str, solver, metric_name: str):
+    """``solver.train()`` as the example runs it (no path pinned), with the
+    launch counters set to 0 just before; then eval, the graphed and eager
+    step rates of the same solver (device busy from the profile) and the
+    peak device memory. Returns (launch counts, numbers)."""
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # what earlier phases and this solver's set-up hold
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = solver.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    bad = [e for e in logged if not all(math.isfinite(v) for k, v in e.items() if k.startswith("loss"))]
+    if bad or not logged or any(plain.values()):
+        raise AssertionError(f"{name}: non-finite or no losses {bad or logged}, plain versions on CUDA {plain}")
+    metric, group = solver.eval()
+    if not math.isfinite(metric):
+        raise AssertionError(f"{name}: {metric_name} {metric}")
+    steps = solver.epochs * solver.iters_per_epoch
+    k_train = next(iter(solver.graph_stats), 1)
+    points = sum(next(iter(b[0].values())).shape[0] for b in solver._batches().values())
+    log(f"[{name}] train() {solver.epochs} epochs x {solver.iters_per_epoch} steps ({steps} steps, K={k_train}, "
+        f"{points} points a step) in {dt:.2f} s, final loss {logged[-1]['loss']:.6e}; {metric_name} = {metric:.6e}; "
+        f"{group}; path flags {deriv_path.get_default() or 'unpinned (the process default)'}; kernel launches "
+        f"{ {k: v for k, v in counts.items() if v} }, plain versions on CUDA {sum(plain.values())}")
+    k, replays = EXAMPLE_TIMED[name]
+    timing = time_graphed(solver, name, k, replays)
+    timing.update(metric=metric, metric_name=metric_name, train_s=dt, steps=steps, K_train=k_train,
+                  points_per_step=points, peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  memory_held_before_gib=held)
+    log(f"[{name}] peak device memory {timing['peak_memory_gib']:.3f} GiB (torch.cuda.max_memory_allocated), of "
+        f"which {held:.3f} GiB were allocated before train()")
+    return counts, timing
+
+
+def check_deeponet_graph(tmp: str):
+    """The staged indexed graph: one epoch of ``train(num_fused_steps=32)``
+    (32 host batches copied into the (32, 312, .) buffers a replay) against
+    one epoch of eager steps, both from the same freshly built state (seed,
+    weights, loader order): parameters bitwise equal."""
+    import torch
+
+    from paddlescience_torch.examples import deeponet
+
+    runs = {}
+    for k in (1, 32):
+        s = deeponet.build_solver(epochs=1, output_dir=os.path.join(tmp, f"deeponet_k{k}"), device="cuda")
+        s.train(num_fused_steps=k)
+        runs[k] = s
+    torch.cuda.synchronize()
+    a, b = flat_params(runs[1]), flat_params(runs[32])
+    replays = runs[32].graph_stats[32]["replays"]
+    log(f"[deeponet] one epoch as one graph of 32 steps (the 32 host batches staged a replay) vs 32 eager steps "
+        f"from the same fresh state: parameters bitwise {torch.equal(a, b)} (max abs diff "
+        f"{float((a - b).abs().max()):.3e}), {replays} replay(s)")
+    if not torch.equal(a, b) or replays != 1:
+        raise AssertionError("deeponet: the staged indexed graph disagrees with the eager steps")
+
+
+def run_example_phases(tmp: str):
+    """laplace2d, ldc2d_steady and DeepONet through their examples' entry
+    points at the JAX defaults, no path pinned. Returns (launch counts by
+    run, numbers)."""
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import deeponet, laplace2d, ldc2d_steady
+
+    launches, timing = {}, {}
+    deriv_path.set_default(None)
+    for name, build, metric_name in (
+            ("laplace2d", laplace2d.build_solver, "MSE.u"),
+            ("ldc2d", ldc2d_steady.build_solver, "residual MSE.continuity"),
+            ("deeponet", deeponet.build_solver, "L2Rel.G")):
+        t0 = time.perf_counter()
+        solver = build(output_dir=os.path.join(tmp, name), device="cuda")
+        log(f"[{name}] solver built in {time.perf_counter() - t0:.2f} s")
+        launches[f"example {name}"], timing[name] = run_example(name, solver, metric_name)
+        timing[name]["build_s"] = time.perf_counter() - t0
+        del solver
+    check_deeponet_graph(tmp)
+    return launches, timing
+
+
+def run_autotune_phase(solvers):
+    """``autotune`` on each driven solver (no path pinned before), K = the
+    solver's own (at most PSCI_AUTOTUNE_FUSED = 10), a temporary cache:
+    every candidate's ms/step, the winner, the seconds; the winner the
+    argmin of the cached timings; the kernel candidates launched their
+    kernels and no plain version ran on CUDA; the solver's state bitwise
+    what it was; a second call served from the cache without timing.
+    Returns the numbers by solver."""
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.solver import autotune
+
+    real, timed, results = autotune._time_candidate, [], {}
+    saved_env = {k: os.environ.get(k) for k in ("PSCI_AUTOTUNE_CACHE", *AUTOTUNE_ENV)}
+
+    def counting(solver, k, calls):
+        timed.append(deriv_path.get_default())
+        return real(solver, k, calls)
+
+    with tempfile.TemporaryDirectory(prefix="psci_autotune_") as tmp:
+        os.environ.update(AUTOTUNE_ENV, PSCI_AUTOTUNE_CACHE=os.path.join(tmp, "deriv_autotune.json"))
+        autotune._time_candidate = counting
+        try:
+            for name, solver in solvers.items():
+                deriv_path.set_default(None)
+                k = solver._auto_fuse_steps()
+                k_timed = max(1, min(k, int(AUTOTUNE_ENV["PSCI_AUTOTUNE_FUSED"])))
+                names = autotune.candidate_names(solver)
+                before = solver._snapshot()
+                torch.cuda.synchronize()
+                reset_counts()
+                n0, t0 = len(timed), time.perf_counter()
+                winner = autotune.autotune(solver, solver._static_batches, k)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts, plain = read_counts()
+                with open(os.environ["PSCI_AUTOTUNE_CACHE"]) as f:
+                    entry = json.load(f)[autotune.signature(solver, solver._static_batches) + "-" + "+".join(names)]
+                times = entry["timings_ms_per_step"]
+                diff = state_diff(solver.state_dict(), before)
+                kernel_path = any(n.startswith("jet_pallas") for n in names)
+                gated = type(solver.model).__name__ in ("PirateNet", "ModifiedMLP")
+                pair = ("jet_gated_fwd", "jet_gated_bwd") if gated else ("jet_mlp_fwd", "jet_mlp_bwd")
+                missing = [kk for kk in pair + ("jet_wgrad",) if kernel_path and not counts[kk]]
+                if (winner != min(times, key=times.get) or entry["refused"] or len(timed) - n0 != len(names)
+                        or diff or missing or any(plain.values())
+                        or deriv_path.get_default() != deriv_path.CANDIDATES[winner]):
+                    raise AssertionError(f"autotune {name}: winner {winner}, timings {times}, refused "
+                                         f"{entry['refused']}, {len(timed) - n0} timed, state diff {diff}, kernels "
+                                         f"not launched {missing}, plain versions on CUDA {plain}")
+                deriv_path.set_default(None)
+                n1 = len(timed)
+                again = autotune.autotune(solver, solver._static_batches, k)
+                if again != winner or len(timed) != n1:
+                    raise AssertionError(f"autotune {name}: the second call gave {again}, timing {len(timed) - n1}")
+                results[name] = {"winner": winner, "ms_per_step": times, "K": k_timed, "seconds": seconds,
+                                 "launches": {kk: v for kk, v in counts.items() if v}}
+                log(f"[autotune] {name}: K={k_timed} (the solver's chunk {k}), {len(names)} candidates in "
+                    f"{seconds:.2f} s; ms/step "
+                    + ", ".join(f"{n} {t:.4f}" for n, t in times.items()) + f"; winner {winner} (the argmin); "
+                    f"state bitwise unchanged; kernel launches while timing "
+                    f"{results[name]['launches']}; a second call served from the cache, nothing timed")
+                solver._graphs.clear()
+                torch.cuda.empty_cache()
+        finally:
+            autotune._time_candidate = real
+            for key, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = v
+    return results
+
+
+def autotune_solvers(solvers, ane):
+    """The solvers the autotuner runs on: the Allen-Cahn MLP 4x256 and
+    PirateNet 9x256 of the main phase, the aneurysm, and, built here with
+    no path pinned, the cylinder2d matched workload, euler_beam, laplace2d
+    and ldc2d_steady at their examples' defaults."""
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import euler_beam, laplace2d, ldc2d_steady
+    from paddlescience_torch.examples.cylinder2d_unsteady import build_matched_solver
+
+    deriv_path.set_default(None)
+    return {"mlp 4x256": solvers["mlp/jet_pallas_full"], "piratenet 9x256": solvers["piratenet/jet_pallas_full"],
+            "aneurysm": ane, "cylinder matched": build_matched_solver(10, device="cuda")[0],
+            "euler_beam": euler_beam.build_solver(output_dir=None, device="cuda"),
+            "laplace2d": laplace2d.build_solver(output_dir=None, device="cuda"),
+            "ldc2d_steady": ldc2d_steady.build_solver(output_dir=None, device="cuda")}
+
+
 def time_cylinder_kernels(rows, errs, launches, device_ms):
     """The MLP kernels' rows at the cylinder workload's shape (tanh, S = 6,
     N = 282,600, 3 -> 52 x 5), under the key "cylinder", with their errors
@@ -1514,7 +1777,7 @@ def main() -> int:
         check_gated_kernels(a["S"], a["N"], a["W"], G.modified_mlp_program(2), "modified_mlp", act, log_it=False)
     log(f"[kernels] every activation ({len(jet.ACT_RULES)}: {', '.join(jet.ACT_NAMES)}) at S={a['S']} "
         f"N={a['N']} W={a['W']} L=2, ungated and as a ModifiedMLP program: each output within {REL_TOL} x the "
-        f"largest magnitude of its reference")
+        f"largest magnitude of its reference (the relu family by the either-side check at kinks)")
     for L in sorted({l for p, ls in depths.items() if p.startswith("piratenet/") for l in ls}, reverse=True):
         merge(check_gated_kernels(S, N, W, G.piratenet_program(L // 3), "piratenet"))
     for L in sorted({l for p, ls in depths.items() if p.startswith("modified_mlp/") for l in ls}, reverse=True):
@@ -1566,6 +1829,11 @@ def main() -> int:
         log("[cylinder] summary " + json.dumps(cyl_timing))
         launches["graph euler_beam"], euler_timing = run_euler_beam_phase(tmp)
         log("[euler_beam] summary " + json.dumps(euler_timing))
+        example_launches, example_timing = run_example_phases(tmp)
+        launches.update(example_launches)
+        log("[examples] summary " + json.dumps(example_timing))
+    autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
+    log("[autotune] summary " + json.dumps(autotune_results))
 
     device_ms = {}
     for path in TIMED:

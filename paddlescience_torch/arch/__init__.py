@@ -1,6 +1,7 @@
 from paddlescience_torch.arch.base import Arch
+from paddlescience_torch.arch.deeponet import DeepONet
 from paddlescience_torch.arch.mlp import (MLP, FourierEmbedding, ModifiedMLP, PeriodEmbedding, PirateNet,
                                           PirateNetBlock, RandomWeightFactorization)
 
-__all__ = ["Arch", "MLP", "ModifiedMLP", "PirateNet", "PirateNetBlock", "FourierEmbedding", "PeriodEmbedding",
-           "RandomWeightFactorization"]
+__all__ = ["Arch", "DeepONet", "MLP", "ModifiedMLP", "PirateNet", "PirateNetBlock", "FourierEmbedding",
+           "PeriodEmbedding", "RandomWeightFactorization"]

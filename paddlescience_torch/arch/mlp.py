@@ -18,15 +18,15 @@ deep), whose wrappers raise where they cannot take it. Weights keep the JAX layo
 used as ``x @ W``, and parameters keep the JAX names, so they carry over
 key for key (``utils/jax_params.py``).
 
-Not ported yet: skip connections, list-valued hidden sizes, explicit
-``input_dim``/``output_dim``, ``weight_norm`` of ModifiedMLP and PirateNet.
+Not ported yet: ``weight_norm``, list-valued hidden sizes and explicit
+``input_dim``/``output_dim`` of ModifiedMLP and PirateNet.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -216,13 +216,29 @@ def _make_act(name: str):
     return act() if act is act_mod.Siren else act
 
 
-def _embedded_size(model, generator) -> int:
+def _resolve_sizes(hidden_size, num_layers) -> List[int]:
+    """The hidden widths: ``hidden_size`` itself when a list (then
+    ``num_layers`` must be None), else ``num_layers`` times it."""
+    if isinstance(hidden_size, (tuple, list)):
+        if num_layers is not None:
+            raise ValueError("num_layers should be None when hidden_size is specified as a list")
+        return list(hidden_size)
+    if isinstance(hidden_size, int):
+        if not isinstance(num_layers, int):
+            raise ValueError("num_layers should be an int when hidden_size is an int")
+        return [hidden_size] * num_layers
+    raise ValueError(f"hidden_size should be list of int or int, but got {type(hidden_size)}")
+
+
+def _embedded_size(model, generator, input_dim: Optional[int] = None) -> int:
     """Create ``model``'s period and Fourier embeddings (from its
-    ``periods``/``fourier`` settings) and return the width they produce."""
+    ``periods``/``fourier`` settings) and return the width they produce
+    (from ``input_dim`` input columns when given, as in the JAX MLP, else
+    one per input key)."""
     if model.periods:
         model.period_emb = PeriodEmbedding(model.periods)
-    cur_size = len(model.input_keys)
-    if model.periods:
+    cur_size = len(model.input_keys) if input_dim is None else input_dim
+    if input_dim is None and model.periods:
         cur_size += len(model.periods)  # each period-embedded key doubles
     if model.fourier:
         model.fourier_emb = FourierEmbedding(cur_size, model.fourier["dim"], model.fourier["scale"],
@@ -265,8 +281,13 @@ class MLP(base.Arch):
     (``weight_norm``: every hidden layer a :class:`WeightNormLinear`, the
     output layer plain, as in the JAX MLP), and any activation of
     ``arch/activation.py`` (``siren`` with the SIREN init of plain linear
-    layers). (The JAX MLP's skip connections, list-valued hidden sizes and
-    explicit input/output dims are not ported.)
+    layers). ``hidden_size`` is one width (``num_layers`` of them) or a
+    list of widths (``num_layers`` None); ``input_dim``/``output_dim``
+    give the widths of a single input key and of the output (DeepONet's
+    100-column ``u``); ``skip_connection`` adds, as the JAX MLP does, each
+    even layer's pre-activation to itself from the second one on. The
+    fused segments do not take skip connections: such an MLP runs the
+    plain jet path (``jet_pallas_eligible`` is False), as in JAX.
 
     Parameters are drawn on the CPU from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when None) and then moved to ``device``
@@ -277,13 +298,16 @@ class MLP(base.Arch):
         self,
         input_keys: Tuple[str, ...],
         output_keys: Tuple[str, ...],
-        num_layers: int,
-        hidden_size: int,
+        num_layers: Optional[int],
+        hidden_size: Union[int, Sequence[int]],
         activation: str = "tanh",
+        skip_connection: bool = False,
+        weight_norm: bool = False,
+        input_dim: Optional[int] = None,
+        output_dim: Optional[int] = None,
         periods: Optional[Dict[str, Tuple[float, bool]]] = None,
         fourier: Optional[Dict[str, Union[float, int]]] = None,
         random_weight: Optional[Dict[str, float]] = None,
-        weight_norm: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
         device: DeviceLike = None,
@@ -294,27 +318,37 @@ class MLP(base.Arch):
             generator = torch.Generator().manual_seed(0)
         self.input_keys = tuple(input_keys)
         self.output_keys = tuple(output_keys)
+        self.skip_connection = skip_connection
         self.periods = dict(periods) if periods else None
         self.fourier = dict(fourier) if fourier else None
 
-        cur_size = _embedded_size(self, generator)
+        sizes = _resolve_sizes(hidden_size, num_layers)
+        cur_size = _embedded_size(self, generator, input_dim)
         linears, acts = [], []
-        for i in range(num_layers):
+        for i, size in enumerate(sizes):
             kernel_init = None
             if activation == "siren":
                 kernel_init = act_mod.Siren.first_layer_init if i == 0 else act_mod.Siren.hidden_layer_init()
-            linears.append(_make_linear(cur_size, hidden_size, random_weight, generator, weight_norm, kernel_init))
+            linears.append(_make_linear(cur_size, size, random_weight, generator, weight_norm, kernel_init))
             acts.append(_make_act(activation))
-            cur_size = hidden_size
+            cur_size = size
         self.linears = nn.ModuleList(linears)
         self.acts = acts
-        self.last_fc = _make_linear(cur_size, len(self.output_keys), random_weight, generator)
+        out_dim = len(self.output_keys) if output_dim is None else output_dim
+        self.last_fc = _make_linear(cur_size, out_dim, random_weight, generator)
         self.to(device)
 
     def forward_tensor(self, x: torch.Tensor) -> torch.Tensor:
-        y = x
-        for linear, act in zip(self.linears, self.acts):
-            y = act(linear(y))
+        y, skip = x, None
+        for i, (linear, act) in enumerate(zip(self.linears, self.acts)):
+            y = linear(y)
+            if self.skip_connection and i % 2 == 0:
+                if skip is not None:
+                    skip = y
+                    y = y + skip
+                else:
+                    skip = y
+            y = act(y)
         return self.last_fc(y)
 
     def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -323,10 +357,16 @@ class MLP(base.Arch):
     def supports_jet(self) -> bool:
         return True
 
+    def jet_pallas_eligible(self) -> bool:
+        """Whether the hidden layers would take the fused segments on the
+        current path's flags, ``PSCI_JET_PALLAS_MLP`` aside: structural, as
+        the JAX method the autotuner reads."""
+        return not self.skip_connection and _jet_pallas_ok(self.linears, self.acts)
+
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused jet segment on the current derivative path;
         empty when the hidden layers take the plain jet path."""
-        if deriv_path.flag("PSCI_JET_PALLAS_MLP", "0") == "1" and _jet_pallas_ok(self.linears, self.acts):
+        if deriv_path.flag("PSCI_JET_PALLAS_MLP", "0") == "1" and self.jet_pallas_eligible():
             return _segment_lengths(self)
         return []
 
@@ -334,10 +374,17 @@ class MLP(base.Arch):
         jx = _jet_embed(self, jx)
         lengths = self.jet_segment_lengths()
         if lengths:
-            jx = _jet_pallas_segments(self, jx, lengths)
-        else:
-            for linear, act in zip(self.linears, self.acts):
-                jx = jet.elementwise(_jet_linear(linear, jx), act)
+            return _jet_linear(self.last_fc, _jet_pallas_segments(self, jx, lengths))
+        skip = None
+        for i, (linear, act) in enumerate(zip(self.linears, self.acts)):
+            jx = _jet_linear(linear, jx)
+            if self.skip_connection and i % 2 == 0:
+                if skip is not None:
+                    skip = jx
+                    jx = jet.add(jx, skip)
+                else:
+                    skip = jx
+            jx = jet.elementwise(jx, act)
         return _jet_linear(self.last_fc, jx)
 
 
@@ -401,11 +448,15 @@ class ModifiedMLP(base.Arch):
     def supports_jet(self) -> bool:
         return True
 
+    def jet_pallas_eligible(self) -> bool:
+        """Whether the hidden layers take the fused gated segments on the
+        current path's flags (structural, as in JAX)."""
+        return _jet_pallas_ok(self.linears, [*self.acts, self.embed_act_u, self.embed_act_v])
+
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused gated segment on the current derivative path;
         empty when the hidden layers take the plain jet path."""
-        acts = [*self.acts, self.embed_act_u, self.embed_act_v]
-        return _segment_lengths(self) if _jet_pallas_ok(self.linears, acts) else []
+        return _segment_lengths(self) if self.jet_pallas_eligible() else []
 
     def forward_jet(self, jx: jet.Jet) -> jet.Jet:
         jx = _jet_embed(self, jx)
@@ -545,7 +596,9 @@ class PirateNet(base.Arch):
     def supports_jet(self) -> bool:
         return True
 
-    def _use_jet_pallas(self) -> bool:
+    def jet_pallas_eligible(self) -> bool:
+        """Whether the blocks take the fused gated segments on the current
+        path's flags (structural, as in JAX)."""
         return _jet_pallas_ok([l for b in self.blocks for l in b.linears],
                               [a for b in self.blocks for a in b.acts])
 
@@ -553,7 +606,7 @@ class PirateNet(base.Arch):
         """Layers per fused segment (three per block of a group of
         ``PSCI_JET_PBLOCK_GROUP`` blocks, at most the kernels' MAX_LAYERS)
         on the current derivative path; empty on the plain jet path."""
-        if not self._use_jet_pallas():
+        if not self.jet_pallas_eligible():
             return []
         n = len(self.blocks)
         from paddlescience_torch.ops.jet_mlp import MAX_LAYERS

@@ -32,7 +32,8 @@ The JAX package's TPU tiling flags (``PSCI_JET_BLOCK_M``,
 * ``jvp``              - no jet: every derivative component by nested
   forward-mode derivatives of the models' plain batched forward.
 
-The autotuner that picks a winner among them is not ported yet.
+``solver/autotune.py`` times them on a solver and pins the fastest with
+:func:`set_default` (the kernel candidates on CUDA only).
 
 Flags resolve as: context override > process default > environment >
 built-in default. :func:`override` sets only the flags of the bundle it is

@@ -6,14 +6,15 @@ its dict-config form.
 
 Geometry sampling happens on the host when the constraint is built, with
 the JAX package's ``np.random`` calls in its order; the sampled arrays
-become an ``IterableNamedArrayDataset`` (the solver moves them to the
-device once and feeds them every step). ``criteria`` is a callable of the
+become the configured dataset: the JAX default ``NamedArrayDataset``,
+batched by a ``BatchLoader`` (a new batch each step), or an
+``IterableNamedArrayDataset`` (the solver moves it to the device once and
+feeds it every step). ``criteria`` is a callable of the
 coordinate columns or a string that evaluates to one here, as in the JAX
 package (``"lambda t, x, y: np.isclose(x, -4.0)"``). Labels and weights
 are numbers or callables of the input dict: the sympy forms need sympy,
 which is not installed where the port runs. Not ported yet:
-``PeriodicConstraint`` and the indexed ``NamedArrayDataset`` (batches drawn
-from a larger sample), ROADMAP Queue A 11.
+``PeriodicConstraint``.
 """
 
 from __future__ import annotations
@@ -23,12 +24,12 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 
 from paddlescience_torch.constraint.base import Constraint
-from paddlescience_torch.data.dataset.array_dataset import IterableNamedArrayDataset
+from paddlescience_torch.data.dataset.array_dataset import IterableNamedArrayDataset, NamedArrayDataset
 
 __all__ = ["InteriorConstraint", "BoundaryConstraint", "InitialConstraint", "IntegralConstraint",
            "SupervisedConstraint", "prepare_label", "prepare_weight"]
 
-_DATASETS = {"IterableNamedArrayDataset": IterableNamedArrayDataset}
+_DATASETS = {"IterableNamedArrayDataset": IterableNamedArrayDataset, "NamedArrayDataset": NamedArrayDataset}
 Spec = Union[float, int, Callable]
 
 

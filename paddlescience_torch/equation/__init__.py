@@ -1,3 +1,3 @@
-from paddlescience_torch.equation.pde import PDE, AllenCahn, Biharmonic, NavierStokes, NormalDotVec
+from paddlescience_torch.equation.pde import PDE, AllenCahn, Biharmonic, Laplace, NavierStokes, NormalDotVec
 
-__all__ = ["PDE", "AllenCahn", "Biharmonic", "NavierStokes", "NormalDotVec"]
+__all__ = ["PDE", "AllenCahn", "Biharmonic", "Laplace", "NavierStokes", "NormalDotVec"]

@@ -1,4 +1,4 @@
 from paddlescience_torch.equation.pde.base import PDE
-from paddlescience_torch.equation.pde.basic import AllenCahn, Biharmonic, NavierStokes, NormalDotVec
+from paddlescience_torch.equation.pde.basic import AllenCahn, Biharmonic, Laplace, NavierStokes, NormalDotVec
 
-__all__ = ["PDE", "AllenCahn", "Biharmonic", "NavierStokes", "NormalDotVec"]
+__all__ = ["PDE", "AllenCahn", "Biharmonic", "Laplace", "NavierStokes", "NormalDotVec"]

@@ -1,9 +1,10 @@
 """Named PDEs (counterpart of ``paddlescience_tpu/equation/pde/basic.py``).
 
-Ported: ``AllenCahn``, ``Biharmonic`` (constant q and D), ``NavierStokes``
-(constant nu and rho) and ``NormalDotVec``, in closure form: sympy is not
-installed where the port runs. The other sympy-form PDEs (Laplace,
-Poisson, ...) need the same lowering first (ROADMAP Queue A 9).
+Ported: ``AllenCahn``, ``Laplace``, ``Biharmonic`` (constant q and D),
+``NavierStokes`` (constant nu and rho) and ``NormalDotVec``, in closure
+form: sympy is not installed where the port runs. The other sympy-form
+PDEs (Poisson, Helmholtz, ...) need the same lowering first (ROADMAP
+Queue A).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Optional, Tuple, Union
 from paddlescience_torch.autodiff.ad import hessian, jacobian
 from paddlescience_torch.equation.pde.base import PDE
 
-__all__ = ["AllenCahn", "Biharmonic", "NavierStokes", "NormalDotVec"]
+__all__ = ["AllenCahn", "Laplace", "Biharmonic", "NavierStokes", "NormalDotVec"]
 
 
 class AllenCahn(PDE):
@@ -32,6 +33,26 @@ class AllenCahn(PDE):
             return u__t - (self.eps**2) * u__x__x + 5 * u * u * u - 5 * u
 
         self.add_equation("allen_cahn", allen_cahn)
+
+
+class Laplace(PDE):
+    """The Laplace residual in closure form (the JAX package's sympy form,
+    ``basic.py:60-73``): ``laplace = sum_i u_{x_i x_i}`` over the first
+    ``dim`` of x, y, z; each term one second-order component of the jet."""
+
+    def __init__(self, dim: int, detach_keys: Optional[Tuple[str, ...]] = None):
+        super().__init__()
+        if dim not in (1, 2, 3):
+            raise ValueError(f"dim must be 1, 2 or 3, got {dim}")
+        self.detach_keys = detach_keys
+        self.dim = dim
+        axes = ("x", "y", "z")[:dim]
+
+        def laplace(out):
+            u = out["u"]
+            return sum(hessian(u, out[a]) for a in axes)
+
+        self.add_equation("laplace", laplace)
 
 
 class Biharmonic(PDE):

@@ -18,10 +18,12 @@ piratenet     PirateNet, 3 blocks x 256  2.0            1.0
 CausalMSELoss(32 chunks, tol 1) on 4096 collocation points sampled on the
 device each step, plus the initial-condition MSE on 512 points; GradNorm
 (update_freq 1000, momentum 0.9); Adam with ExponentialDecay (1e-3, gamma
-0.9 every 2000 steps). The derivative path is pinned to ``jet_pallas_full``:
-the hidden layers (all PirateNet blocks) run as one fused jet segment (CUDA
-kernels on the GPU). ``Solver.train()`` runs whole epochs as one chunk of
-steps each, a CUDA graph replay on the GPU.
+0.9 every 2000 steps). No derivative path is pinned unless ``deriv`` names
+one, as in the JAX example: under the process default the gated stacks run
+their hidden layers as fused jet segments (CUDA kernels on the GPU) and
+the MLP takes the plain jet path, and a long ``train()`` times the
+candidates first (``solver/autotune.py``). ``Solver.train()`` runs whole
+epochs as one chunk of steps each, a CUDA graph replay on the GPU.
 
 The reference solution is the JAX example's: a Fourier pseudo-spectral
 ETDRK4 solve on 512 points x 201 times (:func:`solve_allen_cahn_spectral`,
@@ -155,7 +157,7 @@ def build_solver(
     decay_steps: int = 2000,
     update_freq: int = 1000,
     log_freq: int = 100,
-    deriv: str = "jet_pallas_full",
+    deriv: Optional[str] = None,
     device: DeviceLike = None,
     arch: str = "mlp",
     piratenet_blocks: int = 3,
@@ -170,17 +172,19 @@ def build_solver(
 ) -> Solver:
     """The Allen-Cahn solver with backbone ``arch`` ("mlp", "modified_mlp"
     or "piratenet"); sizes are knobs so tests can shrink it. ``deriv``
-    names the derivative-path candidate to pin. ``fourier_scale`` and
-    ``rwf_mean`` default per arch (2.0 and 1.0 for the gated archs, 1.0
-    and 0.5 for the MLP). With ``with_validator`` the solver holds the
-    ``u_validator`` against the reference solution (read from or written
-    to ``reference_path``, see :func:`get_reference_solution`), evaluated
-    every ``eval_freq`` epochs under ``eval_during_train``; checkpoints go
-    under ``output_dir``; ``checkpoint_path`` resumes from one."""
+    names a derivative-path candidate to pin (None: none is pinned).
+    ``fourier_scale`` and ``rwf_mean`` default per arch (2.0 and 1.0 for
+    the gated archs, 1.0 and 0.5 for the MLP). With ``with_validator`` the
+    solver holds the ``u_validator`` against the reference solution (read
+    from or written to ``reference_path``, see
+    :func:`get_reference_solution`), evaluated every ``eval_freq`` epochs
+    under ``eval_during_train``; checkpoints go under ``output_dir``;
+    ``checkpoint_path`` resumes from one."""
     device = resolve_device(device)
     if arch not in ("mlp", "modified_mlp", "piratenet"):
         raise ValueError(f"arch '{arch}' not found; available: mlp, modified_mlp, piratenet")
-    deriv_path.set_default(deriv_path.CANDIDATES[deriv])
+    if deriv is not None:
+        deriv_path.set_default(deriv_path.CANDIDATES[deriv])
     gated = arch != "mlp"
     common = dict(
         activation="tanh",

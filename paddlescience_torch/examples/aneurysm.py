@@ -18,8 +18,10 @@ fed whole every step:
 
 All losses MSE/IntegralLoss with "sum" reduction, summed with unit weights;
 Adam with ExponentialDecay(1e-3, gamma 0.95 every 15000 steps). The
-derivative path is ``deriv`` (default ``jet_pallas_full``: the six hidden
-layers as one fused jet segment, CUDA kernels on the GPU). The validator
+derivative path is pinned only when ``deriv`` names one (on
+``jet_pallas_full`` the six hidden layers run as one fused jet segment,
+CUDA kernels on the GPU); unpinned, as in the JAX example, the MLP takes
+the plain jet path and a long ``train()`` times the candidates first. The validator
 is the JAX example's: the four NavierStokes residuals against 0 on
 ``val_total_size`` interior points (sampled after the constraints, from the
 same ``np.random`` stream), MSE "sum" loss and an MSE metric, in batches of
@@ -75,7 +77,7 @@ def build_solver(
     bs_bc: int = 512,
     bs_igc: int = 1,
     integral_bs: int = 512,
-    deriv: str = "jet_pallas_full",
+    deriv: Optional[str] = None,
     device: DeviceLike = None,
     width: int = 512,
     num_layers: int = 6,
@@ -86,18 +88,19 @@ def build_solver(
     val_batch_size: int = 2048,
 ) -> Solver:
     """The aneurysm solver; sizes are knobs so tests can shrink it.
-    ``deriv`` names the derivative-path candidate to pin. The host samples
-    draw from ``np.random`` seeded with ``seed`` in the JAX example's
-    order, so both packages train on the same points; the model's weights
-    come from a ``torch.Generator`` seeded with ``seed``. Raises
-    ``FileNotFoundError`` when the STLs are missing."""
+    ``deriv`` names a derivative-path candidate to pin (None: none is
+    pinned). The host samples draw from ``np.random`` seeded with ``seed``
+    in the JAX example's order, so both packages train on the same points;
+    the model's weights come from a ``torch.Generator`` seeded with
+    ``seed``. Raises ``FileNotFoundError`` when the STLs are missing."""
     stl_dir = STL_DIR if stl_dir is None else stl_dir
     if not os.path.exists(os.path.join(stl_dir, "aneurysm_closed.stl")):
         raise FileNotFoundError(
             f"aneurysm STLs not found under '{stl_dir}': generate them with "
             f"`python tools/gen_aneurysm_stl.py --out {stl_dir}`")
     device = resolve_device(device)
-    deriv_path.set_default(deriv_path.CANDIDATES[deriv])
+    if deriv is not None:
+        deriv_path.set_default(deriv_path.CANDIDATES[deriv])
     np.random.seed(seed)
     model = MLP(("x", "y", "z"), ("u", "v", "w", "p"), num_layers, width, activation="silu", weight_norm=True,
                 generator=torch.Generator().manual_seed(seed), device=device)

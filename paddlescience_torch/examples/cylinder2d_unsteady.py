@@ -22,10 +22,12 @@ reports the residuals' MSE.
   on 9420; Adam at 1e-3; every batch fed whole every step: 299,280 points
   a step.
 
-Both pin the derivative path ``deriv`` (default ``jet_pallas_full``: the
-5-layer hidden stack runs as one jet segment through the MLP kernels,
-zero-padded from 50 to 52 columns; the jet carries S = 6 streams, u and
-its t, x, xx, y, yy components).
+Both pin the derivative path only when ``deriv`` names one (on
+``jet_pallas_full`` the 5-layer hidden stack runs as one jet segment
+through the MLP kernels, zero-padded from 50 to 52 columns; the jet
+carries S = 6 streams, u and its t, x, xx, y, yy components). Unpinned, as
+in the JAX example, the MLP takes the plain jet path and a long
+``train()`` times the candidates first.
 
 Run on the GPU: ``python -m paddlescience_torch.examples.cylinder2d_unsteady
 [epochs] [iters_per_epoch]``.
@@ -77,12 +79,13 @@ def _model(seed: int, device) -> MLP:
 
 def build_solver(epochs: int = 40, iters_per_epoch: int = 50, output_dir: Optional[str] = "./output_cylinder2d",
                  *, pde_points: int = 4096, bc_points: int = 512, ic_points: int = 1024,
-                 validator_points: int = 4096, deriv: str = "jet_pallas_full", device: DeviceLike = None,
+                 validator_points: int = 4096, deriv: Optional[str] = None, device: DeviceLike = None,
                  seed: int = 42, log_freq: int = 200, eval_during_train: bool = False) -> Solver:
     """The cylinder2d example's solver; the batch sizes are knobs so tests
     can shrink it (the JAX example's are the defaults)."""
     device = resolve_device(device)
-    deriv_path.set_default(deriv_path.CANDIDATES[deriv])
+    if deriv is not None:
+        deriv_path.set_default(deriv_path.CANDIDATES[deriv])
     _seed(seed)
     model = _model(seed, device)
     equation = {"NavierStokes": NavierStokes(NU, RHO, 2, True)}
@@ -119,7 +122,7 @@ def build_solver(epochs: int = 40, iters_per_epoch: int = 50, output_dir: Option
                   seed=seed, device=device)
 
 
-def build_matched_solver(scan_steps: int, *, deriv: str = "jet_pallas_full", device: DeviceLike = None,
+def build_matched_solver(scan_steps: int, *, deriv: Optional[str] = None, device: DeviceLike = None,
                          seed: int = 42, sizes: Optional[dict] = None) -> Tuple[Solver, int]:
     """The TIPC cylinder2d workload (``bench.py::build_matched_cylinder``):
     one epoch of ``scan_steps`` steps, each on the full batch of every
@@ -127,7 +130,8 @@ def build_matched_solver(scan_steps: int, *, deriv: str = "jet_pallas_full", dev
     from the batches' shapes. ``sizes`` overrides entries of
     :data:`MATCHED` (tests cut them)."""
     device = resolve_device(device)
-    deriv_path.set_default(deriv_path.CANDIDATES[deriv])
+    if deriv is not None:
+        deriv_path.set_default(deriv_path.CANDIDATES[deriv])
     n = {**MATCHED, **(sizes or {})}
     _seed(seed)
     model = _model(seed, device)

@@ -53,13 +53,14 @@ def u_solution_func(out):
 
 
 def build_solver(epochs: int = 100, iters_per_epoch: int = 10, output_dir: Optional[str] = "./output_euler_beam",
-                 *, deriv: str = "jet_pallas_full", device: DeviceLike = None, seed: int = 42,
+                 *, deriv: Optional[str] = None, device: DeviceLike = None, seed: int = 42,
                  log_freq: int = 100, eval_during_train: bool = False) -> Solver:
     """The euler_beam solver of the JAX example (its sampling seeded with
-    ``seed`` as the example seeds it); ``deriv`` names the derivative-path
-    candidate to pin."""
+    ``seed`` as the example seeds it); ``deriv`` names a derivative-path
+    candidate to pin (None: none is pinned, as in the JAX example)."""
     device = resolve_device(device)
-    deriv_path.set_default(deriv_path.CANDIDATES[deriv])
+    if deriv is not None:
+        deriv_path.set_default(deriv_path.CANDIDATES[deriv])
     np.random.seed(seed)
     random.seed(seed)
     model = MLP(("x",), ("u",), 3, 20, generator=torch.Generator().manual_seed(seed), device=device)

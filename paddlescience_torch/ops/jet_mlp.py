@@ -76,6 +76,7 @@ __all__ = [
     "bwd_smem",
     "kernels_take",
     "kernel_refusal",
+    "KernelRefusal",
     "act_jet",
     "act_jet_vjp",
     "jet_mlp_fwd",
@@ -242,9 +243,16 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+class KernelRefusal(ValueError):
+    """The jet kernels refuse a segment's shape (:func:`kernel_refusal`),
+    decided before any launch. The autotuner drops a candidate for this
+    error alone."""
+
+
 def _segment_dims(streams, weights, biases, index, gated: bool = False) -> List[int]:
     """The segment's widths dims[0] -> ... -> dims[L]; raises ValueError
-    where the shapes do not chain or the kernels refuse them."""
+    where the shapes do not chain, :class:`KernelRefusal` where the kernels
+    refuse them."""
     S, L = len(streams), len(weights)
     if S != len(index):
         raise ValueError(f"need one stream per entry of the jet index ({len(index)}), got {S}")
@@ -261,7 +269,7 @@ def _segment_dims(streams, weights, biases, index, gated: bool = False) -> List[
             raise ValueError("all streams of a jet share one shape")
     reason = kernel_refusal(S, dims, gated)
     if reason:
-        raise ValueError(reason)
+        raise KernelRefusal(reason)
     return dims
 
 

@@ -4,7 +4,9 @@
 A train step:
 
 1. sample each device-sampled constraint's batch from the solver's
-   ``torch.Generator`` (full-batch constraints were staged once);
+   ``torch.Generator`` (full-batch constraints were staged once; an
+   indexed dataset's loader gives a new host batch each step, copied to
+   the device from pinned memory);
 2. evaluate every constraint's expressions and loss
    (``_constraint_losses``);
 3. aggregate with the aggregator's weights (detached), back-propagate, and
@@ -22,16 +24,23 @@ dispatch. On CUDA a chunk of K > 1 steps is captured once in a
 batch draws (the generator is registered with it), the kernels, the
 backward and the optimizer update, so a chunk is one host call. Between
 chunks the aggregator refresh runs eagerly and writes its weights into the
-tensor the graph reads. On the CPU (and for K = 1) a chunk runs K eager
-steps. After each epoch: eval every ``eval_freq`` epochs from
-``start_eval_epoch`` (keeping ``best_model``), ``epoch_<k>`` every
-``save_freq`` epochs, and ``latest``. ``eval()`` runs the validators,
+tensor the graph reads. A constraint over an indexed dataset (a
+``BatchLoader`` of a ``NamedArrayDataset``) draws K host batches before
+each chunk into a static (K, B, ...) device buffer, and step i of the chunk
+reads slice i, as the JAX solver's ``_train_fused`` stacks K batches a
+scan; the aggregator refresh sees the chunk's first batch. On the CPU (and
+for K = 1) a chunk runs K eager steps. Before the first chunk of a static
+K-step run, ``solver/autotune.py::maybe_autotune`` may time the
+derivative-path candidates and pin the fastest, as the JAX solver does
+before it builds its scan. After each epoch: eval every ``eval_freq``
+epochs from ``start_eval_epoch`` (keeping ``best_model``), ``epoch_<k>``
+every ``save_freq`` epochs, and ``latest``. ``eval()`` runs the validators,
 ``predict()`` the model (and expressions) on given inputs, and
 ``output_dir/checkpoints/`` holds the checkpoints that ``checkpoint_path``
 resumes from.
 
 Not ported yet: learnable equation parameters, EMA, microbatching,
-gradient accumulation, the multi-process branches and the autotuner.
+gradient accumulation, the L-BFGS step and the multi-process branches.
 """
 
 from __future__ import annotations
@@ -52,6 +61,10 @@ from paddlescience_torch.utils import expression, save_load
 __all__ = ["Solver"]
 
 WARMUP_STEPS = 3  # eager steps on a side stream before a capture (then undone)
+
+
+def _batch_mode(cst) -> str:
+    return getattr(cst.dataset, "batch_mode", "indexed")
 
 
 def _clone(tree):
@@ -125,8 +138,15 @@ class Solver:
         self._static_batches = {
             name: tuple(self._to_device(part) for part in next(cst.data_iter))
             for name, cst in self.constraint.items()
-            if cst.data_iter is not None
+            if cst.data_iter is not None and _batch_mode(cst) == "full"
         }
+        # indexed constraints: a new host batch each step, staged per chunk into
+        # static (K, B, ...) device buffers that step i of the chunk reads at slice i
+        self._indexed = [name for name, cst in self.constraint.items()
+                         if cst.data_iter is not None and _batch_mode(cst) != "full"]
+        self._chunk_bufs: Dict[tuple, tuple] = {}
+        self._chunk: Dict[str, tuple] = {}
+        self._chunk_pos = 0
         # (K, derivative path) -> (CUDA graph of K steps, its last step's logs)
         self._graphs: Dict[tuple, Tuple[torch.cuda.CUDAGraph, Dict[str, torch.Tensor]]] = {}
         self.graph_stats: Dict[int, Dict[str, float]] = {}
@@ -203,10 +223,49 @@ class Solver:
 
     def _batches(self) -> Dict[str, tuple]:
         batches = dict(self._static_batches)
+        for name in self._indexed:
+            batches[name] = tuple({k: v[self._chunk_pos] for k, v in part.items()} for part in self._chunk[name])
         for name, cst in self.constraint.items():
             if cst.data_iter is None:
                 batches[name] = cst.dataset.sample_fn(self.generator)
         return batches
+
+    def _stage_host_batches(self, k: int) -> None:
+        """Draw ``k`` batches from each indexed constraint's loader and copy
+        them, from pinned host memory on CUDA, into that constraint's static
+        (k, B, ...) device buffers (allocated at first use, so a captured
+        graph keeps reading them). Raises ValueError when a batch's shapes
+        differ from the buffers' (a loader with ``drop_last=False``)."""
+        for name in self._indexed:
+            draws = [next(self.constraint[name].data_iter) for _ in range(k)]
+            host = []
+            for i in range(3):
+                part = {}
+                for key in draws[0][i]:
+                    arrs = [np.asarray(d[i][key], dtype=np.float32) for d in draws]
+                    if any(a.shape != arrs[0].shape for a in arrs):
+                        raise ValueError(f"constraint '{name}': batches of '{key}' differ in shape "
+                                         f"{sorted({a.shape for a in arrs})}; keep drop_last=True")
+                    part[key] = np.stack(arrs)
+                host.append(part)
+            bufs = self._chunk_bufs.get((name, k))
+            if bufs is None:
+                bufs = tuple({key: torch.empty(v.shape, dtype=torch.float32, device=self.device)
+                              for key, v in part.items()} for part in host)
+                self._chunk_bufs[(name, k)] = bufs
+            for part, buf in zip(host, bufs):
+                shapes = {key: tuple(v.shape) for key, v in part.items()}
+                if shapes != {key: tuple(v.shape) for key, v in buf.items()}:
+                    raise ValueError(f"constraint '{name}': a batch of shapes {shapes} does not fit the staged "
+                                     f"buffers {({key: tuple(v.shape) for key, v in buf.items()})}; every batch "
+                                     f"must have one shape (drop_last=True)")
+                for key, v in part.items():
+                    src = torch.from_numpy(v)
+                    if self.device.type == "cuda":
+                        buf[key].copy_(src.pin_memory(), non_blocking=True)
+                    else:
+                        buf[key].copy_(src)
+            self._chunk[name] = bufs
 
     def _constraint_losses(self, batches) -> Dict[str, torch.Tensor]:
         """One loss per constraint: the sum of its per-key losses."""
@@ -266,10 +325,7 @@ class Solver:
         """One eager optimizer step (after the aggregator refresh when one
         is due). Returns the step's logs as tensors on the device (reading
         them synchronises)."""
-        self._maybe_refresh_agg_weights(self.step)
-        logs = self._step(self.step)
-        self.step += 1
-        return logs
+        return self.train_chunk(1)
 
     def train_steps(self, num_steps: Optional[int] = None) -> List[Dict[str, float]]:
         """Run ``num_steps`` eager train steps (default: epochs *
@@ -322,6 +378,7 @@ class Solver:
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 for i in range(WARMUP_STEPS):
+                    self._chunk_pos = i % k
                     self._step(self.step + i)
             torch.cuda.current_stream(self.device).wait_stream(side)
             self._load_state(snap)
@@ -331,10 +388,15 @@ class Solver:
             graph.register_generator_state(self.generator)
             with torch.cuda.graph(graph):
                 for i in range(k):
+                    self._chunk_pos = i
                     logs = self._step(self.step + i)
             torch.cuda.synchronize(self.device)
         except Exception as e:
+            from paddlescience_torch.ops.jet_mlp import KernelRefusal
+
             self._load_state(snap)
+            if isinstance(e, KernelRefusal):  # a shape refusal before any launch, not a capture failure
+                raise
             raise RuntimeError(f"capturing {k} train steps in one CUDA graph failed: {e}") from e
         self.graph_stats[k] = {"warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1, "replays": 0}
         self._graphs[key] = (graph, logs)
@@ -345,7 +407,11 @@ class Solver:
         refresh if [global_step, global_step + k) holds a refresh step
         (``global_step`` defaults to the current step), then the ``k``
         steps: one replay of the captured graph on CUDA when k > 1, else
-        eager steps. Returns the last step's logs as device tensors."""
+        eager steps. Indexed constraints draw their ``k`` host batches first
+        (:meth:`_stage_host_batches`); the refresh sees the first. Returns
+        the last step's logs as device tensors."""
+        self._stage_host_batches(k)
+        self._chunk_pos = 0
         self._maybe_refresh_agg_weights(self.step if global_step is None else global_step, span=k)
         if self.device.type == "cuda" and k > 1:
             graph, logs = self._graph(k)
@@ -353,6 +419,7 @@ class Solver:
             self.graph_stats[k]["replays"] += 1
         else:
             for i in range(k):
+                self._chunk_pos = i
                 logs = self._step(self.step + i)
         self.step += k
         return logs
@@ -393,6 +460,10 @@ class Solver:
             k = self._auto_fuse_steps() if self.iters_per_epoch > 1 and self._all_constraints_static() else 1
         if self.iters_per_epoch % k != 0:
             raise ValueError(f"num_fused_steps({k}) must divide iters_per_epoch({self.iters_per_epoch})")
+        if k > 1 and self._all_constraints_static():
+            from paddlescience_torch.solver import autotune
+
+            autotune.maybe_autotune(self, self._static_batches, k)
         n_chunks = self.iters_per_epoch // k
         total_steps = self.epochs * self.iters_per_epoch
         start_epoch = int(self.last_epoch) + 1

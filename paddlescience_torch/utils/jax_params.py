@@ -4,7 +4,9 @@
 (``Module.param_tree()`` / ``buffer_tree()``). Given those trees as numpy
 arrays, :func:`load_jax_params` copies them into a port module whose
 parameters and buffers have the same dotted names (``linears.0.weight_v``,
-``fourier_emb.kernel``, ``period_emb.freq_x``, ``last_fc.bias``, ...). The
+``fourier_emb.kernel``, ``period_emb.freq_x``, ``last_fc.bias``, a
+DeepONet's ``branch_net.linears.0.weight``, ``trunk_net.last_fc.bias`` and
+``b``, ...). The
 layout is the JAX one on both sides (W of shape (in, out)), so nothing is
 transposed. This module imports no JAX: callers hand it numpy arrays.
 """

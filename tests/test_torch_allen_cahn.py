@@ -272,7 +272,8 @@ def _three_train_steps(tmp_path, layers, width, fourier, max_outlier_share=0.0, 
     # -- port: the same solver from build_solver, same weights, same batch
     ts = build_solver(epochs=1, iters_per_epoch=STEPS, batch_size=N_PDE, num_layers=layers,
                       hidden_size=width, fourier_dim=fourier, ic_points=N_IC, learning_rate=LR,
-                      gamma=GAMMA, decay_steps=DECAY_STEPS, update_freq=UPDATE_FREQ, device="cpu")
+                      gamma=GAMMA, decay_steps=DECAY_STEPS, update_freq=UPDATE_FREQ, deriv="jet_pallas_full",
+                      device="cpu")
     load_jax_params(ts.model, params0, buffers0)
     fixed = ({"t": torch.from_numpy(t), "x": torch.from_numpy(x)}, {"allen_cahn": torch.zeros(N_PDE, 1)}, {})
     ts.constraint["PDE"].dataset = DeviceSampledDataset(lambda gen: fixed)

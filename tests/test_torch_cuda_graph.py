@@ -46,7 +46,7 @@ def cuda_device():
 
 
 def _solver(device, **kw):
-    return allen_cahn.build_solver(device=device, **{**SMALL, **kw})
+    return allen_cahn.build_solver(device=device, **{**SMALL, "deriv": "jet_pallas_full", **kw})
 
 
 def _ptrs(solver):
@@ -181,8 +181,9 @@ def test_aneurysm_residual_eval_runs_the_jet_kernels_on_gpu(cuda_device, tmp_pat
 
     subprocess.run([sys.executable, os.path.join(ROOT, "tools", "gen_aneurysm_stl.py"), "--out", str(tmp_path)],
                    check=True, capture_output=True, timeout=300)
-    s = aneurysm.build_solver(str(tmp_path), device=cuda_device, width=64, num_layers=3, bs_pde=256, bs_bc=64,
-                              integral_bs=64, val_total_size=600, val_batch_size=256, output_dir=None)
+    s = aneurysm.build_solver(str(tmp_path), deriv="jet_pallas_full", device=cuda_device, width=64, num_layers=3,
+                              bs_pde=256, bs_bc=64, integral_bs=64, val_total_size=600, val_batch_size=256,
+                              output_dir=None)
     J.reset_counters()
     metric, group = s.eval()
     torch.cuda.synchronize()

@@ -114,7 +114,7 @@ def test_matched_workload_batches_bitwise(monkeypatch):
     import bench  # noqa: E402  (its import sets PSCI_MATMUL_PRECISION only where unset)
 
     js, j_points = bench.build_matched_cylinder(1)
-    ts, t_points = tcyl.build_matched_solver(1, device="cpu")
+    ts, t_points = tcyl.build_matched_solver(1, deriv="jet_pallas_full", device="cpu")
     assert t_points == j_points == 282600 + 4830 + 2430 + 9420
     _assert_same_datasets(js.constraint, ts.constraint)
     assert ts.iters_per_epoch == 1 and ts.epochs == 1

@@ -41,6 +41,7 @@ from paddlescience_torch.autodiff import jet as tjet
 from paddlescience_torch.autodiff import path as tpath
 from paddlescience_torch.ops import jet_gated as G
 from paddlescience_torch.ops import jet_mlp as J
+from paddlescience_torch.ops import kinks as K
 from paddlescience_torch.ops import lbm
 
 RTOL = 1e-4
@@ -751,11 +752,13 @@ def test_gated_kernels_match_plain_versions_on_gpu(cuda_device, multis, program,
     torch.cuda.synchronize()
     assert (G.jet_gated_fwd.launches, G.jet_gated_bwd.launches, J.jet_wgrad.launches) == (2, 1, 1)
     assert tuple(d_alpha.shape) == (len(al),) and len(g_u) == len(r_gu) and len(g_v) == len(r_gv)
-    for got, ref in zip([*outs, *outs_sb, *bounds, *g_y, *g_u, *g_v, *gzs, *dws, *dbs],
-                        [*r_outs, *r_outs, *r_bounds, *r_gy, *r_gu, *r_gv, *r_gzs, *r_dws, *r_dbs]):
+    case = dict(y=y, u=u, v=v, ws=ws, bs=bs, alphas=al, g_out=gs, bounds=r_bounds)
+    ref = {"out": r_outs, "bound": r_bounds, "g_y": r_gy, "g_u": r_gu, "g_v": r_gv, "gz": r_gzs, "in": r_ins}
+    for fwd_outs in (outs, outs_sb):
+        got = {"out": fwd_outs, "bound": bounds, "g_y": g_y, "g_u": g_u, "g_v": g_v, "gz": gzs, "in": ins}
+        _gated_kink_aware_close(case, got, ref, program, idx, J.TANH)
+    for got, ref in zip([*dws, *dbs], [*r_dws, *r_dbs]):
         _close(got, ref)
-    for got, ref in zip(ins, r_ins):
-        _close(torch.stack(got), torch.stack(ref))
     if al:
         assert float((d_alpha - r_da).abs().max()) <= _alpha_tol(r_da, n * w * len(idx))
 
@@ -880,126 +883,40 @@ def test_wgrad_is_bitwise_repeatable_on_gpu(cuda_device, shape):
 
 
 ACTS = [(i, 1.7 if i == tjet.SIREN else 0.0) for i in sorted(tjet.ACT_RULES)]
-# the relu family: activations whose derivatives jump, at these pre-activations
-KINKS = {tjet.RELU: (0.0,), tjet.RELU6: (0.0, 6.0), tjet.ELU: (0.0,), tjet.SELU: (0.0,), tjet.LEAKY_RELU: (0.0,)}
-KINK_C = 8  # a float32 pre-activation is within KINK_C * eps32 * (sum |x w| + |b|) of its float64 value
-EPS32 = float(np.finfo(np.float32).eps)
-MAX_KINK_SHARE = 1e-3  # at most this share of the pre-activations may lie that close to a kink
-
-
-def _kink_elements(ins, ws, bs, act, chain):
-    """Per layer, the (row, column) pre-activations of the primal stream
-    that lie within KINK_C eps32 (sum |x w| + |b|) of a kink of ``act``, in
-    float64: from layer inputs ``ins`` (chained through the float64 jet
-    rule when ``chain``, as a forward computes them; else ``ins[l]`` is
-    layer l's input, as the backward reads the boundaries)."""
-    tables = J.index_tables(tjet.build_index(INDICES[0]))
-    y, out = list(ins[0]), []
-    for l, (w, b) in enumerate(zip(ws, bs)):
-        if not chain:
-            y = list(ins[l])
-        z = [s @ w for s in y]
-        z[0] = z[0] + b
-        bound = KINK_C * EPS32 * (y[0].abs() @ w.abs() + b.abs())
-        near = torch.zeros_like(z[0], dtype=torch.bool)
-        for k in KINKS[act[0]]:
-            near |= (z[0] - k).abs() <= bound
-        out.append({(int(n), int(c)) for n, c in near.nonzero().tolist()})
-        y = J.act_jet(z, tables, act)
-    return out
-
-
-def _one_sided(x0, ws, bs, act, sides, g_out=None):
-    """One row in float64 through the plain rule, each listed pre-activation
-    ``sides[(layer, column)] = +-1`` set just above or below its nearest
-    kink: the layer outputs (forward), or with ``g_out`` the input
-    cotangents and every layer's gz (backward, ``x0[l]`` layer l's input)."""
-    tables = J.index_tables(tjet.build_index(INDICES[0]))
-    L = len(ws)
-    zs, y = [], list(x0[0])
-    outs = []
-    for l in range(L):
-        if g_out is not None:
-            y = list(x0[l])
-        z = [s @ ws[l] for s in y]
-        z[0] = z[0] + bs[l]
-        for (ll, c), side in sides.items():
-            if ll == l:
-                k = min(KINKS[act[0]], key=lambda k: abs(float(z[0][0, c]) - k))
-                z[0][0, c] = k + side * 1e-30
-        zs.append(z)
-        y = J.act_jet(z, tables, act)
-        outs.append(y)
-    if g_out is None:
-        return outs
-    g, gzs = list(g_out), [None] * L
-    for l in reversed(range(L)):
-        gz = J.act_jet_vjp(zs[l], g, tables, act)
-        gzs[l] = gz
-        g = [x @ ws[l].t() for x in gz]
-    return g, gzs
+KINKS = K.KINKS  # the relu family: activations whose derivatives jump, at these pre-activations
 
 
 def _kink_aware_close(ss, ws, bs, gs, r_bounds, act, got, ref):
     """The MLP kernels' outputs ``got`` = (outs, bounds, g_in, gzs) against
-    the plain version's ``ref`` for an activation with kinks: rows whose
+    the plain version's ``ref`` for an activation with kinks
+    (``ops/kinks.py``, the MLP segment as ``mlp_program(L)``): rows whose
     pre-activations lie within float32 rounding of a kink (at most
     MAX_KINK_SHARE of them) must equal, within the usual limit, the float64
     plain rule with those elements on one side or the other, in some
     combination; every other row the plain version within the usual limit.
     Forward outputs go by the forward's kinks (its own chain), backward
     outputs by the backward's (its layer inputs are ``r_bounds``)."""
-    f64 = lambda ts: [t.detach().double().cpu() for t in ts]
-    ss64, ws64, bs64, gs64 = f64(ss), f64(ws), f64(bs), f64(gs)
-    ins64 = [ss64] + [list(f64(b.unbind(0))) for b in r_bounds]
-    n_pre = ss[0].shape[0] * sum(int(w.shape[1]) for w in ws)
-    kinks = {"fwd": _kink_elements([ss64], ws64, bs64, act, chain=True),
-             "bwd": _kink_elements(ins64, ws64, bs64, act, chain=False)}
-    outs, bounds, g_in, gzs = got
-    r_outs, r_bounds_, r_gin, r_gzs = ref
-    L = len(ws)
-    # (kernel tensor, plain tensor, which kinks, row of stream s: tensor -> (N, D) view)
-    pairs = [(outs[s], r_outs[s], "fwd", ("out", L - 1, s)) for s in range(len(outs))]
-    pairs += [(bounds[l][s], r_bounds_[l][s], "fwd", ("out", l, s)) for l in range(L - 1) for s in range(len(ss))]
-    pairs += [(g_in[s], r_gin[s], "bwd", ("g_in", None, s)) for s in range(len(ss))]
-    pairs += [(gzs[l][s], r_gzs[l][s], "bwd", ("gz", l, s)) for l in range(L) for s in range(len(ss))]
-    for side in ("fwd", "bwd"):
-        count = sum(len(e) for e in kinks[side])
-        assert count <= MAX_KINK_SHARE * n_pre, f"{count} of {n_pre} pre-activations at a kink ({side})"
-    rows = {side: sorted({n for e in kinks[side] for n, _ in e}) for side in kinks}
-    for got_t, ref_t, side, _ in pairs:
-        keep = torch.ones(got_t.shape[0], dtype=torch.bool)
-        keep[rows[side]] = False
-        scale = float(ref_t.abs().max())
-        err = float((got_t.detach().cpu()[keep] - ref_t.detach().cpu()[keep]).abs().max())
-        assert err <= RTOL * max(scale, 1e-30), f"max abs err {err:.3e} > {RTOL} * {scale:.3e}"
-    for side in ("fwd", "bwd"):
-        for n in rows[side]:
-            elems = [(l, c) for l, e in enumerate(kinks[side]) for m, c in e if m == n]
-            assert len(elems) <= 6, f"row {n}: {len(elems)} pre-activations at a kink"
-            row_pairs = [p for p in pairs if p[2] == side]
-            ok = False
-            for combo in range(2 ** len(elems)):
-                sides = {e: (1 if combo >> i & 1 else -1) for i, e in enumerate(elems)}
-                if side == "fwd":
-                    res = _one_sided([[x[n:n + 1] for x in ss64]], ws64, bs64, act, sides)
-                    pick = lambda what, l, s: res[l][s][0]
-                else:
-                    res = _one_sided([[x[n:n + 1] for x in layer] for layer in ins64], ws64, bs64, act, sides,
-                                     g_out=[g[n:n + 1] for g in gs64])
-                    pick = lambda what, l, s: res[0][s][0] if what == "g_in" else res[1][l][s][0]
-                if all(float((got_t.detach().cpu()[n].double() - pick(*where)).abs().max())
-                       <= RTOL * max(float(ref_t.abs().max()), 1e-30) for got_t, ref_t, _, where in row_pairs):
-                    ok = True
-                    break
-            assert ok, f"row {n}: the kernel's {side} values match neither side of its kinks {elems}"
+    case = dict(y=ss, u=[], v=[], ws=ws, bs=bs, alphas=[], g_out=gs, bounds=r_bounds)
+    names = ("out", "bound", "g_y", "gz")
+    K.kink_aware_close(case, dict(zip(names, got)), dict(zip(names, ref)), G.mlp_program(len(ws)),
+                       tjet.build_index(INDICES[0]), act, RTOL)
+
+
+def _gated_kink_aware_close(case, got, ref, program, idx, act):
+    """The gated kernels' outputs against the plain version's with the same
+    either-side rule at kinks, over the layer program (gates v + y (u - v)
+    and residuals included): ``got``/``ref`` hold any of "out", "bound",
+    "g_y", "g_u", "g_v", "gz", "in"; ``case`` the inputs (y, u, v, ws, bs,
+    alphas, g_out) and the plain forward's boundaries."""
+    K.kink_aware_close(case, got, ref, program, idx, act, RTOL)
 
 
 def test_kink_aware_check_takes_either_side_and_nothing_else():
     """The check of the relu family on the CPU: a "kernel" result that takes
     the other side of a pre-activation exactly at the kink passes, the
     plain result passes, a result off by 1e-3 at a kink row or elsewhere
-    fails, and so does a case with too many kinks."""
+    fails, and so does a case with too many kinks; the same for a gated
+    program (a ModifiedMLP program of 2 layers: a gate after each)."""
     act = (tjet.LEAKY_RELU, 0.0)
     idx = tjet.build_index(INDICES[0])
     ss, ws, bs, gs = (list(map(torch.from_numpy, a)) for a in _case(INDICES[0], 2, n=40, w=16, seed=3))
@@ -1009,12 +926,12 @@ def test_kink_aware_check_takes_either_side_and_nothing_else():
     r_gin, r_gzs = J.jet_mlp_bwd_plain(ss, r_bounds, ws, bs, gs, idx, act)
     ref = (r_outs, r_bounds, r_gin, r_gzs)
     _kink_aware_close(ss, ws, bs, gs, r_bounds, act, ref, ref)
-    f64 = lambda ts: [t.double() for t in ts]
-    left = _one_sided([[x[7:8] for x in f64(ss)]], f64(ws), f64(bs), act, {(0, 5): -1})
+    case = dict(y=ss, u=[], v=[], ws=ws, bs=bs, alphas=[], g_out=gs, bounds=r_bounds)
+    left = K.one_sided(case, G.mlp_program(2), idx, act, 7, {(0, 5): -1}, backward=False)
     flipped = ([o.clone() for o in r_outs], [b.clone() for b in r_bounds], r_gin, r_gzs)
     for s in range(len(ss)):
-        flipped[0][s][7] = left[1][s][0].float()
-        flipped[1][0][s][7] = left[0][s][0].float()
+        flipped[0][s][7] = left["out"][s][0].float()
+        flipped[1][0][s][7] = left["bound"][0][s][0].float()
     assert not torch.equal(flipped[0][1], r_outs[1])  # the tangent took the other slope
     _kink_aware_close(ss, ws, bs, gs, r_bounds, act, flipped, ref)
     for row in (7, 8):
@@ -1027,13 +944,46 @@ def test_kink_aware_check_takes_either_side_and_nothing_else():
     with pytest.raises(AssertionError, match="at a kink"):
         _kink_aware_close(crowded, ws, [b * 0 for b in bs], gs, r_bounds, act, ref, ref)
 
+    # the gated program: (row 7, column 5) of layer 0 at the kink; forward and backward flipped
+    prog = G.modified_mlp_program(2)
+    y, u, v, gws, gbs, al, ggs = (list(map(torch.from_numpy, part)) for part in _gated_case(INDICES[0], prog, n=40,
+                                                                                              w=16, seed=4))
+    y[0][7] = 0.0
+    gbs[0][5] = 0.0
+    g_outs, g_bounds = G.jet_gated_fwd_plain(y, u, v, gws, gbs, al, prog, idx, save_bounds=True, act=act)
+    g_y, g_u, g_v, g_gz, g_ins, _ = G.jet_gated_bwd_plain(y, u, v, g_bounds, gws, gbs, al, ggs, prog, idx, act)
+    gref = {"out": g_outs, "bound": g_bounds, "g_y": g_y, "g_u": g_u, "g_v": g_v, "gz": g_gz, "in": g_ins}
+    gcase = dict(y=y, u=u, v=v, ws=gws, bs=gbs, alphas=al, g_out=ggs, bounds=g_bounds)
+    _gated_kink_aware_close(gcase, gref, gref, prog, idx, act)
+    fwd = K.one_sided(gcase, prog, idx, act, 7, {(0, 5): -1}, backward=False)
+    bwd = K.one_sided(gcase, prog, idx, act, 7, {(0, 5): -1}, backward=True)
+    gflip = {k: [t.clone() if isinstance(t, torch.Tensor) else [x.clone() for x in t] for t in val]
+             for k, val in gref.items()}
+    for s in range(len(y)):
+        gflip["out"][s][7] = fwd["out"][s][0].float()
+        gflip["bound"][0][s][7] = fwd["bound"][0][s][0].float()
+        for key in ("g_y", "g_u", "g_v"):
+            gflip[key][s][7] = bwd[key][s][0].float()
+        for l in range(len(prog)):
+            gflip["gz"][l][s][7] = bwd["gz"][l][s][0].float()
+    assert not torch.equal(gflip["out"][1], g_outs[1]) and not torch.equal(gflip["g_u"][0], g_u[0])
+    _gated_kink_aware_close(gcase, gflip, gref, prog, idx, act)
+    for key, row in (("out", 7), ("g_v", 7), ("out", 8), ("gz", 9)):
+        bad = {k: [t.clone() if isinstance(t, torch.Tensor) else [x.clone() for x in t] for t in val]
+               for k, val in gflip.items()}
+        target = bad[key][1] if key != "gz" else bad[key][1][0]
+        target[row] += 2e-3 * float(target.abs().max())
+        with pytest.raises(AssertionError):
+            _gated_kink_aware_close(gcase, bad, gref, prog, idx, act)
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("act", ACTS, ids=lambda a: tjet.ACT_NAMES[a[0]])
 def test_every_activation_on_gpu(cuda_device, act):
     """Each activation through the MLP kernels (S=4, W=256, L=2) and the
     gated ones (a ModifiedMLP program of 2 layers). For the relu family
-    the MLP kernels' results are held by ``_kink_aware_close``: at a
+    both kernels' results are held by the either-side check
+    (``_kink_aware_close``, ``_gated_kink_aware_close``): at a
     pre-activation within float32 rounding of a kink, the kernel and the
     plain version may rightly take different sides."""
     multis = INDICES[0]
@@ -1056,11 +1006,10 @@ def test_every_activation_on_gpu(cuda_device, act):
     got = G.jet_gated_bwd(y, u, v, r_bounds, ws, bs, al, gs, prog, idx, act)
     ref = G.jet_gated_bwd_plain(y, u, v, r_bounds, ws, bs, al, gs, prog, idx, act)
     torch.cuda.synchronize()
-    for a, b in zip([*outs, *bounds], [*r_outs, *r_bounds]):
-        _close(a, b)
-    for gs_, rs_ in zip(got[:4], ref[:4]):
-        for a, b in zip(gs_, rs_):
-            _close(a, b)
+    names = ("g_y", "g_u", "g_v", "gz")
+    _gated_kink_aware_close(dict(y=y, u=u, v=v, ws=ws, bs=bs, alphas=al, g_out=gs, bounds=r_bounds),
+                            {"out": outs, "bound": bounds, **dict(zip(names, got[:4]))},
+                            {"out": r_outs, "bound": r_bounds, **dict(zip(names, ref[:4]))}, prog, idx, act)
 
 
 @pytest.mark.cuda

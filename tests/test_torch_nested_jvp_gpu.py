@@ -131,9 +131,10 @@ def test_jvp_path_matches_the_jet_path_on_gpu(cuda_device, case):
     ``jvp`` candidate against the plain jet path, on the card (loss 1e-5
     relative, gradient 1e-4 relative norm)."""
     if case == "cylinder":
-        solver, _ = cyl.build_matched_solver(2, device=cuda_device, sizes=SMALL_MATCHED)
+        solver, _ = cyl.build_matched_solver(2, deriv="jet_pallas_full", device=cuda_device, sizes=SMALL_MATCHED)
     else:
-        solver = euler_beam.build_solver(epochs=1, iters_per_epoch=1, output_dir=None, device=cuda_device)
+        solver = euler_beam.build_solver(epochs=1, iters_per_epoch=1, output_dir=None, deriv="jet_pallas_full",
+                                         device=cuda_device)
     batches = solver._batches()
     results = {}
     for deriv in ("jet", "jvp"):
@@ -152,7 +153,7 @@ def test_jvp_path_matches_the_jet_path_on_gpu(cuda_device, case):
 def test_cylinder_graphed_equals_eager_on_gpu(cuda_device):
     """The matched workload (cut) on the MLP kernels: two graphed chunks
     against eager steps, every kernel launched during the capture."""
-    solver, points = cyl.build_matched_solver(4, device=cuda_device, sizes=SMALL_MATCHED)
+    solver, points = cyl.build_matched_solver(4, deriv="jet_pallas_full", device=cuda_device, sizes=SMALL_MATCHED)
     assert points == 400 * 5 + 20 * 5 + 10 * 5 + 400
     J.reset_counters()
     assert _graphed_against_eager(solver, 4) <= 1e-6
@@ -175,7 +176,7 @@ def test_euler_beam_trains_graphed_on_gpu(cuda_device, tmp_path):
     """``train()`` by epochs of one graphed chunk each against the same
     epochs of eager steps: the L2Rel against the analytic solution finite
     and equal to 1e-4."""
-    kw = dict(epochs=20, iters_per_epoch=10, device=cuda_device)
+    kw = dict(epochs=20, iters_per_epoch=10, deriv="jet_pallas_full", device=cuda_device)
     graphed = euler_beam.build_solver(output_dir=str(tmp_path / "graphed"), **kw)
     graphed.train()
     eager = euler_beam.build_solver(output_dir=str(tmp_path / "eager"), **kw)

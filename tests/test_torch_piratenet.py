@@ -278,7 +278,8 @@ def test_three_train_steps_match_jax_solver(tmp_path, arch):
 
     ts = build_solver(epochs=1, iters_per_epoch=STEPS, batch_size=N_PDE, num_layers=4, hidden_size=WIDTH,
                       fourier_dim=WIDTH, ic_points=N_IC, learning_rate=LR, gamma=GAMMA, decay_steps=DECAY_STEPS,
-                      update_freq=UPDATE_FREQ, device="cpu", arch=arch, piratenet_blocks=2)
+                      update_freq=UPDATE_FREQ, deriv="jet_pallas_full", device="cpu", arch=arch,
+                      piratenet_blocks=2)
     assert ts.model.jet_segment_lengths() == ([6] if arch == "piratenet" else [4])
     assert ts.model.fourier["scale"] == 2.0
     load_jax_params(ts.model, params0, buffers0)

@@ -172,7 +172,35 @@ def test_the_nested_jvp_geometry_and_tipc_files_are_among_the_checked_sources():
     assert set(TENTH_SLICE_MODULES) <= checked
 
 
-@pytest.mark.parametrize("rel", TENTH_SLICE_MODULES)
+ELEVENTH_SLICE_MODULES = ("solver/autotune.py", "arch/deeponet.py", "ops/kinks.py", "examples/laplace2d.py",
+                          "examples/ldc2d_steady.py", "examples/deeponet.py")
+
+
+def test_the_autotuner_deeponet_and_new_example_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(ELEVENTH_SLICE_MODULES) <= checked
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_cache_of_the_jax_package(path):
+    """The port's autotuner keeps its own cache: no source names the JAX
+    package's cache directory, in a path or as a directory name."""
+    text = path.read_text()
+    assert not re.search(r"\.cache\W+paddlescience_tpu", text), f"{path.name} names ~/.cache/paddlescience_tpu"
+    consts = [n.value for n in ast.walk(ast.parse(text)) if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    assert "paddlescience_tpu" not in consts, f"{path.name} has the string 'paddlescience_tpu'"
+
+
+def test_the_autotune_cache_is_the_ports_own(monkeypatch):
+    from paddlescience_torch.solver import autotune
+
+    monkeypatch.delenv("PSCI_AUTOTUNE_CACHE", raising=False)
+    parts = pathlib.Path(autotune._cache_path()).parts
+    assert parts[-3:] == (".cache", "paddlescience_torch", "deriv_autotune.json")
+    assert "paddlescience_tpu" not in parts
+
+
+@pytest.mark.parametrize("rel", TENTH_SLICE_MODULES + ELEVENTH_SLICE_MODULES)
 def test_the_new_modules_import_alone_without_jax(rel):
     """Each new module, imported first in a fresh process, loads no JAX,
     sympy, optax or JAX-package module."""

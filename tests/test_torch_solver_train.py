@@ -73,7 +73,7 @@ def _batch(seed=0):
 def _port_solver(tmp_path=None, **kw):
     """The port's example solver, small, GradNorm every UPDATE_FREQ steps."""
     args = dict(epochs=EPOCHS, iters_per_epoch=ITERS, batch_size=N_PDE, ic_points=64, update_freq=UPDATE_FREQ,
-                log_freq=1, eval_freq=1, device="cpu", with_validator=False,
+                log_freq=1, eval_freq=1, deriv="jet_pallas_full", device="cpu", with_validator=False,
                 output_dir=None if tmp_path is None else str(tmp_path), **CUT)
     args.update(kw)
     return tallen_cahn.build_solver(**args)

@@ -269,7 +269,8 @@ def _solvers(monkeypatch, tmp_path, reference, **kw):
     monkeypatch.setattr(psci.arch, "MLP", cut_mlp)
     monkeypatch.setattr(jallen_cahn, "get_reference_solution", lambda: reference)
     js, _ = jallen_cahn.build_solver(batch_size=256, output_dir=str(tmp_path / "jax"), **kw)
-    ts = tallen_cahn.build_solver(batch_size=256, output_dir=str(tmp_path / "port"), device="cpu", **CUT, **kw)
+    ts = tallen_cahn.build_solver(batch_size=256, output_dir=str(tmp_path / "port"), deriv="jet_pallas_full",
+                                  device="cpu", **CUT, **kw)
     load_jax_params(ts.model, jax.tree.map(np.asarray, js.state["params"]),
                     jax.tree.map(np.asarray, js.state["rest"]))
     return js, ts
