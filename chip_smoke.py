@@ -94,6 +94,26 @@ on failure:
              the peak memory; one DeepONet epoch as one 32-step graph
              (32 host batches staged a replay) bitwise equal to 32 eager
              steps;
+   lbfgs    - ldc2d_steady with ``lbfgs=True`` (optax's L-BFGS with its
+             zoom line search, a host loop a step) through ``train()`` at
+             the example's 50 x 50 steps, no path pinned: steps/s,
+             value-and-gradient evaluations a step (mean, max), the
+             residual MSEs, the peak memory; Adam then L-BFGS (50 steps
+             from the ldc2d phase's Adam-trained parameters: the objective
+             falls; the residual MSEs before and after); 3 L-BFGS steps on
+             jet_pallas_full (the MLP kernels under every evaluation of the
+             line search)
+             against the plain jet path: losses within 1e-4, the stored
+             gradient within 1e-3, the same evaluations;
+   operators - BASELINE's operator config at the examples' defaults, one
+             CUDA graph an epoch (``train(num_fused_steps=iters_per_epoch)``,
+             the host batches staged a replay): Darcy TFNO (1100 samples
+             generated on the host, 300 epochs of 62 steps, l2 every 10
+             epochs) and the Brusselator LNO (1000 samples generated on
+             the card, 2 of them held against the CPU generator within
+             1e-4 x max |u|; 300 epochs of 16 steps, the decoded L2Rel);
+             for each a graphed epoch against eager steps (1e-6), graphed
+             and eager steps/s with device busy, the final metric;
    autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
              candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
              PirateNet 9x256, the aneurysm, cylinder2d matched,
@@ -110,7 +130,8 @@ on failure:
              workload's (S=6, N=282,600, 3 -> 52 x 5);
              jet_wgrad over the 27 PirateNet layers beside one torch.mm a
              layer (the library time of every jet_wgrad row) and torch.bmm, with
-             and without the d alpha sum and against a separate sum;
+             and without the d alpha sum and against a separate sum (and
+             that sum alone: jet_alpha_reduce_plain and Tensor.sum(0));
              jet_gated_fwd and jet_gated_bwd on the PirateNet stages
              without gates and residuals, and so the share of the
              elementwise traffic, and jet_gated_bwd on the PirateNet
@@ -1011,13 +1032,16 @@ def time_kernels(errs, launches, device_ms):
     r["library_ms_27_layers_bmm"] = cuda_ms(lambda: torch.bmm(Y.transpose(1, 2), GZ), 20)
     r["d_alpha_max_abs_err"] = errs["d_alpha"]
     r["d_alpha_plain_ms"] = cuda_ms(lambda: J.jet_alpha_reduce_plain(partials))
+    r["d_alpha_library_ms"] = cuda_ms(lambda: partials.sum(0))
+    r["d_alpha_partials_shape"] = list(partials.shape)
     log(f"[timing] jet_wgrad over the 27 PirateNet layers (one launch, with d alpha): {r['ms_27_layers']} ms, "
         f"without d alpha {r['ms_27_layers_without_d_alpha']} ms, then a separate partials.sum(0) "
         f"{r['ms_27_layers_then_separate_d_alpha_sum']} ms; host {host_ms:.4f} ms per call; bound "
         f"{r['bound_ms_27_layers']:.4f} ms; one torch.mm a layer {r['library_ms_27_layers']:.4f} ms, torch.bmm "
         f"{r['library_ms_27_layers_bmm']:.4f} ms; inputs gz + layer "
         f"inputs {2 * 27 * stream_bytes / 1e6:.0f} MB; d alpha vs jet_alpha_reduce_plain max abs err "
-        f"{errs['d_alpha']:.3e} (plain {r['d_alpha_plain_ms']:.4f} ms)")
+        f"{errs['d_alpha']:.3e} (plain jet_alpha_reduce_plain {r['d_alpha_plain_ms']:.4f} ms, library "
+        f"Tensor.sum(0) {r['d_alpha_library_ms']:.4f} ms, partials {tuple(partials.shape)})")
     del Y, GZ, gzs27, ins27, bounds
 
     tau, u_lid = 0.62, 0.1
@@ -1554,7 +1578,7 @@ def check_deeponet_graph(tmp: str):
 def run_example_phases(tmp: str):
     """laplace2d, ldc2d_steady and DeepONet through their examples' entry
     points at the JAX defaults, no path pinned. Returns (launch counts by
-    run, numbers)."""
+    run, numbers, the Adam-trained ldc2d_steady parameters)."""
     from paddlescience_torch.autodiff import path as deriv_path
     from paddlescience_torch.examples import deeponet, laplace2d, ldc2d_steady
 
@@ -1569,9 +1593,225 @@ def run_example_phases(tmp: str):
         log(f"[{name}] solver built in {time.perf_counter() - t0:.2f} s")
         launches[f"example {name}"], timing[name] = run_example(name, solver, metric_name)
         timing[name]["build_s"] = time.perf_counter() - t0
+        if name == "ldc2d":
+            ldc2d_params = {n: p.detach().clone() for n, p in solver.model.named_parameters()}
         del solver
     check_deeponet_graph(tmp)
-    return launches, timing
+    return launches, timing, ldc2d_params
+
+
+LBFGS_CHECK_STEPS = 3  # L-BFGS steps held on jet_pallas_full against the plain jet path
+LBFGS_REFINE_STEPS = 50  # L-BFGS steps after the [ldc2d] phase's Adam training
+OPERATOR_TIMED = {"darcy": 5, "brusselator": 10}  # graphed replays timed per solver
+BRUSSELATOR_CHECK = 2  # samples of the generator held on the card against the CPU
+BRUSSELATOR_TOL = 1e-4  # x max |u|: cuFFT against the CPU's FFT over the 9500 steps of the rollout
+
+
+def lbfgs_residuals(solver):
+    """The residual validator's three MSEs."""
+    return {k: round(v, 9) for k, v in solver.eval()[1]["residual"].items()}
+
+
+def lbfgs_objective(solver) -> float:
+    """The L-BFGS objective (the plain sum of the constraint losses) at
+    the current parameters on the solver's batch."""
+    import torch
+
+    with torch.no_grad():
+        return float(torch.stack(list(solver._constraint_losses(solver._batches()).values())).sum())
+
+
+def run_lbfgs_phase(tmp: str, adam_params):
+    """ldc2d_steady with ``lbfgs=True`` through ``train()`` at the example's
+    50 x 50 steps (no path pinned: the process default, the plain jet at
+    width 50): steps/s, line-search evaluations a step, the residual MSEs,
+    the peak memory; then the Adam+L-BFGS recipe: a second L-BFGS solver
+    from the [ldc2d] phase's Adam-trained parameters for 50 steps; then 3
+    L-BFGS steps on jet_pallas_full against the plain jet path from the
+    same state: each step's loss within 1e-4 relative, the gradient the
+    search stores within 1e-3 of its largest magnitude, the same number of
+    evaluations, and the MLP kernels launched under the closure. Returns
+    (the kernel path's launch counts, numbers)."""
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import ldc2d_steady
+
+    deriv_path.set_default(None)
+    out = {}
+    solver = ldc2d_steady.build_solver(lbfgs=True, output_dir=os.path.join(tmp, "ldc2d_lbfgs"), device="cuda")
+    start = lbfgs_objective(solver)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = solver.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    steps = solver.epochs * solver.iters_per_epoch
+    evals = solver.optimizer.evaluations
+    if len(evals) != steps or any(plain.values()) or not all(math.isfinite(e["loss"]) for e in logged):
+        raise AssertionError(f"lbfgs: {len(evals)} of {steps} steps, plain versions on CUDA {plain}, logs {logged}")
+    res = lbfgs_residuals(solver)
+    out["train"] = {"steps": steps, "seconds": dt, "steps_per_s": steps / dt, "evals_mean": sum(evals) / steps,
+                    "evals_max": max(evals), "evals_total": sum(evals), "objective": [start, lbfgs_objective(solver)],
+                    "residual_mse": res, "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "memory_held_before_gib": held, "path_flags": deriv_path.get_default(),
+                    "kernel_launches": {k: v for k, v in counts.items() if v}}
+    log(f"[lbfgs] ldc2d_steady lbfgs=True train(): {steps} L-BFGS steps in {dt:.2f} s ({steps / dt:.2f} steps/s), "
+        f"value-and-gradient evaluations a step mean {sum(evals) / steps:.3f}, max {max(evals)} "
+        f"({sum(evals)} in all); objective {start:.6e} -> {out['train']['objective'][1]:.6e}; residual MSE {res}; "
+        f"peak device memory "
+        f"{out['train']['peak_memory_gib']:.3f} GiB ({held:.3f} held before); path flags "
+        f"{deriv_path.get_default() or 'unpinned (the process default)'}")
+    _, busy, kernels = profile_steps(solver, "lbfgs", dt / steps * 1e3, steps=10, top=8)
+    out["train"].update(busy_ms_per_step=busy, kernels_per_step=kernels)
+    del solver
+
+    refine = ldc2d_steady.build_solver(epochs=1, iters_per_epoch=LBFGS_REFINE_STEPS, lbfgs=True,
+                                       output_dir=os.path.join(tmp, "ldc2d_refine"), device="cuda")
+    refine._load_state({"params": adam_params}, params_only=True)
+    before, obj_before = lbfgs_residuals(refine), lbfgs_objective(refine)
+    t0 = time.perf_counter()
+    refine.train()
+    torch.cuda.synchronize()
+    after, obj_after = lbfgs_residuals(refine), lbfgs_objective(refine)
+    out["adam_then_lbfgs"] = {"steps": LBFGS_REFINE_STEPS, "seconds": time.perf_counter() - t0,
+                              "objective": [obj_before, obj_after], "residual_mse_before": before,
+                              "residual_mse_after": after, "evals": refine.optimizer.evaluations}
+    log(f"[lbfgs] Adam then L-BFGS: from the [ldc2d] phase's Adam-trained parameters, {LBFGS_REFINE_STEPS} L-BFGS "
+        f"steps in {out['adam_then_lbfgs']['seconds']:.2f} s: objective {obj_before:.6e} -> {obj_after:.6e}; "
+        f"residual MSE {before} -> {after}")
+    if not (obj_after < obj_before and all(math.isfinite(v) for v in after.values())):
+        raise AssertionError(f"lbfgs refinement: objective {obj_before} -> {obj_after}, residual MSE {after}")
+    del refine
+
+    runs, launches = {}, None
+    for deriv in ("jet", "jet_pallas_full"):
+        s = ldc2d_steady.build_solver(lbfgs=True, output_dir=None, device="cuda", deriv=deriv)
+        rows = []
+        reset_counts()
+        for _ in range(LBFGS_CHECK_STEPS):
+            loss = float(s.train_step()["loss"])
+            st = s.optimizer.linesearch.state
+            rows.append((loss, st["grad"].clone(), len(s.optimizer.linesearch.trace)))
+        torch.cuda.synchronize()
+        counts, plain = read_counts()
+        if deriv == "jet_pallas_full":
+            check_counts("mlp/lbfgs", counts, plain, LBFGS_CHECK_STEPS)
+            launches = counts
+        runs[deriv] = (rows, s.optimizer.evaluations)
+        del s
+    deriv_path.set_default(None)
+    checks = []
+    for i, (a, b) in enumerate(zip(*(runs[d][0] for d in ("jet_pallas_full", "jet")))):
+        loss_rel = abs(a[0] - b[0]) / abs(b[0])
+        grad_rel = float((a[1] - b[1]).abs().max() / b[1].abs().max())
+        checks.append({"step": i + 1, "loss": [a[0], b[0]], "loss_rel": loss_rel, "grad_rel": grad_rel,
+                       "trials": [a[2], b[2]]})
+        log(f"[lbfgs] step {i + 1}: jet_pallas_full vs plain jet: loss {a[0]:.8e} vs {b[0]:.8e} (rel {loss_rel:.2e}), "
+            f"stored gradient rel {grad_rel:.2e}, line-search trials {a[2]} vs {b[2]}")
+        if loss_rel > REL_TOL or grad_rel > 1e-3 or a[2] != b[2]:
+            raise AssertionError(f"lbfgs: the kernel path disagrees with the plain jet path at step {i + 1}")
+    if runs["jet_pallas_full"][1] != runs["jet"][1]:
+        raise AssertionError(f"lbfgs: evaluations {runs['jet_pallas_full'][1]} vs {runs['jet'][1]}")
+    out["kernel_vs_plain"] = checks
+    log(f"[lbfgs] {LBFGS_CHECK_STEPS} L-BFGS steps through the MLP kernels (every evaluation of the line search): "
+        f"launches { {k: v for k, v in launches.items() if v} }, evaluations {runs['jet'][1]} on both paths")
+    return launches, out
+
+
+def check_operator_graph(name: str, build):
+    """One epoch as one graph of k = iters_per_epoch steps (k host batches
+    staged a replay) against k eager steps, both from a fresh solver:
+    parameters within 1e-6 relative (and whether bitwise)."""
+    import torch
+
+    runs = {}
+    for fused in ("eager", "graphed"):
+        s = build()
+        k = s.iters_per_epoch
+        s.epochs = 1
+        s.train(num_fused_steps=k if fused == "graphed" else 1)
+        runs[k if fused == "graphed" else 1] = s
+    torch.cuda.synchronize()
+    a, b = flat_params(runs[k]), flat_params(runs[1])
+    rel = float((a - b).norm() / b.norm())
+    log(f"[operators] {name}: one epoch as one graph of {k} steps vs {k} eager steps from the same fresh state: "
+        f"parameters rel err {rel:.3e}, bitwise {torch.equal(a, b)}, {runs[k].graph_stats[k]['replays']} replay(s)")
+    if rel > 1e-6 or runs[k].graph_stats[k]["replays"] != 1:
+        raise AssertionError(f"{name}: the graphed epoch disagrees with the eager steps")
+    return {"rel_err": rel, "bitwise": torch.equal(a, b)}
+
+
+def train_operator(name: str, solver, metric_name: str):
+    """``train(num_fused_steps=iters_per_epoch)`` (one graph an epoch), the
+    final metric, then graphed and eager steps/s with device busy."""
+    import torch
+
+    k = solver.iters_per_epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logged = solver.train(num_fused_steps=k)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    metric, group = solver.eval()
+    if not math.isfinite(metric) or not all(math.isfinite(e["loss"]) for e in logged):
+        raise AssertionError(f"{name}: {metric_name} {metric}, logs {logged[-3:]}")
+    steps = solver.epochs * k
+    log(f"[operators] {name} train(): {solver.epochs} epochs x {k} steps as one graph an epoch ({steps} steps) in "
+        f"{dt:.2f} s, final loss {logged[-1]['loss']:.6e}; {metric_name} = {metric:.6e}; {group}")
+    timing = time_graphed(solver, name, k, OPERATOR_TIMED[name])
+    timing.update(train_s=dt, steps=steps, metric=metric, metric_name=metric_name,
+                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return timing
+
+
+def run_operator_phase(tmp: str):
+    """BASELINE's operator config through the examples' entry points at
+    their defaults: Darcy TFNO (1000 + 100 generated samples at 16^2, 300
+    epochs of 62 steps) and the Brusselator LNO (800 + 200 samples
+    generated on the card, held against the same generator on the CPU for
+    2 samples; 300 epochs of 16 steps), each epoch one CUDA graph; a
+    graphed epoch against eager steps for each. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from paddlescience_torch.data.dataset import brusselator
+    from paddlescience_torch.examples import brusselator3d_lno, darcy_tfno
+
+    out = {}
+    t0 = time.perf_counter()
+    darcy_data = darcy_tfno.make_data(1100, 16)
+    gen_s = time.perf_counter() - t0
+    log(f"[operators] darcy: {len(darcy_data[0])} samples at 16^2 generated (host, numpy and scipy) in {gen_s:.2f} s")
+    build = lambda tag: darcy_tfno.build_solver(data=darcy_data, output_dir=os.path.join(tmp, tag), device="cuda")
+    out["darcy"] = {"generation_s": gen_s, "graph_check": check_operator_graph("darcy", lambda: build("darcy_chk"))}
+    out["darcy"].update(train_operator("darcy", build("darcy"), "l2"))
+
+    ic = brusselator.initial_perturbation()
+    coefs = brusselator.forcings(BRUSSELATOR_CHECK, 7)
+    gpu = brusselator.simulate(coefs, ic, "cuda").cpu().numpy()
+    cpu = brusselator.simulate(coefs, ic, "cpu").numpy()
+    err = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    log(f"[operators] brusselator generator: {BRUSSELATOR_CHECK} samples on the card vs the CPU: max abs diff "
+        f"{err:.3e} x max |u| (limit {BRUSSELATOR_TOL})")
+    if err > BRUSSELATOR_TOL:
+        raise AssertionError("brusselator: the generator on the card disagrees with the CPU")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = brusselator.generate(device="cuda")
+    gen_s = time.perf_counter() - t0
+    log(f"[operators] brusselator: 800 + 200 samples (39 frames of 28^2, 9500 IMEX steps) generated on the card "
+        f"in {gen_s:.2f} s")
+    build = lambda tag: brusselator3d_lno.build_solver(data=data, output_dir=os.path.join(tmp, tag), device="cuda")
+    out["brusselator"] = {"generation_s": gen_s, "generator_rel_err_vs_cpu": err,
+                          "graph_check": check_operator_graph("brusselator", lambda: build("bru_chk"))}
+    out["brusselator"].update(train_operator("brusselator", build("brusselator"), "decoded.L2Rel"))
+    return out
 
 
 def run_autotune_phase(solvers):
@@ -1829,9 +2069,12 @@ def main() -> int:
         log("[cylinder] summary " + json.dumps(cyl_timing))
         launches["graph euler_beam"], euler_timing = run_euler_beam_phase(tmp)
         log("[euler_beam] summary " + json.dumps(euler_timing))
-        example_launches, example_timing = run_example_phases(tmp)
+        example_launches, example_timing, ldc2d_params = run_example_phases(tmp)
         launches.update(example_launches)
         log("[examples] summary " + json.dumps(example_timing))
+        launches["lbfgs jet_pallas_full"], lbfgs_numbers = run_lbfgs_phase(tmp, ldc2d_params)
+        log("[lbfgs] summary " + json.dumps(lbfgs_numbers))
+        log("[operators] summary " + json.dumps(run_operator_phase(tmp)))
     autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
     log("[autotune] summary " + json.dumps(autotune_results))
 

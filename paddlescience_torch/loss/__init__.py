@@ -1,9 +1,9 @@
 import copy
 
 from paddlescience_torch.loss import mtl
-from paddlescience_torch.loss.losses import CausalMSELoss, IntegralLoss, Loss, MSELoss
+from paddlescience_torch.loss.losses import CausalMSELoss, FunctionalLoss, IntegralLoss, L2RelLoss, Loss, MSELoss
 
-__all__ = ["mtl", "CausalMSELoss", "IntegralLoss", "Loss", "MSELoss", "build_loss"]
+__all__ = ["mtl", "CausalMSELoss", "FunctionalLoss", "IntegralLoss", "L2RelLoss", "Loss", "MSELoss", "build_loss"]
 
 
 def build_loss(cfg):

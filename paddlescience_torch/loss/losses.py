@@ -1,16 +1,17 @@
 """Losses (counterpart of ``paddlescience_tpu/loss/losses.py``):
-``MSELoss``, ``CausalMSELoss`` and ``IntegralLoss``. Contract:
+``MSELoss``, ``CausalMSELoss``, ``IntegralLoss``, ``L2RelLoss`` and
+``FunctionalLoss``. Contract:
 ``loss(output_dict, label_dict, weight_dict=None) -> {key: scalar}``. As in
 the JAX package, a pointwise loss is weighted by the ``"area"`` column
 when the output dict carries one (mesh boundary samples do)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
-__all__ = ["Loss", "MSELoss", "CausalMSELoss", "IntegralLoss"]
+__all__ = ["Loss", "MSELoss", "CausalMSELoss", "IntegralLoss", "L2RelLoss", "FunctionalLoss"]
 
 
 class Loss:
@@ -80,3 +81,34 @@ class IntegralLoss(Loss):
                 loss = loss * weight_dict[key]
             losses[key] = self._reduce(loss)
         return losses
+
+
+class L2RelLoss(Loss):
+    """Per-sample relative L2, ||o - l|| / (||l|| + 1e-12) over each
+    sample's flattened entries, times the weight, reduced over the batch."""
+
+    def __call__(self, output_dict, label_dict, weight_dict=None) -> Dict[str, torch.Tensor]:
+        losses = {}
+        for key in label_dict:
+            o = output_dict[key].reshape(output_dict[key].shape[0], -1)
+            lab = label_dict[key].reshape(label_dict[key].shape[0], -1)
+            rel = torch.linalg.vector_norm(o - lab, dim=-1) / (torch.linalg.vector_norm(lab, dim=-1) + 1e-12)
+            if weight_dict and key in weight_dict:
+                rel = rel * weight_dict[key]
+            losses[key] = self._reduce(rel)
+        return losses
+
+
+class FunctionalLoss(Loss):
+    """A user function ``(output_dict, label_dict, weight_dict) -> {key:
+    scalar}`` (a bare scalar becomes ``{"loss": scalar}``)."""
+
+    def __init__(self, loss_expr: Callable, weight=None):
+        if weight is not None:
+            raise NotImplementedError("FunctionalLoss's static weight is not ported yet")
+        super().__init__("mean")
+        self.loss_expr = loss_expr
+
+    def __call__(self, output_dict, label_dict=None, weight_dict=None) -> Dict[str, torch.Tensor]:
+        result = self.loss_expr(output_dict, label_dict, weight_dict)
+        return result if isinstance(result, dict) else {"loss": result}

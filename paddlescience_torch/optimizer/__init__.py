@@ -1,4 +1,4 @@
 from paddlescience_torch.optimizer import lr_scheduler
-from paddlescience_torch.optimizer.optimizer import Adam, Optimizer
+from paddlescience_torch.optimizer.optimizer import LBFGS, Adam, AdamW, Optimizer
 
-__all__ = ["lr_scheduler", "Adam", "Optimizer"]
+__all__ = ["lr_scheduler", "Adam", "AdamW", "LBFGS", "Optimizer"]

@@ -6,9 +6,9 @@ step counter it returns a float32 tensor on the counter's device,
 computed in float32 as the JAX package does (the form a captured CUDA
 graph evaluates each step).
 
-Ported: ``Constant``, ``Cosine`` with the linear warmup of ``LRBase``,
-and ``ExponentialDecay`` (without its per-epoch decay and warmup). The
-other schedulers are not ported yet.
+Ported: ``Constant``, ``Cosine`` and ``Step`` with the linear warmup of
+``LRBase``, and ``ExponentialDecay`` (without its per-epoch decay and
+warmup). The other schedulers are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Callable, Union
 
 import torch
 
-__all__ = ["LRBase", "Constant", "Cosine", "ExponentialDecay"]
+__all__ = ["LRBase", "Constant", "Cosine", "Step", "ExponentialDecay"]
 
 Step = Union[int, torch.Tensor]
 Schedule = Callable[[Step], Union[float, torch.Tensor]]
@@ -111,6 +111,29 @@ class Cosine(LRBase):
             if isinstance(step, torch.Tensor):
                 return eta_min + 0.5 * (lr0 - eta_min) * (1 + torch.cos(math.pi * torch.clamp(t, 0, T) / T))
             return eta_min + 0.5 * (lr0 - eta_min) * (1 + math.cos(math.pi * min(max(t, 0), T) / T))
+
+        return sched
+
+
+class Step(LRBase):
+    """lr0 * gamma ** (t // step_size), t in epochs with ``by_epoch`` (then
+    ``step_size`` counts epochs), else in steps (``step_size`` epochs of
+    ``iters_per_epoch`` steps)."""
+
+    def __init__(self, epochs: int, iters_per_epoch: int, learning_rate: float, step_size: int, gamma: float,
+                 warmup_epoch: int = 0, warmup_start_lr: float = 0.0, last_epoch: int = -1, by_epoch: bool = False):
+        super().__init__(epochs, iters_per_epoch, learning_rate, warmup_epoch, warmup_start_lr, last_epoch, by_epoch)
+        self.step_size = step_size if by_epoch else step_size * iters_per_epoch
+        self.gamma = gamma
+
+    def get_lr_fn(self) -> Schedule:
+        lr0, g, ss = self.learning_rate, self.gamma, max(self.step_size, 1)
+
+        def sched(step: Step):
+            t = self._t(step)
+            if isinstance(step, torch.Tensor):
+                return lr0 * torch.pow(torch.full_like(step, g), torch.floor(t / ss))
+            return lr0 * g ** (t // ss)
 
         return sched
 

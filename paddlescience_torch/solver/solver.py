@@ -39,8 +39,19 @@ every ``save_freq`` epochs, and ``latest``. ``eval()`` runs the validators,
 ``output_dir/checkpoints/`` holds the checkpoints that ``checkpoint_path``
 resumes from.
 
+With an L-BFGS optimizer (``optimizer/optimizer.py::LBFGS``) a step is the
+JAX solver's ``_build_lbfgs_step``: the objective is the plain sum of the
+constraint losses (no aggregator); the step starts from the value and
+gradient the previous line search stored (computed on the previous step's
+batch), as ``optax.value_and_grad_from_state`` does, evaluating them only
+at the first step; the line search then evaluates the objective on this
+step's batch. Such a step is a host loop (each trial reads its value and
+slope), so ``train()`` runs L-BFGS steps one by one, eagerly, without the
+autotuner, as the JAX solver never fuses them; the derivative path is the
+process default.
+
 Not ported yet: learnable equation parameters, EMA, microbatching,
-gradient accumulation, the L-BFGS step and the multi-process branches.
+gradient accumulation and the multi-process branches.
 """
 
 from __future__ import annotations
@@ -167,21 +178,19 @@ class Solver:
     def _to_device(self, tree: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=self.device) for k, v in tree.items()}
 
-    def _opt_params(self) -> List[torch.Tensor]:
-        if self.optimizer is None:
-            return []
-        return [p for group in self.optimizer.torch_opt.param_groups for p in group["params"]]
+    @property
+    def _lbfgs(self) -> bool:
+        return bool(getattr(self.optimizer, "is_lbfgs", False))
 
     def state_dict(self) -> Dict[str, object]:
         """The training state, as live tensors: model parameters and
         buffers, the optimizer's state per parameter (in the optimizer's
-        order), the aggregator's state, the batch generator's state and the
-        step."""
-        opt = self.optimizer.torch_opt.state if self.optimizer is not None else {}
+        order; L-BFGS: its memory and the line search's state), the
+        aggregator's state, the batch generator's state and the step."""
         return {
             "params": dict(self.model.named_parameters()),
             "buffers": dict(self.model.named_buffers()),
-            "opt_state": {str(i): dict(opt[p]) for i, p in enumerate(self._opt_params())},
+            "opt_state": self.optimizer.state_tensors() if self.optimizer is not None else {},
             "agg_state": dict(self.agg_state),
             "generator": self.generator.get_state(),
             "step": self.step,
@@ -201,10 +210,12 @@ class Solver:
         buffers = dict(self.model.named_buffers())
         for n, v in state["buffers"].items():
             buffers[n].copy_(v)
-        opt = self.optimizer.torch_opt.state if self.optimizer is not None else {}
-        for i, p in enumerate(self._opt_params()):
-            for k, v in state["opt_state"][str(i)].items():
-                opt[p][k].copy_(v)
+        opt = self.optimizer.state_tensors() if self.optimizer is not None else {}
+        for i, tensors in opt.items():
+            for k, v in state["opt_state"][i].items():
+                tensors[k].copy_(v)
+        if self._lbfgs:
+            self.optimizer.sync_from_state()
         for k, v in state["agg_state"].items():
             self.agg_state[k].copy_(v)
         self.generator.set_state(state["generator"])
@@ -306,10 +317,35 @@ class Solver:
         if global_step <= first_multiple < global_step + span:
             self._refresh_agg_weights()
 
+    def _lbfgs_step(self) -> Dict[str, torch.Tensor]:
+        """One L-BFGS step (the JAX solver's ``_build_lbfgs_step``): start
+        from the stored value and gradient (evaluated here only when none
+        is stored), search along the L-BFGS direction with the objective on
+        this step's batch. Logs the starting value, as JAX does."""
+        batches = self._batches()
+        names = list(self.constraint)
+        params = self.optimizer.params()
+
+        def value_and_grad(flat: torch.Tensor):
+            self.optimizer.set_flat_params(flat)
+            losses = self._constraint_losses(batches)
+            total = torch.stack([losses[n] for n in names]).sum()
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            return total.detach(), self.optimizer.flat_grad(grads)
+
+        stored = self.optimizer.stored_value_and_grad()
+        value, grad = stored if stored is not None else value_and_grad(self.optimizer.flat_params())
+        self.optimizer.step(value, grad, value_and_grad, evaluated=stored is None)
+        self._step_t += 1
+        return {"loss": value.clone(), "lr": torch.zeros((), device=self.device)}
+
     def _step(self, step: int) -> Dict[str, torch.Tensor]:
         """One optimizer step at global step ``step``, touching no host
-        state: what a CUDA graph captures. Returns the step's logs as
-        tensors."""
+        state: what a CUDA graph captures (an L-BFGS step is a host loop,
+        :meth:`_lbfgs_step`, and is never captured). Returns the step's logs
+        as tensors."""
+        if self._lbfgs:
+            return self._lbfgs_step()
         losses = self._constraint_losses(self._batches())
         names = list(self.constraint)
         total, _ = self.loss_aggregator.aggregate([losses[n] for n in names], self.agg_state)
@@ -414,6 +450,8 @@ class Solver:
         self._chunk_pos = 0
         self._maybe_refresh_agg_weights(self.step if global_step is None else global_step, span=k)
         if self.device.type == "cuda" and k > 1:
+            if self._lbfgs:
+                raise ValueError("an L-BFGS step is a host loop and is not captured: train it with K = 1")
             graph, logs = self._graph(k)
             graph.replay()
             self.graph_stats[k]["replays"] += 1
@@ -450,14 +488,18 @@ class Solver:
     def train(self, num_fused_steps: Optional[int] = None) -> List[Dict[str, float]]:
         """Train epochs ``last_epoch + 1 .. epochs`` in chunks of
         ``num_fused_steps`` steps (None: :meth:`_auto_fuse_steps` when every
-        constraint is static, else 1; 1: eager steps). Logs at every chunk
-        that reaches a multiple of ``log_freq`` and at each epoch's end;
-        returns those logged values."""
+        constraint is static, else 1; 1: eager steps; L-BFGS: 1, and a K > 1
+        raises). Logs at every chunk that reaches a multiple of ``log_freq``
+        and at each epoch's end; returns those logged values."""
         if self.optimizer is None:
             raise ValueError("no optimizer: this solver can eval and predict only")
         k = num_fused_steps
+        if self._lbfgs and (k or 1) > 1:
+            raise ValueError(f"num_fused_steps={k}: L-BFGS steps run one by one (a host loop each), as the JAX "
+                             "solver runs them")
         if k is None:
-            k = self._auto_fuse_steps() if self.iters_per_epoch > 1 and self._all_constraints_static() else 1
+            static = self.iters_per_epoch > 1 and self._all_constraints_static()
+            k = self._auto_fuse_steps() if static and not self._lbfgs else 1
         if self.iters_per_epoch % k != 0:
             raise ValueError(f"num_fused_steps({k}) must divide iters_per_epoch({self.iters_per_epoch})")
         if k > 1 and self._all_constraints_static():

@@ -6,9 +6,14 @@ arrays, :func:`load_jax_params` copies them into a port module whose
 parameters and buffers have the same dotted names (``linears.0.weight_v``,
 ``fourier_emb.kernel``, ``period_emb.freq_x``, ``last_fc.bias``, a
 DeepONet's ``branch_net.linears.0.weight``, ``trunk_net.last_fc.bias`` and
-``b``, ...). The
-layout is the JAX one on both sides (W of shape (in, out)), so nothing is
-transposed. This module imports no JAX: callers hand it numpy arrays.
+``b``, an FNO's ``fno_blocks.convs.0.w0_re``/``_im`` and
+``fno_blocks.fno_skips.0.weight``, an LNO's ``laplace.residue_re``,
+``conv_w``, ``conv_b`` and ``fc0.weight``, ...). The layout is the JAX one
+on both sides (W of shape (in, out), a complex weight as its real and
+imaginary parts), so nothing is transposed. Buffers that a module rebuilds
+from its arguments (the LNO's grids ``laplace.t_0``, ``laplace.lam_0``,
+...) need not be passed. This module imports no JAX: callers hand it numpy
+arrays.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ the largest magnitude) on 256 points, in 2-D and 3-D. Each example built at
 the JAX example's defaults, the JAX model's weights loaded into the
 port's: the constraint batches bitwise, three train steps against the JAX
 solver's jitted step (losses and learning rates within 1e-4), the eval
-within 1e-5; the ldc2d L-BFGS branch raises, naming the ROADMAP item.
+within 1e-5; the ldc2d L-BFGS branch builds the example's L-BFGS.
 """
 
 import os
@@ -165,5 +165,10 @@ def test_ldc2d_steady_eval_matches_jax(tmp_path):
 
 
 def test_ldc2d_steady_lbfgs_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 1"):
-        tldc.build_solver(lbfgs=True, device="cpu", output_dir=None)
+    """The name predates the port of L-BFGS: the branch that raised now
+    builds the JAX example's ``LBFGS(max_iter=10)`` (its parity with JAX is
+    in ``test_torch_lbfgs.py``)."""
+    ts = tldc.build_solver(lbfgs=True, device="cpu", output_dir=None)
+    opt = ts.optimizer
+    assert opt.is_lbfgs and opt.linesearch.max_linesearch_steps == 10 and opt.history_size == 100
+    assert opt.state["diff_params_memory"].shape == (100, sum(p.numel() for p in ts.model.parameters()))

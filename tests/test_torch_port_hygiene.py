@@ -200,7 +200,18 @@ def test_the_autotune_cache_is_the_ports_own(monkeypatch):
     assert "paddlescience_tpu" not in parts
 
 
-@pytest.mark.parametrize("rel", TENTH_SLICE_MODULES + ELEVENTH_SLICE_MODULES)
+TWELFTH_SLICE_MODULES = ("optimizer/linesearch.py", "optimizer/optimizer.py", "optimizer/lr_scheduler.py",
+                         "loss/losses.py", "arch/fno.py", "arch/lno.py", "data/dataset/science_dataset.py",
+                         "data/dataset/brusselator.py", "examples/darcy_tfno.py", "examples/brusselator3d_lno.py",
+                         "utils/jax_params.py", "solver/solver.py")
+
+
+def test_the_lbfgs_and_operator_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(TWELFTH_SLICE_MODULES) <= checked
+
+
+@pytest.mark.parametrize("rel", dict.fromkeys(TENTH_SLICE_MODULES + ELEVENTH_SLICE_MODULES + TWELFTH_SLICE_MODULES))
 def test_the_new_modules_import_alone_without_jax(rel):
     """Each new module, imported first in a fresh process, loads no JAX,
     sympy, optax or JAX-package module."""
@@ -209,3 +220,15 @@ def test_the_new_modules_import_alone_without_jax(rel):
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\nassert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_port_has_no_torch_lbfgs():
+    """optax's L-BFGS is copied by hand; ``torch.optim.LBFGS`` (another
+    first step, line search and stopping rule) is used nowhere."""
+    for path in PORT.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr == "LBFGS" and "optim" in ast.unparse(node.value):
+                raise AssertionError(f"{path.name} uses {ast.unparse(node)}")
+            if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("torch.optim"):
+                assert "LBFGS" not in [a.name for a in node.names], path.name
