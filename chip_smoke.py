@@ -95,8 +95,9 @@ on failure:
              (32 host batches staged a replay) bitwise equal to 32 eager
              steps;
    lbfgs    - ldc2d_steady with ``lbfgs=True`` (optax's L-BFGS with its
-             zoom line search, a host loop a step) through ``train()`` at
-             the example's 50 x 50 steps, no path pinned: steps/s,
+             zoom line search, a host loop a step) through ``train()`` for
+             10 of the example's 50 epochs of 50 steps (cut for time), no
+             path pinned: steps/s,
              value-and-gradient evaluations a step (mean, max), the
              residual MSEs, the peak memory; Adam then L-BFGS (50 steps
              from the ldc2d phase's Adam-trained parameters: the objective
@@ -108,12 +109,40 @@ on failure:
    operators - BASELINE's operator config at the examples' defaults, one
              CUDA graph an epoch (``train(num_fused_steps=iters_per_epoch)``,
              the host batches staged a replay): Darcy TFNO (1100 samples
-             generated on the host, 300 epochs of 62 steps, l2 every 10
-             epochs) and the Brusselator LNO (1000 samples generated on
-             the card, 2 of them held against the CPU generator within
-             1e-4 x max |u|; 300 epochs of 16 steps, the decoded L2Rel);
+             generated on the host, 100 of the example's 300 epochs of 62
+             steps, l2 every 10 epochs) and the Brusselator LNO (1000
+             samples generated on the card, 2 of them held against the CPU
+             generator within 1e-4 x max |u|; 100 of 300 epochs of 16
+             steps, the decoded L2Rel);
              for each a graphed epoch against eager steps (1e-6), graphed
              and eager steps/s with device busy, the final metric;
+   recipes  - the Allen-Cahn variants on the NTK aggregator at full width
+             (``build_solver(**recipe(name))``, jet_pallas_full):
+             default_ntk (MLP 4x256) and sota (ModifiedMLP 4x256, batch
+             8192), ``train()`` for 2 epochs of one 150-step graph (NTK
+             refreshed at each epoch's start), the NTK weights, L2Rel every
+             epoch, graphed and eager steps/s with device busy;
+   ldc      - the LDC Re-curriculum recipes (PirateNet 4x256, ModifiedMLP
+             5x256, MLP 4x256) at full width and batch, cut to the first
+             two stages (Re 100, 400) of one 1000-step epoch each, in
+             graphs of 100 steps (the recipes' own: one 1000-step graph an
+             epoch, which takes a minute or more to capture): the
+             cavity generator on the card (one 2000-step chunk at 33^2 as
+             one graph, against eager steps on the card within 1e-6 and
+             against the CPU within 1e-5 x max), the two stages' reference
+             fields solved on the card on a 65^2 grid (the recipes' own:
+             257^2) and timed; the gated and MLP kernels against their plain
+             versions at the recipes' shapes (S = 5, the 2-D NavierStokes
+             jet: PirateNet 4 blocks at N = 4096, ModifiedMLP 5 layers at
+             8192, MLP 2 -> 256 x 4 at 4096, and a ragged N);
+             ``train_curriculum`` on jet_pallas_full (the state carried
+             across stages; per stage steps/s, the GradNorm weights,
+             L2Rel.U and the Ghia RMSE); 3 eager steps of each recipe on
+             jet_pallas_full against the plain jet path (every per-key loss
+             within 1e-4, each gradient within 1e-3) and the kernel
+             launches per step; one graphed 10-step chunk of the PirateNet
+             recipe against 10 eager steps (1e-6); graphed and eager
+             steps/s with device busy;
    autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
              candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
              PirateNet 9x256, the aneurysm, cylinder2d matched,
@@ -127,7 +156,9 @@ on failure:
              kernel: time, plain-version time, bound, library time, at the
              Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's
              (jet_mlp_bwd also at its unsteady S=8) and at the cylinder
-             workload's (S=6, N=282,600, 3 -> 52 x 5);
+             workload's (S=6, N=282,600, 3 -> 52 x 5) and at the LDC
+             recipes' (S=5: PirateNet 4 blocks, ModifiedMLP 5 layers, MLP
+             2 -> 256 x 4);
              jet_wgrad over the 27 PirateNet layers beside one torch.mm a
              layer (the library time of every jet_wgrad row) and torch.bmm, with
              and without the d alpha sum and against a separate sum (and
@@ -672,9 +703,10 @@ def read_counts():
 
 def expected_kernels(path: str):
     """The kernels a driven path must launch."""
-    if path.startswith(("mlp/", "aneurysm/", "mlp_5x50/", "cylinder/", "euler_beam/")):
+    if path.startswith(("mlp/", "aneurysm/", "mlp_5x50/", "cylinder/", "euler_beam/", "recipes/default_ntk",
+                        "ldc/re1000_plain")):
         return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
-    if path.startswith(("piratenet/", "modified_mlp/")):
+    if path.startswith(("piratenet/", "modified_mlp/", "recipes/sota", "ldc/re3200")):
         return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad")
     return ("lbm_collide_stream",)
 
@@ -809,6 +841,18 @@ def gated_bound(S, N, W, program):
     # boundaries; writes g_y, g_u, g_v, L gz and the inner layer inputs
     bwd = (2 * L * mm, (4 + stages - 1 + 3 + L + inner) * stream + w_bytes)
     return fwd + bwd
+
+
+def gated_args(S, N, W, program):
+    """The gated kernels' arguments at one shape (``make_gated_inputs``):
+    (forward arguments, backward arguments with the forward's saved
+    bounds)."""
+    from paddlescience_torch.ops import jet_gated as G
+
+    idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
+    _, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
+    return ((y, u, v, weights, biases, alphas, program, idx),
+            (y, u, v, bounds, weights, biases, alphas, g_out, program, idx))
 
 
 def time_mlp_shape(rows, key, S, N, dims, act, per_step):
@@ -964,10 +1008,9 @@ def time_kernels(errs, launches, device_ms):
     del bounds, streams
 
     program = G.piratenet_program(9)
-    idx, y, u, v, weights, biases, alphas, g_out = make_gated_inputs(S, N, W, program)
-    _, bounds = G.jet_gated_fwd(y, u, v, weights, biases, alphas, program, idx, save_bounds=True)
+    args, bargs = gated_args(S, N, W, program)
+    y, _, _, bounds, weights, biases, _, g_out, _, idx = bargs
     f_flops, f_bytes, b_flops, b_bytes = gated_bound(S, N, W, program)
-    args = (y, u, v, weights, biases, alphas, program, idx)
     row("jet_gated_fwd", "jet_gated_fwd",
         lambda: G.jet_gated_fwd(*args), lambda: G.jet_gated_fwd_plain(*args), f_flops, f_bytes, reps=5,
         extra={"program": "piratenet 9 blocks (L=27)",
@@ -981,7 +1024,6 @@ def time_kernels(errs, launches, device_ms):
     log(f"[timing] jet_gated_fwd, the same stages without gates and residuals: "
         f"{r['ms_without_gates_and_residuals']:.4f} ms; elementwise share (gates, residuals) "
         f"{r['ms_elementwise_share']:.4f} ms")
-    bargs = (y, u, v, bounds, weights, biases, alphas, g_out, program, idx)
     row("jet_gated_bwd", "jet_gated_bwd",
         lambda: G.jet_gated_bwd(*bargs), lambda: G.jet_gated_bwd_plain(*bargs), b_flops, b_bytes, reps=5,
         extra={"program": "piratenet 9 blocks (L=27)"})
@@ -999,12 +1041,10 @@ def time_kernels(errs, launches, device_ms):
     r["ms_by_shape"], r["bound_ms_by_shape"] = {}, {}
     for s_, w_ in ((6, W), (7, W), (8, 64), (8, 128)):
         key = f"S={s_} W={w_}" + (" parked" if J.bwd_parks(s_, [w_]) else "")
-        a_ = make_gated_inputs(s_, N, w_, program)
-        _, bd_ = G.jet_gated_fwd(*a_[1:7], program, a_[0], save_bounds=True)
-        ba_ = (*a_[1:4], bd_, *a_[4:], program, a_[0])
+        _, ba_ = gated_args(s_, N, w_, program)
         r["ms_by_shape"][key] = cuda_ms(lambda: G.jet_gated_bwd(*ba_), 5)
         r["bound_ms_by_shape"][key] = bound_ms(*gated_bound(s_, N, w_, program)[2:])[0]
-        del a_, bd_, ba_
+        del ba_
     log("[timing] jet_gated_bwd, PirateNet 9 blocks at other stream counts: " + ", ".join(
         f"{k} {v:.4f} ms (bound {r['bound_ms_by_shape'][k]:.4f})" for k, v in r["ms_by_shape"].items()))
     # jet_wgrad over the 27 layers of the group, as the PirateNet backward calls it (with the d alpha
@@ -1372,7 +1412,7 @@ def check_graph_against_eager_rewound(solver, name: str, k: int):
     host sampling): parameters to 1e-6 relative, and whether bitwise."""
     import torch
 
-    snap = solver._snapshot()
+    snap = solver.state
     for _ in range(2):
         solver.train_chunk(k)
     graphed = flat_params(solver).clone()
@@ -1602,6 +1642,8 @@ def run_example_phases(tmp: str):
 
 LBFGS_CHECK_STEPS = 3  # L-BFGS steps held on jet_pallas_full against the plain jet path
 LBFGS_REFINE_STEPS = 50  # L-BFGS steps after the [ldc2d] phase's Adam training
+LBFGS_EPOCHS = 10  # of the example's 50 epochs of 50 L-BFGS steps: cut for the script's time
+OPERATOR_EPOCHS = 100  # of the operator examples' 300 epochs: cut for the script's time
 OPERATOR_TIMED = {"darcy": 5, "brusselator": 10}  # graphed replays timed per solver
 BRUSSELATOR_CHECK = 2  # samples of the generator held on the card against the CPU
 BRUSSELATOR_TOL = 1e-4  # x max |u|: cuFFT against the CPU's FFT over the 9500 steps of the rollout
@@ -1622,8 +1664,8 @@ def lbfgs_objective(solver) -> float:
 
 
 def run_lbfgs_phase(tmp: str, adam_params):
-    """ldc2d_steady with ``lbfgs=True`` through ``train()`` at the example's
-    50 x 50 steps (no path pinned: the process default, the plain jet at
+    """ldc2d_steady with ``lbfgs=True`` through ``train()`` for
+    ``LBFGS_EPOCHS`` of the example's 50 epochs of 50 steps (no path pinned: the process default, the plain jet at
     width 50): steps/s, line-search evaluations a step, the residual MSEs,
     the peak memory; then the Adam+L-BFGS recipe: a second L-BFGS solver
     from the [ldc2d] phase's Adam-trained parameters for 50 steps; then 3
@@ -1639,7 +1681,8 @@ def run_lbfgs_phase(tmp: str, adam_params):
 
     deriv_path.set_default(None)
     out = {}
-    solver = ldc2d_steady.build_solver(lbfgs=True, output_dir=os.path.join(tmp, "ldc2d_lbfgs"), device="cuda")
+    solver = ldc2d_steady.build_solver(epochs=LBFGS_EPOCHS, lbfgs=True, output_dir=os.path.join(tmp, "ldc2d_lbfgs"),
+                                       device="cuda")
     start = lbfgs_objective(solver)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1772,10 +1815,11 @@ def train_operator(name: str, solver, metric_name: str):
 
 def run_operator_phase(tmp: str):
     """BASELINE's operator config through the examples' entry points at
-    their defaults: Darcy TFNO (1000 + 100 generated samples at 16^2, 300
-    epochs of 62 steps) and the Brusselator LNO (800 + 200 samples
-    generated on the card, held against the same generator on the CPU for
-    2 samples; 300 epochs of 16 steps), each epoch one CUDA graph; a
+    their defaults, the epochs cut to ``OPERATOR_EPOCHS`` (of 300): Darcy
+    TFNO (1000 + 100 generated samples at 16^2, epochs of 62 steps) and the
+    Brusselator LNO (800 + 200 samples generated on the card, held against
+    the same generator on the CPU for 2 samples; epochs of 16 steps), each
+    epoch one CUDA graph; a
     graphed epoch against eager steps for each. Returns the numbers."""
     import numpy as np
     import torch
@@ -1788,7 +1832,8 @@ def run_operator_phase(tmp: str):
     darcy_data = darcy_tfno.make_data(1100, 16)
     gen_s = time.perf_counter() - t0
     log(f"[operators] darcy: {len(darcy_data[0])} samples at 16^2 generated (host, numpy and scipy) in {gen_s:.2f} s")
-    build = lambda tag: darcy_tfno.build_solver(data=darcy_data, output_dir=os.path.join(tmp, tag), device="cuda")
+    build = lambda tag: darcy_tfno.build_solver(epochs=OPERATOR_EPOCHS, data=darcy_data,
+                                                output_dir=os.path.join(tmp, tag), device="cuda")
     out["darcy"] = {"generation_s": gen_s, "graph_check": check_operator_graph("darcy", lambda: build("darcy_chk"))}
     out["darcy"].update(train_operator("darcy", build("darcy"), "l2"))
 
@@ -1807,7 +1852,8 @@ def run_operator_phase(tmp: str):
     gen_s = time.perf_counter() - t0
     log(f"[operators] brusselator: 800 + 200 samples (39 frames of 28^2, 9500 IMEX steps) generated on the card "
         f"in {gen_s:.2f} s")
-    build = lambda tag: brusselator3d_lno.build_solver(data=data, output_dir=os.path.join(tmp, tag), device="cuda")
+    build = lambda tag: brusselator3d_lno.build_solver(epochs=OPERATOR_EPOCHS, data=data,
+                                                       output_dir=os.path.join(tmp, tag), device="cuda")
     out["brusselator"] = {"generation_s": gen_s, "generator_rel_err_vs_cpu": err,
                           "graph_check": check_operator_graph("brusselator", lambda: build("bru_chk"))}
     out["brusselator"].update(train_operator("brusselator", build("brusselator"), "decoded.L2Rel"))
@@ -1843,7 +1889,7 @@ def run_autotune_phase(solvers):
                 k = solver._auto_fuse_steps()
                 k_timed = max(1, min(k, int(AUTOTUNE_ENV["PSCI_AUTOTUNE_FUSED"])))
                 names = autotune.candidate_names(solver)
-                before = solver._snapshot()
+                before = solver.state
                 torch.cuda.synchronize()
                 reset_counts()
                 n0, t0 = len(timed), time.perf_counter()
@@ -1918,6 +1964,300 @@ def time_cylinder_kernels(rows, errs, launches, device_ms):
     for r in rows[:3]:
         r["cylinder"].update(max_abs_err=errs[r["name"]],
                              device_ms_per_step={f: v for f, v in device_ms.items() if f.startswith(r["name"])})
+
+# ------------------------------------------- the recipes and the LDC curriculum --
+
+# [recipes]: the Allen-Cahn variants the NTK aggregator drives, at full width through train(): 2 epochs of
+# one K-step graph each (K = iters_per_epoch), NTK refreshed at each epoch's start, L2Rel every epoch
+RECIPE_NAMES = ("default_ntk", "sota")
+RECIPE_RUN = dict(epochs=2, iters_per_epoch=150, update_freq=150, eval_freq=1)
+RECIPE_TIMED = (50, 2)  # (K, replays) of the graphed-against-eager timing
+# [ldc]: the three curriculum recipes at full width and batch, cut to their first two stages (Re 100, 400) of
+# one epoch (1000 steps) each, the reference fields solved on a 65^2 grid (the recipes' own: 257^2)
+LDC_CUT = dict(Re=(100, 400), epochs=(1, 1), reference_n=65)
+LDC_K = 100  # steps a graph in the curricula (the recipes' own: one 1000-step graph an epoch, whose capture
+#              took 49-103 s a stage for PirateNet on the H100)
+LDC_CHECK_N = 33  # the generator on the card against the CPU: one 2000-step chunk at Re 100
+LDC_CHECK_STEPS = 3  # eager steps of each recipe on jet_pallas_full against the plain jet path
+LDC_GRAPH_K = 10  # graphed chunk against eager steps (PirateNet recipe)
+LDC_TIMED = (20, 2)  # (K, replays) of the graphed-against-eager timing
+NS2D = [(0,), (1,), (0, 0), (1, 1)]  # the steady 2-D NavierStokes jet: u, u_x, u_y, u_xx, u_yy (S = 5)
+# the LDC recipes' kernel shapes: S = 5 at the PDE batch; (recipe, kind, N, program or dims)
+LDC_SHAPES = (("re3200_piratenet", "gated", 4096, ("piratenet", 4)),
+              ("re3200_sota", "gated", 8192, ("modified_mlp", 5)),
+              ("re1000_plain", "mlp", 4096, (2,) + (256,) * 4))
+
+
+def run_recipe_phase(tmp: str):
+    """default_ntk (MLP 4x256) and sota (ModifiedMLP 4x256, batch 8192)
+    through ``build_solver(**recipe(name))`` and ``train()`` on
+    jet_pallas_full: NTK weights refreshed (sum |g| / |g_i|, finite, not
+    1), the L2Rel every epoch, the kernels launched, then graphed and eager
+    steps/s with device busy. Returns (launch counts by run, numbers)."""
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import allen_cahn as ac
+
+    launches, out = {}, {}
+    for name in RECIPE_NAMES:
+        solver = ac.build_solver(**ac.recipe(name, deriv="jet_pallas_full", device="cuda",
+                                             log_freq=RECIPE_RUN["iters_per_epoch"],
+                                             output_dir=os.path.join(tmp, f"recipe_{name}"), **RECIPE_RUN))
+        if type(solver.loss_aggregator).__name__ != "NTK":
+            raise AssertionError(f"recipes/{name}: aggregator {type(solver.loss_aggregator).__name__}, expected NTK")
+        with on_path("jet_pallas_full"):
+            launches[f"recipes/{name}"] = graph_train(solver, f"recipes/{name}")
+            w = solver.agg_state["weight"].tolist()
+            if not all(math.isfinite(v) for v in w) or all(v == 1.0 for v in w):
+                raise AssertionError(f"recipes/{name}: NTK weights {w} after train()")
+            metric, _ = solver.eval()
+            if not math.isfinite(metric):
+                raise AssertionError(f"recipes/{name}: L2Rel {metric}")
+            log(f"[recipes] {name}: {type(solver.model).__name__} batch {ac.recipe(name).get('batch_size', 4096)}, "
+                f"NTK weights after {solver.step} steps {w} (PDE, IC); L2Rel.u {metric:.6f} (best "
+                f"{solver.best_metric})")
+            timing = time_graphed(solver, f"recipes/{name}", *RECIPE_TIMED)
+        out[name] = {"ntk_weights": w, "L2Rel": metric, **timing}
+        del solver
+        torch.cuda.empty_cache()
+    deriv_path.set_default(None)
+    return launches, out
+
+
+def check_generator():
+    """The cavity generator on the card: one 2000-step chunk at Re 100 on
+    the LDC_CHECK_N grid graphed (one replay), against the same chunk in
+    eager steps on the card (1e-6 x max) and on the CPU (1e-5 x max; cuFFT
+    against pocketfft). Returns the numbers."""
+    import numpy as np
+
+    from paddlescience_torch.data.dataset import ldc_reference as R
+
+    n, steps = LDC_CHECK_N, R.CHUNK
+    runs = {}
+    for key, kw in (("graphed", dict(device="cuda")), ("eager", dict(device="cuda", graphed=False)),
+                    ("cpu", dict(device="cpu"))):
+        t0 = time.perf_counter()
+        runs[key] = R.solve_cavity(100.0, n=n, steps=steps, report=log, **kw)
+        runs[key]["s"] = time.perf_counter() - t0
+    out = {"n": n, "steps": steps, **{f"{k}_s": v["s"] for k, v in runs.items()}}
+    for other, limit in (("eager", 1e-6), ("cpu", 1e-5)):
+        for f in ("u", "v", "psi", "omega"):
+            ref = runs[other][f]
+            rel = float(np.abs(runs["graphed"][f] - ref).max() / np.abs(ref).max())
+            out[f"{f}_vs_{other}"] = rel
+            if not rel <= limit:
+                raise AssertionError(f"generator: {f} graphed on the card vs {other}: {rel:.3e} > {limit} x max")
+    log(f"[ldc] generator, Re 100 on {n}^2, one {steps}-step chunk: graphed {runs['graphed']['s']:.2f} s (capture "
+        f"included), eager on the card {runs['eager']['s']:.2f} s, CPU {runs['cpu']['s']:.2f} s; graphed vs eager "
+        + ", ".join(f"{f} {out[f + '_vs_eager']:.2e}" for f in ("u", "v", "psi", "omega")) + "; vs the CPU "
+        + ", ".join(f"{f} {out[f + '_vs_cpu']:.2e}" for f in ("u", "v", "psi", "omega")) + " (x max)")
+    return out
+
+
+def check_ldc_kernels():
+    """The gated and MLP kernels against their plain versions at the LDC
+    recipes' shapes (S = 5, the 2-D NavierStokes jet), and at a ragged N.
+    Returns the max abs errors by kernel."""
+    from paddlescience_torch.ops import jet_gated as G
+
+    if jet_index(len(NS2D) + 1).multis[1:] != tuple(NS2D):
+        raise AssertionError(f"jet_index(5) is not the 2-D NavierStokes jet {NS2D}")
+    errs = {}
+    for name, kind, n, spec in LDC_SHAPES:
+        for n_ in (n, n - 1):
+            if kind == "gated":
+                program = getattr(G, f"{spec[0]}_program")(spec[1])
+                e = check_gated_kernels(len(NS2D) + 1, n_, 256, program, f"ldc {name}")
+            else:
+                e = check_kernels(len(NS2D) + 1, n_, spec)
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+    return errs
+
+
+def ldc_stage(cfg, Re: float = 100.0, epochs: int = 1):
+    """A fresh model, optimizer and GradNorm of ``cfg`` and its stage
+    solver at ``Re``."""
+    from paddlescience_torch.examples import ldc_curriculum as C
+
+    model = C.make_model(cfg, "cuda")
+    opt, gn = C.make_training(cfg, model)
+    return C.build_stage_solver(cfg, model, opt, gn, Re, epochs, None, "cuda")
+
+
+def check_ldc_against_plain_path(solver, name: str):
+    """LDC_CHECK_STEPS eager steps from one state on jet_pallas_full and on
+    the plain jet path (the same batches, a GradNorm refresh at step 0):
+    every per-key loss within 1e-4, each step's gradient within 1e-3.
+    Returns the kernel launches per step of the steps after the first."""
+    import torch
+
+    snap, runs, per_step = solver.state, {}, None
+    for deriv in ("jet_pallas_full", "jet"):
+        solver._load_state(snap)
+        losses, grads = [], []
+        with on_path(deriv):
+            for i in range(LDC_CHECK_STEPS):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    reset_counts()
+                logs = solver.train_step()
+                losses.append({k: float(v) for k, v in logs.items() if k.startswith("loss")})
+                grads.append(torch.cat([p.grad.reshape(-1) for p in solver._params()]).clone())
+            torch.cuda.synchronize()
+        counts, plain = read_counts()
+        if deriv == "jet_pallas_full":
+            check_counts(f"ldc/{name}", counts, plain, LDC_CHECK_STEPS - 1)
+            per_step = {k: v / (LDC_CHECK_STEPS - 1) for k, v in counts.items() if v}
+        runs[deriv] = (losses, grads)
+    (lk, gk), (lp, gp) = runs["jet_pallas_full"], runs["jet"]
+    loss_err = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(lk, lp) for k in b)
+    grad_err = max(float((a - b).norm() / b.norm()) for a, b in zip(gk, gp))
+    log(f"[ldc] {name}: {LDC_CHECK_STEPS} steps on jet_pallas_full vs the plain jet path: losses "
+        f"{[round(s['loss'], 6) for s in lk]} vs {[round(s['loss'], 6) for s in lp]}, every per-key loss rel err "
+        f"<= {loss_err:.2e}, gradient rel err <= {grad_err:.2e}; kernel launches per step {per_step}")
+    if not (loss_err < 1e-4 and grad_err < 1e-3):
+        raise AssertionError(f"ldc {name}: the kernel path disagrees with the plain jet path")
+    solver._load_state(snap)
+    return per_step
+
+
+def run_ldc_phase(tmp: str):
+    """The LDC Re-curriculum recipes on the card: the generator against the
+    CPU and graphed against eager; the stages' reference fields solved on
+    the card; the kernels at the recipes' shapes; each recipe's
+    ``train_curriculum`` on jet_pallas_full (two stages, the state carried:
+    L2Rel.U and the Ghia RMSE a stage, the kernels launched); each
+    recipe's kernel path against the plain jet path over 3 steps; one
+    graphed chunk against eager steps; graphed and eager steps/s. Returns
+    (launch counts by run, kernel launches per step by recipe, max abs
+    errors, numbers)."""
+    import numpy as np
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.data.dataset import ldc_reference as R
+    from paddlescience_torch.examples import ldc_curriculum as C
+
+    out = {"generator": check_generator()}
+    ref_dir = os.path.join(tmp, "ldc_reference")
+    for Re in LDC_CUT["Re"]:
+        t0 = time.perf_counter()
+        fields = R.solve_cavity(float(Re), n=LDC_CUT["reference_n"], report=log)
+        dt = time.perf_counter() - t0
+        os.makedirs(ref_dir, exist_ok=True)
+        np.savez(R.reference_path(Re, LDC_CUT["reference_n"], ref_dir), **fields)
+        out[f"generator_Re{Re}"] = {"n": LDC_CUT["reference_n"], "steps": int(fields["steps"]), "s": dt,
+                                    "psi_min": float(fields["psi"].min())}
+        log(f"[ldc] reference field Re {Re} on {LDC_CUT['reference_n']}^2 solved on the card: {int(fields['steps'])} "
+            f"steps in {dt:.2f} s ({int(fields['steps']) / dt:.0f} steps/s), psi_min {fields['psi'].min():.6f}")
+    errs = check_ldc_kernels()
+    launches, per_step = {}, {}
+    for name in C.RECIPES:
+        cfg = C.RECIPES[name](reference_dir=ref_dir, **LDC_CUT)
+        torch.cuda.synchronize()
+        reset_counts()
+        results = C.train_curriculum(cfg, output_dir=os.path.join(tmp, f"ldc_{name}"), device="cuda",
+                                     deriv="jet_pallas_full", num_fused_steps=LDC_K)
+        torch.cuda.synchronize()
+        counts, plain = read_counts()
+        check_counts(f"ldc/{name}", counts, plain)
+        launches[f"ldc/{name}"] = counts
+        rows = []
+        for r in results:
+            stats = next(iter(r["graph_stats"].values()))
+            steps = r["epochs"] * cfg["iters_per_epoch"]
+            loop_s = r["train_s"] - stats["warmup_s"] - stats["capture_s"]
+            bad = [e for e in r["logs"] if not all(math.isfinite(v) for k, v in e.items() if k.startswith("loss"))]
+            if bad or not math.isfinite(r["metric"]) or not all(math.isfinite(w) for w in r["weights"]):
+                raise AssertionError(f"ldc {name} Re {r['Re']}: non-finite losses, metric or weights {bad[:1]} "
+                                     f"{r['metric']} {r['weights']}")
+            rows.append({"Re": r["Re"], "L2Rel.U": r["metric"], "ghia": r["ghia"], "gradnorm": r["weights"],
+                         "step": r["step"], "train_s": r["train_s"], "warmup_s": stats["warmup_s"],
+                         "capture_s": stats["capture_s"], "replays": stats["replays"],
+                         "steps_per_s": steps / loop_s, "final_loss": r["logs"][-1]["loss"]})
+            log(f"[ldc] {name} Re {r['Re']}: {steps} steps in {r['train_s']:.2f} s (warm-up {stats['warmup_s']:.2f} s, "
+                f"capture {stats['capture_s']:.2f} s, {stats['replays']} replays of K = {next(iter(r['graph_stats']))}: "
+                f"{steps / loop_s:.2f} steps/s); final loss {r['logs'][-1]['loss']:.6f}; GradNorm {r['weights']}; "
+                f"L2Rel.U {r['metric']:.6f}; Ghia {r['ghia'] or 'no table at this Re'}")
+        if results[-1]["step"] != sum(LDC_CUT["epochs"]) * cfg["iters_per_epoch"]:
+            raise AssertionError(f"ldc {name}: the carried step is {results[-1]['step']}")
+        out[name] = {"stages": rows, "launches_at_warmup_and_capture": {k: v for k, v in counts.items() if v}}
+        solver = ldc_stage(cfg)
+        per_step[name] = check_ldc_against_plain_path(solver, name)
+        if name == "re3200_piratenet":
+            check_graph_against_eager_rewound(solver, f"ldc {name}", LDC_GRAPH_K)
+        with on_path("jet_pallas_full"):
+            out[name]["timing"] = time_graphed(solver, f"ldc/{name}", *LDC_TIMED)
+        del solver
+        torch.cuda.empty_cache()
+    deriv_path.set_default(None)
+    return launches, per_step, errs, out
+
+
+def time_gated_shape(rows, key, S, N, W, program, tag, per_step):
+    """The gated kernels' rows and jet_wgrad's (over the segment's layers,
+    with the d alpha partials where the program has alphas) at one more
+    shape, under ``key``, as :func:`time_mlp_shape` does for the MLP
+    kernels: time, plain-version time, bound, the library time and
+    ``per_step[name]``, the launches per step."""
+    import torch
+
+    from paddlescience_torch.ops import jet_gated as G
+    from paddlescience_torch.ops import jet_mlp as J
+
+    by = {r["name"]: r for r in rows}
+    fargs, bargs = gated_args(S, N, W, program)
+    alphas = bargs[6]
+    f_flops, f_bytes, b_flops, b_bytes = gated_bound(S, N, W, program)
+    *_, gzs, ins, partials = G.jet_gated_bwd(*bargs)
+    L = len(program)
+    Y = [torch.cat(t, 0) for t in ins]
+    GZ = [g.reshape(S * N, W) for g in gzs]
+    stream = S * N * W * 4.0
+    work = {"jet_gated_fwd": (lambda: G.jet_gated_fwd(*fargs), lambda: G.jet_gated_fwd_plain(*fargs),
+                              f_flops, f_bytes, None),
+            "jet_gated_bwd": (lambda: G.jet_gated_bwd(*bargs), lambda: G.jet_gated_bwd_plain(*bargs),
+                              b_flops, b_bytes, None),
+            "jet_wgrad": (lambda: J.jet_wgrad(ins, gzs, alpha_partials=partials if alphas else None),
+                          lambda: J.jet_wgrad_plain(ins, gzs), f_flops + L * N * W,
+                          2 * L * stream + L * (W * W + W) * 4.0,
+                          lambda: [torch.mm(a.T, b) for a, b in zip(Y, GZ)])}
+    for kname, (fn, plain, fl, nbytes, library) in work.items():
+        ms, plain_ms = cuda_ms(fn, 10), cuda_ms(plain, 3, 1)
+        b, bound_by = (tc_bound_ms if kname in TC_KERNELS else bound_ms)(fl, nbytes)
+        by[kname][key] = {"shape": f"tanh S={S} N={N} W={W} {tag} L={L}", "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b, "bound_by": bound_by,
+                          "library_ms": cuda_ms(library, 10) if library is not None else None,
+                          "launches_per_step": per_step.get(kname, 0)}
+        log(f"[timing] {kname} at the {key} shape ({by[kname][key]['shape']}): {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {b:.4f} ms by {bound_by}"
+            + (f", library {by[kname][key]['library_ms']:.4f} ms" if library is not None else "")
+            + f"), launches per step {by[kname][key]['launches_per_step']}")
+    del fargs, bargs, gzs, ins, partials, Y, GZ
+    torch.cuda.empty_cache()
+
+
+def time_ldc_kernels(rows, per_step):
+    """The kernels' rows at the LDC recipes' shapes (S = 5), under the keys
+    "ldc_piratenet", "ldc_sota" (the gated kernels and jet_wgrad over the
+    segment's layers) and "ldc_plain" (the MLP kernels): time, plain time,
+    bound and the launches per eager step of the recipe's kernel path."""
+    from paddlescience_torch.ops import jet_gated as G
+    from paddlescience_torch.ops import jet_mlp as J
+
+    S = len(NS2D) + 1
+    names = [r["name"] for r in rows]
+    for name, kind, n, spec in LDC_SHAPES:
+        key = "ldc_" + name.split("_")[-1]
+        if kind == "mlp":
+            time_mlp_shape(rows, key, S, n, spec, J.TANH, {k: per_step[name].get(k, 0) for k in names})
+        else:
+            program = getattr(G, f"{spec[0]}_program")(spec[1])
+            time_gated_shape(rows, key, S, n, 256, program, spec[0], per_step[name])
+
 
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
@@ -2075,6 +2415,13 @@ def main() -> int:
         launches["lbfgs jet_pallas_full"], lbfgs_numbers = run_lbfgs_phase(tmp, ldc2d_params)
         log("[lbfgs] summary " + json.dumps(lbfgs_numbers))
         log("[operators] summary " + json.dumps(run_operator_phase(tmp)))
+        recipe_launches, recipe_numbers = run_recipe_phase(tmp)
+        launches.update(recipe_launches)
+        log("[recipes] summary " + json.dumps(recipe_numbers))
+        ldc_launches, ldc_per_step, ldc_errs, ldc_numbers = run_ldc_phase(tmp)
+        launches.update(ldc_launches)
+        merge(ldc_errs)
+        log("[ldc] summary " + json.dumps(ldc_numbers))
     autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
     log("[autotune] summary " + json.dumps(autotune_results))
 
@@ -2086,6 +2433,7 @@ def main() -> int:
     rows = time_kernels(errs, launches, device_ms)
     time_cylinder_kernels(rows, cyl_errs, launches[CYLINDER_PATH],
                           cyl_timing["jet_pallas_full"]["kernel_ms_per_step"]["eager"])
+    time_ldc_kernels(rows, ldc_per_step)
     log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -6,8 +6,11 @@ parameter of its closed-form jet rule (``autodiff/jet.py::ACT_RULES``,
 ``csrc/jet_common.cuh::psci_act``), so the jet forward and the fused
 segment kernels take every one of them. ``gelu`` is the tanh
 approximation, ``jax.nn.gelu``'s default; ``leaky_relu`` has slope 0.01.
-The parametric Stan and Swish are not ported yet (the JAX package keeps
-them off its fused kernels too).
+The parametric ``Stan`` and ``Swish`` are modules with a learnable
+``beta``: their jet rule (``jet_derivs``) reads ``beta``, so they have no
+id and the fused segment kernels do not take them; a net with one runs the
+plain jet path, as the JAX package keeps them off its kernels
+(``arch/mlp.py::_segment_act`` decides).
 """
 
 from __future__ import annotations
@@ -17,10 +20,11 @@ from typing import Callable, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from paddlescience_torch.autodiff import jet
 
-__all__ = ["Activation", "Siren", "get_activation"]
+__all__ = ["Activation", "Stan", "Swish", "Siren", "get_activation"]
 
 
 class Activation:
@@ -39,6 +43,45 @@ class Activation:
 
     def __repr__(self):
         return f"Activation({self.name})"
+
+
+class Stan(nn.Module):
+    """Self-scalable tanh, tanh(x) * (1 + beta * x), with a learnable
+    ``beta`` of ``out_features`` ones (the JAX ``Stan``)."""
+
+    def __init__(self, out_features: int = 1):
+        super().__init__()
+        self.beta = nn.Parameter(torch.ones(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x) * (1 + self.beta * x)
+
+    def jet_derivs(self, x: torch.Tensor):
+        """(f, f', f'') at ``x``, differentiable in ``beta``."""
+        t = torch.tanh(x)
+        sp = 1 - t * t
+        lin = 1 + self.beta * x
+        return t * lin, sp * lin + t * self.beta, -2 * t * sp * lin + 2 * self.beta * sp
+
+
+class Swish(nn.Module):
+    """x * sigmoid(beta * x) with a learnable scalar ``beta`` (the JAX
+    ``Swish``)."""
+
+    def __init__(self, beta: float = 1.0):
+        super().__init__()
+        self.beta = nn.Parameter(torch.tensor(float(beta)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.beta * x)
+
+    def jet_derivs(self, x: torch.Tensor):
+        """(f, f', f'') at ``x``, differentiable in ``beta``."""
+        b = self.beta
+        s = torch.sigmoid(b * x)
+        s1 = s * (1 - s)
+        s2 = s1 * (1 - 2 * s)
+        return x * s, s + b * x * s1, 2 * b * s1 + b * b * x * s2
 
 
 class Siren(Activation):
@@ -88,12 +131,12 @@ _FUNCS = {
     "mish": Activation("mish", lambda x: x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x))), jet.MISH),
 }
 
-_CLASSES = {"siren": Siren}
+_CLASSES = {"stan": Stan, "swish": Swish, "siren": Siren}
 
 
 def get_activation(act_name: str) -> Union[Activation, type]:
     """The :class:`Activation` of a stateless activation; the class itself
-    for ``siren``, which the caller instantiates."""
+    for ``stan``, ``swish`` and ``siren``, which the caller instantiates."""
     name = act_name.lower()
     if name in _FUNCS:
         return _FUNCS[name]

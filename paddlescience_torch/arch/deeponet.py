@@ -62,7 +62,7 @@ class DeepONet(base.Arch):
         self.trunk_net = mlp.MLP((y_key,), ("t",), trunk_num_layers, trunk_hidden_size, trunk_activation,
                                  trunk_skip_connection, trunk_weight_norm, input_dim=1, output_dim=num_features,
                                  generator=generator, device="cpu")
-        self.trunk_act = mlp._make_act(trunk_activation)
+        self.trunk_act = mlp._make_act(trunk_activation, num_features)
         self.use_bias = use_bias
         if use_bias:
             self.b = nn.Parameter(torch.zeros(1))

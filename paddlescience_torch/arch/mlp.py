@@ -16,10 +16,11 @@ segment of any other shape goes to the kernels (widths that are no
 multiple of 4 zero-padded, a segment at most ``ops/jet_mlp.py::MAX_LAYERS``
 deep), whose wrappers raise where they cannot take it. Weights keep the JAX layout, W of shape (in, out)
 used as ``x @ W``, and parameters keep the JAX names, so they carry over
-key for key (``utils/jax_params.py``).
-
-Not ported yet: ``weight_norm``, list-valued hidden sizes and explicit
-``input_dim``/``output_dim`` of ModifiedMLP and PirateNet.
+key for key (``utils/jax_params.py``). The parametric activations
+``stan`` and ``swish`` (a learnable ``beta`` per activation, named
+``acts.<i>.beta``, ``embed_act_u.beta``, ``blocks.<i>.act1.beta``, ...)
+keep every net on the plain jet path, as the JAX package keeps them off
+its fused kernels (:func:`_segment_act`).
 """
 
 from __future__ import annotations
@@ -156,7 +157,11 @@ def _jet_gate(y: jet.Jet, u: jet.Jet, v: jet.Jet) -> jet.Jet:
 
 def _segment_act(acts) -> Optional[jet.Act]:
     """The (id, parameter) of the activation every layer of ``acts`` shares,
-    or None if they differ or one has no closed-form rule."""
+    or None if they differ or one has no closed-form rule by id. Stan and
+    Swish have none (their rule reads a learnable ``beta``, which the
+    kernels do not take), so a net with one never runs the fused segments:
+    this is where the port keeps them off the kernels, as the JAX package
+    does (``_jet_pallas_ok`` there admits parameterless activations only)."""
     rules = {jet.act_of(a) for a in acts}
     return rules.pop() if len(rules) == 1 and None not in rules else None
 
@@ -210,10 +215,21 @@ def _jet_pallas_segments(model, jx: jet.Jet, lengths: List[int], uv=None) -> jet
     return y
 
 
-def _make_act(name: str):
-    """The activation called ``name``; Siren instantiated (w0 = 30)."""
+def _make_act(name: str, size: int = 1):
+    """The activation called ``name``; Siren instantiated (w0 = 30), Stan
+    with ``size`` betas, Swish with one (beta 1), as the JAX ``_make_act``."""
     act = act_mod.get_activation(name)
+    if act is act_mod.Stan:
+        return act(size)
+    if act is act_mod.Swish:
+        return act(1.0)
     return act() if act is act_mod.Siren else act
+
+
+def _act_list(acts):
+    """``acts`` as a ``ModuleList`` when they hold parameters (Stan,
+    Swish), so their ``beta`` are the net's parameters; else the list."""
+    return nn.ModuleList(acts) if any(isinstance(a, nn.Module) for a in acts) else acts
 
 
 def _resolve_sizes(hidden_size, num_layers) -> List[int]:
@@ -330,10 +346,10 @@ class MLP(base.Arch):
             if activation == "siren":
                 kernel_init = act_mod.Siren.first_layer_init if i == 0 else act_mod.Siren.hidden_layer_init()
             linears.append(_make_linear(cur_size, size, random_weight, generator, weight_norm, kernel_init))
-            acts.append(_make_act(activation))
+            acts.append(_make_act(activation, size))
             cur_size = size
         self.linears = nn.ModuleList(linears)
-        self.acts = acts
+        self.acts = _act_list(acts)
         out_dim = len(self.output_keys) if output_dim is None else output_dim
         self.last_fc = _make_linear(cur_size, out_dim, random_weight, generator)
         self.to(device)
@@ -391,9 +407,13 @@ class MLP(base.Arch):
 class ModifiedMLP(base.Arch):
     """Two-stream gated MLP (arXiv:2001.04536): y <- act(W y), then
     y * u + (1 - y) * v with gates u, v embedded once from the input.
-    (``skip_connection``, ``weight_norm`` and ``input_dim``/``output_dim``
-    of the JAX class are not ported.) Parameters and device as for
-    :class:`MLP`."""
+    ``weight_norm`` makes the gate embeddings and the hidden layers
+    :class:`WeightNormLinear` (the output layer stays plain, as in JAX);
+    ``skip_connection`` adds, after the gate, each even layer's output to
+    itself from the second one on, as the JAX class does, and keeps the
+    net off the fused segments (``jet_pallas_eligible`` is False);
+    ``input_dim``/``output_dim`` as for :class:`MLP`. Parameters and
+    device as for :class:`MLP`."""
 
     def __init__(
         self,
@@ -402,6 +422,10 @@ class ModifiedMLP(base.Arch):
         num_layers: int,
         hidden_size: int,
         activation: str = "tanh",
+        skip_connection: bool = False,
+        weight_norm: bool = False,
+        input_dim: Optional[int] = None,
+        output_dim: Optional[int] = None,
         periods: Optional[Dict[str, Tuple[float, bool]]] = None,
         fourier: Optional[Dict[str, Union[float, int]]] = None,
         random_weight: Optional[Dict[str, float]] = None,
@@ -413,33 +437,43 @@ class ModifiedMLP(base.Arch):
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        if not isinstance(hidden_size, int):
+            raise ValueError(f"hidden_size should be int, but got {type(hidden_size)}")
         self.input_keys = tuple(input_keys)
         self.output_keys = tuple(output_keys)
+        self.skip_connection = skip_connection
         self.periods = dict(periods) if periods else None
         self.fourier = dict(fourier) if fourier else None
 
-        cur_size = _embedded_size(self, generator)
-        self.embed_u = _make_linear(cur_size, hidden_size, random_weight, generator)
-        self.embed_v = _make_linear(cur_size, hidden_size, random_weight, generator)
-        self.embed_act_u = _make_act(activation)
-        self.embed_act_v = _make_act(activation)
+        cur_size = _embedded_size(self, generator, input_dim)
+        self.embed_u = _make_linear(cur_size, hidden_size, random_weight, generator, weight_norm)
+        self.embed_v = _make_linear(cur_size, hidden_size, random_weight, generator, weight_norm)
+        self.embed_act_u = _make_act(activation, hidden_size)
+        self.embed_act_v = _make_act(activation, hidden_size)
         linears, acts = [], []
         for _ in range(num_layers):
-            linears.append(_make_linear(cur_size, hidden_size, random_weight, generator))
-            acts.append(_make_act(activation))
+            linears.append(_make_linear(cur_size, hidden_size, random_weight, generator, weight_norm))
+            acts.append(_make_act(activation, hidden_size))
             cur_size = hidden_size
         self.linears = nn.ModuleList(linears)
-        self.acts = acts
-        self.last_fc = _make_linear(cur_size, len(self.output_keys), random_weight, generator)
+        self.acts = _act_list(acts)
+        out_dim = len(self.output_keys) if output_dim is None else output_dim
+        self.last_fc = _make_linear(cur_size, out_dim, random_weight, generator)
         self.to(device)
 
     def forward_tensor(self, x: torch.Tensor) -> torch.Tensor:
         u = self.embed_act_u(self.embed_u(x))
         v = self.embed_act_v(self.embed_v(x))
-        y = x
-        for linear, act in zip(self.linears, self.acts):
+        y, skip = x, None
+        for i, (linear, act) in enumerate(zip(self.linears, self.acts)):
             y = act(linear(y))
             y = y * u + (1 - y) * v
+            if self.skip_connection and i % 2 == 0:
+                if skip is not None:
+                    skip = y
+                    y = y + skip
+                else:
+                    skip = y
         return self.last_fc(y)
 
     def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -450,8 +484,10 @@ class ModifiedMLP(base.Arch):
 
     def jet_pallas_eligible(self) -> bool:
         """Whether the hidden layers take the fused gated segments on the
-        current path's flags (structural, as in JAX)."""
-        return _jet_pallas_ok(self.linears, [*self.acts, self.embed_act_u, self.embed_act_v])
+        current path's flags (structural, as in JAX): never with skip
+        connections."""
+        return not self.skip_connection and _jet_pallas_ok(self.linears,
+                                                           [*self.acts, self.embed_act_u, self.embed_act_v])
 
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused gated segment on the current derivative path;
@@ -466,9 +502,15 @@ class ModifiedMLP(base.Arch):
         if lengths:
             y = _jet_pallas_segments(self, jx, lengths, uv=(u, v))
         else:
-            y = jx
-            for linear, act in zip(self.linears, self.acts):
+            y, skip = jx, None
+            for i, (linear, act) in enumerate(zip(self.linears, self.acts)):
                 y = _jet_gate(jet.elementwise(_jet_linear(linear, y), act), u, v)
+                if self.skip_connection and i % 2 == 0:
+                    if skip is not None:
+                        skip = y
+                        y = jet.add(y, skip)
+                    else:
+                        skip = y
         return _jet_linear(self.last_fc, y)
 
 
@@ -484,9 +526,9 @@ class PirateNetBlock(nn.Module):
         self.linear2 = _make_linear(embed_dim, embed_dim, random_weight, generator)
         self.linear3 = _make_linear(embed_dim, embed_dim, random_weight, generator)
         self.alpha = nn.Parameter(torch.zeros(1))
-        self.act1 = _make_act(activation)
-        self.act2 = _make_act(activation)
-        self.act3 = _make_act(activation)
+        self.act1 = _make_act(activation, embed_dim)
+        self.act2 = _make_act(activation, embed_dim)
+        self.act3 = _make_act(activation, embed_dim)
 
     @property
     def linears(self):
@@ -534,9 +576,11 @@ class PirateNet(base.Arch):
     """PirateNet (arXiv:2402.00326): ``num_blocks`` residual adaptive
     blocks of width ``hidden_size`` on the embedded input, with gates u, v
     embedded once. The blocks act on the embedding itself, so
-    ``hidden_size`` must equal the embedding's width (``fourier["dim"]``).
-    (``weight_norm`` and ``input_dim``/``output_dim`` of the JAX class are
-    not ported.) Parameters and device as for :class:`MLP`.
+    ``hidden_size`` must equal the embedding's width (``fourier["dim"]``,
+    else ``input_dim`` or the input keys' count). ``weight_norm`` makes the
+    gate embeddings :class:`WeightNormLinear` (the blocks' layers and the
+    output layer stay as they are, as in JAX); ``input_dim``/``output_dim``
+    as for :class:`MLP`. Parameters and device as for :class:`MLP`.
 
     On the fused path, consecutive blocks run as one segment in groups of
     ``PSCI_JET_PBLOCK_GROUP`` blocks (default 3; ``jet_pallas_full`` takes
@@ -552,6 +596,9 @@ class PirateNet(base.Arch):
         num_blocks: int,
         hidden_size: int,
         activation: str = "tanh",
+        weight_norm: bool = False,
+        input_dim: Optional[int] = None,
+        output_dim: Optional[int] = None,
         periods: Optional[Dict[str, Tuple[float, bool]]] = None,
         fourier: Optional[Dict[str, Union[float, int]]] = None,
         random_weight: Optional[Dict[str, float]] = None,
@@ -563,23 +610,26 @@ class PirateNet(base.Arch):
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        if not isinstance(hidden_size, int):
+            raise ValueError(f"hidden_size should be int, but got {type(hidden_size)}")
         self.input_keys = tuple(input_keys)
         self.output_keys = tuple(output_keys)
         self.periods = dict(periods) if periods else None
         self.fourier = dict(fourier) if fourier else None
 
-        cur_size = _embedded_size(self, generator)
+        cur_size = _embedded_size(self, generator, input_dim)
         if cur_size != hidden_size:
             raise ValueError(f"PirateNet blocks act on the embedding: hidden_size {hidden_size} must equal "
                              f"the embedded width {cur_size}")
-        self.embed_u = _make_linear(cur_size, hidden_size, random_weight, generator)
-        self.embed_v = _make_linear(cur_size, hidden_size, random_weight, generator)
-        self.embed_act_u = _make_act(activation)
-        self.embed_act_v = _make_act(activation)
+        self.embed_u = _make_linear(cur_size, hidden_size, random_weight, generator, weight_norm)
+        self.embed_v = _make_linear(cur_size, hidden_size, random_weight, generator, weight_norm)
+        self.embed_act_u = _make_act(activation, hidden_size)
+        self.embed_act_v = _make_act(activation, hidden_size)
         self.blocks = nn.ModuleList(
             PirateNetBlock(cur_size, activation=activation, random_weight=random_weight, generator=generator)
             for _ in range(num_blocks))
-        self.last_fc = _make_linear(cur_size, len(self.output_keys), random_weight, generator)
+        out_dim = len(self.output_keys) if output_dim is None else output_dim
+        self.last_fc = _make_linear(cur_size, out_dim, random_weight, generator)
         self.to(device)
 
     def forward_tensor(self, x: torch.Tensor) -> torch.Tensor:

@@ -315,16 +315,20 @@ def act_derivs(act: Act, x: torch.Tensor):
 def elementwise(jet: Jet, fn: Callable) -> Jet:
     """Jet chain rule through ``fn``: an activation of
     ``arch/activation.py`` or ``torch.tanh``/``sin``/``cos``/``exp``, whose
-    closed-form rule gives sigma' and sigma'' (:func:`act_derivs`). (The
-    JAX package also takes any other function through ``jax.jvp``; no
-    ported arch needs that.)
+    closed-form rule gives sigma' and sigma'' (:func:`act_derivs`), or a
+    parametric one (``Stan``, ``Swish``) whose ``jet_derivs(x)`` gives
+    them from its parameters. (The JAX package also takes any other
+    function through ``jax.jvp``; no ported arch needs that.)
     """
-    act = act_of(fn)
-    if act is None:
-        raise ValueError(f"no closed-form jet rule for {fn}; available: the activations of "
-                         "arch/activation.py and torch.tanh, sin, cos, exp")
     idx = jet.index
-    f0, sp, spp, _ = act_derivs(act, jet.streams[0])
+    if hasattr(fn, "jet_derivs"):
+        f0, sp, spp = fn.jet_derivs(jet.streams[0])
+    else:
+        act = act_of(fn)
+        if act is None:
+            raise ValueError(f"no closed-form jet rule for {fn}; available: the activations of "
+                             "arch/activation.py and torch.tanh, sin, cos, exp")
+        f0, sp, spp, _ = act_derivs(act, jet.streams[0])
     streams = [f0]
     for m in idx.multis[1:]:
         if len(m) == 1:

@@ -56,7 +56,7 @@ def prepare_label(label_dict: Dict[str, Spec], input: Dict[str, np.ndarray],
                 label[key] = np.full_like(ref, label[key])
         else:
             raise NotImplementedError(f"label of type {type(value)} is not ported (numbers and callables are; "
-                                      f"a sympy expression over {tuple(dim_keys)} needs ROADMAP Queue A 3)")
+                                      f"a sympy expression over {tuple(dim_keys)} needs ROADMAP Queue A 2)")
     return label
 
 
@@ -82,7 +82,7 @@ def prepare_weight(weight_dict: Optional[Dict[str, Union[Spec, str]]], input, la
                 weight[key] = np.full_like(ref, weight[key])
         else:
             raise NotImplementedError(f"weight of type {type(value)} is not ported (numbers and callables are; "
-                                      f"a sympy expression over {tuple(dim_keys)} needs ROADMAP Queue A 3)")
+                                      f"a sympy expression over {tuple(dim_keys)} needs ROADMAP Queue A 2)")
     return weight
 
 

@@ -65,14 +65,14 @@ class Biharmonic(PDE):
     ``hessian(u, x_i)`` along x_j, one component of order 4: the nested-jvp
     path serves it (the jet serves order <= 2). A string ``q`` or ``D`` (a
     sympy function of the coordinates) raises ``NotImplementedError``: its
-    lowering is ROADMAP Queue A 3."""
+    lowering is ROADMAP Queue A 2."""
 
     def __init__(self, dim: int, q: Union[float, str], D: Union[float, str],
                  detach_keys: Optional[Tuple[str, ...]] = None):
         super().__init__()
         if isinstance(q, str) or isinstance(D, str):
             raise NotImplementedError("Biharmonic with a string q or D (a sympy function) is not ported: its "
-                                      "sympy-free lowering is ROADMAP Queue A 3; pass numbers")
+                                      "sympy-free lowering is ROADMAP Queue A 2; pass numbers")
         if dim not in (1, 2, 3):
             raise ValueError(f"dim must be 1, 2 or 3, got {dim}")
         self.detach_keys = detach_keys

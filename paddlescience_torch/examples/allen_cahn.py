@@ -15,11 +15,33 @@ piratenet     PirateNet, 3 blocks x 256  2.0            1.0
               (``piratenet_blocks``)
 ============  =========================  =============  ========
 
-CausalMSELoss(32 chunks, tol 1) on 4096 collocation points sampled on the
-device each step, plus the initial-condition MSE on 512 points; GradNorm
-(update_freq 1000, momentum 0.9); Adam with ExponentialDecay (1e-3, gamma
-0.9 every 2000 steps). No derivative path is pinned unless ``deriv`` names
-one, as in the JAX example: under the process default the gated stacks run
+CausalMSELoss(32 chunks, tol 1) (``loss="causal"``; ``"mse"``: a plain
+MSE) on 4096 collocation points sampled on the device each step, plus the
+initial-condition MSE on 512 points; GradNorm (update_freq 1000, momentum
+0.9; ``aggregator="gradnorm"``), NTK (``"ntk"``: w_i = sum |g| / |g_i|
+every update_freq steps) or the plain sum (``"sum"``); Adam with
+ExponentialDecay (1e-3, gamma 0.9 every 2000 steps).
+
+:data:`RECIPES` names the JAX example's six variants (its table and its
+``conf/allen_cahn*.yaml`` numbers; ``recipe(name)`` gives the
+:func:`build_solver` arguments):
+
+============  ============  =============  ========  ======  ==========  ======  =====  =====
+variant       arch          fourier scale  RWF mean  loss    aggregator  epochs  batch  decay
+============  ============  =============  ========  ======  ==========  ======  =====  =====
+default       mlp           1.0            0.5       causal  gradnorm    200     4096   2000
+causal        mlp           1.0            0.5       causal  sum         200     4096   2000
+plain         mlp           1.0            0.5       mse     sum         200     4096   2000
+default_ntk   mlp           2.0            1.0       causal  ntk         200     4096   2000
+sota          modified_mlp  2.0            1.0       causal  ntk         300     8192   5000
+piratenet     piratenet     2.0            1.0       causal  gradnorm    300     8192   5000
+============  ============  =============  ========  ======  ==========  ======  =====  =====
+
+Every variant keeps eps = 0.01 (the JAX example's choice: the upstream
+ntk and sota scripts pass 0.01**2).
+
+No derivative path is pinned unless ``deriv`` names one, as in the JAX
+example: under the process default the gated stacks run
 their hidden layers as fused jet segments (CUDA kernels on the GPU) and
 the MLP takes the plain jet path, and a long ``train()`` times the
 candidates first (``solver/autotune.py``). ``Solver.train()`` runs whole
@@ -31,10 +53,11 @@ a numpy copy), cached in an ``.npz`` file. The ``u_validator`` holds the
 model against it (L2Rel, in batches of 16384; the loader drops the short
 last batch as the JAX package's does, so 6 batches, the first 192 of the
 201 time rows). The initial-condition labels are row 0 of that solution.
-The NTK aggregator of the JAX example's ``sota`` variant is not ported yet.
 
 Run on the GPU (train, then eval against the reference):
-``python -m paddlescience_torch.examples.allen_cahn [epochs] [iters_per_epoch] [arch]``.
+``python -m paddlescience_torch.examples.allen_cahn [variant] [epochs] [iters_per_epoch]``
+(variant: a name of :data:`RECIPES`, default ``default``; epochs and
+iterations: the variant's).
 """
 
 from __future__ import annotations
@@ -62,7 +85,7 @@ from paddlescience_torch.solver.solver import Solver
 from paddlescience_torch.validate import SupervisedValidator
 
 __all__ = ["build_solver", "ic_data", "solve_allen_cahn_spectral", "get_reference_solution", "train", "evaluate",
-           "REFERENCE_PATH"]
+           "recipe", "RECIPES", "REFERENCE_PATH"]
 
 REFERENCE_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                               "dataset", "allen_cahn_ref.npz")
@@ -143,6 +166,26 @@ def ic_data(nx: int = 512):
     return col(np.zeros_like(x)), col(x), col(u0)
 
 
+# the JAX example's variants (examples/allen_cahn.py:107-116 and conf/allen_cahn*.yaml)
+_GATED = dict(fourier_scale=2.0, rwf_mean=1.0, epochs=300, batch_size=8192, decay_steps=5000)
+RECIPES = {
+    "default": dict(arch="mlp", loss="causal", aggregator="gradnorm"),
+    "causal": dict(arch="mlp", loss="causal", aggregator="sum"),
+    "plain": dict(arch="mlp", loss="mse", aggregator="sum"),
+    "default_ntk": dict(arch="mlp", fourier_scale=2.0, rwf_mean=1.0, loss="causal", aggregator="ntk"),
+    "sota": dict(arch="modified_mlp", loss="causal", aggregator="ntk", **_GATED),
+    "piratenet": dict(arch="piratenet", piratenet_blocks=3, loss="causal", aggregator="gradnorm", **_GATED),
+}
+
+
+def recipe(name: str, **overrides) -> dict:
+    """The :func:`build_solver` arguments of variant ``name`` of
+    :data:`RECIPES`, updated with ``overrides``."""
+    if name not in RECIPES:
+        raise ValueError(f"variant '{name}' not found; available: {', '.join(RECIPES)}")
+    return {**RECIPES[name], **overrides}
+
+
 def build_solver(
     epochs: int = 200,
     iters_per_epoch: int = 1000,
@@ -163,6 +206,8 @@ def build_solver(
     piratenet_blocks: int = 3,
     fourier_scale: Optional[float] = None,
     rwf_mean: Optional[float] = None,
+    loss: str = "causal",
+    aggregator: str = "gradnorm",
     output_dir: Optional[str] = "./output_allen_cahn",
     eval_during_train: bool = True,
     with_validator: bool = True,
@@ -174,7 +219,10 @@ def build_solver(
     or "piratenet"); sizes are knobs so tests can shrink it. ``deriv``
     names a derivative-path candidate to pin (None: none is pinned).
     ``fourier_scale`` and ``rwf_mean`` default per arch (2.0 and 1.0 for
-    the gated archs, 1.0 and 0.5 for the MLP). With ``with_validator`` the
+    the gated archs, 1.0 and 0.5 for the MLP). ``loss`` ("causal" or
+    "mse") is the PDE loss, ``aggregator`` ("gradnorm", "ntk" or "sum")
+    combines it with the IC loss (GradNorm and NTK refreshed every
+    ``update_freq`` steps). With ``with_validator`` the
     solver holds the ``u_validator`` against the reference solution (read
     from or written to ``reference_path``, see
     :func:`get_reference_solution`), evaluated every ``eval_freq`` epochs
@@ -183,6 +231,10 @@ def build_solver(
     device = resolve_device(device)
     if arch not in ("mlp", "modified_mlp", "piratenet"):
         raise ValueError(f"arch '{arch}' not found; available: mlp, modified_mlp, piratenet")
+    if loss not in ("causal", "mse"):
+        raise ValueError(f"loss '{loss}' not found; available: causal, mse")
+    if aggregator not in ("gradnorm", "ntk", "sum"):
+        raise ValueError(f"aggregator '{aggregator}' not found; available: gradnorm, ntk, sum")
     if deriv is not None:
         deriv_path.set_default(deriv_path.CANDIDATES[deriv])
     gated = arch != "mlp"
@@ -212,7 +264,8 @@ def build_solver(
         x = torch.rand(batch_size, 1, generator=gen, device=device) * (x1 - x0) + x0
         return {"t": t, "x": x}, {"allen_cahn": torch.zeros(batch_size, 1, device=device)}, {}
 
-    pde = Constraint(DeviceSampledDataset(sample_fn), None, CausalMSELoss(32, "mean", tol=1.0), "PDE")
+    pde_loss = CausalMSELoss(32, "mean", tol=1.0) if loss == "causal" else MSELoss("mean")
+    pde = Constraint(DeviceSampledDataset(sample_fn), None, pde_loss, "PDE")
     pde.output_expr = equation["AllenCahn"].equations
     ic = SupervisedConstraint(
         {"dataset": {"name": "IterableNamedArrayDataset", "input": {"t": t_ic, "x": x_ic},
@@ -238,7 +291,9 @@ def build_solver(
         model, constraint, output_dir, Adam(lr)(model), epochs=epochs, iters_per_epoch=iters_per_epoch,
         log_freq=log_freq, eval_during_train=eval_during_train, eval_freq=eval_freq, seed=seed, equation=equation,
         validator=validator, checkpoint_path=checkpoint_path,
-        loss_aggregator=mtl.GradNorm(model, len(constraint), update_freq, 0.9), device=device,
+        loss_aggregator={"gradnorm": lambda: mtl.GradNorm(model, len(constraint), update_freq, 0.9),
+                         "ntk": lambda: mtl.NTK(model, len(constraint), update_freq),
+                         "sum": lambda: mtl.Sum(model, len(constraint))}[aggregator](), device=device,
     )
 
 
@@ -270,5 +325,9 @@ def evaluate(pretrained_model_path: Optional[str] = None, **kwargs) -> float:
 
 if __name__ == "__main__":
     argv = sys.argv[1:]
-    train(epochs=int(argv[0]) if argv else 200, iters_per_epoch=int(argv[1]) if len(argv) > 1 else 1000,
-          arch=argv[2] if len(argv) > 2 else "mlp")
+    kwargs = recipe(argv[0] if argv else "default")
+    if len(argv) > 1:
+        kwargs["epochs"] = int(argv[1])
+    if len(argv) > 2:
+        kwargs["iters_per_epoch"] = int(argv[2])
+    train(**kwargs)

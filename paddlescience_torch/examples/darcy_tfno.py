@@ -12,7 +12,7 @@ projection 64 and 4 layers; the loss the per-sample relative H1 norm
 schedule halving the rate every 60 epochs; shuffled batches of 16 (``n_train
 // 16`` steps an epoch); evaluation every 10 epochs of the mean per-sample
 relative L2 on the held-out samples. ``arch="uno"`` (the JAX example's
-UNO variant) raises: ``UNONet`` is not ported yet (ROADMAP Queue A 6).
+UNO variant) raises: ``UNONet`` is not ported yet (ROADMAP Queue A 5).
 
 Run on the GPU: ``python -m paddlescience_torch.examples.darcy_tfno
 [epochs]`` (each epoch one CUDA graph of ``n_train // 16`` steps).
@@ -100,7 +100,7 @@ def build_solver(epochs: int = 300, n_train: int = 1000, n_eval: int = 100, reso
     samples in order in both)."""
     if arch == "uno":
         raise NotImplementedError("darcy_tfno with arch='uno' needs UNONet, which is not ported yet: "
-                                  "ROADMAP Queue A 6")
+                                  "ROADMAP Queue A 5")
     if arch != "tfno":
         raise ValueError(f"unknown arch '{arch}' (tfno)")
     device = resolve_device(device)

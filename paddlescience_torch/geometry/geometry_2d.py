@@ -6,7 +6,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
-from scipy import stats
 
 from paddlescience_torch.geometry import geometry, geometry_nd, sampler
 

@@ -7,7 +7,6 @@ import itertools
 from typing import Tuple
 
 import numpy as np
-from scipy import stats
 
 from paddlescience_torch.geometry import geometry, sampler
 
@@ -127,6 +126,8 @@ class Hypersphere(geometry.Geometry):
             u = np.random.random((n, 1))
             g = np.random.normal(size=(n, self.ndim))
         else:
+            from scipy import stats  # here, not at import: scipy.stats takes seconds to load
+
             s = sampler.sample(n, self.ndim + 1, random)
             u, g = s[:, 0:1], stats.norm.ppf(s[:, 1:])
         g /= np.linalg.norm(g, axis=-1, keepdims=True)
@@ -137,6 +138,8 @@ class Hypersphere(geometry.Geometry):
         if random == "pseudo":
             g = np.random.normal(size=(n, self.ndim))
         else:
+            from scipy import stats
+
             u = sampler.sample(n, self.ndim, random)
             g = stats.norm.ppf(u)
         g /= np.linalg.norm(g, axis=-1, keepdims=True)

@@ -5,7 +5,6 @@
 from __future__ import annotations
 
 import numpy as np
-from scipy.stats import qmc
 
 __all__ = ["sample"]
 
@@ -20,6 +19,8 @@ def sample(n: int, ndim: int, method: str = "pseudo") -> np.ndarray:
     """
     if method == "pseudo":
         return np.random.random(size=(n, ndim)).astype(_DEFAULT_DTYPE)
+    from scipy.stats import qmc  # here, not at import: scipy.stats takes seconds to load
+
     if method == "LHS":
         return qmc.LatinHypercube(d=ndim).random(n).astype(_DEFAULT_DTYPE)
     if method == "Halton":

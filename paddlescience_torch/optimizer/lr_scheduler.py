@@ -6,9 +6,9 @@ step counter it returns a float32 tensor on the counter's device,
 computed in float32 as the JAX package does (the form a captured CUDA
 graph evaluates each step).
 
-Ported: ``Constant``, ``Cosine`` and ``Step`` with the linear warmup of
-``LRBase``, and ``ExponentialDecay`` (without its per-epoch decay and
-warmup). The other schedulers are not ported yet.
+Ported: ``Constant``, and ``Cosine``, ``Step`` and ``ExponentialDecay``
+with the linear warmup and ``by_epoch`` clock of ``LRBase``. The other
+schedulers are not ported yet.
 """
 
 from __future__ import annotations
@@ -138,25 +138,27 @@ class Step(LRBase):
         return sched
 
 
-class ExponentialDecay:
-    """lr0 * gamma ** (step / decay_steps), decaying smoothly every step.
-    ``epochs`` and ``iters_per_epoch`` keep the JAX signature; the JAX
-    package's per-epoch decay and warmup are not ported."""
+class ExponentialDecay(LRBase):
+    """lr0 * gamma ** (t / decay_steps), decaying smoothly every step (t in
+    steps; with ``by_epoch`` t counts epochs and ``decay_steps`` is divided
+    by ``iters_per_epoch``), after a linear warmup of ``warmup_epoch``
+    epochs from ``warmup_start_lr`` (``LRBase``: the decay's clock starts
+    when the warmup ends)."""
 
     def __init__(self, epochs: int, iters_per_epoch: int, learning_rate: float, gamma: float,
-                 decay_steps: int):
-        self.epochs = epochs
-        self.iters_per_epoch = iters_per_epoch
-        self.learning_rate = learning_rate
+                 decay_steps: int, warmup_epoch: int = 0, warmup_start_lr: float = 0.0, last_epoch: int = -1,
+                 by_epoch: bool = False):
+        super().__init__(epochs, iters_per_epoch, learning_rate, warmup_epoch, warmup_start_lr, last_epoch, by_epoch)
+        self.decay_steps = decay_steps / iters_per_epoch if by_epoch else decay_steps
         self.gamma = gamma
-        self.decay_steps = decay_steps
 
-    def __call__(self) -> Schedule:
+    def get_lr_fn(self) -> Schedule:
         lr0, g, ds = self.learning_rate, self.gamma, self.decay_steps
 
         def sched(step: Step):
+            t = self._t(step)
             if isinstance(step, torch.Tensor):
-                return lr0 * torch.pow(g, step / ds)
-            return lr0 * g ** (step / ds)
+                return lr0 * torch.pow(g, t / ds)
+            return lr0 * g ** (t / ds)
 
         return sched

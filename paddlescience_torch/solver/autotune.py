@@ -212,7 +212,7 @@ def autotune(solver, batches, fused: int) -> str:
     k = max(1, min(fused, int(os.environ.get("PSCI_AUTOTUNE_FUSED", "50"))))
     calls = int(os.environ.get("PSCI_AUTOTUNE_CALLS", "3"))
     caller_default = deriv_path.get_default()
-    snap = solver._snapshot()
+    snap = solver.state
     stats = dict(solver.graph_stats.get(k, {}))
     timings: Dict[str, float] = {}
     refused: Dict[str, str] = {}

@@ -15,7 +15,16 @@ A train step:
 Every ``update_freq`` steps a GradNorm-style aggregator's weights are
 refreshed, outside the step, from per-loss gradient norms on a batch of
 their own (``_maybe_refresh_agg_weights``, as the JAX solver's amortized
-refresh).
+refresh). With ``loss_granularity="key"`` the aggregator sees one loss per
+output key of each constraint, named ``"{constraint}.{key}"``
+(``_loss_names``), and the refresh takes one gradient norm per key.
+
+``state`` is the training state as a detached copy (``state_dict``), and
+assigning to it copies a state into the live tensors (``_load_state``):
+``next_solver.state = solver.state`` carries parameters, optimizer
+moments, the step the schedule reads, the aggregator's weights and the
+batch generator from one solver into the next, as the JAX solver's
+``state`` does between the stages of a curriculum.
 
 ``train()`` runs epochs ``last_epoch + 1 .. epochs`` in chunks of K steps,
 as the JAX solver's ``_train_fused_static`` runs K steps per ``lax.scan``
@@ -112,6 +121,7 @@ class Solver:
         checkpoint_path: Optional[str] = None,
         compute_metric_by_batch: bool = False,
         loss_aggregator: Optional[mtl.LossAggregator] = None,
+        loss_granularity: str = "constraint",
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -132,7 +142,10 @@ class Solver:
         for name, eq in self.equation.items():
             if getattr(eq, "learnable_parameters", None):
                 raise NotImplementedError(f"equation '{name}': learnable parameters are not ported yet")
-        self.loss_aggregator = loss_aggregator or mtl.Sum(model, len(self.constraint))
+        if loss_granularity not in ("constraint", "key"):
+            raise ValueError(f"loss_granularity must be 'constraint' or 'key', got {loss_granularity}")
+        self.loss_granularity = loss_granularity
+        self.loss_aggregator = loss_aggregator or mtl.Sum(model, len(self._loss_names()))
         self.agg_state = self.loss_aggregator.init_state(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.models = [model]
@@ -222,6 +235,22 @@ class Solver:
         self.step = int(state["step"])
         self._step_t.fill_(self.step)
 
+    @property
+    def state(self) -> Dict[str, object]:
+        """A detached copy of :meth:`state_dict`."""
+        return _clone(self.state_dict())
+
+    @state.setter
+    def state(self, state: Dict[str, object]) -> None:
+        self._load_state(state)
+
+    def release_graphs(self) -> None:
+        """Drop the captured graphs and the staged batch buffers (their
+        memory pools go with them); the next chunk captures anew."""
+        self._graphs.clear()
+        self._chunk_bufs.clear()
+        self._chunk.clear()
+
     def load_pretrain(self, pretrained_model_path: str) -> None:
         """Load the model parameters of a checkpoint (nothing else)."""
         params = save_load.load_pretrain(pretrained_model_path, dict(self.model.named_parameters()))
@@ -278,14 +307,33 @@ class Solver:
                         buf[key].copy_(src)
             self._chunk[name] = bufs
 
+    def _loss_names(self) -> List[str]:
+        """The names of the losses the aggregator sees, in its order: the
+        constraints; under ``loss_granularity="key"`` each constraint's
+        ``output_keys`` (else its expressions' keys) as
+        ``"{constraint}.{key}"``."""
+        if self.loss_granularity == "constraint":
+            return list(self.constraint)
+        names = []
+        for name, cst in self.constraint.items():
+            keys = tuple(getattr(cst, "output_keys", ()) or ()) or tuple((cst.output_expr or {}).keys())
+            names.extend(f"{name}.{k}" for k in keys)
+        return names
+
     def _constraint_losses(self, batches) -> Dict[str, torch.Tensor]:
-        """One loss per constraint: the sum of its per-key losses."""
+        """The losses by name (:meth:`_loss_names`): per constraint the sum
+        of its per-key losses, or under ``loss_granularity="key"`` each
+        key's loss."""
         losses = {}
         for name, cst in self.constraint.items():
             inp, lab, wgt = batches[name]
             outputs = expression.evaluate_expressions(self.models, inp, cst.output_expr,
                                                       request_cache=self._jet_requests[name])
-            losses[name] = sum(cst.loss(outputs, lab, wgt if wgt else None).values())
+            per_key = cst.loss(outputs, lab, wgt if wgt else None)
+            if self.loss_granularity == "key":
+                losses.update((f"{name}.{k}", v) for k, v in per_key.items())
+            else:
+                losses[name] = sum(per_key.values())
         return losses
 
     def _params(self) -> List[torch.nn.Parameter]:
@@ -295,10 +343,11 @@ class Solver:
         """Per-loss gradient norms over all parameters -> aggregator weights,
         written into the aggregator's tensors in place."""
         losses = self._constraint_losses(self._batches())
+        names = self._loss_names()
         params = self._params()
         norms = []
-        for i, name in enumerate(losses):
-            grads = torch.autograd.grad(losses[name], params, retain_graph=i < len(losses) - 1,
+        for i, name in enumerate(names):
+            grads = torch.autograd.grad(losses[name], params, retain_graph=i < len(names) - 1,
                                         allow_unused=True)
             norms.append(torch.sqrt(sum((g * g).sum() for g in grads if g is not None)))
         new = self.loss_aggregator.update_weights(self.agg_state, torch.stack(norms))
@@ -323,7 +372,7 @@ class Solver:
         is stored), search along the L-BFGS direction with the objective on
         this step's batch. Logs the starting value, as JAX does."""
         batches = self._batches()
-        names = list(self.constraint)
+        names = self._loss_names()
         params = self.optimizer.params()
 
         def value_and_grad(flat: torch.Tensor):
@@ -347,7 +396,7 @@ class Solver:
         if self._lbfgs:
             return self._lbfgs_step()
         losses = self._constraint_losses(self._batches())
-        names = list(self.constraint)
+        names = self._loss_names()
         total, _ = self.loss_aggregator.aggregate([losses[n] for n in names], self.agg_state)
         self.optimizer.zero_grad()
         total.backward()
@@ -390,9 +439,6 @@ class Solver:
 
     # ------------------------------------------------- captured chunks --
 
-    def _snapshot(self) -> Dict[str, object]:
-        return _clone(self.state_dict())
-
     def _graph(self, k: int) -> Tuple[torch.cuda.CUDAGraph, Dict[str, torch.Tensor]]:
         """The CUDA graph of ``k`` train steps on the current derivative
         path, captured at first use: ``WARMUP_STEPS`` eager steps on a side
@@ -407,7 +453,7 @@ class Solver:
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError("this torch cannot register a generator with a CUDA graph "
                                "(CUDAGraph.register_generator_state); train with num_fused_steps=1")
-        snap = self._snapshot()
+        snap = self.state
         t0 = time.perf_counter()
         try:
             side = torch.cuda.Stream(self.device)

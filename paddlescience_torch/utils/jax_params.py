@@ -5,6 +5,9 @@
 arrays, :func:`load_jax_params` copies them into a port module whose
 parameters and buffers have the same dotted names (``linears.0.weight_v``,
 ``fourier_emb.kernel``, ``period_emb.freq_x``, ``last_fc.bias``, a
+weight-normed ModifiedMLP's ``embed_u.weight_g``, a Stan or Swish
+activation's ``acts.0.beta``, ``embed_act_u.beta`` or
+``blocks.0.act1.beta`` (Swish's a scalar), a
 DeepONet's ``branch_net.linears.0.weight``, ``trunk_net.last_fc.bias`` and
 ``b``, an FNO's ``fno_blocks.convs.0.w0_re``/``_im`` and
 ``fno_blocks.fno_skips.0.weight``, an LNO's ``laplace.residue_re``,

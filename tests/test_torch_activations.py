@@ -197,5 +197,9 @@ def test_every_jax_activation_is_ported_with_its_own_rule():
     ids = {tjet.act_of(a)[0] for a in tact._FUNCS.values()} | {tjet.act_of(tact.Siren())[0]}
     assert ids == set(tjet.ACT_RULES) - {tjet.EXP}  # exp: a jet primitive, no activation of the zoo
     assert tjet.act_of(tact.Siren(2.0)) == (tjet.SIREN, 2.0)
+    # the parametric ones are classes, as in JAX; Stan and Swish have no rule by id (their beta is learnable)
+    assert set(tact._CLASSES) == set(psci.arch.activation._CLASSES)
+    assert tact.get_activation("swish") is tact.Swish and tact.get_activation("Stan") is tact.Stan
+    assert tjet.act_of(tact.Swish()) is None and tjet.act_of(tact.Stan(4)) is None
     with pytest.raises(ValueError, match="act_name"):
-        tact.get_activation("swish")
+        tact.get_activation("swishh")

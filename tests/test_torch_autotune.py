@@ -182,7 +182,7 @@ def test_state_after_tuning_is_bitwise_the_state_before(tmp_path, monkeypatch):
     monkeypatch.setenv("PSCI_AUTOTUNE_CALLS", "2")
     solver = _tiny_solver()
     solver.train_steps(2)  # a state with a non-zero Adam moment and step
-    before = solver._snapshot()
+    before = solver.state
     autotune.autotune(solver, solver._static_batches, fused=4)
     after = solver.state_dict()
     assert after["step"] == before["step"] == 2
@@ -227,7 +227,7 @@ def test_only_the_kernel_refusal_drops_a_candidate(tmp_path, monkeypatch):
     caller = {"PSCI_JET": "1"}
     tpath.set_default(caller)
     solver = _tiny_solver()
-    before = solver._snapshot()
+    before = solver.state
     with pytest.raises(RuntimeError, match="injected launch failure"):
         autotune.autotune(solver, solver._static_batches, fused=1)
     assert tpath.get_default() == caller

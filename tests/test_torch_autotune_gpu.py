@@ -42,7 +42,7 @@ def test_autotune_on_gpu(cuda_device, tmp_path, monkeypatch):
                                      with_validator=False, output_dir=None, device=cuda_device)
     names = autotune.candidate_names(solver)
     assert names == ["jvp", "jet", "jet_pallas", "jet_pallas_full", "jet_pallas_full_sb"]
-    before = solver._snapshot()
+    before = solver.state
     winner = autotune.autotune(solver, solver._static_batches, fused=4)
     torch.cuda.synchronize()
     (entry,) = json.loads((tmp_path / "c.json").read_text()).values()

@@ -68,7 +68,7 @@ def test_training_state_stays_in_place_across_steps_refreshes_and_loads(tmp_path
     warm-up's restore."""
     s = _solver("cpu", update_freq=2, output_dir=str(tmp_path), epochs=2, iters_per_epoch=4)
     before = _ptrs(s)
-    snap = s._snapshot()
+    snap = s.state
     s.train_steps(5)
     assert _ptrs(s) == before and s.step == 5 and float(s._step_t) == 5.0
     assert not torch.equal(s.agg_state["weight"], snap["agg_state"]["weight"])

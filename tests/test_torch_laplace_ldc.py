@@ -164,10 +164,9 @@ def test_ldc2d_steady_eval_matches_jax(tmp_path):
     np.testing.assert_allclose(t_metric, float(j_metric), rtol=1e-5)
 
 
-def test_ldc2d_steady_lbfgs_is_not_ported_yet():
-    """The name predates the port of L-BFGS: the branch that raised now
-    builds the JAX example's ``LBFGS(max_iter=10)`` (its parity with JAX is
-    in ``test_torch_lbfgs.py``)."""
+def test_ldc2d_steady_lbfgs_builds_the_example_lbfgs():
+    """``lbfgs=True`` builds the JAX example's ``LBFGS(max_iter=10)`` (its
+    parity with JAX is in ``test_torch_lbfgs.py``)."""
     ts = tldc.build_solver(lbfgs=True, device="cpu", output_dir=None)
     opt = ts.optimizer
     assert opt.is_lbfgs and opt.linesearch.max_linesearch_steps == 10 and opt.history_size == 100

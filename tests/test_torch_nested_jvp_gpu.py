@@ -56,7 +56,7 @@ def _flat(solver):
 def _graphed_against_eager(solver, k):
     """Two graphed chunks of k steps against 2k eager steps from the same
     state (restored in place): the parameters' relative difference."""
-    snap = solver._snapshot()
+    snap = solver.state
     solver.train_chunk(k)
     solver.train_chunk(k)
     graphed = _flat(solver).clone()

@@ -54,6 +54,25 @@ def test_sources_import_nothing_forbidden(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_repo_script(path):
+    """The port keeps its own copies of what it needs from the repo's
+    scripts: no import of ``tools`` or ``examples`` (a module or a path
+    put on ``sys.path`` for them)."""
+    text = path.read_text()
+    for node in ast.walk(ast.parse(text)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names = [node.module]
+        for name in names:
+            assert name.split(".")[0] not in ("tools", "examples", "gen_ldc_reference", "_ldc_common"), \
+                f"{path.name} imports {name}"
+    assert not re.search(r"sys\.path\.\w+\([^)]*(tools|examples)", text), f"{path.name} puts a script dir on sys.path"
+
+
 CSRC = sorted((PORT / "csrc").glob("*.cu")) + sorted((PORT / "csrc").glob("*.cuh"))
 NEW_MODULES = ("ops/jet_gated.py", "ops/lbm.py", "csrc/jet_gated_fwd.cu", "csrc/jet_gated_bwd.cu",
                "csrc/lbm_collide_stream.cu")
@@ -211,7 +230,18 @@ def test_the_lbfgs_and_operator_files_are_among_the_checked_sources():
     assert set(TWELFTH_SLICE_MODULES) <= checked
 
 
-@pytest.mark.parametrize("rel", dict.fromkeys(TENTH_SLICE_MODULES + ELEVENTH_SLICE_MODULES + TWELFTH_SLICE_MODULES))
+THIRTEENTH_SLICE_MODULES = ("loss/mtl/__init__.py", "optimizer/lr_scheduler.py", "solver/solver.py",
+                            "data/dataset/ldc_reference.py", "utils/ghia.py", "examples/ldc_curriculum.py",
+                            "examples/allen_cahn.py", "arch/mlp.py", "arch/activation.py", "autodiff/jet.py")
+
+
+def test_the_recipe_and_curriculum_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(THIRTEENTH_SLICE_MODULES) <= checked
+
+
+@pytest.mark.parametrize("rel", dict.fromkeys(TENTH_SLICE_MODULES + ELEVENTH_SLICE_MODULES + TWELFTH_SLICE_MODULES
+                                              + THIRTEENTH_SLICE_MODULES))
 def test_the_new_modules_import_alone_without_jax(rel):
     """Each new module, imported first in a fresh process, loads no JAX,
     sympy, optax or JAX-package module."""
