@@ -96,7 +96,7 @@ on failure:
              steps;
    lbfgs    - ldc2d_steady with ``lbfgs=True`` (optax's L-BFGS with its
              zoom line search, a host loop a step) through ``train()`` for
-             10 of the example's 50 epochs of 50 steps (cut for time), no
+             5 of the example's 50 epochs of 50 steps (cut for time), no
              path pinned: steps/s,
              value-and-gradient evaluations a step (mean, max), the
              residual MSEs, the peak memory; Adam then L-BFGS (50 steps
@@ -109,10 +109,10 @@ on failure:
    operators - BASELINE's operator config at the examples' defaults, one
              CUDA graph an epoch (``train(num_fused_steps=iters_per_epoch)``,
              the host batches staged a replay): Darcy TFNO (1100 samples
-             generated on the host, 100 of the example's 300 epochs of 62
+             generated on the host, 50 of the example's 300 epochs of 62
              steps, l2 every 10 epochs) and the Brusselator LNO (1000
              samples generated on the card, 2 of them held against the CPU
-             generator within 1e-4 x max |u|; 100 of 300 epochs of 16
+             generator within 1e-4 x max |u|; 50 of 300 epochs of 16
              steps, the decoded L2Rel);
              for each a graphed epoch against eager steps (1e-6), graphed
              and eager steps/s with device busy, the final metric;
@@ -124,9 +124,10 @@ on failure:
              epoch, graphed and eager steps/s with device busy;
    ldc      - the LDC Re-curriculum recipes (PirateNet 4x256, ModifiedMLP
              5x256, MLP 4x256) at full width and batch, cut to the first
-             two stages (Re 100, 400) of one 1000-step epoch each, in
-             graphs of 100 steps (the recipes' own: one 1000-step graph an
-             epoch, which takes a minute or more to capture): the
+             two stages (Re 100, 400) of one 500-step epoch each (the
+             recipes' own: 1000), in graphs of 100 steps (the recipes'
+             own: one graph an epoch, which takes a minute or more to
+             capture): the
              cavity generator on the card (one 2000-step chunk at 33^2 as
              one graph, against eager steps on the card within 1e-6 and
              against the CPU within 1e-5 x max), the two stages' reference
@@ -143,6 +144,32 @@ on failure:
              launches per step; one graphed 10-step chunk of the PirateNet
              recipe against 10 eager steps (1e-6); graphed and eager
              steps/s with device busy;
+   elasticity - the control arm (``examples/control_arm.py``: two MLPs
+             6x512, SiLU, weight norm, in a ModelList; LinearElasticity in
+             mixed form on the capsule-bar mesh, sdf-weighted interior
+             residuals; each constraint samples one iteration's points,
+             2048 interior and 128 + 128 + 512 boundary, where the example
+             feeds batch x iters_per_epoch) at full width: the solver's
+             build with the C++ ray cast and with its numpy version, and
+             the aneurysm's 2048 interior points drawn by both (the same
+             points, the sdf within 1e-6); the MLP kernels at its
+             interior shape (S = 4: u, u_x, u_y, u_z; N = 2048 and 2047;
+             3 -> 512 x 6, the weight-normed weights) against their plain
+             versions and the
+             S = 4 instances' registers and spills; no path pinned: the
+             autotuner's pick; 3 steps on jet_pallas_full against the
+             plain jet path (losses 1e-4, gradients 1e-3); two graphed
+             chunks of 10 steps against 20 eager steps (1e-6);
+             ``train()`` for 2 of the example's 2000 epochs (100-step
+             graphs); graphed and eager steps/s; the inverse problem for 1
+             of its 100 epochs on the trained networks, frozen (bitwise
+             unchanged, no jet_mlp_bwd or jet_wgrad launched), the Lame
+             networks moved, the validator's L2Rel; bracket_elasticity
+             (two MLPs 4x64, 20,480 interior points a step) for 1 of its 30
+             epochs: the autotuner's pick, ``train()``, the rates;
+   viv      - the viv inverse problem at the JAX defaults (100 epochs of one
+             20-step graph): the learnable k1, k2 finite and moved from
+             their starting values, graphed and eager steps/s;
    autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
              candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
              PirateNet 9x256, the aneurysm, cylinder2d matched,
@@ -156,9 +183,10 @@ on failure:
              kernel: time, plain-version time, bound, library time, at the
              Allen-Cahn shapes and, for the MLP kernels, at the aneurysm's
              (jet_mlp_bwd also at its unsteady S=8) and at the cylinder
-             workload's (S=6, N=282,600, 3 -> 52 x 5) and at the LDC
+             workload's (S=6, N=282,600, 3 -> 52 x 5), at the LDC
              recipes' (S=5: PirateNet 4 blocks, ModifiedMLP 5 layers, MLP
-             2 -> 256 x 4);
+             2 -> 256 x 4) and at the control arm's (SiLU, S=4, N=2048,
+             3 -> 512 x 6);
              jet_wgrad over the 27 PirateNet layers beside one torch.mm a
              layer (the library time of every jet_wgrad row) and torch.bmm, with
              and without the d alpha sum and against a separate sum (and
@@ -326,9 +354,11 @@ def act_name(act) -> str:
     return jet.ACT_NAMES[act[0]] + (f"({act[1]})" if act[1] else "")
 
 
-def check_kernels(S, N, dims, act=None, log_it=True):
+def check_kernels(S, N, dims, act=None, log_it=True, params=None, index=None):
     """Kernels against plain versions at one shape, activation ``act``
-    (tanh when None); returns max abs errors. For the relu family the
+    (tanh when None), with random layers or the (weights, biases) of
+    ``params`` and the jet of ``index`` (``jet_index(S)`` when None);
+    returns max abs errors. For the relu family the
     forward and backward outputs are held by the either-side check of
     ``ops/kinks.py`` (a row with a pre-activation within float32 rounding
     of a kink may take either side, at the same limit), and the checks
@@ -342,6 +372,9 @@ def check_kernels(S, N, dims, act=None, log_it=True):
 
     act = act or J.TANH
     idx, streams, weights, biases, g_out = make_inputs(S, N, dims)
+    if params is not None:
+        weights, biases = params
+    idx = index or idx
     L = len(dims) - 1
     tag = f"{act_name(act)} S={S} N={N} dims={dims[0]}->{'x'.join(map(str, dims[1:]))}"
     errs = {"jet_mlp_fwd": 0.0, "jet_mlp_bwd": 0.0, "jet_wgrad": 0.0}
@@ -704,7 +737,7 @@ def read_counts():
 def expected_kernels(path: str):
     """The kernels a driven path must launch."""
     if path.startswith(("mlp/", "aneurysm/", "mlp_5x50/", "cylinder/", "euler_beam/", "recipes/default_ntk",
-                        "ldc/re1000_plain")):
+                        "ldc/re1000_plain", "elasticity/")):
         return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
     if path.startswith(("piratenet/", "modified_mlp/", "recipes/sota", "ldc/re3200")):
         return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad")
@@ -855,7 +888,7 @@ def gated_args(S, N, W, program):
             (y, u, v, bounds, weights, biases, alphas, g_out, program, idx))
 
 
-def time_mlp_shape(rows, key, S, N, dims, act, per_step):
+def time_mlp_shape(rows, key, S, N, dims, act, per_step, index=None):
     """The MLP kernels' rows (the first three of ``rows``) at one more
     shape, under ``key``: time, plain-version time, bound, the library time
     (for jet_wgrad one ``torch.mm`` a layer with the streams folded into
@@ -870,6 +903,7 @@ def time_mlp_shape(rows, key, S, N, dims, act, per_step):
 
     L = len(dims) - 1
     idx, streams, weights, biases, g_out = make_inputs(S, N, dims)
+    idx = index or idx
     _, bounds = J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True, act=act)
     _, gzs = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx, act)
     ys = [streams] + [b.unbind(0) for b in bounds]
@@ -1642,8 +1676,8 @@ def run_example_phases(tmp: str):
 
 LBFGS_CHECK_STEPS = 3  # L-BFGS steps held on jet_pallas_full against the plain jet path
 LBFGS_REFINE_STEPS = 50  # L-BFGS steps after the [ldc2d] phase's Adam training
-LBFGS_EPOCHS = 10  # of the example's 50 epochs of 50 L-BFGS steps: cut for the script's time
-OPERATOR_EPOCHS = 100  # of the operator examples' 300 epochs: cut for the script's time
+LBFGS_EPOCHS = 5  # of the example's 50 epochs of 50 L-BFGS steps: cut for the script's time
+OPERATOR_EPOCHS = 50  # of the operator examples' 300 epochs: cut for the script's time
 OPERATOR_TIMED = {"darcy": 5, "brusselator": 10}  # graphed replays timed per solver
 BRUSSELATOR_CHECK = 2  # samples of the generator held on the card against the CPU
 BRUSSELATOR_TOL = 1e-4  # x max |u|: cuFFT against the CPU's FFT over the 9500 steps of the rollout
@@ -1973,8 +2007,9 @@ RECIPE_NAMES = ("default_ntk", "sota")
 RECIPE_RUN = dict(epochs=2, iters_per_epoch=150, update_freq=150, eval_freq=1)
 RECIPE_TIMED = (50, 2)  # (K, replays) of the graphed-against-eager timing
 # [ldc]: the three curriculum recipes at full width and batch, cut to their first two stages (Re 100, 400) of
-# one epoch (1000 steps) each, the reference fields solved on a 65^2 grid (the recipes' own: 257^2)
-LDC_CUT = dict(Re=(100, 400), epochs=(1, 1), reference_n=65)
+# one 500-step epoch each (the recipes' own: 1000 steps an epoch; cut for the script's time), the reference
+# fields solved on a 65^2 grid (the recipes' own: 257^2)
+LDC_CUT = dict(Re=(100, 400), epochs=(1, 1), reference_n=65, iters_per_epoch=500)
 LDC_K = 100  # steps a graph in the curricula (the recipes' own: one 1000-step graph an epoch, whose capture
 #              took 49-103 s a stage for PirateNet on the H100)
 LDC_CHECK_N = 33  # the generator on the card against the CPU: one 2000-step chunk at Re 100
@@ -2087,11 +2122,12 @@ def ldc_stage(cfg, Re: float = 100.0, epochs: int = 1):
     return C.build_stage_solver(cfg, model, opt, gn, Re, epochs, None, "cuda")
 
 
-def check_ldc_against_plain_path(solver, name: str):
+def check_ldc_against_plain_path(solver, name: str, phase: str = "ldc"):
     """LDC_CHECK_STEPS eager steps from one state on jet_pallas_full and on
     the plain jet path (the same batches, a GradNorm refresh at step 0):
     every per-key loss within 1e-4, each step's gradient within 1e-3.
-    Returns the kernel launches per step of the steps after the first."""
+    Returns the kernel launches per step of the steps after the first.
+    (The [elasticity] phase runs it too, as ``phase``.)"""
     import torch
 
     snap, runs, per_step = solver.state, {}, None
@@ -2109,17 +2145,17 @@ def check_ldc_against_plain_path(solver, name: str):
             torch.cuda.synchronize()
         counts, plain = read_counts()
         if deriv == "jet_pallas_full":
-            check_counts(f"ldc/{name}", counts, plain, LDC_CHECK_STEPS - 1)
+            check_counts(f"{phase}/{name}", counts, plain, LDC_CHECK_STEPS - 1)
             per_step = {k: v / (LDC_CHECK_STEPS - 1) for k, v in counts.items() if v}
         runs[deriv] = (losses, grads)
     (lk, gk), (lp, gp) = runs["jet_pallas_full"], runs["jet"]
     loss_err = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(lk, lp) for k in b)
     grad_err = max(float((a - b).norm() / b.norm()) for a, b in zip(gk, gp))
-    log(f"[ldc] {name}: {LDC_CHECK_STEPS} steps on jet_pallas_full vs the plain jet path: losses "
+    log(f"[{phase}] {name}: {LDC_CHECK_STEPS} steps on jet_pallas_full vs the plain jet path: losses "
         f"{[round(s['loss'], 6) for s in lk]} vs {[round(s['loss'], 6) for s in lp]}, every per-key loss rel err "
         f"<= {loss_err:.2e}, gradient rel err <= {grad_err:.2e}; kernel launches per step {per_step}")
     if not (loss_err < 1e-4 and grad_err < 1e-3):
-        raise AssertionError(f"ldc {name}: the kernel path disagrees with the plain jet path")
+        raise AssertionError(f"{phase} {name}: the kernel path disagrees with the plain jet path")
     solver._load_state(snap)
     return per_step
 
@@ -2259,6 +2295,241 @@ def time_ldc_kernels(rows, per_step):
             time_gated_shape(rows, key, S, n, 256, program, spec[0], per_step[name])
 
 
+# --------------------------------------------- the elasticity and viv phases --
+
+ARM_JET = [(0,), (1,), (2,)]  # each control-arm network's interior jet: the value and d/dx, d/dy, d/dz (S = 4)
+ELASTICITY = dict(N=2048, dims=(3,) + (512,) * 6)  # the interior batch and each network's hidden layers
+# 2 of the example's 2000 epochs (and 1 of the inverse's 100), 100 steps each as one graph; each constraint
+# samples one iteration's points (2048 interior, 128 + 128 + 512 boundary), not the example's batch x 100
+ARM_FORWARD = dict(epochs=2, iters_per_epoch=100, sample_iters=1)
+ARM_INVERSE = dict(epochs=1, iters_per_epoch=100, sample_iters=1)
+ARM_GRAPH_K = 10  # graphed chunks against eager steps
+BRACKET_RUN = dict(epochs=1, iters_per_epoch=20)  # 1 of the example's 30 epochs of 20 steps
+ELASTICITY_TIMED = {"control_arm": (100, 2), "control_arm inverse": (100, 2), "bracket": (20, 3), "viv": (20, 5)}
+
+
+def arm_index():
+    from paddlescience_torch.autodiff import jet
+
+    return jet.build_index(ARM_JET)
+
+
+def check_elasticity_kernels(fwd):
+    """The MLP kernels against their plain versions at the control arm's
+    interior shape (S = 4: u, u_x, u_y, u_z; N = 2048 and a ragged 2047;
+    SiLU; 3 -> 512 x 6) with the displacement network's weight-normed
+    effective weights, as the example forms them; the registers and spills
+    of the S = 4 instances. Returns the max abs errors."""
+    import torch
+
+    from paddlescience_torch.arch.mlp import _linear_eff
+    from paddlescience_torch.autodiff import jet
+
+    with torch.no_grad():
+        ws, bs = zip(*(_linear_eff(layer) for layer in fwd.models[0].linears))
+        params = ([w.detach().clone().contiguous() for w in ws], [b.detach().clone() for b in bs])
+    errs = {}
+    for n in (ELASTICITY["N"], ELASTICITY["N"] - 1):
+        for k, v in check_kernels(len(ARM_JET) + 1, n, ELASTICITY["dims"], (jet.SILU, 0.0), params=params,
+                                  index=arm_index()).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    for name in ("jet_mlp_fwd", "jet_mlp_bwd"):
+        for fn, (regs, st, ld) in PTXAS.get(name, {}).items():
+            if re.search(r"ILi4E", fn):
+                log(f"[elasticity] {name}.cu S=4 instance {fn}: {regs} registers, {st} bytes spill stores, "
+                    f"{ld} bytes spill loads")
+    return errs
+
+
+def run_elasticity_phase(tmp: str, ane_native_s: float):
+    """control_arm forward and inverse and bracket_elasticity on the card:
+    the seconds to build the solver with the C++ ray cast and with its
+    numpy version, and to draw the aneurysm's interior points with each
+    (the same points); the kernels at the control arm's
+    shape; the forward problem unpinned through the autotuner (its pick),
+    3 steps on jet_pallas_full against the plain jet path (losses 1e-4,
+    gradients 1e-3), graphed chunks against eager steps (1e-6), ``train()``
+    in 100-step graphs, graphed and eager steps/s; the inverse problem on
+    the trained networks (frozen networks bitwise unchanged, the Lame
+    networks moved, no backward kernel, the validator's L2Rel); the
+    bracket's autotuner pick, ``train()`` and rates. Returns (launch counts
+    by run, kernel launches per step, max abs errors, numbers)."""
+    import numpy as np
+    import torch
+
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import bracket_elasticity, control_arm
+    from paddlescience_torch.geometry.mesh import Mesh
+
+    out, launches = {}, {}
+    geom_path = control_arm.write_arm_stl(os.path.join(tmp, "control_arm.stl"))
+    deriv_path.set_default(None)
+    build_s = {}
+    for native in (False, True):
+        t0 = time.perf_counter()
+        fwd, geom = control_arm.build_forward(output_dir=os.path.join(tmp, f"control_arm_{native}"),
+                                              geom_path=geom_path, native=native, device="cuda", **ARM_FORWARD)
+        build_s["native" if native else "numpy"] = time.perf_counter() - t0
+    # the aneurysm's interior draw (2048 points, 9216 faces) on both versions: the same points, the sdf within 1e-6
+    draws = {}
+    for native in (True, False):
+        mesh = Mesh(os.path.join(STL_DIR, "aneurysm_closed.stl"), native=native)
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        draws[native] = mesh.sample_interior(ANEURYSM["N"])
+        build_s["aneurysm interior " + ("native" if native else "numpy")] = time.perf_counter() - t0
+    same = all(np.array_equal(draws[True][k], draws[False][k]) for k in ("x", "y", "z"))
+    sdf_err = float(np.abs(draws[True]["sdf"] - draws[False]["sdf"]).max() / np.abs(draws[False]["sdf"]).max())
+    if not same or sdf_err > 1e-6:
+        raise AssertionError(f"the C++ ray cast kept other points ({not same}) or its sdf is off by {sdf_err:.2e}")
+    build_s["aneurysm solver native"] = ane_native_s
+    out["build_s"] = build_s
+    points = {n: tuple(next(iter(b[0].values())).shape)[0] for n, b in fwd._static_batches.items()}
+    log(f"[elasticity] control_arm solver built in {build_s['native']:.2f} s with the C++ ray cast, "
+        f"{build_s['numpy']:.2f} s with its numpy version; the aneurysm's {ANEURYSM['N']} interior points in "
+        f"{build_s['aneurysm interior native']:.2f} s and {build_s['aneurysm interior numpy']:.2f} s (the same "
+        f"points, sdf within {sdf_err:.1e} x max; the aneurysm solver built in {ane_native_s:.2f} s, [main]); "
+        f"points a step {points}")
+
+    errs = check_elasticity_kernels(fwd)
+    fwd.train_step()  # collects the derivative requests, at the process default path
+    req = fwd._jet_requests["INTERIOR"]
+    n_streams = {len(jet.build_index(stack)) for reqs in req.values() for stack in reqs if stack}
+    if n_streams != {len(ARM_JET) + 1}:
+        raise AssertionError(f"control_arm: the interior jets have {n_streams} streams, expected {len(ARM_JET) + 1}")
+    pick = run_autotune_phase({"control_arm": fwd})["control_arm"]
+    out["autotune"] = pick
+    per_step = check_ldc_against_plain_path(fwd, "control_arm", phase="elasticity")
+    with on_path(pick["winner"]):
+        check_graph_against_eager_rewound(fwd, "control_arm", ARM_GRAPH_K)
+    deriv_path.set_default(deriv_path.CANDIDATES[pick["winner"]])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = fwd.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    if pick["winner"].startswith("jet_pallas"):
+        check_counts("elasticity/control_arm", counts, plain)
+    launches["elasticity control_arm"] = counts
+    bad = [e for e in logged if not all(math.isfinite(v) for k, v in e.items() if k.startswith("loss"))]
+    if bad or not logged or any(plain.values()):
+        raise AssertionError(f"control_arm: non-finite or no losses {bad or logged}, plain versions on CUDA {plain}")
+    k = fwd._auto_fuse_steps()
+    stats = fwd.graph_stats[k]
+    log(f"[elasticity] control_arm train() {fwd.epochs} epochs x {fwd.iters_per_epoch} steps on "
+        f"{pick['winner']} (the autotuner's pick), K={k}: {dt:.2f} s (capture {stats['capture_s']:.2f} s), "
+        f"losses {[round(e['loss'], 6) for e in logged]}; launches at the warm-up and capture "
+        f"{ {n: v for n, v in counts.items() if v} }")
+    out["control_arm"] = time_graphed(fwd, "control_arm", *ELASTICITY_TIMED["control_arm"])
+    out["control_arm"].update(final_loss=logged[-1]["loss"], train_s=dt, capture_s=stats["capture_s"],
+                              launches_per_step_jet_pallas_full=per_step)
+
+    inv = control_arm.build_inverse(fwd, geom, output_dir=os.path.join(tmp, "control_arm_inverse"), **ARM_INVERSE)
+    frozen = {n: p.detach().clone() for n, p in inv.model.named_parameters() if not p.requires_grad}
+    live = {n: p.detach().clone() for n, p in inv.model.named_parameters() if p.requires_grad}
+    if not frozen or not all(n.startswith(("model_list.0.", "model_list.1.")) for n in frozen):
+        raise AssertionError(f"control_arm inverse: frozen parameters {sorted(frozen)[:4]}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = inv.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    changed = [n for n, p in inv.model.named_parameters() if n in frozen and not torch.equal(p, frozen[n])]
+    moved = [n for n, p in inv.model.named_parameters() if n in live and not torch.equal(p, live[n])]
+    if changed or not moved or any(plain.values()):
+        raise AssertionError(f"control_arm inverse: frozen parameters changed {changed[:4]}, Lame parameters moved "
+                             f"{len(moved)}, plain versions on CUDA {plain}")
+    metric, group = inv.eval()
+    snap = inv.state
+    torch.cuda.synchronize()
+    reset_counts()
+    inv.train_steps(2)
+    torch.cuda.synchronize()
+    step_counts, _ = read_counts()
+    inv._load_state(snap)
+    inv_per_step = {n: v / 2 for n, v in step_counts.items() if v}
+    if step_counts["jet_mlp_bwd"] or step_counts["jet_wgrad"]:
+        raise AssertionError(f"control_arm inverse: backward kernels launched for the frozen networks {step_counts}")
+    log(f"[elasticity] control_arm inverse train() {inv.epochs} epoch x {inv.iters_per_epoch} steps in {dt:.2f} s: "
+        f"the {len(frozen)} frozen parameter tensors bitwise unchanged, {len(moved)} of the Lame networks' "
+        f"moved; final loss {logged[-1]['loss']:.6e}; validator {group}; kernel launches a step {inv_per_step} "
+        f"(no jet_mlp_bwd, no jet_wgrad)")
+    out["control_arm inverse"] = time_graphed(inv, "control_arm inverse", *ELASTICITY_TIMED["control_arm inverse"])
+    out["control_arm inverse"].update(l2rel=group["elasticity"], launches_per_step=inv_per_step,
+                                      final_loss=logged[-1]["loss"])
+    launches["elasticity control_arm inverse"] = counts
+    del inv, fwd
+    torch.cuda.empty_cache()
+
+    deriv_path.set_default(None)
+    br = bracket_elasticity.build_solver(output_dir=os.path.join(tmp, "bracket"), device="cuda", **BRACKET_RUN)
+    out["bracket autotune"] = run_autotune_phase({"bracket": br})["bracket"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = br.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    tip = bracket_elasticity.tip_deflection(br)
+    if not all(math.isfinite(e["loss"]) for e in logged) or not math.isfinite(tip) or any(plain.values()):
+        raise AssertionError(f"bracket: losses {logged}, tip {tip}, plain versions on CUDA {plain}")
+    points = sum(next(iter(b[0].values())).shape[0] for b in br._static_batches.values())
+    log(f"[elasticity] bracket train() {br.epochs} epoch x {br.iters_per_epoch} steps ({points} points a step) on "
+        f"{out['bracket autotune']['winner']} in {dt:.2f} s: final loss {logged[-1]['loss']:.6e}, tip w {tip:.4e}; "
+        f"launches {({n: v for n, v in counts.items() if v})}")
+    out["bracket"] = time_graphed(br, "bracket", *ELASTICITY_TIMED["bracket"])
+    out["bracket"].update(points_per_step=points, tip_w=tip)
+    deriv_path.set_default(None)
+    return launches, per_step, errs, out
+
+
+def run_viv_phase(tmp: str):
+    """The viv example at the JAX defaults (100 epochs of one 20-step graph,
+    no path pinned): k1, k2 at the end, finite and moved from their
+    starting values, the data misfit, graphed and eager steps/s."""
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import viv
+
+    deriv_path.set_default(None)
+    solver = viv.build_solver(output_dir=os.path.join(tmp, "viv"), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logged = solver.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1, k2 = (float(solver.eq_params[k].detach()) for k in ("k1", "k2"))
+    if not (math.isfinite(k1) and math.isfinite(k2) and k1 != viv.K1_INIT and k2 != viv.K2_INIT):
+        raise AssertionError(f"viv: k1 {k1}, k2 {k2} (started at {viv.K1_INIT}, {viv.K2_INIT})")
+    k, stats = next(iter(solver.graph_stats.items()))
+    steps = solver.epochs * solver.iters_per_epoch
+    log(f"[viv] train() {solver.epochs} epochs x {solver.iters_per_epoch} steps (K={k}, {stats['replays']} replays) "
+        f"in {dt:.2f} s ({steps / (dt - stats['warmup_s'] - stats['capture_s']):.1f} steps/s between the captures): "
+        f"k1 {k1:.6f} (from {viv.K1_INIT}, true {viv.K1_TRUE}), k2 {k2:.6f} (from {viv.K2_INIT}, true "
+        f"{viv.K2_TRUE}); final loss {logged[-1]['loss']:.6e}")
+    timing = time_graphed(solver, "viv", *ELASTICITY_TIMED["viv"])
+    timing.update(k1=k1, k2=k2, train_s=dt, final_loss=logged[-1]["loss"])
+    return timing
+
+
+def time_elasticity_kernels(rows, per_step):
+    """The MLP kernels' rows at the control arm's interior shape, under the
+    key "control_arm", with the launches per step of its jet_pallas_full
+    path."""
+    from paddlescience_torch.autodiff import jet
+
+    names = [r["name"] for r in rows]
+    time_mlp_shape(rows, "control_arm", len(ARM_JET) + 1, ELASTICITY["N"], ELASTICITY["dims"], (jet.SILU, 0.0),
+                   {k: per_step.get(k, 0) for k in names}, index=arm_index())
+
+
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
     "jet_mlp_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
@@ -2314,9 +2585,15 @@ def main() -> int:
                        check=True, capture_output=True, text=True, timeout=300)
     # the driven paths, and the segment depths at which each runs the kernels
     solvers, depths = {}, {}
+    from paddlescience_torch.geometry import raycast
+
+    t0 = time.perf_counter()
+    raycast.load()
+    log(f"[main] the mesh ray cast library (csrc/mesh_raycast.cpp) built or loaded in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     ane = aneurysm.build_solver(STL_DIR, iters_per_epoch=1, log_freq=1, device="cuda")
-    log(f"[main] aneurysm solver built (host sampling of every constraint) in {time.perf_counter() - t0:.1f} s: "
+    ane_build_s = time.perf_counter() - t0
+    log(f"[main] aneurysm solver built (host sampling of every constraint) in {ane_build_s:.1f} s: "
         + ", ".join(f"{n} {tuple(b[0][next(iter(b[0]))].shape)}" for n, b in ane._static_batches.items()))
     for path, (kwargs, deriv, _) in PATHS.items():
         solvers[path] = ane if path.startswith("aneurysm/") else build_solver(deriv=deriv, log_freq=1,
@@ -2422,6 +2699,11 @@ def main() -> int:
         launches.update(ldc_launches)
         merge(ldc_errs)
         log("[ldc] summary " + json.dumps(ldc_numbers))
+        elastic_launches, elastic_per_step, elastic_errs, elastic_numbers = run_elasticity_phase(tmp, ane_build_s)
+        launches.update(elastic_launches)
+        merge(elastic_errs)
+        log("[elasticity] summary " + json.dumps(elastic_numbers))
+        log("[viv] summary " + json.dumps(run_viv_phase(tmp)))
     autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
     log("[autotune] summary " + json.dumps(autotune_results))
 
@@ -2434,6 +2716,7 @@ def main() -> int:
     time_cylinder_kernels(rows, cyl_errs, launches[CYLINDER_PATH],
                           cyl_timing["jet_pallas_full"]["kernel_ms_per_step"]["eager"])
     time_ldc_kernels(rows, ldc_per_step)
+    time_elasticity_kernels(rows, elastic_per_step)
     log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(card)

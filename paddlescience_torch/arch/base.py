@@ -3,7 +3,9 @@
 
 Every input and output key maps to a ``(N, k)`` tensor, usually an
 ``(N, 1)`` column; ``forward(x: Dict[str, Tensor]) -> Dict[str, Tensor]``.
-Input and output transforms are not ported yet.
+``freeze``/``unfreeze`` mark a network's parameters fixed or trainable,
+as the JAX package's ``Arch.freeze``. Input and output transforms are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -37,3 +39,20 @@ class Arch(nn.Module):
         """Whether this arch provides ``forward_jet`` (a fused Taylor-jet
         forward, see ``autodiff/jet.py``)."""
         return False
+
+    def freeze(self) -> None:
+        """Fix every parameter: none requires a gradient, so an optimizer
+        built afterwards leaves them out and the backward takes no gradient
+        for them. (The JAX package zeroes a frozen network's updates after
+        the optimizer's transform; with no update either way, the Adam
+        moments it keeps for them are not observable.)"""
+        self._frozen = True
+        self.requires_grad_(False)
+
+    def unfreeze(self) -> None:
+        self._frozen = False
+        self.requires_grad_(True)
+
+    @property
+    def frozen(self) -> bool:
+        return getattr(self, "_frozen", False)

@@ -1,3 +1,6 @@
-from paddlescience_torch.equation.pde import PDE, AllenCahn, Biharmonic, Laplace, NavierStokes, NormalDotVec
+from paddlescience_torch.equation.pde import (NLSMB, PDE, AllenCahn, Biharmonic, HeatExchanger, Helmholtz, Hooke,
+                                              Laplace, LinearElasticity, NavierStokes, NormalDotVec, Poisson,
+                                              Vibration)
 
-__all__ = ["PDE", "AllenCahn", "Biharmonic", "Laplace", "NavierStokes", "NormalDotVec"]
+__all__ = ["PDE", "AllenCahn", "Biharmonic", "Helmholtz", "Laplace", "LinearElasticity", "NavierStokes",
+           "NormalDotVec", "Poisson", "Vibration", "NLSMB", "HeatExchanger", "Hooke"]

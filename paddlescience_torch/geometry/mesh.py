@@ -4,9 +4,10 @@
 Binary and ASCII STL parsing, ray casting for the inside test, exact
 point-triangle distances for the SDF, and area-weighted barycentric surface
 sampling that returns the per-point "area" column of integral-weighted
-losses. The ray cast and the distances run the JAX package's numpy
-branch; its optional C++ mesh library is host code that is not ported
-(ROADMAP Queue A).
+losses. The ray cast and the distances run in the port's C++ library
+(``geometry/raycast.py``, built with g++ at first use; a failure raises),
+or, with ``native=False``, in numpy (the plain version, the JAX package's
+numpy branch). Both count the same hits, so they keep the same points.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
-from paddlescience_torch.geometry import geometry
+from paddlescience_torch.geometry import geometry, raycast
 
 __all__ = ["Mesh", "load_stl"]
 
@@ -66,9 +67,12 @@ def _load_stl_ascii(path: str):
 
 class Mesh(geometry.Geometry):
     """Watertight triangle mesh geometry, from an STL path or explicit
-    (vertices, faces) arrays."""
+    (vertices, faces) arrays. ``native`` chooses the C++ ray cast and
+    distances (default) or their numpy versions."""
 
-    def __init__(self, mesh: Union[str, Tuple[np.ndarray, np.ndarray]], name: Optional[str] = None):
+    def __init__(self, mesh: Union[str, Tuple[np.ndarray, np.ndarray]], name: Optional[str] = None,
+                 native: bool = True):
+        self.native = native
         if isinstance(mesh, str):
             vertices, faces = load_stl(mesh)
         else:
@@ -93,8 +97,9 @@ class Mesh(geometry.Geometry):
         """Count ray-triangle intersections per point along ``direction``.
 
         Rotates the frame so the ray is the +z axis; the test is then a 2-D
-        barycentric point-in-triangle plus a depth comparison, on (P, F)
-        temporaries chunked to about 4e6 elements."""
+        barycentric point-in-triangle plus a depth comparison: per point in
+        the C++ library, or in numpy on (P, F) temporaries chunked to about
+        4e6 elements."""
         eps = 1e-12
         d = np.asarray(direction, np.float64)
         d = d / np.linalg.norm(d)
@@ -107,6 +112,8 @@ class Mesh(geometry.Geometry):
         A = self.v0.astype(np.float64) @ R.T
         B = self.v1.astype(np.float64) @ R.T
         C = self.v2.astype(np.float64) @ R.T
+        if self.native:
+            return raycast.ray_hits_z(np.concatenate([A, B, C], axis=1), p_r)
         denom = (B[:, 1] - C[:, 1]) * (A[:, 0] - C[:, 0]) + (C[:, 0] - B[:, 0]) * (A[:, 1] - C[:, 1])
         ok = np.abs(denom) > eps
         inv = np.where(ok, 1.0 / np.where(ok, denom, 1.0), 0.0)
@@ -191,10 +198,12 @@ class Mesh(geometry.Geometry):
 
     # -- SDF -----------------------------------------------------------------------
     def _unsigned_distance(self, points: np.ndarray) -> np.ndarray:
-        """Exact min point-triangle distance, chunked over points; the
-        expansion of |v0 + s e1 + t e2 - p|^2 runs as (P, F) matrix
-        products."""
+        """Exact min point-triangle distance: per point in the C++ library,
+        or in numpy chunked over points, the expansion of |v0 + s e1 + t e2
+        - p|^2 as (P, F) matrix products."""
         p = np.asarray(points, np.float64)
+        if self.native:
+            return raycast.unsigned_distance(np.concatenate([self.v0, self.v1, self.v2], axis=1), p)
         e1 = (self.v1 - self.v0).astype(np.float64)
         e2 = (self.v2 - self.v0).astype(np.float64)
         a = np.einsum("fj,fj->f", e1, e1)
@@ -234,10 +243,10 @@ class Mesh(geometry.Geometry):
         return (sign * d).reshape(-1, 1)
 
     def translate(self, translation) -> "Mesh":
-        return Mesh((self.vertices + np.asarray(translation, _DTYPE), self.faces))
+        return Mesh((self.vertices + np.asarray(translation, _DTYPE), self.faces), native=self.native)
 
     def scale(self, scale: float) -> "Mesh":
-        return Mesh((self.vertices * scale, self.faces))
+        return Mesh((self.vertices * scale, self.faces), native=self.native)
 
     def __str__(self):
         return ", ".join([

@@ -7,7 +7,7 @@ when the output dict carries one (mesh boundary samples do)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -15,16 +15,26 @@ __all__ = ["Loss", "MSELoss", "CausalMSELoss", "IntegralLoss", "L2RelLoss", "Fun
 
 
 class Loss:
-    """Base: the reduction over the batch (``paddlescience_tpu/loss/base.py``;
-    its static per-key weights are not ported)."""
+    """Base: the reduction over the batch and the static weight, one number
+    or one per key, applied to a key's reduced loss
+    (``paddlescience_tpu/loss/base.py``; ``CausalMSELoss`` and
+    ``FunctionalLoss`` take none)."""
 
-    def __init__(self, reduction: str = "mean"):
+    def __init__(self, reduction: str = "mean", weight: Optional[Union[float, Dict[str, float]]] = None):
         if reduction not in ("mean", "sum"):
             raise ValueError(f"reduction should be 'mean' or 'sum', but got {reduction}")
         self.reduction = reduction
+        self.weight = weight
 
     def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
         return loss.sum() if self.reduction == "sum" else loss.mean()
+
+    def _apply_weight(self, loss: torch.Tensor, key: str) -> torch.Tensor:
+        if isinstance(self.weight, (float, int)):
+            return loss * self.weight
+        if isinstance(self.weight, dict) and key in self.weight:
+            return loss * self.weight[key]
+        return loss
 
 
 def _squared_error(output_dict, label_dict, weight_dict, key):
@@ -40,7 +50,8 @@ class MSELoss(Loss):
     """Mean squared error."""
 
     def __call__(self, output_dict, label_dict, weight_dict=None) -> Dict[str, torch.Tensor]:
-        return {key: self._reduce(_squared_error(output_dict, label_dict, weight_dict, key)) for key in label_dict}
+        return {key: self._apply_weight(self._reduce(_squared_error(output_dict, label_dict, weight_dict, key)), key)
+                for key in label_dict}
 
 
 class CausalMSELoss(Loss):
@@ -79,7 +90,7 @@ class IntegralLoss(Loss):
             loss = (integral - label_dict[key]) ** 2
             if weight_dict and key in weight_dict:
                 loss = loss * weight_dict[key]
-            losses[key] = self._reduce(loss)
+            losses[key] = self._apply_weight(self._reduce(loss), key)
         return losses
 
 
@@ -95,7 +106,7 @@ class L2RelLoss(Loss):
             rel = torch.linalg.vector_norm(o - lab, dim=-1) / (torch.linalg.vector_norm(lab, dim=-1) + 1e-12)
             if weight_dict and key in weight_dict:
                 rel = rel * weight_dict[key]
-            losses[key] = self._reduce(rel)
+            losses[key] = self._apply_weight(self._reduce(rel), key)
         return losses
 
 

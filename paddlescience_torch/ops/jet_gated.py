@@ -366,8 +366,10 @@ class _JetGatedSegment(torch.autograd.Function):
     """Forward through :func:`jet_gated_fwd`; backward through
     :func:`jet_gated_bwd` and ``jet_wgrad`` (dW, db and d alpha). In
     recompute mode (``save_bounds`` False) the backward first re-runs the
-    forward kernel in save mode to get the stage boundaries. Once
-    differentiable, like ``ops/jet_mlp.py::_JetMLPSegment``."""
+    forward kernel in save mode to get the stage boundaries. Inputs that
+    need no gradient get None, and ``jet_wgrad`` is not launched where no
+    weight, bias or alpha needs one. Once differentiable, like
+    ``ops/jet_mlp.py::_JetMLPSegment``."""
 
     @staticmethod
     def forward(ctx, index, program, save_bounds, act, *tensors):
@@ -394,8 +396,14 @@ class _JetGatedSegment(torch.autograd.Function):
                                       act=ctx.act)
         g_y, g_u, g_v, gzs, ins, partials = jet_gated_bwd(y, u, v, bounds, weights, biases, alphas, g_out,
                                                           ctx.program, ctx.index, ctx.act)
+        need = ctx.needs_input_grad[4:]
+        n_streams = cuts[2]
+        g_streams = tuple(g if n else None for g, n in zip((*g_y, *g_u, *g_v), need[:n_streams]))
+        if not any(need[n_streams:]):  # frozen weights, biases and alphas: no jet_wgrad
+            return (None, None, None, None, *g_streams, *(None,) * (ctx.n_in - n_streams))
         dws, dbs, d_alpha = jet_mlp.jet_wgrad(ins, gzs, alpha_partials=partials)
-        return (None, None, None, None, *g_y, *g_u, *g_v, *dws, *dbs, *d_alpha.reshape(-1, 1).unbind(0))
+        grads = (*dws, *dbs, *d_alpha.reshape(-1, 1).unbind(0))
+        return (None, None, None, None, *g_streams, *(g if n else None for g, n in zip(grads, need[n_streams:])))
 
 
 def jet_gated_segment(jy: jetmod.Jet, ju: Optional[jetmod.Jet], jv: Optional[jetmod.Jet],

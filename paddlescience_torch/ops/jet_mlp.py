@@ -537,7 +537,9 @@ class _JetMLPSegment(torch.autograd.Function):
     """Forward through :func:`jet_mlp_fwd`; backward through
     :func:`jet_mlp_bwd` and :func:`jet_wgrad`. In recompute mode
     (``save_bounds`` False) the backward first re-runs the forward kernel
-    in save mode to get the stage boundaries. The backward kernels are not
+    in save mode to get the stage boundaries. The gradients of inputs that
+    need none are None, and where no weight or bias needs one (a frozen
+    network) ``jet_wgrad`` is not launched. The backward kernels are not
     differentiable themselves: a second derivative through the segment
     raises."""
 
@@ -564,9 +566,14 @@ class _JetMLPSegment(torch.autograd.Function):
         if L > 1 and not bounds:
             _, bounds = jet_mlp_fwd(streams, weights, biases, ctx.index, save_bounds=True, act=ctx.act)
         g_in, gzs = jet_mlp_bwd(streams, bounds, weights, biases, g_out, ctx.index, ctx.act)
+        need = ctx.needs_input_grad[4:]
+        g_in = tuple(g if n else None for g, n in zip(g_in, need[:S]))
+        if not any(need[S:]):  # frozen weights and biases: no jet_wgrad
+            return (None, None, None, None, *g_in, *(None,) * (2 * L))
         ys = [streams] + [b.unbind(0) for b in bounds]
         dws, dbs = jet_wgrad(ys, gzs)
-        return (None, None, None, None, *g_in, *dws, *dbs)
+        grads = tuple(g if n else None for g, n in zip((*dws, *dbs), need[S:]))
+        return (None, None, None, None, *g_in, *grads)
 
 
 def pad_cols(t: torch.Tensor, n: int) -> torch.Tensor:

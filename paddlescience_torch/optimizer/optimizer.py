@@ -61,6 +61,18 @@ class Optimizer:
         """The optimizer's state as live tensors, per parameter index."""
         return {str(i): dict(self.torch_opt.state[p]) for i, p in enumerate(self.params())}
 
+    def add_params(self, params: List[torch.Tensor]) -> None:
+        """Optimize ``params`` too (a solver's learnable equation
+        parameters), with the same rule, learning rate and schedule, their
+        state made now as for the model's."""
+        cuda = self.lr_t is not None
+        self.torch_opt.add_param_group({"params": list(params)})
+        for p in params:
+            self.torch_opt.state[p].update(
+                step=torch.zeros((), dtype=torch.float32, device=p.device if cuda else None),
+                exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
+                exp_avg_sq=torch.zeros_like(p, memory_format=torch.preserve_format))
+
     def zero_grad(self) -> None:
         """Zero the gradients in place (their tensors stay where a captured
         step reads them)."""

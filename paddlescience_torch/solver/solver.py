@@ -59,8 +59,18 @@ slope), so ``train()`` runs L-BFGS steps one by one, eagerly, without the
 autotuner, as the JAX solver never fuses them; the derivative path is the
 process default.
 
-Not ported yet: learnable equation parameters, EMA, microbatching,
-gradient accumulation and the multi-process branches.
+Learnable equation parameters (``PDE.create_parameter``, e.g.
+``Vibration``'s k1, k2) are moved to the solver's device and optimized by
+the model's optimizer with its schedule, as the JAX solver's transform
+runs on (params, eq_params); they are part of ``state_dict`` (and so of
+checkpoints, resume and the carried ``state``) and are updated in place, so
+a captured graph reads them. With a ``ModelList`` the solver's models are
+its children, each with its own derivative stack; a child frozen by
+``Arch.freeze`` requires no gradient and stays out of the optimizer, so
+its parameters never change (the JAX solver zeroes its updates).
+
+Not ported yet: EMA, microbatching, gradient accumulation, learnable
+equation parameters under L-BFGS and the multi-process branches.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from paddlescience_torch.arch.model_list import ModelList
 from paddlescience_torch.autodiff import ad
 from paddlescience_torch.autodiff import path as deriv_path
 from paddlescience_torch.device import DeviceLike, resolve_device
@@ -139,16 +150,18 @@ class Solver:
         self.validator = validator
         self.compute_metric_by_batch = compute_metric_by_batch
         self.equation = equation or {}
-        for name, eq in self.equation.items():
-            if getattr(eq, "learnable_parameters", None):
-                raise NotImplementedError(f"equation '{name}': learnable parameters are not ported yet")
+        self.eq_params = self._place_eq_params()
+        if self.eq_params and optimizer is not None:
+            if getattr(optimizer, "is_lbfgs", False):
+                raise NotImplementedError("learnable equation parameters with L-BFGS are not ported yet")
+            optimizer.add_params(list(self.eq_params.values()))
         if loss_granularity not in ("constraint", "key"):
             raise ValueError(f"loss_granularity must be 'constraint' or 'key', got {loss_granularity}")
         self.loss_granularity = loss_granularity
         self.loss_aggregator = loss_aggregator or mtl.Sum(model, len(self._loss_names()))
         self.agg_state = self.loss_aggregator.init_state(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.models = [model]
+        self.models = list(model.model_list) if isinstance(model, ModelList) else [model]
         self.step = 0
         # the schedule's step counter on the device, advanced inside each (captured) step
         self._step_t = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -191,17 +204,32 @@ class Solver:
     def _to_device(self, tree: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=self.device) for k, v in tree.items()}
 
+    def _place_eq_params(self) -> Dict[str, torch.Tensor]:
+        """The equations' learnable parameters by name, each moved to the
+        solver's device as a leaf that requires a gradient and put back
+        into its equation (whose closures read it from there); later
+        equations win on a shared name, as the JAX solver's merge."""
+        params: Dict[str, torch.Tensor] = {}
+        for eq in self.equation.values():
+            learnable = getattr(eq, "learnable_parameters", None) or {}
+            for name, value in learnable.items():
+                learnable[name] = params[name] = value.detach().to(self.device, torch.float32).requires_grad_(True)
+        return params
+
     @property
     def _lbfgs(self) -> bool:
         return bool(getattr(self.optimizer, "is_lbfgs", False))
 
     def state_dict(self) -> Dict[str, object]:
-        """The training state, as live tensors: model parameters and
-        buffers, the optimizer's state per parameter (in the optimizer's
-        order; L-BFGS: its memory and the line search's state), the
-        aggregator's state, the batch generator's state and the step."""
+        """The training state, as live tensors: model parameters, the
+        learnable equation parameters and the model's buffers, the
+        optimizer's state per parameter (in the optimizer's order, the
+        equation parameters last; L-BFGS: its memory and the line search's
+        state), the aggregator's state, the batch generator's state and the
+        step."""
         return {
             "params": dict(self.model.named_parameters()),
+            "eq_params": dict(self.eq_params),
             "buffers": dict(self.model.named_buffers()),
             "opt_state": self.optimizer.state_tensors() if self.optimizer is not None else {},
             "agg_state": dict(self.agg_state),
@@ -220,6 +248,11 @@ class Solver:
             named[n].copy_(v)
         if params_only:
             return
+        eq_params = state.get("eq_params", {})
+        if set(eq_params) != set(self.eq_params):
+            raise KeyError(f"checkpoint equation parameters {sorted(eq_params)} != {sorted(self.eq_params)}")
+        for n, v in eq_params.items():
+            self.eq_params[n].copy_(v)
         buffers = dict(self.model.named_buffers())
         for n, v in state["buffers"].items():
             buffers[n].copy_(v)
@@ -328,7 +361,8 @@ class Solver:
         for name, cst in self.constraint.items():
             inp, lab, wgt = batches[name]
             outputs = expression.evaluate_expressions(self.models, inp, cst.output_expr,
-                                                      request_cache=self._jet_requests[name])
+                                                      request_cache=self._jet_requests[name],
+                                                      extra_values=self.eq_params)
             per_key = cst.loss(outputs, lab, wgt if wgt else None)
             if self.loss_granularity == "key":
                 losses.update((f"{name}.{k}", v) for k, v in per_key.items())
@@ -608,7 +642,8 @@ class Solver:
             for _ in range(max(len(v.data_loader), 1)):
                 inp, lab, _ = next(it)
                 inp, lab = self._to_device(inp), self._to_device(lab)
-                out = expression.evaluate_expressions(self.models, inp, v.output_expr, request_cache=cache)
+                out = expression.evaluate_expressions(self.models, inp, v.output_expr, request_cache=cache,
+                                                      extra_values=self.eq_params)
                 losses.append(float(sum(v.loss(out, lab, None).values())))
                 for k in v.output_keys:
                     all_out.setdefault(k, []).append(out[k])
@@ -660,7 +695,8 @@ class Solver:
                     out = expression.forward_with_derivatives(self.models, batch, tape)
                 out = {k: out[k] for m in self.models for k in m.output_keys}
             else:
-                out = expression.evaluate_expressions(self.models, batch, expr_dict, request_cache=cache)
+                out = expression.evaluate_expressions(self.models, batch, expr_dict, request_cache=cache,
+                                                      extra_values=self.eq_params)
             for k, val in out.items():
                 outs.setdefault(k, []).append(val)
         result = {k: torch.cat(v, 0) for k, v in outs.items()}

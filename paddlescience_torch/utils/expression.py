@@ -101,7 +101,7 @@ def forward_with_derivatives(models: Sequence, input_dict: Mapping[str, torch.Te
     return out
 
 
-def _collect_jet_requests(models, input_dict, output_exprs):
+def _collect_jet_requests(models, input_dict, output_exprs, extra_values=None):
     """Which derivative components will the expressions ask for? One
     ordered request set per stack, from a replay on the batch's first row."""
     if not any(m.supports_jet() for m in models):
@@ -110,6 +110,7 @@ def _collect_jet_requests(models, input_dict, output_exprs):
     with torch.no_grad(), ad.tape_context() as tape:
         tape.collecting = True
         out = forward_with_derivatives(models, first_row, tape)
+        out.update(extra_values or {})
         wrapped = ad.wrap_tape_outputs(tape, out)
         for expr in output_exprs.values():
             expr(wrapped)
@@ -121,10 +122,12 @@ def evaluate_expressions(
     input_dict: Mapping[str, torch.Tensor],
     output_exprs: Mapping[str, Callable],
     request_cache: Optional[Dict] = None,
+    extra_values: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Evaluate named output expressions (python closures over ``out``)
-    against the model forwards and the derivative tape. (Learnable equation
-    parameters, the JAX package's ``extra_values``, are not ported.)
+    against the model forwards and the derivative tape. ``extra_values``
+    (the solver's learnable equation parameters) join ``out`` by name, as
+    in the JAX package.
 
     ``request_cache``, a dict owned by the caller for one fixed set of
     models and expressions, keeps the discovered jet requests per input
@@ -134,18 +137,19 @@ def evaluate_expressions(
         if not callable(expr):
             raise TypeError(f"output expression '{name}' must be callable, got {type(expr)}")
     if request_cache is None:
-        jet_requests = _collect_jet_requests(models, input_dict, output_exprs)
+        jet_requests = _collect_jet_requests(models, input_dict, output_exprs, extra_values)
     else:
         key = (deriv_path.flag("PSCI_JET", "1"),
                tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in input_dict.items()))
         if key not in request_cache:
-            request_cache[key] = _collect_jet_requests(models, input_dict, output_exprs)
+            request_cache[key] = _collect_jet_requests(models, input_dict, output_exprs, extra_values)
         jet_requests = request_cache[key]
     with ad.tape_context() as tape:
         out = forward_with_derivatives(models, input_dict, tape)
         if jet_requests is not None:
             for stack, reqs in zip(tape._stacks, jet_requests):
                 stack.precompute(reqs)
+        out.update(extra_values or {})
         wrapped = ad.wrap_tape_outputs(tape, out)
         results = {name: ad.unwrap(expr(wrapped)) for name, expr in output_exprs.items()}
         # the area and sdf columns ride along for the losses that weight by them

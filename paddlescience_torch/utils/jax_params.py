@@ -11,12 +11,15 @@ activation's ``acts.0.beta``, ``embed_act_u.beta`` or
 DeepONet's ``branch_net.linears.0.weight``, ``trunk_net.last_fc.bias`` and
 ``b``, an FNO's ``fno_blocks.convs.0.w0_re``/``_im`` and
 ``fno_blocks.fno_skips.0.weight``, an LNO's ``laplace.residue_re``,
-``conv_w``, ``conv_b`` and ``fc0.weight``, ...). The layout is the JAX one
+``conv_w``, ``conv_b`` and ``fc0.weight``, a ``ModelList``'s
+``model_list.0.linears.0.weight_v`` from the JAX tree's
+``params["model_list"]["0"]``, ...). The layout is the JAX one
 on both sides (W of shape (in, out), a complex weight as its real and
 imaginary parts), so nothing is transposed. Buffers that a module rebuilds
 from its arguments (the LNO's grids ``laplace.t_0``, ``laplace.lam_0``,
 ...) need not be passed. This module imports no JAX: callers hand it numpy
-arrays.
+arrays. :func:`load_jax_eq_params` carries a JAX solver's learnable
+equation parameters (``state["eq_params"]``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["flatten_tree", "load_jax_params"]
+__all__ = ["flatten_tree", "load_jax_params", "load_jax_eq_params"]
 
 
 def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -70,3 +73,14 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any],
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
         dst.copy_(src)
+
+
+@torch.no_grad()
+def load_jax_eq_params(targets: Mapping[str, torch.Tensor], eq_params: Mapping[str, Any]) -> None:
+    """Copy a JAX solver's ``state["eq_params"]`` ({name: scalar}) into the
+    port's learnable equation parameters in place (``Solver.eq_params``, or
+    a PDE's ``learnable_parameters``). The names must be the same."""
+    if set(targets) != set(eq_params):
+        raise KeyError(f"equation parameters differ: {sorted(targets)} != {sorted(eq_params)}")
+    for name, value in eq_params.items():
+        targets[name].copy_(torch.tensor(np.asarray(value, dtype=np.float32)).reshape(targets[name].shape))

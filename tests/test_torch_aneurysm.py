@@ -6,8 +6,10 @@ a small width for three train steps.
 The STLs are written to a temporary directory by running
 ``tools/gen_aneurysm_stl.py``. The JAX package's mesh code takes its
 optional C++ ray cast where that library is built; the tests pin it to its
-numpy branch, which the port copies, so that one ``np.random`` seed gives
-bitwise the same points, SDF, normals and areas in both packages.
+numpy branch, and the port's meshes to theirs (``native=False``; the
+port's C++ ray cast keeps the same points and is held against its numpy
+version in ``test_torch_mesh_raycast.py``), so that one ``np.random`` seed
+gives bitwise the same points, SDF, normals and areas in both packages.
 
 The solver tests build the JAX example itself (``examples/aneurysm.py``,
 its MLP cut to 3 x 32 and its residual validator to ``VAL`` points) and
@@ -19,6 +21,7 @@ validator's MSE 1e-4 relative (float32, other summation orders), as the
 Allen-Cahn slice's tests.
 """
 
+import functools
 import os
 import subprocess
 import sys
@@ -65,6 +68,7 @@ def stl_dir(tmp_path_factory):
 @pytest.fixture(autouse=True)
 def _numpy_geometry_float32_and_paths(monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(taneurysm, "Mesh", functools.partial(TMesh, native=False))
     monkeypatch.setenv("PSCI_JET_PALLAS_INTERPRET", "1")
     saved = tpath.get_default()
     with jax.default_matmul_precision("highest"):
@@ -83,7 +87,7 @@ def _meshes(stl_dir, part):
     center = np.asarray(janeurysm.CENTER)
     path = os.path.join(stl_dir, f"aneurysm_{part}.stl")
     return (psci.geometry.Mesh(path).translate(-center).scale(janeurysm.SCALE),
-            TMesh(path).translate(-center).scale(taneurysm.SCALE))
+            TMesh(path, native=False).translate(-center).scale(taneurysm.SCALE))
 
 
 # ------------------------------------------------------------- geometry --
@@ -169,8 +173,11 @@ def test_navier_stokes_residuals_match_the_sympy_form(dim, time, deriv):
 
 
 def test_navier_stokes_with_a_string_viscosity_is_not_ported():
-    with pytest.raises(NotImplementedError, match="string nu or rho"):
-        TNavierStokes("nu", 1.0, 3, False)
+    """A bare name is a field and a number string a number (ported, held
+    against JAX in ``test_torch_equations.py``); an expression string
+    still needs a sympy-free lowering."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 2"):
+        TNavierStokes("nu * (1 + x)", 1.0, 3, False)
 
 
 def test_normal_dot_vec_and_integral_loss_on_point_sets():

@@ -240,8 +240,29 @@ def test_the_recipe_and_curriculum_files_are_among_the_checked_sources():
     assert set(THIRTEENTH_SLICE_MODULES) <= checked
 
 
+FOURTEENTH_SLICE_MODULES = ("equation/pde/base.py", "equation/pde/basic.py", "equation/pde/extra.py",
+                            "arch/model_list.py", "arch/base.py", "solver/solver.py", "utils/jax_params.py",
+                            "geometry/raycast.py", "geometry/mesh.py", "ops/jet_mlp.py", "ops/jet_gated.py",
+                            "loss/losses.py", "examples/bracket_elasticity.py", "examples/control_arm.py",
+                            "examples/viv.py")
+
+
+def test_the_elasticity_and_inverse_problem_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(FOURTEENTH_SLICE_MODULES) <= checked
+    assert (PORT / "csrc" / "mesh_raycast.cpp").exists()
+
+
+def test_the_mesh_raycast_source_is_the_ports_own():
+    """The port's host C++ mesh code names nothing of the JAX package's
+    native library."""
+    text = (PORT / "csrc" / "mesh_raycast.cpp").read_text()
+    for needle in ("paddlescience_tpu", "libpsci_mesh", "mesh_kernels", "native/"):
+        assert needle not in text, f"mesh_raycast.cpp names {needle}"
+
+
 @pytest.mark.parametrize("rel", dict.fromkeys(TENTH_SLICE_MODULES + ELEVENTH_SLICE_MODULES + TWELFTH_SLICE_MODULES
-                                              + THIRTEENTH_SLICE_MODULES))
+                                              + THIRTEENTH_SLICE_MODULES + FOURTEENTH_SLICE_MODULES))
 def test_the_new_modules_import_alone_without_jax(rel):
     """Each new module, imported first in a fresh process, loads no JAX,
     sympy, optax or JAX-package module."""
