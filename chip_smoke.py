@@ -269,11 +269,23 @@ TIMED_STEPS = 20
 T0 = 0.0  # when main() started
 KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "lbm_collide_stream")
 # kernel instance -> [registers, spill store bytes, spill load bytes], per jet kernel
-PTXAS = {"jet_mlp_fwd": {}, "jet_gated_fwd": {}, "jet_mlp_bwd": {}, "jet_gated_bwd": {}}
+PTXAS = {"jet_mlp_fwd": {}, "jet_gated_fwd": {}, "jet_mlp_bwd": {}, "jet_gated_bwd": {}, "jet_wgrad": {}}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_MARK = [None]
+
+
+def mark(phase: str) -> None:
+    """Log the seconds since the previous mark (the first: since the start
+    of main), so each phase's share of the script's time is in the log."""
+    now = time.perf_counter()
+    since = _MARK[0] if _MARK[0] is not None else T0
+    log(f"[time] {phase}: {now - since:.1f} s ({now - T0:.1f} s in all)")
+    _MARK[0] = now
 
 
 def card_line() -> str:
@@ -323,14 +335,23 @@ def check_close(what: str, got, ref) -> float:
 def jet_index(S):
     """A jet of S streams: the Allen-Cahn index (u, u_t, u_x, u_xx) cut to
     S <= 4 (what a driven path runs), a 2-D second-order one at S = 5, 6,
-    the 3-D NavierStokes one at S = 7 (the aneurysm's), with u_xy at S = 8."""
+    the 3-D NavierStokes one at S = 7 (the aneurysm's), with u_xy at S = 8;
+    above, the order <= 2 multi-indices of 3, 4 or 5 inputs (:func:`order2`)."""
     from paddlescience_torch.autodiff import jet
 
     if S <= 4:
         return jet.build_index([(0,), (1,), (1, 1)][: S - 1])
     if S <= 6:
         return jet.build_index([(0,), (1,), (0, 0), (1, 1), (0, 1)][: S - 1])
-    return jet.build_index(NS3D + [(0, 1)] * (S - 7))
+    if S <= 8:
+        return jet.build_index(NS3D + [(0, 1)] * (S - 7))
+    return jet.build_index(order2(3 if S <= 10 else 4 if S <= 15 else 5)[: S - 1])
+
+
+def order2(d):
+    """Every multi-index of order 1 and 2 of d inputs, singles first: at
+    d = 3 the 3-D Hooke jet (S = 10), at d = 4 the (x, y, z, t) one (15)."""
+    return [(i,) for i in range(d)] + [(i, j) for i in range(d) for j in range(i, d)]
 
 
 def make_inputs(S, N, dims, seed=0):
@@ -737,7 +758,7 @@ def read_counts():
 def expected_kernels(path: str):
     """The kernels a driven path must launch."""
     if path.startswith(("mlp/", "aneurysm/", "mlp_5x50/", "cylinder/", "euler_beam/", "recipes/default_ntk",
-                        "ldc/re1000_plain", "elasticity/")):
+                        "ldc/re1000_plain", "elasticity/", "heart/", "aneurysm_flow/")):
         return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
     if path.startswith(("piratenet/", "modified_mlp/", "recipes/sota", "ldc/re3200")):
         return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad")
@@ -1192,23 +1213,23 @@ def profile_steps(solver, name: str, step_ms: float, steps: int = 5, top: int = 
     return port, busy, sum(r[1] for r in rows)
 
 
-def time_steps(solver, name: str):
+def time_steps(solver, name: str, steps: int = TIMED_STEPS):
     """Steady-state step rate and launches per step; returns (ms per step,
-    launches over TIMED_STEPS steps)."""
+    launches over ``steps`` steps)."""
     import torch
 
     solver.train_step()
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(steps):
         solver.train_step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts, _ = read_counts()
-    log(f"[timing] {name} train step: {TIMED_STEPS / dt:.2f} steps/s ({dt / TIMED_STEPS * 1e3:.3f} ms/step), "
-        f"launches per step { {k: v / TIMED_STEPS for k, v in counts.items() if v} }")
-    return dt / TIMED_STEPS * 1e3, counts
+    log(f"[timing] {name} train step: {steps / dt:.2f} steps/s ({dt / steps * 1e3:.3f} ms/step), "
+        f"launches per step { {k: v / steps for k, v in counts.items() if v} }")
+    return dt / steps * 1e3, counts
 
 
 # ------------------------------------------------------- the graphed run --
@@ -1354,15 +1375,18 @@ def check_resume(tmp: str, k=RESUME_K):
         f"last_epoch 2 of an uninterrupted run")
 
 
-def time_graphed(solver, name: str, k: int, replays: int):
-    """Eager train_step against graphed chunks of k steps on one solver, in
-    this call: steps/s (host clock around whole calls ending in a
-    synchronize) and, from the profile, device busy and idle per step.
+def time_graphed(solver, name: str, k: int, replays: int, eager_steps: int = TIMED_STEPS, profiled: int = 3):
+    """Eager train_step (``eager_steps`` timed, ``profiled`` profiled; 0:
+    the eager busy share not measured) against graphed chunks of k steps on
+    one solver, in this call: steps/s (host clock around whole calls ending
+    in a synchronize) and, from the profile, device busy and idle per step.
     Returns the numbers."""
     import torch
 
-    eager_ms, _ = time_steps(solver, f"{name} eager")
-    eager_port, eager_busy, eager_kernels = profile_steps(solver, f"{name} eager", eager_ms, top=5)
+    t_start = time.perf_counter()
+    eager_ms, _ = time_steps(solver, f"{name} eager", eager_steps)
+    eager_port, eager_busy, eager_kernels = ({}, None, 0) if not profiled else profile_steps(
+        solver, f"{name} eager", eager_ms, steps=profiled, top=5)
     solver.train_chunk(k)  # the capture if this k is new, and one replay
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1380,7 +1404,8 @@ def time_graphed(solver, name: str, k: int, replays: int):
            "kernel_ms_per_step": {"eager": eager_port, "graphed": graph_port}}
     log(f"[graph] timing {name}: eager {1e3 / eager_ms:.2f} steps/s ({eager_ms:.3f} ms, {share(eager_busy, eager_ms)}), "
         f"graphed {1e3 / graph_ms:.2f} steps/s ({graph_ms:.3f} ms, {share(graph_busy, graph_ms)}), K={k}, "
-        f"{replays} replays timed; speed-up {eager_ms / graph_ms:.2f}x")
+        f"{replays} replays timed; speed-up {eager_ms / graph_ms:.2f}x; the timing took "
+        f"{time.perf_counter() - t_start:.1f} s")
     return out
 
 
@@ -1554,7 +1579,7 @@ def run_euler_beam_phase(tmp: str):
     tipc = euler_beam.build_solver(epochs=1, iters_per_epoch=1, output_dir=None, device="cuda")
     points = sum(next(iter(b[0].values())).shape[0] for b in tipc._static_batches.values())
     check_graph_against_eager_rewound(tipc, "euler_beam (TIPC shape)", EULER_TIPC_K)
-    timing = time_graphed(tipc, "euler_beam", EULER_TIPC_K, EULER_REPLAYS)
+    timing = time_graphed(tipc, "euler_beam", EULER_TIPC_K, EULER_REPLAYS, profiled=1)
     timing.update(points_per_step=points, l2rel=metric, capture_s=tipc.graph_stats[EULER_TIPC_K]["capture_s"],
                   graphed_points_per_s=points * timing["graphed_steps_per_s"])
     log(f"[euler_beam] TIPC shape: {points} points a step, graphed {timing['graphed_points_per_s']:.0f} points/s; "
@@ -1567,7 +1592,9 @@ def run_euler_beam_phase(tmp: str):
 
 # the JAX examples' train() at their defaults, no derivative path pinned: (graphed chunk K and replays timed)
 EXAMPLE_TIMED = {"laplace2d": (10, 5), "ldc2d": (50, 3), "deeponet": (32, 5)}
-AUTOTUNE_ENV = {"PSCI_AUTOTUNE_FUSED": "10", "PSCI_AUTOTUNE_CALLS": "3"}
+# cut for the script's time: ldc2d_steady 20 of its 50 epochs, DeepONet 40 of its 100
+EXAMPLE_RUN = {"ldc2d": dict(epochs=20), "deeponet": dict(epochs=40)}
+AUTOTUNE_ENV = {"PSCI_AUTOTUNE_FUSED": "5", "PSCI_AUTOTUNE_CALLS": "3"}  # K = 5: cut for the script's time
 
 
 def state_diff(a, b):
@@ -1663,7 +1690,7 @@ def run_example_phases(tmp: str):
             ("ldc2d", ldc2d_steady.build_solver, "residual MSE.continuity"),
             ("deeponet", deeponet.build_solver, "L2Rel.G")):
         t0 = time.perf_counter()
-        solver = build(output_dir=os.path.join(tmp, name), device="cuda")
+        solver = build(output_dir=os.path.join(tmp, name), device="cuda", **EXAMPLE_RUN.get(name, {}))
         log(f"[{name}] solver built in {time.perf_counter() - t0:.2f} s")
         launches[f"example {name}"], timing[name] = run_example(name, solver, metric_name)
         timing[name]["build_s"] = time.perf_counter() - t0
@@ -1677,7 +1704,7 @@ def run_example_phases(tmp: str):
 LBFGS_CHECK_STEPS = 3  # L-BFGS steps held on jet_pallas_full against the plain jet path
 LBFGS_REFINE_STEPS = 50  # L-BFGS steps after the [ldc2d] phase's Adam training
 LBFGS_EPOCHS = 5  # of the example's 50 epochs of 50 L-BFGS steps: cut for the script's time
-OPERATOR_EPOCHS = 50  # of the operator examples' 300 epochs: cut for the script's time
+OPERATOR_EPOCHS = 25  # of the operator examples' 300 epochs: cut for the script's time
 OPERATOR_TIMED = {"darcy": 5, "brusselator": 10}  # graphed replays timed per solver
 BRUSSELATOR_CHECK = 2  # samples of the generator held on the card against the CPU
 BRUSSELATOR_TOL = 1e-4  # x max |u|: cuFFT against the CPU's FFT over the 9500 steps of the rollout
@@ -1896,7 +1923,7 @@ def run_operator_phase(tmp: str):
 
 def run_autotune_phase(solvers):
     """``autotune`` on each driven solver (no path pinned before), K = the
-    solver's own (at most PSCI_AUTOTUNE_FUSED = 10), a temporary cache:
+    solver's own (at most PSCI_AUTOTUNE_FUSED, AUTOTUNE_ENV), a temporary cache:
     every candidate's ms/step, the winner, the seconds; the winner the
     argmin of the cached timings; the kernel candidates launched their
     kernels and no plain version ran on CUDA; the solver's state bitwise
@@ -2007,11 +2034,11 @@ RECIPE_NAMES = ("default_ntk", "sota")
 RECIPE_RUN = dict(epochs=2, iters_per_epoch=150, update_freq=150, eval_freq=1)
 RECIPE_TIMED = (50, 2)  # (K, replays) of the graphed-against-eager timing
 # [ldc]: the three curriculum recipes at full width and batch, cut to their first two stages (Re 100, 400) of
-# one 500-step epoch each (the recipes' own: 1000 steps an epoch; cut for the script's time), the reference
-# fields solved on a 65^2 grid (the recipes' own: 257^2)
-LDC_CUT = dict(Re=(100, 400), epochs=(1, 1), reference_n=65, iters_per_epoch=500)
-LDC_K = 100  # steps a graph in the curricula (the recipes' own: one 1000-step graph an epoch, whose capture
-#              took 49-103 s a stage for PirateNet on the H100)
+# one 200-step epoch each (the recipes' own: 1000 steps an epoch; cut for the script's time),
+# the reference fields solved on a 65^2 grid (the recipes' own: 257^2)
+LDC_CUT = dict(Re=(100, 400), epochs=(1, 1), reference_n=65, iters_per_epoch=200)
+LDC_K = 50  # steps a graph in the curricula (the recipes' own: one 1000-step graph an epoch,
+#             whose capture took 49-103 s a stage for PirateNet on the H100)
 LDC_CHECK_N = 33  # the generator on the card against the CPU: one 2000-step chunk at Re 100
 LDC_CHECK_STEPS = 3  # eager steps of each recipe on jet_pallas_full against the plain jet path
 LDC_GRAPH_K = 10  # graphed chunk against eager steps (PirateNet recipe)
@@ -2305,7 +2332,8 @@ ARM_FORWARD = dict(epochs=2, iters_per_epoch=100, sample_iters=1)
 ARM_INVERSE = dict(epochs=1, iters_per_epoch=100, sample_iters=1)
 ARM_GRAPH_K = 10  # graphed chunks against eager steps
 BRACKET_RUN = dict(epochs=1, iters_per_epoch=20)  # 1 of the example's 30 epochs of 20 steps
-ELASTICITY_TIMED = {"control_arm": (100, 2), "control_arm inverse": (100, 2), "bracket": (20, 3), "viv": (20, 5)}
+# (K, replays) of the graphed-against-eager timings; the control arm's K cut for the script's time
+ELASTICITY_TIMED = {"control_arm": (20, 3), "control_arm inverse": (100, 2), "bracket": (20, 3), "viv": (20, 5)}
 
 
 def arm_index():
@@ -2403,20 +2431,8 @@ def run_elasticity_phase(tmp: str, ane_native_s: float):
     per_step = check_ldc_against_plain_path(fwd, "control_arm", phase="elasticity")
     with on_path(pick["winner"]):
         check_graph_against_eager_rewound(fwd, "control_arm", ARM_GRAPH_K)
-    deriv_path.set_default(deriv_path.CANDIDATES[pick["winner"]])
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    logged = fwd.train()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts, plain = read_counts()
-    if pick["winner"].startswith("jet_pallas"):
-        check_counts("elasticity/control_arm", counts, plain)
+    logged, dt, counts = train_on_pick(fwd, "elasticity", "control_arm", pick["winner"])
     launches["elasticity control_arm"] = counts
-    bad = [e for e in logged if not all(math.isfinite(v) for k, v in e.items() if k.startswith("loss"))]
-    if bad or not logged or any(plain.values()):
-        raise AssertionError(f"control_arm: non-finite or no losses {bad or logged}, plain versions on CUDA {plain}")
     k = fwd._auto_fuse_steps()
     stats = fwd.graph_stats[k]
     log(f"[elasticity] control_arm train() {fwd.epochs} epochs x {fwd.iters_per_epoch} steps on "
@@ -2530,6 +2546,301 @@ def time_elasticity_kernels(rows, per_step):
                    {k: per_step.get(k, 0) for k in names}, index=arm_index())
 
 
+# ------------------------------- more than 8 streams: heart, aneurysm_flow --
+
+HOOKE_JET = order2(3)  # heart's interior jet: u and every first and second derivative in 3-D (S = 10)
+HEART = dict(N=1024, dims=(3,) + (256,) * 6)  # heart's interior batch (one iteration's points) and hidden layers
+FLOW = dict(N=20480, dims=(3,) + (128,) * 5)  # aneurysm_flow's interior batch (2048 x 10 iterations) and layers
+# (S, N, dims) of the halves kernels' checks: heart's shape at S = 9 and 10 with a ragged batch; S = 15 and 16 at
+# width 256 (8-row tiles); aneurysm_flow's width at S = 10
+HALVES_CHECKS = [(9, 1024, HEART["dims"]), (10, 1024, HEART["dims"]), (9, 1023, HEART["dims"]),
+                 (10, 1023, HEART["dims"]), (15, 4096, (4,) + (256,) * 4), (16, 4096, (5,) + (256,) * 4),
+                 (10, 2048, FLOW["dims"])]
+# heart: each constraint samples one iteration's points (1024 interior, 128 on each boundary), not the example's
+# batch x 20 iterations; 100 of the example's 200 epochs of 20 steps (the inverse's too)
+HEART_RUN = dict(sample_iters=1, epochs=100)
+HEART_TIMED = (20, 3)  # (K, replays) of the graphed-against-eager timing
+FLOW_TIMED = (10, 3)
+PINN_SUITE = ("burgers", "shock_wave", "nlsmb_soliton", "nlsmb_rogue_wave", "heat_exchanger")
+PINN_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
+# the graphed-against-eager timing of each: K = 5, 5 eager steps timed, the eager steps not profiled
+PINN_TIMED = dict(k=5, replays=3, eager_steps=5, profiled=0)
+
+
+def check_halves_kernels():
+    """The MLP kernels above 8 streams (the halves kernels) against their
+    plain versions at HALVES_CHECKS, two calls bitwise equal at S = 10 and
+    16, the registers and spills of every halves instance, and the
+    refusals: S = 17, and the first refused S at width 512 (9), raise
+    KernelRefusal before any launch. Returns the max abs errors."""
+    import torch
+
+    from paddlescience_torch.ops import jet_mlp as J
+
+    errs = {}
+    for S_, n, dims in HALVES_CHECKS:
+        tag = f"S={S_} N={n} {dims[0]}->{'x'.join(map(str, dims[1:]))}"
+        if not J.kernels_take(S_, dims) or not J.bwd_parks(S_, dims):
+            raise AssertionError(f"the kernels were expected to take {tag}, the backward parked")
+        for k, v in check_kernels(S_, n, dims, log_it=False).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        log(f"[kernels] halves {tag} (tile rows {J.tile_rows(S_, dims)}): fwd, bwd, wgrad within {REL_TOL} x max "
+            f"of their plain versions and the backward of autograd")
+    log("[kernels] halves: max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    for S_, dims in ((10, HEART["dims"]), (16, (5,) + (256,) * 4)):
+        idx, streams, weights, biases, g_out = make_inputs(S_, 4095, dims)
+        calls = {"jet_mlp_fwd": lambda: J.jet_mlp_fwd(streams, weights, biases, idx, save_bounds=True)}
+        _, bounds = calls["jet_mlp_fwd"]()
+        _, gzs = J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx)
+        ys = [streams] + [b.unbind(0) for b in bounds]
+        calls["jet_mlp_bwd"] = lambda: J.jet_mlp_bwd(streams, bounds, weights, biases, g_out, idx)
+        calls["jet_wgrad"] = lambda: J.jet_wgrad(ys, gzs)
+        for name, call in calls.items():
+            first, second = call(), call()
+            torch.cuda.synchronize()
+            a, b = [*first[0], *first[1]], [*second[0], *second[1]]
+            if not (len(a) == len(b) > 0 and all(torch.equal(x, y) for x, y in zip(a, b))):
+                raise AssertionError(f"{name} S={S_}: two calls on the same inputs differ")
+        del streams, bounds, gzs, ys
+    log("[kernels] halves: jet_mlp_fwd (outputs, boundaries), jet_mlp_bwd (input cotangents, gz), jet_wgrad "
+        "(dW, db): two calls bitwise equal at S=10 (heart, N=4095) and S=16 (width 256)")
+    for name in ("jet_mlp_fwd", "jet_mlp_bwd"):
+        for fn, (regs, st, ld) in PTXAS.get(name, {}).items():
+            if "halves" in fn:
+                log(f"[kernels] {name}.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    for fn, (regs, st, ld) in PTXAS.get("jet_wgrad", {}).items():
+        log(f"[kernels] jet_wgrad.cu {fn} (any S): {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    first_wide = min(S_ for S_ in range(1, J.MAX_STREAMS + 2) if not J.kernels_take(S_, ANEURYSM["dims"]))
+    for S_, dims in ((J.MAX_STREAMS + 1, HEART["dims"]), (first_wide, ANEURYSM["dims"])):
+        idx, streams, weights, biases, g_out = make_inputs(S_, 64, dims)
+        torch.cuda.synchronize()
+        reset_counts()
+        refused = []
+        for name, call in (("jet_mlp_fwd", lambda: J.jet_mlp_fwd(streams, weights, biases, idx)),
+                           ("jet_mlp_bwd", lambda: J.jet_mlp_bwd(streams, [], weights, biases, g_out, idx))):
+            try:
+                call()
+            except J.KernelRefusal as e:
+                refused.append(f"{name}: {e}")
+        counts, plain = read_counts()
+        if len(refused) != 2 or any(counts.values()) or any(plain.values()):
+            raise AssertionError(f"S={S_} {dims}: refusals {refused}, launches {counts}, plain calls {plain}")
+        log(f"[kernels] S={S_} at {dims[0]}->{'x'.join(map(str, dims[1:]))}: KernelRefusal before any launch "
+            f"({refused[0]})")
+    return errs
+
+
+def interior_streams(solver, name: str):
+    """The stream counts of the jets that constraint ``name`` asks for."""
+    from paddlescience_torch.autodiff import jet
+
+    req = solver._jet_requests[name]
+    return {len(jet.build_index(stack)) for reqs in req.values() for stack in reqs if stack}
+
+
+def check_fresh_graph_against_eager(build, name: str, k: int):
+    """A solver with an indexed constraint (its host batches drawn per
+    chunk): one epoch of ``train(num_fused_steps=k)`` against one epoch of
+    eager steps, each on a freshly built solver (the same seed, weights and
+    loader order): parameters and equation parameters within 1e-6."""
+    import torch
+
+    runs = {}
+    for kk in (1, k):
+        solver = build()
+        solver.train(num_fused_steps=kk)
+        torch.cuda.synchronize()
+        runs[kk] = torch.cat([flat_params(solver)] + [p.detach().reshape(-1) for p in solver.eq_params.values()])
+    a, b = runs[1], runs[k]
+    rel = float((a - b).norm() / a.norm())
+    log(f"[graph] {name}: one epoch as graphed chunks of {k} steps vs eager steps from the same fresh state: "
+        f"parameters rel err {rel:.3e}, bitwise {torch.equal(a, b)}")
+    if not rel <= 1e-6:
+        raise AssertionError(f"{name}: the graphed epoch disagrees with the eager one (rel {rel:.3e})")
+    return rel
+
+
+def train_on_pick(solver, phase: str, name: str, pick: str, k=None):
+    """``train(num_fused_steps=k)`` on the autotuner's pick with the launch
+    counters set to 0 just before (and the solver's captured graphs
+    dropped, so that the run captures its own): every kernel of a kernel
+    pick launched, no plain version on CUDA, finite losses. Returns (logs,
+    seconds, launch counts)."""
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+
+    deriv_path.set_default(deriv_path.CANDIDATES[pick])
+    solver._graphs.clear()  # train() captures its own graph: the counters see its warm-up and capture launches
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = solver.train(num_fused_steps=k)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    if pick.startswith("jet_pallas"):
+        check_counts(f"{phase}/{name}", counts, plain)
+    bad = [e for e in logged if not all(math.isfinite(v) for k, v in e.items() if k.startswith("loss"))]
+    if bad or not logged or any(plain.values()):
+        raise AssertionError(f"{name}: non-finite or no losses {bad or logged}, plain versions on CUDA {plain}")
+    return logged, dt, counts
+
+
+def run_heart_phase(tmp: str):
+    """heart and heart_inverse on the card, each: the interior jet's 10
+    streams; the autotuner's pick over every candidate; 3 steps on
+    jet_pallas_full against the plain jet path (losses 1e-4, gradients
+    1e-3; the three MLP kernels launched every step); graphed chunks against
+    eager steps (1e-6); ``train()`` for the example's 200 x 20 steps on the
+    pick; the L2Rel of u, v, w against the data (and E_hat); graphed and
+    eager steps/s. Returns (launch counts by run, kernel launches a step
+    on jet_pallas_full, numbers)."""
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import heart
+
+    out, launches, per_step = {}, {}, {}
+    for problem in ("forward", "inverse"):
+        name = "heart" if problem == "forward" else "heart_inverse"
+        deriv_path.set_default(None)
+        t0 = time.perf_counter()
+        solver = heart.build_solver(problem, output_dir=os.path.join(tmp, name), geom_dir=os.path.join(tmp, "heart"),
+                                    device="cuda", **HEART_RUN)
+        build_s = time.perf_counter() - t0
+        points = {n: tuple(next(iter(b[0].values())).shape)[0] for n, b in solver._static_batches.items()}
+        pick = run_autotune_phase({name: solver})[name]
+        per_step[name] = check_ldc_against_plain_path(solver, name, phase="heart")
+        streams = interior_streams(solver, "INTERIOR")
+        if streams != {len(HOOKE_JET) + 1}:
+            raise AssertionError(f"{name}: the interior jets have {streams} streams, expected {len(HOOKE_JET) + 1}")
+        with on_path(pick["winner"]):
+            graph_rel = check_fresh_graph_against_eager(
+                lambda: heart.build_solver(problem, output_dir=None, geom_dir=os.path.join(tmp, "heart"), device="cuda",
+                                           **{**HEART_RUN, "epochs": 1}), name, HEART_TIMED[0])
+        # the DATA loader is indexed, so train() alone would run eager steps: one graph of 20 steps an epoch
+        logged, dt, counts = train_on_pick(solver, "heart", name, pick["winner"], HEART_TIMED[0])
+        launches[f"heart {name}"] = counts
+        rep = heart.report(solver)
+        n_data = solver.constraint["DATA"].dataset.input["x"].shape[0]
+        log(f"[heart] {name}: built in {build_s:.2f} s, points a step {points} + DATA {n_data}; interior jet "
+            f"{streams} streams; train() {solver.epochs} epochs x {solver.iters_per_epoch} steps on {pick['winner']} "
+            f"(the autotuner's pick), K={HEART_TIMED[0]}: {dt:.2f} s, final loss {logged[-1]['loss']:.6e}; {rep}; "
+            f"launches {({n: v for n, v in counts.items() if v})}")
+        out[name] = time_graphed(solver, name, *HEART_TIMED)
+        out[name].update(report=rep, autotune=pick, train_s=dt, final_loss=logged[-1]["loss"], build_s=build_s,
+                         graph_vs_eager_rel=graph_rel,
+                         launches_per_step_jet_pallas_full=per_step[name], points_per_step=points)
+        del solver
+    deriv_path.set_default(None)
+    return launches, per_step, out
+
+
+def run_aneurysm_flow_phase(tmp: str):
+    """aneurysm_flow on the card: the interior jet's 7 streams at width
+    128; the autotuner's pick; 3 steps on jet_pallas_full against the plain
+    jet path; graphed chunks against eager steps; ``train()`` for the
+    example's 10 x 10 steps on the pick; the centerline w; graphed and
+    eager steps/s. Returns (launch counts, launches a step, numbers)."""
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import aneurysm_flow
+
+    deriv_path.set_default(None)
+    t0 = time.perf_counter()
+    solver = aneurysm_flow.build_solver(output_dir=os.path.join(tmp, "aneurysm_flow"),
+                                        stl_path=os.path.join(tmp, "aneurysm_tube.stl"), device="cuda")
+    build_s = time.perf_counter() - t0
+    points = {n: tuple(next(iter(b[0].values())).shape)[0] for n, b in solver._static_batches.items()}
+    pick = run_autotune_phase({"aneurysm_flow": solver})["aneurysm_flow"]
+    per_step = check_ldc_against_plain_path(solver, "aneurysm_flow", phase="aneurysm_flow")
+    streams = interior_streams(solver, "EQ")
+    if streams != {len(NS3D) + 1}:
+        raise AssertionError(f"aneurysm_flow: the interior jets have {streams} streams, expected {len(NS3D) + 1}")
+    with on_path(pick["winner"]):
+        check_graph_against_eager_rewound(solver, "aneurysm_flow", FLOW_TIMED[0])
+    logged, dt, counts = train_on_pick(solver, "aneurysm_flow", "aneurysm_flow", pick["winner"])
+    w = aneurysm_flow.centerline_w(solver)
+    log(f"[aneurysm_flow] built in {build_s:.2f} s, points a step {points}; interior jet {streams} streams; train() "
+        f"{solver.epochs} epochs x {solver.iters_per_epoch} steps on {pick['winner']} (the autotuner's pick) in "
+        f"{dt:.2f} s, losses {[round(e['loss'], 6) for e in logged]}; centerline w {w:.6f} (inlet plug 0.5); "
+        f"launches {({n: v for n, v in counts.items() if v})}")
+    out = time_graphed(solver, "aneurysm_flow", *FLOW_TIMED)
+    out.update(centerline_w=w, autotune=pick, train_s=dt, final_loss=logged[-1]["loss"], build_s=build_s,
+               launches_per_step_jet_pallas_full=per_step, points_per_step=points)
+    deriv_path.set_default(None)
+    return {"aneurysm_flow": counts}, per_step, out
+
+
+def run_pinn_suite_phase(tmp: str):
+    """The five small PINN examples at their JAX defaults, no path pinned
+    (widths 50-64, under the lane gate: the plain jet path or nested jvp,
+    no kernel): two graphed chunks of 3 steps against 6 eager steps from
+    the same state (1e-6), the state restored;
+    ``train()`` at the example's epochs; its final metric; graphed and
+    eager steps/s and kernels a step. Returns the numbers."""
+    import importlib
+
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+
+    out = {}
+    for name in PINN_SUITE:
+        module = importlib.import_module(f"paddlescience_torch.examples.{name}")
+        deriv_path.set_default(None)
+        t0 = time.perf_counter()
+        solver = module.build_solver(output_dir=os.path.join(tmp, name), device="cuda")
+        build_s = time.perf_counter() - t0
+        snap = solver.state
+        check_graph_against_eager_rewound(solver, name, PINN_CHECK_K)
+        solver._load_state(snap)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logged = solver.train()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts, plain = read_counts()
+        if not logged or not all(math.isfinite(e["loss"]) for e in logged) or any(plain.values()):
+            raise AssertionError(f"{name}: losses {logged}, plain versions on CUDA {plain}")
+        if name == "burgers":
+            metric = {"L2Rel": module.l2rel(solver)}
+        elif name == "shock_wave":
+            metric = dict(zip(("rho_left", "rho_right"), module.density_jump(solver)))
+        elif name.startswith("nlsmb"):
+            metric = {"L2Rel": module.l2rel(solver)}
+        else:
+            metric = {"final_loss": module.final_loss(logged)}
+        if not all(math.isfinite(v) for v in metric.values()):
+            raise AssertionError(f"{name}: metric {metric}")
+        k = solver._auto_fuse_steps()
+        stats = solver.graph_stats[k]
+        log(f"[pinn_suite] {name}: built in {build_s:.2f} s; train() {solver.epochs} epochs x "
+            f"{solver.iters_per_epoch} steps (K={k}, capture {stats['capture_s']:.2f} s) in {dt:.2f} s, final loss "
+            f"{logged[-1]['loss']:.6e}; {metric}; kernel launches {({n: v for n, v in counts.items() if v})}")
+        out[name] = time_graphed(solver, name, **PINN_TIMED)
+        out[name].update(metric=metric, train_s=dt, final_loss=logged[-1]["loss"], build_s=build_s,
+                         kernel_launches=counts)
+        del solver
+        torch.cuda.empty_cache()
+    deriv_path.set_default(None)
+    return out
+
+
+def time_heart_flow_kernels(rows, heart_per_step, flow_per_step):
+    """The MLP kernels' rows at heart's interior shape (S = 10, N = 1024,
+    3 -> 256 x 6; key "heart") and aneurysm_flow's (S = 7, N = 20480, 3 ->
+    128 x 5; key "aneurysm_flow"), with the launches per step of each
+    forward problem's jet_pallas_full path."""
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.ops import jet_mlp as J
+
+    names = [r["name"] for r in rows]
+    time_mlp_shape(rows, "heart", len(HOOKE_JET) + 1, HEART["N"], HEART["dims"], J.TANH,
+                   {k: heart_per_step.get(k, 0) for k in names}, index=jet.build_index(HOOKE_JET))
+    time_mlp_shape(rows, "aneurysm_flow", len(NS3D) + 1, FLOW["N"], FLOW["dims"], J.TANH,
+                   {k: flow_per_step.get(k, 0) for k in names}, index=jet.build_index(NS3D))
+
+
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
     "jet_mlp_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
@@ -2565,6 +2876,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build_logs = cuda_build.build()
     log(f"[build] {len(build_logs)} kernels built in {time.perf_counter() - t0:.1f} s")
+    mark("build")
     for name, text in build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2654,15 +2966,18 @@ def main() -> int:
     check_gated_bwd_repeat()
     check_mlp_bwd_repeat()
     check_fwd_repeat()
+    merge(check_halves_kernels())
     errs["lbm_collide_stream"] = max(check_lbm_kernel(256, 256, 1), check_lbm_kernel(256, 256, 200),
                                      check_lbm_kernel(1000, 1000, 1))
     log("[kernels] max abs err over the main-path checks: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    mark("kernels")
 
     launches = {}
     for path, (_, deriv, steps) in PATHS.items():
         _, launches[path] = run_path(solvers[path], path, deriv, steps)
     launches["cavity"] = run_cavity_path()
     launches[PADDED_PATH] = run_padded_path()
+    mark("main paths")
 
     req = ane._jet_requests["interior"]
     n_streams = {len(jet.build_index(stack)) for reqs in req.values() for stack in reqs}
@@ -2677,35 +2992,57 @@ def main() -> int:
             raise AssertionError("piratenet: an alpha is still 0 after training; the check would prove nothing")
         parts = ("weight_g", "weight_v", "bias") if arch == "aneurysm" else ("alpha", "embed_u", "embed_v")
         check_against_plain_path(solver, arch, tuple(PATHS[p][1] for p in paths), parts)
+    mark("plain-path checks")
 
     with tempfile.TemporaryDirectory(prefix="psci_smoke_") as tmp:
         graph_launches, graph_timing = run_graph_phase(ane, tmp)
         launches.update(graph_launches)
         log("[graph] summary " + json.dumps(graph_timing))
+        mark("graph")
         cyl_errs, launches[CYLINDER_PATH], cyl_timing = run_cylinder_phase()
         log("[cylinder] summary " + json.dumps(cyl_timing))
+        mark("cylinder")
         launches["graph euler_beam"], euler_timing = run_euler_beam_phase(tmp)
         log("[euler_beam] summary " + json.dumps(euler_timing))
+        mark("euler_beam")
         example_launches, example_timing, ldc2d_params = run_example_phases(tmp)
         launches.update(example_launches)
         log("[examples] summary " + json.dumps(example_timing))
+        mark("examples")
         launches["lbfgs jet_pallas_full"], lbfgs_numbers = run_lbfgs_phase(tmp, ldc2d_params)
         log("[lbfgs] summary " + json.dumps(lbfgs_numbers))
+        mark("lbfgs")
         log("[operators] summary " + json.dumps(run_operator_phase(tmp)))
+        mark("operators")
         recipe_launches, recipe_numbers = run_recipe_phase(tmp)
         launches.update(recipe_launches)
         log("[recipes] summary " + json.dumps(recipe_numbers))
+        mark("recipes")
         ldc_launches, ldc_per_step, ldc_errs, ldc_numbers = run_ldc_phase(tmp)
         launches.update(ldc_launches)
         merge(ldc_errs)
         log("[ldc] summary " + json.dumps(ldc_numbers))
+        mark("ldc")
         elastic_launches, elastic_per_step, elastic_errs, elastic_numbers = run_elasticity_phase(tmp, ane_build_s)
         launches.update(elastic_launches)
         merge(elastic_errs)
         log("[elasticity] summary " + json.dumps(elastic_numbers))
+        mark("elasticity")
         log("[viv] summary " + json.dumps(run_viv_phase(tmp)))
+        mark("viv")
+        heart_launches, heart_per_step, heart_numbers = run_heart_phase(tmp)
+        launches.update(heart_launches)
+        log("[heart] summary " + json.dumps(heart_numbers))
+        mark("heart")
+        flow_launches, flow_per_step, flow_numbers = run_aneurysm_flow_phase(tmp)
+        launches.update(flow_launches)
+        log("[aneurysm_flow] summary " + json.dumps(flow_numbers))
+        mark("aneurysm_flow")
+        log("[pinn_suite] summary " + json.dumps(run_pinn_suite_phase(tmp)))
+        mark("pinn_suite")
     autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
     log("[autotune] summary " + json.dumps(autotune_results))
+    mark("autotune")
 
     device_ms = {}
     for path in TIMED:
@@ -2717,6 +3054,8 @@ def main() -> int:
                           cyl_timing["jet_pallas_full"]["kernel_ms_per_step"]["eager"])
     time_ldc_kernels(rows, ldc_per_step)
     time_elasticity_kernels(rows, elastic_per_step)
+    time_heart_flow_kernels(rows, heart_per_step["heart"], flow_per_step)
+    mark("timing")
     log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(card)

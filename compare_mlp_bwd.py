@@ -57,7 +57,7 @@ def old_parks(S, dims) -> bool:
     from paddlescience_torch.ops import jet_mlp as J
 
     kmax = -(-max(dims) // 4) * 4
-    rows = J.tile_rows(dims)
+    rows = J.tile_rows(S, dims)
     return rows == J.BM_WIDE or (2 * S * kmax * rows + J.KC * (kmax + 4)) * 4 > J.SMEM_LIMIT
 
 
@@ -128,7 +128,7 @@ def main() -> int:
         args = (streams, bounds, weights, biases, g_out, idx, act)
         flops, nbytes = bound(S, N, dims)
         entry = result["shapes"][shape] = {
-            "bound_ms": bound_ms(flops, nbytes)[0], "tile_rows": J.tile_rows(dims), "ms": {}, "max_abs_err": {},
+            "bound_ms": bound_ms(flops, nbytes)[0], "tile_rows": J.tile_rows(S, dims), "ms": {}, "max_abs_err": {},
             "parks": {label: bool(J.bwd_parks(S, dims) if libs[label][1] else old_parks(S, dims)) for label in libs}}
         use("repo", S, dims)
         ref = J.jet_mlp_bwd(*args)

@@ -21,7 +21,14 @@
 //     BM / 4 down the rows, so 128 x 4 threads cover 16 rows x 256 columns
 //     and 256 x 2 threads 8 rows x 512 columns. Its products stage the
 //     weights through a cp.async ring (ring_matmul, ring_matmul_t at the end
-//     of this file).
+//     of this file);
+//   * the ungated kernels take up to PSCI_MAX_S streams, the gated ones up
+//     to PSCI_GATED_MAX_S. A product holds at most PSCI_GROUP_S streams of
+//     accumulators in registers: above that jet_mlp_fwd.cu and
+//     jet_mlp_bwd.cu run their products over two halves of the streams in
+//     turn on the same shared tile (a stream's product reads only that
+//     stream), and the elementwise jet rule or its VJP, which needs all S
+//     streams of an element, reads them from shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,7 +37,9 @@
 #define PSCI_BM 16        // rows per CTA tile up to width 256
 #define PSCI_BM_WIDE 8    // rows per CTA tile up to width 512
 #define PSCI_THREADS 256  // threads per CTA
-#define PSCI_MAX_S 8      // jet streams per segment
+#define PSCI_MAX_S 16     // jet streams per segment (ungated kernels)
+#define PSCI_GATED_MAX_S 8  // jet streams per segment of the gated kernels
+#define PSCI_GROUP_S 8    // streams whose accumulators one product holds in registers
 #define PSCI_MAX_L 32     // layers per segment
 #define PSCI_KC 16        // weight rows (or columns) staged per chunk
 

@@ -171,7 +171,7 @@ extern "C" int jet_gated_fwd(const void* const* x, const void* const* u, const v
                              void* const* out, void* const* lin, const int* dims, const int* op,
                              const int* kind, const int* pa, const int* pb, int S, int L, int N,
                              int kmax, int act, float act_w, void* stream) {
-  if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 256 || kmax % 32 || act < 0 ||
+  if (S < 1 || S > PSCI_GATED_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || kmax > 256 || kmax % 32 || act < 0 ||
       act >= PSCI_N_ACTS)
     return (int)cudaErrorInvalidValue;
   if (!(op[0] & PSCI_OP_STAGE)) return (int)cudaErrorInvalidValue;

@@ -65,6 +65,18 @@
 //     are bitwise equal.
 // The activation is a runtime id; the two-tile kernels at 16 rows also
 // come specialised to tanh (ANY = false), as in jet_mlp_fwd.cu.
+//
+// More than PSCI_GROUP_S streams (jet_mlp_bwd_halves): a micro-tile of
+// every stream would be 8 * S registers, all 128 of a 512-thread CTA's at
+// S = 16. So both products run over the two halves of the streams in turn
+// with at most 8 streams of accumulators, on one tile that always parks
+// the cotangent: z of each half goes back over that half's rows of the
+// layer input (a stream's product reads only that stream); the VJP reads
+// z of all S streams of an element from the tile and their output
+// cotangents from the parked rows, and writes gz over both; each half's
+// W^T product writes its streams' input cotangents to device memory (the
+// segment's, or parked in the previous layer's gz buffer). The weights
+// stream from L2 once per half and product.
 #include "jet_common.cuh"
 
 struct BwdParams {
@@ -208,6 +220,126 @@ __global__ void __launch_bounds__(GB_THREADS, 1) jet_mlp_bwd_kernel(const BwdPar
   }
 }
 
+// z of one half of the streams (G of them, the tile's streams from Ah on)
+// through layer l's product, back over their layer input in the tile.
+template <int G, int BM>
+__device__ __forceinline__ void bwd_z_half(float* Ah, const BwdParams& p, int l, float* ring, int tx, int ty) {
+  const int D = p.dims[l + 1];
+  Tile<G> acc;
+  gb_zero<G>(acc);
+  ring_matmul<G, BM>(acc, Ah, p.kmax, p.W[l], p.dims[l], D, ring, PSCI_KC * p.kmax, tx, ty);  // ends with a barrier
+  if (GB_CN * tx < D) gb_store_tile<G, BM>(Ah, p.kmax, acc, tx, ty);
+}
+
+// gz @ W^T of one half (streams s0 .. s0 + G - 1, gz in the tile from Gh
+// on): the segment's input cotangents at layer 0, else parked in gz[l-1].
+template <int G, int BM>
+__device__ __forceinline__ void bwd_gin_half(const float* Gh, int s0, const BwdParams& p, int l, float* ring, int tx,
+                                             int ty) {
+  constexpr int TX = GB_TX<BM>;
+  const int K = p.dims[l], row0 = blockIdx.x * BM;
+  Tile<G> acc;
+  gb_zero<G>(acc);
+  ring_matmul_t<G, BM, true>(acc, Gh, p.kmax, p.W[l], K, p.dims[l + 1], ring, PSCI_KC * p.kmax, tx, ty);
+#pragma unroll
+  for (int j = 0; j < GB_CN; ++j) {
+    const int k = tx + TX * j;
+    if (k >= K) continue;
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      float* dst = l == 0 ? p.gin[s0 + s] : p.gz[l - 1] + (size_t)(s0 + s) * p.N * K;
+#pragma unroll
+      for (int i = 0; i < GB_RM; ++i) {
+        const int n = row0 + GB_RM * ty + i;
+        if (n < p.N) dst[(size_t)n * K + k] = acc[s][i][j];
+      }
+    }
+  }
+}
+
+template <int S, int BM>
+__global__ void __launch_bounds__(GB_THREADS, 1) jet_mlp_bwd_halves(const BwdParams p) {
+  constexpr int TX = GB_TX<BM>, G0 = (S + 1) / 2;
+  extern __shared__ __align__(16) float smem[];
+  float* A = smem;                                   // [S][kmax][BM]: the layer input, then z, then gz
+  float* ring = smem + (size_t)S * p.kmax * BM;      // GB_STAGES weight chunks
+  const int row0 = blockIdx.x * BM;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+
+  for (int l = p.L - 1; l >= 0; --l) {
+    const int K = p.dims[l], D = p.dims[l + 1];
+    {
+      const float* src[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        src[s] = (l == 0) ? p.x[s] : p.bounds[l - 1] + (size_t)s * p.N * K;
+      stage_tile<S, BM>(A, p.kmax, src, K, row0, p.N);
+    }
+    bwd_z_half<G0, BM>(A, p, l, ring, tx, ty);
+    bwd_z_half<S - G0, BM>(A + (size_t)G0 * p.kmax * BM, p, l, ring, tx, ty);
+    __syncthreads();  // z of every stream is in the tile
+    if (GB_CN * tx < D) {
+      // rows outer: the output cotangents of row n (the segment's, or where
+      // the next layer's W^T product parked them) for the thread's two
+      // columns, the VJP element by element, gz back over z and the
+      // cotangents
+      float* const gzl = p.gz[l];
+      const size_t zs = (size_t)p.N * D;
+      float bias[GB_CN];
+      ldg<GB_CN>(p.b[l] + GB_CN * tx, bias);
+#pragma unroll 1
+      for (int i = 0; i < GB_RM; ++i) {
+        const int r = GB_RM * ty + i, n = row0 + r;
+        const size_t off = (size_t)n * D + GB_CN * tx;
+        float gr[S][GB_CN];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          fill<GB_CN>(gr[s], 0.f);
+          if (n < p.N) ld<GB_CN>((l == p.L - 1 ? p.gout[s] : gzl + s * zs) + off, gr[s]);  // plain loads
+        }
+#pragma unroll
+        for (int j = 0; j < GB_CN; ++j) {
+          float* a = A + (size_t)(GB_CN * tx + j) * BM + r;  // element (c, r) of stream 0
+          float z[S], g[S], f, f1, f2, f3;
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            z[s] = a[(size_t)s * p.kmax * BM];
+            g[s] = gr[s][j];
+          }
+          z[0] += bias[j];
+          psci_act(p.act, z[0], f, f1, f2, f3);
+          jet_rule_vjp<S>(z, g, f1, f2, f3, p.idx);
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            a[(size_t)s * p.kmax * BM] = z[s];
+            gr[s][j] = z[s];
+          }
+        }
+        if (n < p.N) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) st<GB_CN>(gzl + s * zs + off, gr[s]);
+        }
+      }
+    }
+    // the W^T products' first barrier publishes gz in the tile
+    bwd_gin_half<G0, BM>(A, 0, p, l, ring, tx, ty);
+    bwd_gin_half<S - G0, BM>(A + (size_t)G0 * p.kmax * BM, G0, p, l, ring, tx, ty);
+    // no barrier: the next layer's stage_tile overwrites the tile only after
+    // the last product's closing barrier
+  }
+}
+
+template <int S, int BM>
+static cudaError_t launch_halves(const BwdParams& p, cudaStream_t stream) {
+  const size_t smem = bwd_smem(S, p.kmax, BM, 1);
+  cudaError_t err = cudaFuncSetAttribute(jet_mlp_bwd_halves<S, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + BM - 1) / BM);
+  jet_mlp_bwd_halves<S, BM><<<grid, GB_THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int S, int BM, bool PARK, bool ANY>
 static cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   const size_t smem = bwd_smem(S, p.kmax, BM, PARK);
@@ -244,11 +376,29 @@ static cudaError_t launch_parked(const BwdParams& p, int S, cudaStream_t st) {
   }
 }
 
+// More than PSCI_GROUP_S streams: the halves kernel, which always parks.
+template <int BM>
+static cudaError_t launch_halves_s(const BwdParams& p, int S, cudaStream_t st) {
+  switch (S) {
+    case 9: return launch_halves<9, BM>(p, st);
+    case 10: return launch_halves<10, BM>(p, st);
+    case 11: return launch_halves<11, BM>(p, st);
+    case 12: return launch_halves<12, BM>(p, st);
+    case 13: return launch_halves<13, BM>(p, st);
+    case 14: return launch_halves<14, BM>(p, st);
+    case 15: return launch_halves<15, BM>(p, st);
+    case 16: return launch_halves<16, BM>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Host entry point. Pointer arguments are host arrays of device pointers:
 // x[S], bounds[L-1], W[L], b[L], gout[S], gin[S], gz[L]; dims[L+1];
 // kind/pa/pb[S]. kmax >= every dims[l], rounded up to a multiple of 4.
-// bm: rows per tile, 16 (widths <= 256) or 8 (widths <= 512); park: keep
-// the running cotangent in gz (1, S >= 6) or in shared memory (0); act,
+// bm: rows per tile, 16 (widths <= 256) or 8 (widths <= 512; above
+// PSCI_GROUP_S streams whichever holds the tile: ops/jet_mlp.py::tile_rows);
+// park: keep the running cotangent in gz (1, S >= 6, and always above
+// PSCI_GROUP_S streams) or in shared memory (0); act,
 // act_w: the activation's id and parameter. Returns a cudaError_t code
 // (0 = launched).
 extern "C" int jet_mlp_bwd(const void* const* x, const void* const* bounds, const void* const* W,
@@ -283,6 +433,10 @@ extern "C" int jet_mlp_bwd(const void* const* x, const void* const* bounds, cons
   p.N = N;
   p.kmax = kmax;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S > PSCI_GROUP_S) {
+    if (!park) return (int)cudaErrorInvalidValue;
+    return (int)(bm == PSCI_BM_WIDE ? launch_halves_s<PSCI_BM_WIDE>(p, S, st) : launch_halves_s<PSCI_BM>(p, S, st));
+  }
   if (bm == PSCI_BM_WIDE)
     return (int)(park ? launch_parked<PSCI_BM_WIDE>(p, S, st) : launch_s<PSCI_BM_WIDE, true>(p, S, st));
   if (park) return (int)launch_parked<PSCI_BM>(p, S, st);

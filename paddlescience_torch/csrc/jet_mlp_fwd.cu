@@ -36,6 +36,17 @@
 // the 16-row kernels also come specialised to tanh (ANY = false), the
 // Allen-Cahn paths' activation, so that its code and registers are those
 // of a tanh-only kernel.
+//
+// More than PSCI_GROUP_S streams (up to 16: every order <= 2 jet of four
+// inputs is 15) would need 16 * S accumulators a thread, more than a
+// thread's 255 registers at S = 16. jet_mlp_fwd_halves runs each layer's
+// product over the two halves of the streams in turn, with the kernel
+// above's product and accumulators of at most 8 streams: a stream's
+// product reads only that stream's rows of the tile, so each half's
+// pre-activations go back over its own rows, and one more pass over the
+// tile applies the jet rule to all S streams of an element, read from
+// shared memory. The weights stream from L2 once per half. The tile rows
+// come from the shared memory of all S streams (ops/jet_mlp.py::tile_rows).
 #include "jet_common.cuh"
 
 struct FwdParams {
@@ -93,6 +104,101 @@ __global__ void __launch_bounds__(FW_THREADS<BM>, BM == PSCI_BM && S <= 4 ? 2 : 
   }
 }
 
+// One half of the streams (G of them, the tile's rows from Yh on) through
+// layer l's product; their pre-activations (no bias) back into the same
+// rows of the tile, columns past the layer's width (to the m-tile's end)
+// zero.
+template <int G, int BM>
+__device__ __forceinline__ void fwd_half(float* Yh, const FwdParams& p, int l, float* ring) {
+  constexpr int MT = FW_MT<BM>, NT = FW_NT<BM>;
+  const int D = p.dims[l + 1], kst = p.kmax;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  FwdAcc<G, BM> acc;
+  fwd_matmul<G, BM>(acc, Yh, kst, p.W[l], p.dims[l], D, ring, p.rs);  // ends with a barrier: Yh may be written
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int c = 16 * (warp + FW_WARPS<BM> * i) + 2 * g;  // the thread's columns c, c + 1
+    if (c - 2 * g >= D) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 8 * j + 2 * t + h;
+#pragma unroll
+        for (int s = 0; s < G; ++s) {
+          const float v[2] = {acc[i][j][s][h], acc[i][j][s][2 + h]};
+          st<2>(Yh + fwd_at<BM>(s, r, c, kst), v);
+        }
+      }
+  }
+}
+
+template <int S, int BM>
+__global__ void __launch_bounds__(FW_THREADS<BM>, 1) jet_mlp_fwd_halves(const FwdParams p) {
+  constexpr int G0 = (S + 1) / 2;
+  extern __shared__ __align__(16) float smem[];
+  float* Y = smem;                                  // [S][BM][kst], swizzled (fwd_at)
+  float* ring = smem + (size_t)S * BM * p.kmax;     // FW_STAGES x [PSCI_KC][rs]
+  const int row0 = blockIdx.x * BM, kst = p.kmax;
+
+  fwd_prologue<BM>(ring, p.W[0], p.dims[0], p.dims[1], p.rs);
+  fwd_load_tile<S, BM>(Y, kst, p.x, p.dims[0], row0, p.N);
+
+  for (int l = 0; l < p.L; ++l) {
+    const int D = p.dims[l + 1];
+    const bool last = l == p.L - 1;
+    fwd_half<G0, BM>(Y, p, l, ring);
+    fwd_prologue<BM>(ring, p.W[l], p.dims[l], D, p.rs);
+    fwd_half<S - G0, BM>(Y + (size_t)G0 * BM * kst, p, l, ring);
+    if (!last) fwd_prologue<BM>(ring, p.W[l + 1], D, p.dims[l + 2], p.rs);
+    __syncthreads();  // every stream's pre-activations are in the tile
+    // the jet rule on element (r, c) of every stream; columns from D to the
+    // next multiple of 8 (the next layer's last k-step) become zero
+    const int D8 = (D + 7) & ~7;
+    for (int e = threadIdx.x; e < BM * D8; e += FW_THREADS<BM>) {
+      const int r = e / D8, c = e - r * D8, n = row0 + r;
+      float z[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) z[s] = Y[fwd_at<BM>(s, r, c, kst)];
+      if (c < D) {
+        z[0] += __ldg(p.b[l] + c);
+        float f, f1, f2, f3;
+        psci_act(p.act, z[0], f, f1, f2, f3);
+        jet_rule_elem<S>(z, f, f1, f2, p.idx);
+      } else {
+#pragma unroll
+        for (int s = 0; s < S; ++s) z[s] = 0.f;
+      }
+      if (!last) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) Y[fwd_at<BM>(s, r, c, kst)] = z[s];
+      }
+      float* dst = last ? p.out[0] : p.bounds[l];  // the segment output, a saved boundary, or nowhere
+      if (dst != nullptr && c < D && n < p.N) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          float* d = last ? p.out[s] + (size_t)n * D : p.bounds[l] + ((size_t)s * p.N + n) * D;
+          d[c] = z[s];
+        }
+      }
+    }
+    // no barrier: the next layer's product publishes the tile before any thread reads it
+  }
+}
+
+template <int S, int BM>
+static cudaError_t launch_halves(const FwdParams& p, cudaStream_t stream) {
+  int dmax = 0;
+  for (int l = 1; l <= p.L; ++l) dmax = p.dims[l] > dmax ? p.dims[l] : dmax;
+  const size_t smem = fwd_smem(S, p.kmax, BM, dmax);
+  cudaError_t err = cudaFuncSetAttribute(jet_mlp_fwd_halves<S, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + BM - 1) / BM);
+  jet_mlp_fwd_halves<S, BM><<<grid, FW_THREADS<BM>, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int S, int BM, bool ANY>
 static cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
   int dmax = 0;
@@ -120,11 +226,29 @@ static cudaError_t launch_s(const FwdParams& p, int S, cudaStream_t st) {
   }
 }
 
+// More than PSCI_GROUP_S streams, any activation.
+template <int BM>
+static cudaError_t launch_halves_s(const FwdParams& p, int S, cudaStream_t st) {
+  switch (S) {
+    case 9: return launch_halves<9, BM>(p, st);
+    case 10: return launch_halves<10, BM>(p, st);
+    case 11: return launch_halves<11, BM>(p, st);
+    case 12: return launch_halves<12, BM>(p, st);
+    case 13: return launch_halves<13, BM>(p, st);
+    case 14: return launch_halves<14, BM>(p, st);
+    case 15: return launch_halves<15, BM>(p, st);
+    case 16: return launch_halves<16, BM>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Host entry point. Pointer arguments are host arrays of device pointers:
 // x[S], W[L], b[L], out[S], bounds[L-1] (bounds may be null = do not save).
 // dims[L+1]; kind/pa/pb[S]. kmax: the tile's row stride, the widest layer
 // rounded up to 32; bm: rows per tile, 16 (every width <= 256) or 8
-// (widths <= 512); act, act_w: the activation's id and parameter.
+// (widths <= 512; above PSCI_GROUP_S streams, whichever holds the S-stream
+// tile: ops/jet_mlp.py::tile_rows); act, act_w: the activation's id and
+// parameter.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int jet_mlp_fwd(const void* const* x, const void* const* W, const void* const* b,
                            void* const* out, void* const* bounds, const int* dims,
@@ -159,6 +283,8 @@ extern "C" int jet_mlp_fwd(const void* const* x, const void* const* W, const voi
   p.kmax = kmax;
   p.rs = fwd_ring_stride(dmax);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S > PSCI_GROUP_S)
+    return (int)(bm == PSCI_BM_WIDE ? launch_halves_s<PSCI_BM_WIDE>(p, S, st) : launch_halves_s<PSCI_BM>(p, S, st));
   if (bm == PSCI_BM_WIDE) return (int)launch_s<PSCI_BM_WIDE, true>(p, S, st);
   return (int)(act == PSCI_TANH ? launch_s<PSCI_BM, false>(p, S, st) : launch_s<PSCI_BM, true>(p, S, st));
 }

@@ -30,7 +30,11 @@
 //     (4-byte copies where a width is not a multiple of 4), zero-filled
 //     through the copy's source size at ragged rows and columns; one
 //     __syncthreads per stage. (TMA would need one tensor map per stream
-//     base pointer, up to L*S = 256 of them.)
+//     base pointer, up to S + L = 48 of them.)
+//   * The parameters name layer 0's input streams one by one and every
+//     later layer's input, a saved stage boundary, by the base of its (S,
+//     N, K) block: a pointer per stream and layer would be 4 KB at 32
+//     layers x 16 streams, the whole parameter space.
 //   * One launch runs a flat list of work units (layer, output tile, row
 //     range over the S*N rows of the concatenated streams). The wrapper
 //     (ops/jet_mlp.py::wgrad_plan) splits each layer's rows so the units
@@ -59,7 +63,8 @@
 #define WG_SMEM ((2 * WG_STAGES * WG_STAGE_FLOATS + 16 * WG_T) * 4)
 
 struct WgradParams {
-  const float* y[PSCI_MAX_L][PSCI_MAX_S];  // layer l input stream s, (N, dims[l])
+  const float* x[PSCI_MAX_S];              // layer 0's input streams, (N, dims[0])
+  const float* y[PSCI_MAX_L];              // layer l >= 1: its S input streams as one (S, N, dims[l]) block
   const float* gz[PSCI_MAX_L];             // (S, N, dims[l+1])
   float* dW[PSCI_MAX_L];                   // (dims[l], dims[l+1])
   float* db[PSCI_MAX_L];                   // (dims[l+1],)
@@ -275,7 +280,7 @@ __global__ void __launch_bounds__(PSCI_THREADS, 2) jet_wgrad_partial(const Wgrad
   const int q = (u - p.unit0[l]) / tiles, t = (u - p.unit0[l]) % tiles;
   const int k0 = (t / tiles_d) * WG_T, c0 = (t % tiles_d) * WG_T;
   const int r0 = q * p.rows[l], r1 = min(p.S * p.N, r0 + p.rows[l]);
-  if (threadIdx.x < p.S) bases[threadIdx.x] = p.y[l][threadIdx.x];
+  if (threadIdx.x < p.S) bases[threadIdx.x] = l == 0 ? p.x[threadIdx.x] : p.y[l] + (size_t)threadIdx.x * p.N * K;
   if (threadIdx.x == 0) bases[PSCI_MAX_S] = p.gz[l];
   __syncthreads();
   float* out = p.part + (size_t)u * WG_PART;
@@ -345,16 +350,18 @@ __global__ void __launch_bounds__(PSCI_THREADS) jet_wgrad_reduce(const WgradPara
   }
 }
 
-// Host entry point. y is a host array of L*S device pointers (layer-major,
-// 16-byte aligned where the width is a multiple of 4), gz, dW, db host
-// arrays of L device pointers;
+// Host entry point. x is a host array of the S device pointers of layer
+// 0's input streams, y one of L device pointers whose entries 1..L-1 are
+// the layers' (S, N, dims[l]) input blocks (y[0] is not read; 16-byte
+// aligned where the width is a multiple of 4), gz, dW, db host arrays of L
+// device pointers;
 // dims[L+1]; plan[2L] the row splits and rows per split of each layer (from
 // ops/jet_mlp.py::wgrad_plan); part device scratch of units * WG_PART
 // floats. With n_res > 0, apart is the (n_atiles, n_res) d alpha partials
 // and d_alpha receives their sums. Returns a cudaError_t code (0 = launched).
-extern "C" int jet_wgrad(const void* const* y, const void* const* gz, void* const* dW, void* const* db, void* part,
-                         const int* dims, const int* plan, const void* apart, void* d_alpha, int n_atiles,
-                         int n_res, int S, int L, int N, void* stream) {
+extern "C" int jet_wgrad(const void* const* x, const void* const* y, const void* const* gz, void* const* dW,
+                         void* const* db, void* part, const int* dims, const int* plan, const void* apart,
+                         void* d_alpha, int n_atiles, int n_res, int S, int L, int N, void* stream) {
   if (S < 1 || S > PSCI_MAX_S || L < 1 || L > PSCI_MAX_L || N < 1 || n_res < 0 ||
       (n_res > 0 && (apart == nullptr || d_alpha == nullptr || n_atiles < 1)))
     return (int)cudaErrorInvalidValue;
@@ -364,7 +371,8 @@ extern "C" int jet_wgrad(const void* const* y, const void* const* gz, void* cons
     if (K < 1 || D < 1 || splits < 1 || rows < 1 || (long long)splits * rows < (long long)S * N ||
         (long long)(splits - 1) * rows >= (long long)S * N)
       return (int)cudaErrorInvalidValue;
-    for (int s = 0; s < S; ++s) p.y[l][s] = static_cast<const float*>(y[l * S + s]);
+    if (l > 0 && y[l] == nullptr) return (int)cudaErrorInvalidValue;
+    p.y[l] = l > 0 ? static_cast<const float*>(y[l]) : nullptr;
     p.gz[l] = static_cast<const float*>(gz[l]);
     p.dW[l] = static_cast<float*>(dW[l]);
     p.db[l] = static_cast<float*>(db[l]);
@@ -374,6 +382,7 @@ extern "C" int jet_wgrad(const void* const* y, const void* const* gz, void* cons
     p.tile0[l + 1] = p.tile0[l] + tiles;
     p.unit0[l + 1] = p.unit0[l] + tiles * splits;
   }
+  for (int s = 0; s < S; ++s) p.x[s] = static_cast<const float*>(x[s]);
   for (int l = 0; l <= L; ++l) p.dims[l] = dims[l];
   p.part = static_cast<float*>(part);
   p.apart = static_cast<const float*>(apart);

@@ -40,17 +40,22 @@ Stream layout: a stream is an (N, W) float32 tensor; weights are (K, D)
 and used as ``x @ W``; stage boundaries and ``gz`` are (S, N, D) per layer.
 
 Limits: :func:`kernels_take` is the one statement of what the jet kernels
-(these and ``ops/jet_gated.py``'s) take: 1..8 streams, 1..32 layers,
-widths <= 512 (<= 256 gated), layer outputs a multiple of 4, and the
-forward's and backward's shared memory within a CTA's; the wrappers raise
-where it does not hold. :func:`jet_mlp_segment` (and
+(these and ``ops/jet_gated.py``'s) take: 1..16 streams (1..8 gated),
+1..32 layers, widths <= 512 (<= 256 gated), layer outputs a multiple of
+4, and the forward's and backward's shared memory within a CTA's; the
+wrappers raise where it does not hold. :func:`jet_mlp_segment` (and
 ``ops/jet_gated.py::jet_gated_segment``) zero-pad widths that are no
 multiple of 4 (:func:`pad_widths`). A CTA's row tile is 16 rows up to width
-256 and 8 rows above (:func:`tile_rows`); both backward kernels keep the
-layer input and the running cotangent in shared memory where both fit
-beside their weight ring and otherwise park the cotangent in the ``gz``
-buffers (:func:`bwd_parks`; the gated backward's widths stop at 256, so
-its tiles are always 16 rows).
+256 where the S-stream tiles fit shared memory, else 8 rows
+(:func:`tile_rows`); both backward kernels keep the layer input and the
+running cotangent in shared memory where both fit beside their weight ring
+and otherwise park the cotangent in the ``gz`` buffers (:func:`bwd_parks`;
+the gated backward's widths stop at 256, so its tiles are always 16 rows).
+Above GROUP_STREAMS streams the ungated kernels run each product over two
+halves of the streams in turn (``csrc/jet_mlp_fwd.cu``,
+``jet_mlp_bwd.cu``) and the backward always parks: at width 256 that is
+16-row tiles up to 11 streams, 8-row tiles for 12-16; at width 512 the
+forward's 8-row tile holds 8 streams, so 9 are refused there.
 """
 
 from __future__ import annotations
@@ -95,7 +100,9 @@ __all__ = [
 BM = 16  # rows per CTA tile up to NARROW_WIDTH (and always in the gated kernels)
 BM_WIDE = 8  # rows per CTA tile above NARROW_WIDTH
 NARROW_WIDTH = 256
-MAX_STREAMS = 8
+MAX_STREAMS = 16  # the ungated kernels
+GATED_MAX_STREAMS = 8  # the gated kernels
+GROUP_STREAMS = 8  # streams whose accumulators one product of the ungated kernels holds in registers
 MAX_LAYERS = 32
 MAX_WIDTH = 512
 GATED_MAX_WIDTH = 256  # the gated kernels keep the 16-row tile of the narrow case
@@ -231,7 +238,7 @@ _PLAINS = (jet_mlp_fwd_plain, jet_mlp_bwd_plain, jet_wgrad_plain, jet_alpha_redu
 
 cuda_build.declare("jet_mlp_fwd", [P] * 9 + [I] * 6 + [F, P])
 cuda_build.declare("jet_mlp_bwd", [P] * 11 + [I] * 7 + [F, P])
-cuda_build.declare("jet_wgrad", [P] * 9 + [I] * 5 + [P])
+cuda_build.declare("jet_wgrad", [P] * 10 + [I] * 5 + [P])
 cuda_build.declare("jet_wgrad_slots", [P], library="jet_wgrad")
 
 
@@ -280,15 +287,6 @@ def act_args(act: jetmod.Act) -> Tuple[int, float]:
     return int(act[0]), float(act[1])
 
 
-def tile_rows(dims: Sequence[int]) -> int:
-    """Rows of a CTA's tile: 16 up to NARROW_WIDTH, 8 above. In the
-    forward kernels a warp owns two 16-column m-tiles of every stream and
-    row: 8 warps at 16 rows (256 columns), 16 warps at 8 rows (512);
-    in the backward kernels (512 threads) a thread owns a 4x2 micro-tile:
-    128 threads across the columns by 4 down the rows, or 256 by 2."""
-    return BM if max(dims) <= NARROW_WIDTH else BM_WIDE
-
-
 def fwd_kst(dims: Sequence[int]) -> int:
     """Row stride (floats) of the forward kernels' shared tile: the widest
     layer rounded up to 32, the span of its column swizzle
@@ -296,46 +294,76 @@ def fwd_kst(dims: Sequence[int]) -> int:
     return _round_up(max(dims), 32)
 
 
+def _fwd_bytes(S: int, dims: Sequence[int], rows: int) -> int:
+    return (S * rows * fwd_kst(dims) + FW_STAGES * KC * (_round_up(max(dims[1:], default=dims[0]), 16) + 4)) * 4
+
+
+def _bwd_parks_at(S: int, dims: Sequence[int], rows: int) -> bool:
+    kmax = _round4(max(dims))
+    return S > GROUP_STREAMS or (2 * S * kmax * rows + GB_STAGES * KC * kmax) * 4 > SMEM_LIMIT
+
+
+def _bwd_bytes(S: int, dims: Sequence[int], rows: int) -> int:
+    kmax = _round4(max(dims))
+    tiles = 1 if _bwd_parks_at(S, dims, rows) else 2
+    return (tiles * S * kmax * rows + GB_STAGES * KC * kmax) * 4
+
+
+def tile_rows(S: int, dims: Sequence[int]) -> int:
+    """Rows of a CTA's tile: 16 up to NARROW_WIDTH where both kernels'
+    S-stream tiles fit shared memory at 16 rows, else 8. In the forward
+    kernels a warp owns two 16-column m-tiles of every stream and row: 8
+    warps at 16 rows (256 columns), 16 warps at 8 rows (512); in the
+    backward kernels (512 threads) a thread owns a 4x2 micro-tile: 128
+    threads across the columns by 4 down the rows, or 256 by 2. Up to 8
+    streams every width <= 256 takes 16 rows; at width 256 streams 12-16
+    take 8."""
+    if max(dims) > NARROW_WIDTH:
+        return BM_WIDE
+    return BM if max(_fwd_bytes(S, dims, BM), _bwd_bytes(S, dims, BM)) <= SMEM_LIMIT else BM_WIDE
+
+
 def fwd_smem(S: int, dims: Sequence[int]) -> int:
     """Shared-memory bytes of the forward kernels (``csrc/jet_common.cuh::
-    fwd_smem``): the S-stream row tile at row stride :func:`fwd_kst` and a
-    ring of FW_STAGES weight chunks of KC rows at the widest output rounded
-    up to 16, plus 4 (``fwd_ring_stride``, which keeps the fragment loads
-    free of bank conflicts). At S = 4, width 256 that is 115,456 bytes, so
-    two CTAs share an SM."""
-    return (S * tile_rows(dims) * fwd_kst(dims) + FW_STAGES * KC * (_round_up(max(dims[1:]), 16) + 4)) * 4
+    fwd_smem``): the S-stream row tile of :func:`tile_rows` rows at row
+    stride :func:`fwd_kst` and a ring of FW_STAGES weight chunks of KC rows
+    at the widest output rounded up to 16, plus 4 (``fwd_ring_stride``,
+    which keeps the fragment loads free of bank conflicts). At S = 4,
+    width 256 that is 115,456 bytes, so two CTAs share an SM."""
+    return _fwd_bytes(S, dims, tile_rows(S, dims))
 
 
 def bwd_parks(S: int, dims: Sequence[int]) -> bool:
     """Whether a backward kernel keeps one tile for the layer input and the
     running cotangent, parking the cotangent in device memory (in the gz
-    buffers): where two tiles of ``tile_rows`` rows and the ring of
-    GB_STAGES weight chunks of KC x kmax do not fit. At width 256 that is
-    S >= 7, at width 512 S >= 6."""
-    kmax = _round4(max(dims))
-    return (2 * S * kmax * tile_rows(dims) + GB_STAGES * KC * kmax) * 4 > SMEM_LIMIT
+    buffers): above GROUP_STREAMS streams always (``jet_mlp_bwd.cu``'s
+    halves kernel), else where two tiles of :func:`tile_rows` rows and the
+    ring of GB_STAGES weight chunks of KC x kmax do not fit. At width 256
+    that is S >= 7, at width 512 S >= 6."""
+    return _bwd_parks_at(S, dims, tile_rows(S, dims))
 
 
 def bwd_smem(S: int, dims: Sequence[int]) -> int:
     """Shared-memory bytes of a backward kernel (``csrc/jet_common.cuh::
     bwd_smem``): its tiles and its ring."""
-    kmax = _round4(max(dims))
-    tiles = 1 if bwd_parks(S, dims) else 2
-    return (tiles * S * kmax * tile_rows(dims) + GB_STAGES * KC * kmax) * 4
-
+    return _bwd_bytes(S, dims, tile_rows(S, dims))
 
 
 def kernel_refusal(S: int, dims: Sequence[int], gated: bool = False) -> Optional[str]:
     """Why the jet kernels refuse a segment of S streams through layers
-    dims[0] -> ... -> dims[L] (the ungated pair ``jet_mlp_{fwd,bwd}``, or
-    with ``gated`` the pair of ``ops/jet_gated.py``), or None where they
-    take it. The one statement of the kernels' limits, on which the
-    wrappers raise. (Within the stream and width limits every shape fits
-    shared memory: the backwards park their cotangent where two tiles do
-    not.)"""
-    L, max_width = len(dims) - 1, GATED_MAX_WIDTH if gated else MAX_WIDTH
-    if not 1 <= S <= MAX_STREAMS:
-        return f"the kernels take 1..{MAX_STREAMS} streams, got {S}"
+    dims[0] -> ... -> dims[L] (the ungated kernels ``jet_mlp_{fwd,bwd}``
+    and ``jet_wgrad``, or with ``gated`` the pair of ``ops/jet_gated.py``),
+    or None where they take it. The one statement of the kernels' limits,
+    on which the wrappers raise: 1..16 streams ungated, 1..8 gated; 1..32
+    layers; widths <= 512 (<= 256 gated), layer outputs a multiple of 4;
+    both kernels' shared memory at :func:`tile_rows` within a CTA's. Every
+    S <= 16 at widths <= 256 fits; at widths 257-512 the forward's 8-row
+    tile bounds S (8 at width 512)."""
+    L = len(dims) - 1
+    max_width, max_streams = (GATED_MAX_WIDTH, GATED_MAX_STREAMS) if gated else (MAX_WIDTH, MAX_STREAMS)
+    if not 1 <= S <= max_streams:
+        kind = "the gated kernels" if gated else "the kernels"
+        return f"{kind} take 1..{max_streams} streams, got {S}"
     if not 1 <= L <= MAX_LAYERS:
         return f"the kernels take 1..{MAX_LAYERS} layers, got {L}"
     if max(dims) > max_width or any(d % 4 for d in dims[1:]):
@@ -370,7 +398,7 @@ def jet_mlp_fwd(streams: Sequence[torch.Tensor], weights, biases, index: jetmod.
     kinds, pa, pb = index_tables(index)
     launch("jet_mlp_fwd", ptrs(streams), ptrs(weights), ptrs(biases), ptrs(outs),
            ptrs(bounds) if bounds else None, ints(dims), ints(kinds), ints(pa), ints(pb),
-           S, L, N, fwd_kst(dims), tile_rows(dims), act_id, act_w, stream_handle(dev))
+           S, L, N, fwd_kst(dims), tile_rows(S, dims), act_id, act_w, stream_handle(dev))
     jet_mlp_fwd.launches += 1
     return outs, bounds
 
@@ -398,7 +426,7 @@ def jet_mlp_bwd(streams, bounds, weights, biases, g_out,
     kinds, pa, pb = index_tables(index)
     launch("jet_mlp_bwd", ptrs(streams), ptrs(bounds) if bounds else None, ptrs(weights),
            ptrs(biases), ptrs(g_out), ptrs(g_in), ptrs(gzs), ints(dims), ints(kinds),
-           ints(pa), ints(pb), S, L, N, kmax, tile_rows(dims), int(bwd_parks(S, dims)), act_id, act_w,
+           ints(pa), ints(pb), S, L, N, kmax, tile_rows(S, dims), int(bwd_parks(S, dims)), act_id, act_w,
            stream_handle(dev))
     jet_mlp_bwd.launches += 1
     return g_in, gzs
@@ -483,6 +511,20 @@ def _wgrad_args(dims: Tuple[int, ...], S: int, N: int, slots: int):
     return plan, ints(dims), ints(flat_plan), sizes
 
 
+def _stream_block(streams: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
+    """A layer's S input streams as one contiguous (S, N, K) block, as
+    ``jet_wgrad`` takes every layer after the first: the tensor they are
+    consecutive views of (a saved stage boundary, unbound), else a stacked
+    copy. Returns a tensor whose data pointer is the block's base."""
+    first = streams[0]
+    step = first.numel() * first.element_size()
+    views = all(t.device == dev and t.dtype == torch.float32 and t.is_contiguous() and t.shape == first.shape
+                and t.data_ptr() == first.data_ptr() + s * step for s, t in enumerate(streams))
+    if views and first.data_ptr() % 16 == 0:
+        return first
+    return torch.stack([on_device(t, dev) for t in streams])
+
+
 def jet_wgrad(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Tensor],
               alpha_partials: Optional[torch.Tensor] = None):
     """Per-layer weight and bias gradients summed over the batch; ``ys[l]``
@@ -504,7 +546,8 @@ def jet_wgrad(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Tensor],
     if alpha_partials is not None and alpha_partials.dim() != 2:
         raise ValueError("jet_wgrad: alpha_partials is (n_tiles, n_residuals)")
     plan, c_dims, c_plan, sizes = _wgrad_args(dims, S, N, _wgrad_slots(dev))
-    ys = [on_device(t, dev) for y in ys for t in y]
+    x = [on_device(t, dev) for t in ys[0]]
+    blocks = [None] + [_stream_block(y, dev) for y in ys[1:]]
     gzs = [on_device(g, dev) for g in gzs]
     n_tiles, n_res = alpha_partials.shape if alpha_partials is not None else (0, 0)
     *parts, d_alpha = torch.empty(sum(sizes) + n_res, device=dev).split(sizes + [n_res])
@@ -512,7 +555,7 @@ def jet_wgrad(ys: Sequence[Sequence[torch.Tensor]], gzs: Sequence[torch.Tensor],
     dbs = tuple(parts[1::2])
     apart = on_device(alpha_partials, dev) if n_res else None
     part = torch.empty(plan.units * WG_PART, device=dev)
-    launch("jet_wgrad", ptrs(ys), ptrs(gzs), ptrs(dws), ptrs(dbs), part.data_ptr(), c_dims, c_plan,
+    launch("jet_wgrad", ptrs(x), ptrs(blocks), ptrs(gzs), ptrs(dws), ptrs(dbs), part.data_ptr(), c_dims, c_plan,
            apart.data_ptr() if n_res else None, d_alpha.data_ptr() if n_res else None, n_tiles, n_res,
            S, L, N, stream_handle(dev))
     jet_wgrad.launches += 1

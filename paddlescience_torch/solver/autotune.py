@@ -160,7 +160,11 @@ def _graph_key(k: int, name: str) -> tuple:
 def _time_candidate(solver, k: int, calls: int) -> float:
     """Seconds per step of the current default path: on CUDA ``calls``
     replays of the K-step graph (captured first, then one replay as a
-    warm-up), on the CPU ``calls`` runs of K eager steps after one."""
+    warm-up), on the CPU ``calls`` runs of K eager steps after one. A
+    solver with indexed constraints first draws K host batches from their
+    loaders into its chunk buffers, as a ``train_chunk`` does, and every
+    run reads those."""
+    solver._stage_host_batches(k)
     if solver.device.type == "cuda":
         graph, _ = solver._graph(k)
         graph.replay()
@@ -173,6 +177,7 @@ def _time_candidate(solver, k: int, calls: int) -> float:
 
     def run():
         for i in range(k):
+            solver._chunk_pos = i
             solver._step(solver.step + i)
 
     run()

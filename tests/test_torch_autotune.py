@@ -196,6 +196,30 @@ def test_state_after_tuning_is_bitwise_the_state_before(tmp_path, monkeypatch):
         assert torch.equal(after["agg_state"][key], v)
 
 
+def test_autotune_times_a_solver_with_indexed_batches(tmp_path, monkeypatch):
+    """A solver with an indexed constraint (heart's shuffled DATA loader):
+    each candidate's timing first draws K host batches into the chunk
+    buffers, as a train chunk does, so every candidate is timed; the state
+    is bitwise what it was."""
+    from paddlescience_torch.examples import heart
+
+    monkeypatch.setenv("PSCI_AUTOTUNE_CACHE", str(tmp_path / "c.json"))
+    monkeypatch.setenv("PSCI_AUTOTUNE_FUSED", "2")
+    monkeypatch.setenv("PSCI_AUTOTUNE_CALLS", "1")
+    solver = heart.build_solver("inverse", epochs=1, iters_per_epoch=4, output_dir=None,
+                                geom_dir=str(tmp_path / "heart"), n_interior=32, n_bc=8, n_data=16, sample_iters=1,
+                                width=8, num_layers=2, device="cpu")
+    assert solver._indexed == ["DATA"]
+    before = solver.state
+    winner = autotune.autotune(solver, solver._static_batches, fused=4)
+    entry = next(iter(json.loads((tmp_path / "c.json").read_text()).values()))
+    assert winner in ("jvp", "jet") and set(entry["timings_ms_per_step"]) == {"jvp", "jet"}
+    after = solver.state_dict()
+    for n in before["params"]:
+        assert torch.equal(after["params"][n], before["params"][n]), n
+    assert torch.equal(after["eq_params"]["E"], before["eq_params"]["E"])
+
+
 def test_only_the_kernel_refusal_drops_a_candidate(tmp_path, monkeypatch):
     """A candidate the kernels refuse (before any launch) is dropped and the
     reason cached; any other error from a candidate propagates, the

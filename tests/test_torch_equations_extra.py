@@ -64,14 +64,14 @@ def test_hooke_with_a_learnable_E_and_a_field_nu_in_2d():
     assert float(tgrad["eq.E"]) != 0.0
 
 
-def test_hooke_3d_needs_ten_streams():
+def test_hooke_3d_ten_streams_are_taken_and_seventeen_refused():
     """All six second derivatives of a 3-D displacement: 10 jet streams,
-    more than the kernels take, so the segment goes to the plain jet path
-    (ROADMAP Queue B 1)."""
+    which the MLP kernels take (up to 16 streams; the segment's plain
+    versions here); 17 they refuse."""
     specs = [(XYZ, ("u", "v", "w"))]
     kw = dict(E=9.0, nu=0.45, P=1.064, dim=3)
     jres, _, tres, _ = run_both(psci.equation.Hooke(**kw), teq.Hooke(**kw), specs, XYZ, normals=True,
                                 deriv="jet_pallas_full", names=["hooke_x"])
     np.testing.assert_allclose(tres["hooke_x"].detach().numpy(), np.asarray(jres["hooke_x"]), rtol=1e-5,
                                atol=1e-5 * float(np.abs(np.asarray(jres["hooke_x"])).max()))
-    assert not jet_mlp.kernels_take(10, (3, 12, 12))
+    assert jet_mlp.kernels_take(10, (3, 12, 12)) and not jet_mlp.kernels_take(17, (3, 12, 12))

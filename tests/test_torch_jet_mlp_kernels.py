@@ -21,7 +21,11 @@ and bitwise the same from call to call; padded segments of width 50; jet_wgrad a
 aneurysm's 3 -> 512 x 6 (S = 7), an input width that is not a multiple of
 4, and bitwise the same from call to call (dW, db, d alpha); jet_mlp_bwd
 at width 512 with S = 5 (two tiles) and S = 8 (parked), and bitwise the
-same from call to call (aneurysm, MLP 4x256); the aneurysm MLP's
+same from call to call (aneurysm, MLP 4x256); all three ungated kernels
+at 9-16 streams (the halves kernels: heart's 3 -> 256 x 6 at S = 10,
+S = 15 and 16 at width 256, width 128 at S = 10, 16 streams of width 64,
+13 of width 300), bitwise the same from call to call at S = 10 and 16;
+the aneurysm MLP's
 segments (SiLU, S = 7, 3 -> 512 -> ... -> 512, 6 layers and 3 + 3);
 every activation, ungated and gated; MLP 5x50 trains under
 ``jet_pallas_full`` through the kernels; the LBM kernel at square,
@@ -156,19 +160,25 @@ BWD_PLANS = {
     (6, 512): (8, True, 163840),
     (7, 512): (8, True, 180224),     # the aneurysm: 114,688 for the tile + 65,536 for the ring
     (8, 512): (8, True, 196608),     # its unsteady form
+    (10, 256): (16, True, 196608),   # heart's 3-D Hooke jet: the halves kernel, which always parks
+    (11, 256): (16, True, 212992),   # the most streams at 16 rows and width 256
+    (12, 256): (8, True, 131072),    # 16 rows would need 246,528 bytes for the forward
+    (16, 256): (8, True, 163840),
 }
 
 
 @pytest.mark.parametrize("S,w", list(BWD_PLANS))
 def test_tiling_and_shared_memory_plan(S, w):
-    """Which row tile and cotangent placement each shape gets, and that
-    every shape the wrappers admit (S <= 8, widths <= 512; gated <= 256)
-    fits the shared memory of one CTA."""
+    """Which row tile and cotangent placement each shape gets (above 8
+    streams the backward always parks), and that every shape the wrappers
+    admit up to 8 streams (widths <= 512; gated <= 256) fits the shared
+    memory of one CTA."""
     rows, parks, smem = BWD_PLANS[(S, w)]
     dims = [3] + [w] * 6
-    assert J.tile_rows(dims) == rows and J.bwd_parks(S, dims) is parks and J.bwd_smem(S, dims) == smem
-    assert parks is ((2 * S * w * rows + J.GB_STAGES * 16 * w) * 4 > J.SMEM_LIMIT)
-    for S_ in range(1, J.MAX_STREAMS + 1):
+    assert J.tile_rows(S, dims) == rows and J.bwd_parks(S, dims) is parks and J.bwd_smem(S, dims) == smem
+    assert parks is (S > J.GROUP_STREAMS or (2 * S * w * rows + J.GB_STAGES * 16 * w) * 4 > J.SMEM_LIMIT)
+    assert max(J.fwd_smem(S, dims), smem) <= J.SMEM_LIMIT
+    for S_ in range(1, J.GATED_MAX_STREAMS + 1):
         for w_ in (24, 256, 260, 512):
             dims = [3] + [w_] * 4
             assert J.fwd_smem(S_, dims) <= J.SMEM_LIMIT and J.bwd_smem(S_, dims) <= J.SMEM_LIMIT, (S_, w_)
@@ -185,18 +195,23 @@ def test_tiling_and_shared_memory_plan(S, w):
 def test_backward_shared_memory_matches_the_kernels():
     """The plan's byte count is the one both backward kernels launch with
     (csrc/jet_common.cuh::bwd_smem), with the ring's stage count, and only
-    the parked instances that the plan can ask for exist (S >= 6)."""
+    the parked instances that the plan can ask for exist (S >= 6), and
+    above 8 streams the halves kernel, which always parks."""
     common = (J.cuda_build.CSRC / "jet_common.cuh").read_text()
     mlp_bwd = (J.cuda_build.CSRC / "jet_mlp_bwd.cu").read_text()
     assert f"#define GB_STAGES {J.GB_STAGES} " in common
     assert "((park ? 1 : 2) * (size_t)S * kmax * bm + (size_t)GB_STAGES * PSCI_KC * kmax) * sizeof(float)" in common
     assert "bwd_smem(S, p.kmax, BM, PARK)" in mlp_bwd
     assert "bwd_smem(S, p.kmax, PSCI_BM, p.park)" in (J.cuda_build.CSRC / "jet_gated_bwd.cu").read_text()
-    parked = {(S, w) for S in range(1, J.MAX_STREAMS + 1) for w in range(4, J.MAX_WIDTH + 1, 4)
+    parked = {(S, w) for S in range(1, J.GROUP_STREAMS + 1) for w in range(4, J.MAX_WIDTH + 1, 4)
               if J.bwd_parks(S, [w] * 3)}
     assert min(S for S, _ in parked) == 6 and {S for S, w in parked if w <= J.NARROW_WIDTH} == {7, 8}
-    for S in range(6, J.MAX_STREAMS + 1):
+    for S in range(6, J.GROUP_STREAMS + 1):
         assert f"case {S}: return launch<{S}, BM, true, true>(p, st);" in mlp_bwd
+    assert "bwd_smem(S, p.kmax, BM, 1)" in mlp_bwd
+    for S in range(J.GROUP_STREAMS + 1, J.MAX_STREAMS + 1):
+        assert f"case {S}: return launch_halves<{S}, BM>(p, st);" in mlp_bwd
+        assert all(J.bwd_parks(S, [w] * 3) for w in range(4, J.NARROW_WIDTH + 1, 4))
 
 
 PIRATENET_9 = [256] * 28
@@ -214,7 +229,12 @@ def _index_of(S):
     (4, [516] * 3, False, False),               # wider than 512
     (4, [260] * 3, True, False),                # gated wider than 256
     (7, [264] * 28, True, False),               # the same at S = 7
-    (9, [24] * 3, False, False),                # more than 8 streams
+    (17, [24] * 3, False, False),               # more than 16 streams
+    (9, [24] * 3, True, False),                 # gated, more than 8 streams
+    (10, [3] + [256] * 6, False, True),         # heart's 3-D Hooke jet, MLP 6x256
+    (16, [4] + [256] * 3, False, True),         # 16 streams at width 256 (8-row tiles)
+    (10, [3] + [128] * 5, False, True),         # aneurysm_flow's width at 10 streams
+    (9, ANEURYSM_DIMS, False, False),           # 9 streams of width 512: more than the forward's shared memory
     (4, [256] * 34, False, False),              # more than 32 layers
     (4, [256] * 5, False, True),                # the Allen-Cahn MLP 4x256
     (4, PIRATENET_9, True, True),               # PirateNet 9 blocks
@@ -237,12 +257,12 @@ def test_kernels_take(S, dims, gated, takes):
     if takes:
         assert J._segment_dims(streams, weights, biases, idx, gated) == dims
     else:
-        with pytest.raises(ValueError, match="the kernels take|shared memory"):
+        with pytest.raises(ValueError, match="kernels take|shared memory"):
             J._segment_dims(streams, weights, biases, idx, gated)
 
 
 @pytest.mark.parametrize("w", [64, 128, 256])
-@pytest.mark.parametrize("S", range(1, J.MAX_STREAMS + 1))
+@pytest.mark.parametrize("S", range(1, J.GATED_MAX_STREAMS + 1))
 def test_gated_backward_shared_memory_plan(S, w):
     """jet_gated_bwd's shared memory (the input and cotangent tiles, and its
     ring of weight chunks, as csrc/jet_common.cuh::bwd_smem sizes them;
@@ -526,6 +546,20 @@ S5 = [(0,), (1,), (0, 0), (1, 1)]
 SEGMENT_SHAPES += [(NS3D + [(0, 1)], 2045, 3, 512, 3), (S5, 1001, 3, 512, 3), (S5, 2046, 2, 512, None)]
 
 
+def _order2(d, S):
+    """The first S - 1 multi-indices of order 1 and 2 of d inputs."""
+    return ([(i,) for i in range(d)] + [(i, j) for i in range(d) for j in range(i, d)])[: S - 1]
+
+
+# more than 8 streams (the halves kernels): heart's 3-D Hooke jet (S = 10) on 3 -> 256 x 6 with a ragged
+# batch, S = 9; S = 15 and 16 at width 256 (8-row tiles); aneurysm_flow's width 128 at S = 10; 16 streams
+# at 16-row tiles (width 64); a wide 8-row tile (width 300, S = 13)
+HEART = _order2(3, 10)
+SEGMENT_SHAPES += [(HEART, 1024, 6, 256, 3), (HEART, 1023, 6, 256, 3), (_order2(3, 9), 1023, 3, 256, 3),
+                   (_order2(4, 15), 4096, 3, 256, 4), (_order2(5, 16), 4096, 3, 256, 5),
+                   (HEART, 2048, 5, 128, 3), (_order2(5, 16), 1001, 2, 64, 5), (_order2(4, 13), 1003, 2, 300, 3)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("multis,n,L,w,k_in", SEGMENT_SHAPES)
 def test_kernels_match_plain_versions_on_gpu(cuda_device, multis, n, L, w, k_in):
@@ -548,15 +582,23 @@ def test_kernels_match_plain_versions_on_gpu(cuda_device, multis, n, L, w, k_in)
         _close(got, ref)
 
 
+BITWISE = {  # multis, n, L, w, k_in, act
+    "aneurysm": (NS3D, 2047, 6, 512, 3, (tjet.SILU, 0.0)),
+    "mlp_4x256": (INDICES[0], 4095, 4, 256, None, J.TANH),
+    "heart_S10": (HEART, 1023, 6, 256, 3, J.TANH),
+    "S16_w256": (_order2(5, 16), 4095, 3, 256, 5, J.TANH),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["aneurysm", "mlp_4x256"])
+@pytest.mark.parametrize("shape", list(BITWISE))
 def test_mlp_bwd_is_bitwise_repeatable_on_gpu(cuda_device, shape):
     """Two jet_mlp_bwd calls on the same inputs give bitwise the same input
     cotangents and gz: no atomics, a fixed summation order. The aneurysm's
-    3 -> 512 x 6 at S = 7 (8-row tiles, the cotangent parked; SiLU) and
-    the Allen-Cahn MLP 4x256 at S = 4 (two 16-row tiles; tanh)."""
-    multis, n, L, w, k_in, act = ((NS3D, 2047, 6, 512, 3, (tjet.SILU, 0.0)) if shape == "aneurysm"
-                                  else (INDICES[0], 4095, 4, 256, None, J.TANH))
+    3 -> 512 x 6 at S = 7 (8-row tiles, the cotangent parked; SiLU), the
+    Allen-Cahn MLP 4x256 at S = 4 (two 16-row tiles; tanh), heart's 3 ->
+    256 x 6 at S = 10 and 16 streams at width 256 (the halves kernel)."""
+    multis, n, L, w, k_in, act = BITWISE[shape]
     idx = tjet.build_index(multis)
     ss, ws, bs, gs = ([torch.from_numpy(a).to(cuda_device) for a in arrs]
                       for arrs in _case(multis, L, n=n, w=w, k_in=k_in))
@@ -857,13 +899,15 @@ def test_gated_segment_gradients_on_gpu(cuda_device, program, save_bounds):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["piratenet_3_blocks", "aneurysm"])
+@pytest.mark.parametrize("shape", ["piratenet_3_blocks", "aneurysm", "heart_S10", "S16_w256"])
 def test_wgrad_is_bitwise_repeatable_on_gpu(cuda_device, shape):
     """Two jet_wgrad calls on the same inputs give bitwise the same dW, db
-    and d alpha: a fixed summation order, no atomics."""
-    if shape == "aneurysm":
-        streams, weights, biases, cot = _case(NS3D, 6, n=2048, w=512, k_in=3)
-        idx = tjet.build_index(NS3D)
+    and d alpha: a fixed summation order, no atomics (also at 10 and 16
+    streams)."""
+    if shape != "piratenet_3_blocks":
+        multis, n, L, w, k_in, _ = BITWISE[shape]
+        streams, weights, biases, cot = _case(multis, L, n=n, w=w, k_in=k_in)
+        idx = tjet.build_index(multis)
         ss, ws, bs, gs = ([torch.from_numpy(a).to(cuda_device) for a in arrs] for arrs in (streams, weights, biases, cot))
         _, bounds = J.jet_mlp_fwd(ss, ws, bs, idx, save_bounds=True)
         _, gzs = J.jet_mlp_bwd(ss, bounds, ws, bs, gs, idx)

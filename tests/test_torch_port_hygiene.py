@@ -261,8 +261,19 @@ def test_the_mesh_raycast_source_is_the_ports_own():
         assert needle not in text, f"mesh_raycast.cpp names {needle}"
 
 
+FIFTEENTH_SLICE_MODULES = ("ops/jet_mlp.py", "examples/heart.py", "examples/aneurysm_flow.py", "examples/burgers.py",
+                           "examples/shock_wave.py", "examples/nlsmb_soliton.py", "examples/nlsmb_rogue_wave.py",
+                           "examples/heat_exchanger.py")
+
+
+def test_the_heart_flow_and_small_example_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(FIFTEENTH_SLICE_MODULES) <= checked
+
+
 @pytest.mark.parametrize("rel", dict.fromkeys(TENTH_SLICE_MODULES + ELEVENTH_SLICE_MODULES + TWELFTH_SLICE_MODULES
-                                              + THIRTEENTH_SLICE_MODULES + FOURTEENTH_SLICE_MODULES))
+                                              + THIRTEENTH_SLICE_MODULES + FOURTEENTH_SLICE_MODULES
+                                              + FIFTEENTH_SLICE_MODULES))
 def test_the_new_modules_import_alone_without_jax(rel):
     """Each new module, imported first in a fresh process, loads no JAX,
     sympy, optax or JAX-package module."""
