@@ -170,6 +170,16 @@ on failure:
    viv      - the viv inverse problem at the JAX defaults (100 epochs of one
              20-step graph): the learnable k1, k2 finite and moved from
              their starting values, graphed and eager steps/s;
+   transforms - the examples of arch input and output transforms and of
+             the integral equations (poiseuille_flow, heat_pinn,
+             ldc2d_unsteady_Re10, volterra_ide, biharmonic2d, gpinn,
+             fractional_poisson_2d, bubble, and deephpms's three stages
+             for burgers and ks) at their JAX defaults, no path pinned,
+             train() cut (``TRANSFORM_EXAMPLES``, ``DEEPHPMS_RUN``): two graphed
+             chunks of 3 steps against 6 eager steps (1e-6), train() with
+             no kernel launched and no plain version on CUDA (a
+             transformed net has no jet forward), the example's metric,
+             graphed and eager steps/s with busy share and kernels a step;
    autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
              candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
              PirateNet 9x256, the aneurysm, cylinder2d matched,
@@ -2566,6 +2576,26 @@ PINN_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
 # the graphed-against-eager timing of each: K = 5, 5 eager steps timed, the eager steps not profiled
 PINN_TIMED = dict(k=5, replays=3, eager_steps=5, profiled=0)
 
+# the [transforms] phase: the examples at their JAX defaults, no path pinned, train() cut (PERF.md §4):
+# name -> build_solver arguments
+TRANSFORM_EXAMPLES = {
+    "poiseuille_flow": dict(epochs=4),  # of 40 epochs x 50 steps
+    "heat_pinn": dict(epochs=20),  # of 50 x 20
+    "ldc2d_unsteady_Re10": dict(epochs=100),  # of 20000 x 1 (eager steps: one step an epoch)
+    "volterra_ide": {},  # 50 x 20
+    "biharmonic2d": dict(epochs=2),  # of 40 x 25
+    "gpinn": dict(epochs=100),  # of 20000 x 1
+    "fractional_poisson_2d": {},  # 200 x 1
+    "bubble": dict(epochs=100),  # of 10000 x 1
+}
+# deephpms: pde -> each stage's epochs of one step (the example's: 60); KdV (order 3, between the
+# two) runs on the CPU only: its two ETDRK4 fields alone take 11 s of host time
+DEEPHPMS_RUN = {"burgers": (60, 60, 60), "ks": (10, 10, 10)}
+TRANSFORM_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
+# the graphed-against-eager timing: the check's 3-step graph replayed 3 times, 3 eager steps, none profiled
+# (the profiler took 30 s over one eager step of biharmonic2d's or deephpms ks's nested jvp)
+TRANSFORM_TIMED = dict(k=TRANSFORM_CHECK_K, replays=3, eager_steps=3, profiled=0)
+
 
 def check_halves_kernels():
     """The MLP kernels above 8 streams (the halves kernels) against their
@@ -2826,6 +2856,102 @@ def run_pinn_suite_phase(tmp: str):
     return out
 
 
+def _transform_metric(name: str, module, solver):
+    if name == "heat_pinn":
+        return {"mse_vs_fdm": module.evaluate_vs_fdm(solver)}
+    if name == "ldc2d_unsteady_Re10":
+        return module.residual_mse(solver)
+    if name == "bubble":
+        return module.field_mse(solver)
+    return {"L2Rel": module.l2rel(solver)}
+
+
+def _transform_run(label: str, solver, build_s: float, metric_fn, timed=None):
+    """One solver of the [transforms] phase: two graphed chunks against
+    eager steps from the same state (on ``timed`` where given: a solver of
+    the same example whose batches take a graph), the state restored;
+    ``train()`` with the kernel launches counted (none may run: every
+    transformed net has no jet forward, the others sit under the lane gate
+    with no path pinned, and no plain version may run on CUDA); the metric;
+    graphed and eager steps/s, busy share and kernels a step (the trained
+    state restored afterwards). Returns the numbers."""
+    import torch
+
+    timed = solver if timed is None else timed
+    transformed = [m for m in solver.models if m.has_transform]
+    if any(m.supports_jet() or m.jet_pallas_eligible() for m in transformed):
+        raise AssertionError(f"{label}: a transformed net offers a jet forward or a fused segment")
+    snap = timed.state
+    check_graph_against_eager_rewound(timed, label, TRANSFORM_CHECK_K)
+    timed._load_state(snap)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = solver.train()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    if any(counts.values()) or any(plain.values()):
+        raise AssertionError(f"{label}: kernel launches {counts}, plain versions on CUDA {plain}")
+    if not logged or not all(math.isfinite(e["loss"]) for e in logged):
+        raise AssertionError(f"{label}: losses {logged}")
+    metric = metric_fn()
+    if not all(math.isfinite(v) for v in metric.values()):
+        raise AssertionError(f"{label}: metric {metric}")
+    log(f"[transforms] {label}: built in {build_s:.2f} s; {len(transformed)} of {len(solver.models)} nets "
+        f"transformed (nested jvp); train() {solver.epochs} epochs x {solver.iters_per_epoch} steps (K="
+        f"{solver._auto_fuse_steps() if solver._all_constraints_static() else 1}) in {dt:.2f} s, final loss "
+        f"{logged[-1]['loss']:.6e}; {metric}; kernel launches 0, plain versions on CUDA 0")
+    trained = timed.state
+    out = time_graphed(timed, label, **TRANSFORM_TIMED)
+    timed._load_state(trained)
+    out.update(metric=metric, train_s=dt, final_loss=logged[-1]["loss"], build_s=build_s,
+               transformed=len(transformed), nets=len(solver.models))
+    return out
+
+
+def run_transforms_phase(tmp: str):
+    """The nine examples of slice 16 on the card at their JAX defaults, no
+    path pinned (``TRANSFORM_EXAMPLES``, their train() cut; deephpms's
+    three stages for each pde of ``DEEPHPMS_RUN``): per solver,
+    :func:`_transform_run`. bubble's graphed check and timing run on a
+    second solver that feeds the whole training set each step: the
+    example's 2419-point batches leave a short last one, which a static
+    graph cannot take (its train() runs them eagerly). Returns the numbers."""
+    import importlib
+
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import deephpms
+
+    out = {}
+    for name, kwargs in TRANSFORM_EXAMPLES.items():
+        module = importlib.import_module(f"paddlescience_torch.examples.{name}")
+        deriv_path.set_default(None)
+        t0 = time.perf_counter()
+        solver = module.build_solver(output_dir=os.path.join(tmp, name), device="cuda", **kwargs)
+        build_s = time.perf_counter() - t0
+        timed = None
+        if name == "bubble":
+            n_train = len(solver.constraint["Sup"].dataset)
+            timed = module.build_solver(output_dir=None, device="cuda", sup_batch=n_train, **kwargs)
+        out[name] = _transform_run(name, solver, build_s, lambda: _transform_metric(name, module, solver), timed)
+        del solver, timed
+        torch.cuda.empty_cache()
+    for pde, epochs in DEEPHPMS_RUN.items():
+        deriv_path.set_default(None)
+        t0 = time.perf_counter()
+        stages = deephpms.stages(epochs, output_dir=os.path.join(tmp, f"deephpms_{pde}"), pde=pde, device="cuda")
+        for i, solver in enumerate(stages):
+            build_s = time.perf_counter() - t0
+            label = f"deephpms_{pde}/stage{i + 1}"
+            out[label] = _transform_run(label, solver, build_s, lambda: {"L2Rel": solver.eval()[0]})
+            t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+    deriv_path.set_default(None)
+    return out
+
 def time_heart_flow_kernels(rows, heart_per_step, flow_per_step):
     """The MLP kernels' rows at heart's interior shape (S = 10, N = 1024,
     3 -> 256 x 6; key "heart") and aneurysm_flow's (S = 7, N = 20480, 3 ->
@@ -3040,6 +3166,8 @@ def main() -> int:
         mark("aneurysm_flow")
         log("[pinn_suite] summary " + json.dumps(run_pinn_suite_phase(tmp)))
         mark("pinn_suite")
+        log("[transforms] summary " + json.dumps(run_transforms_phase(tmp)))
+        mark("transforms")
     autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
     log("[autotune] summary " + json.dumps(autotune_results))
     mark("autotune")

@@ -291,6 +291,12 @@ def _jet_embed(model, jx: jet.Jet) -> jet.Jet:
     return jx
 
 
+def _refuse_transformed(model) -> None:
+    if model.has_transform:
+        raise ValueError(f"{type(model).__name__} has an input or output transform: it has no jet forward "
+                         "(its derivatives come from nested jvp)")
+
+
 class MLP(base.Arch):
     """Multi-layer perceptron with optional period embedding, Fourier
     features, random weight factorization or weight normalization
@@ -370,14 +376,19 @@ class MLP(base.Arch):
     def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return self.split_to_dict(self.forward_tensor(_embed(self, x)), self.output_keys, axis=-1)
 
+    def _output_transform_inputs(self, x_given, x_transformed):
+        """The transformed inputs after the period embedding, as the JAX
+        class hands them."""
+        return self.period_emb(x_transformed) if self.periods else x_transformed
+
     def supports_jet(self) -> bool:
-        return True
+        return not self.has_transform
 
     def jet_pallas_eligible(self) -> bool:
         """Whether the hidden layers would take the fused segments on the
         current path's flags, ``PSCI_JET_PALLAS_MLP`` aside: structural, as
-        the JAX method the autotuner reads."""
-        return not self.skip_connection and _jet_pallas_ok(self.linears, self.acts)
+        the JAX method the autotuner reads; never with a transform."""
+        return self.supports_jet() and not self.skip_connection and _jet_pallas_ok(self.linears, self.acts)
 
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused jet segment on the current derivative path;
@@ -387,6 +398,7 @@ class MLP(base.Arch):
         return []
 
     def forward_jet(self, jx: jet.Jet) -> jet.Jet:
+        _refuse_transformed(self)
         jx = _jet_embed(self, jx)
         lengths = self.jet_segment_lengths()
         if lengths:
@@ -479,15 +491,20 @@ class ModifiedMLP(base.Arch):
     def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return self.split_to_dict(self.forward_tensor(_embed(self, x)), self.output_keys, axis=-1)
 
+    def _output_transform_inputs(self, x_given, x_transformed):
+        """The inputs as given, before the input transform (the JAX
+        class's ``x_identity``)."""
+        return x_given
+
     def supports_jet(self) -> bool:
-        return True
+        return not self.has_transform
 
     def jet_pallas_eligible(self) -> bool:
         """Whether the hidden layers take the fused gated segments on the
         current path's flags (structural, as in JAX): never with skip
-        connections."""
-        return not self.skip_connection and _jet_pallas_ok(self.linears,
-                                                           [*self.acts, self.embed_act_u, self.embed_act_v])
+        connections or a transform."""
+        return self.supports_jet() and not self.skip_connection and _jet_pallas_ok(
+            self.linears, [*self.acts, self.embed_act_u, self.embed_act_v])
 
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused gated segment on the current derivative path;
@@ -495,6 +512,7 @@ class ModifiedMLP(base.Arch):
         return _segment_lengths(self) if self.jet_pallas_eligible() else []
 
     def forward_jet(self, jx: jet.Jet) -> jet.Jet:
+        _refuse_transformed(self)
         jx = _jet_embed(self, jx)
         u = jet.elementwise(_jet_linear(self.embed_u, jx), self.embed_act_u)
         v = jet.elementwise(_jet_linear(self.embed_v, jx), self.embed_act_v)
@@ -643,14 +661,19 @@ class PirateNet(base.Arch):
     def forward(self, x: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return self.split_to_dict(self.forward_tensor(_embed(self, x)), self.output_keys, axis=-1)
 
+    def _output_transform_inputs(self, x_given, x_transformed):
+        """The transformed inputs after the period embedding, as the JAX
+        class hands them."""
+        return self.period_emb(x_transformed) if self.periods else x_transformed
+
     def supports_jet(self) -> bool:
-        return True
+        return not self.has_transform
 
     def jet_pallas_eligible(self) -> bool:
         """Whether the blocks take the fused gated segments on the current
-        path's flags (structural, as in JAX)."""
-        return _jet_pallas_ok([l for b in self.blocks for l in b.linears],
-                              [a for b in self.blocks for a in b.acts])
+        path's flags (structural, as in JAX); never with a transform."""
+        return self.supports_jet() and _jet_pallas_ok([l for b in self.blocks for l in b.linears],
+                                                      [a for b in self.blocks for a in b.acts])
 
     def jet_segment_lengths(self) -> List[int]:
         """Layers per fused segment (three per block of a group of
@@ -665,6 +688,7 @@ class PirateNet(base.Arch):
         return [3 * min(grp, n - i) for i in range(0, n, grp)]
 
     def forward_jet(self, jx: jet.Jet) -> jet.Jet:
+        _refuse_transformed(self)
         jx = _jet_embed(self, jx)
         u = jet.elementwise(_jet_linear(self.embed_u, jx), self.embed_act_u)
         v = jet.elementwise(_jet_linear(self.embed_v, jx), self.embed_act_v)

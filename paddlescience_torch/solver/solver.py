@@ -307,8 +307,11 @@ class Solver:
         """Draw ``k`` batches from each indexed constraint's loader and copy
         them, from pinned host memory on CUDA, into that constraint's static
         (k, B, ...) device buffers (allocated at first use, so a captured
-        graph keeps reading them). Raises ValueError when a batch's shapes
-        differ from the buffers' (a loader with ``drop_last=False``)."""
+        graph keeps reading them). Raises ValueError when k > 1 and a
+        batch's shapes differ from the buffers' (a loader with
+        ``drop_last=False``); an eager single step (k = 1, never captured)
+        takes its batch at any shape, as the JAX solver retraces for the
+        short last batch."""
         for name in self._indexed:
             draws = [next(self.constraint[name].data_iter) for _ in range(k)]
             host = []
@@ -322,6 +325,9 @@ class Solver:
                     part[key] = np.stack(arrs)
                 host.append(part)
             bufs = self._chunk_bufs.get((name, k))
+            if bufs is not None and k == 1 and any(
+                    v.shape != tuple(buf[key].shape) for part, buf in zip(host, bufs) for key, v in part.items()):
+                bufs = None  # an eager step's batch of another shape: buffers of its own
             if bufs is None:
                 bufs = tuple({key: torch.empty(v.shape, dtype=torch.float32, device=self.device)
                               for key, v in part.items()} for part in host)
@@ -693,7 +699,7 @@ class Solver:
             if expr_dict is None:
                 with ad.tape_context() as tape:
                     out = expression.forward_with_derivatives(self.models, batch, tape)
-                out = {k: out[k] for m in self.models for k in m.output_keys}
+                out = {k: v for k, v in out.items() if k not in batch}  # a transform may rename outputs
             else:
                 out = expression.evaluate_expressions(self.models, batch, expr_dict, request_cache=cache,
                                                       extra_values=self.eq_params)

@@ -11,9 +11,11 @@ C++ ray cast, whose sdf column agrees within 1e-6) and the same synthetic
 data. From the same weights, three train steps on the JAX ``jet`` path and
 on the port's ``jet_pallas_full`` path (the kernels' plain versions here)
 give per-constraint losses within 1e-4 relative and parameters within
-1e-4; the inverse also E within 1e-5 and the validator's L2Rel within
-1e-4. At the 10 streams of the 3-D Hooke jet the kernels' plain versions
-agree with the JAX Pallas segment (interpreted) and its VJP within 1e-5.
+1e-4; the inverse also dL/dE on the first batch within 1e-4 (before
+the steps), E within 1e-5 and the validator's L2Rel within 1e-4, and
+after 50 steps the losses within 1e-3 and E's change within 1e-3. At the
+10 streams of the 3-D Hooke jet the kernels' plain versions agree with
+the JAX Pallas segment (interpreted) and its VJP within 1e-5.
 """
 
 import os
@@ -94,6 +96,7 @@ def test_heart_steps_match_jax(problem, tmp_path, monkeypatch):
         assert set(ts.eq_params) == set(js.state["eq_params"]) == {"E"}
         load_jax_eq_params(ts.eq_params, {k: np.asarray(v) for k, v in js.state["eq_params"].items()})
         assert float(ts.eq_params["E"].detach()) == 18.0
+        _same_de(js, ts)
     host, j_losses = _jax_steps(js, STEPS, "jet")
     _same_batches(ts, {n: v for n, v in host.items() if n != "DATA"}, sdf_rtol=1e-6)
     np.testing.assert_allclose(_port_steps(ts, STEPS), j_losses, rtol=1e-4)
@@ -109,6 +112,29 @@ def test_heart_steps_match_jax(problem, tmp_path, monkeypatch):
             np.testing.assert_allclose(t_group["ref_u_v_w"][k], v, rtol=1e-4, err_msg=k)
         rep = theart.report(ts)
         assert rep["E_hat"] == e_port and rep["E_rel_err"] == abs(e_port - 9.0) / 9.0
+        # E over 50 steps: the port moves it as the JAX solver does, change for change
+        _, j_more = _jax_steps(js, 50 - STEPS, "jet")
+        np.testing.assert_allclose(_port_steps(ts, 50 - STEPS), j_more, rtol=1e-3)
+        e_jax, e_port = float(js.state["eq_params"]["E"]), float(ts.eq_params["E"].detach())
+        np.testing.assert_allclose(e_port - 18.0, e_jax - 18.0, rtol=1e-3)
+
+
+def _same_de(js, ts):
+    """dL/dE itself on the first batch (Adam's first steps show only its
+    sign) against the JAX solver's, at rtol 1e-4."""
+    import jax.numpy as jnp
+
+    from paddlescience_tpu.autodiff import path as jpath
+
+    host = {n: jax.tree.map(jnp.asarray, next(js.constraint[n].data_iter)) for n in js.constraint}
+    j_total = lambda e: sum(js._constraint_losses(js.state["params"], js.state["rest"], {"E": e}, host).values())
+    with jpath.override(jpath.CANDIDATES["jet"]):
+        j_de = float(jax.grad(j_total)(js.state["eq_params"]["E"]))
+    ts._stage_host_batches(1)
+    ts._chunk_pos = 0
+    t_de = float(torch.autograd.grad(sum(ts._constraint_losses(ts._batches()).values()), ts.eq_params["E"])[0])
+    assert abs(j_de) > 1.0
+    np.testing.assert_allclose(t_de, j_de, rtol=1e-4)
 
 
 @pytest.mark.parametrize("save_bounds", [False, True])
@@ -128,3 +154,4 @@ def test_ten_stream_plain_kernels_match_the_pallas_segment(save_bounds):
     for got, ref in zip([*outs, *g_in, *dws, *dbs], [*j_outs, *j_gs, *j_gw, *j_gb]):
         ref = np.asarray(ref)
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
