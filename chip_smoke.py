@@ -261,7 +261,7 @@ PADDED = dict(arch="mlp", num_layers=5, hidden_size=50)
 PADDED_PATH, PADDED_STEPS = "mlp_5x50/jet_pallas_full", 2
 # the constraint whose loss and gradient each kernel path is held to the plain jet path on
 PDE_CONSTRAINT = {"mlp": "PDE", "mlp_5x50": "PDE", "piratenet": "PDE", "modified_mlp": "PDE", "aneurysm": "interior",
-                  "cylinder": "EQ", "euler_beam": "BC"}
+                  "cylinder": "EQ", "euler_beam": "BC", "nsfnet net 3": "EQ"}
 # the cylinder2d TIPC workload (bench.py:148-207) at its full size: MLP 5x50 (padded to 52) on
 # 282,600 + 4,830 + 2,430 + 9,420 points a step; its residual jet has S = 6 streams (u, u_t, u_x,
 # u_xx, u_y, u_yy); the kernels are checked at its interior batch and at a second ragged N
@@ -768,7 +768,7 @@ def read_counts():
 def expected_kernels(path: str):
     """The kernels a driven path must launch."""
     if path.startswith(("mlp/", "aneurysm/", "mlp_5x50/", "cylinder/", "euler_beam/", "recipes/default_ntk",
-                        "ldc/re1000_plain", "elasticity/", "heart/", "aneurysm_flow/")):
+                        "ldc/re1000_plain", "elasticity/", "heart/", "aneurysm_flow/", "toolkit/")):
         return ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad")
     if path.startswith(("piratenet/", "modified_mlp/", "recipes/sota", "ldc/re3200")):
         return ("jet_gated_fwd", "jet_gated_bwd", "jet_wgrad")
@@ -2159,16 +2159,17 @@ def ldc_stage(cfg, Re: float = 100.0, epochs: int = 1):
     return C.build_stage_solver(cfg, model, opt, gn, Re, epochs, None, "cuda")
 
 
-def check_ldc_against_plain_path(solver, name: str, phase: str = "ldc"):
-    """LDC_CHECK_STEPS eager steps from one state on jet_pallas_full and on
+def check_ldc_against_plain_path(solver, name: str, phase: str = "ldc", kernel_path: str = "jet_pallas_full"):
+    """LDC_CHECK_STEPS eager steps from one state on ``kernel_path`` and on
     the plain jet path (the same batches, a GradNorm refresh at step 0):
     every per-key loss within 1e-4, each step's gradient within 1e-3.
     Returns the kernel launches per step of the steps after the first.
-    (The [elasticity] phase runs it too, as ``phase``.)"""
+    (The [elasticity], [heart] and [toolkit] phases run it too, as
+    ``phase``.)"""
     import torch
 
     snap, runs, per_step = solver.state, {}, None
-    for deriv in ("jet_pallas_full", "jet"):
+    for deriv in (kernel_path, "jet"):
         solver._load_state(snap)
         losses, grads = [], []
         with on_path(deriv):
@@ -2181,14 +2182,14 @@ def check_ldc_against_plain_path(solver, name: str, phase: str = "ldc"):
                 grads.append(torch.cat([p.grad.reshape(-1) for p in solver._params()]).clone())
             torch.cuda.synchronize()
         counts, plain = read_counts()
-        if deriv == "jet_pallas_full":
+        if deriv == kernel_path:
             check_counts(f"{phase}/{name}", counts, plain, LDC_CHECK_STEPS - 1)
             per_step = {k: v / (LDC_CHECK_STEPS - 1) for k, v in counts.items() if v}
         runs[deriv] = (losses, grads)
-    (lk, gk), (lp, gp) = runs["jet_pallas_full"], runs["jet"]
+    (lk, gk), (lp, gp) = runs[kernel_path], runs["jet"]
     loss_err = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(lk, lp) for k in b)
     grad_err = max(float((a - b).norm() / b.norm()) for a, b in zip(gk, gp))
-    log(f"[{phase}] {name}: {LDC_CHECK_STEPS} steps on jet_pallas_full vs the plain jet path: losses "
+    log(f"[{phase}] {name}: {LDC_CHECK_STEPS} steps on {kernel_path} vs the plain jet path: losses "
         f"{[round(s['loss'], 6) for s in lk]} vs {[round(s['loss'], 6) for s in lp]}, every per-key loss rel err "
         f"<= {loss_err:.2e}, gradient rel err <= {grad_err:.2e}; kernel launches per step {per_step}")
     if not (loss_err < 1e-4 and grad_err < 1e-3):
@@ -2597,6 +2598,27 @@ TRANSFORM_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
 TRANSFORM_TIMED = dict(k=TRANSFORM_CHECK_K, replays=3, eager_steps=3, profiled=0)
 
 
+# the [toolkit] phase: the PINN-toolkit examples at their JAX defaults, train() cut (PERF.md §4)
+NSFNET3_JET = [(0,), (1,), (2,), (3,), (0, 0), (1, 1), (2, 2)]  # nsfnet net 3's interior jet (x, y, z, t): S = 8
+# its interior batch (the 2601 lattice points sampled for the epoch's 10 iterations at once, 10 permutations, as
+# the JAX example's PointCloud samples them) and MLP 10x100 (4 inputs); the kernels are also timed at 2601 rows
+NSFNET3 = dict(N=26010, N_points=2601, dims=(4,) + (100,) * 10)
+TOOLKIT_RUN = {
+    "nsfnet net 1": dict(epochs=10),  # of 2000 epochs x 10 steps
+    "nsfnet net 3": dict(epochs=5),  # of 2000 x 10
+    "darcy2d": dict(epochs=4),  # of 40 x 25
+    "quick_start case 1": dict(epochs=2),  # of 10 x 100
+    "quick_start case 2": dict(epochs=2),  # of 10 x 100
+    "quick_start case 3": dict(epochs=10),  # of 50 L-BFGS steps
+    "spinn_helmholtz3d": dict(epochs=1, iters_per_epoch=100),  # of 50 x 1000 (an eager step takes 0.5 s: capture)
+}
+# train()'s chunks (graphs; capturing a chunk costs about K eager steps, 0.15-0.65 s each in the nested-jvp stages)
+TOOLKIT_K = {"nsfnet net 1": 10, "nsfnet net 3": 10, "spinn_helmholtz3d": 10, "deephpms": 5}
+DEEPHPMS_TOOLKIT = {"deephpms_ns": (10, 10), "deephpms_schrodinger": (10, 10, 5)}  # of 60 epochs x 20 steps each
+TOOLKIT_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
+TOOLKIT_TIMED = dict(k=TOOLKIT_CHECK_K, replays=3, eager_steps=3, profiled=0)
+
+
 def check_halves_kernels():
     """The MLP kernels above 8 streams (the halves kernels) against their
     plain versions at HALVES_CHECKS, two calls bitwise equal at S = 10 and
@@ -2952,6 +2974,268 @@ def run_transforms_phase(tmp: str):
     deriv_path.set_default(None)
     return out
 
+def toolkit_state(solver):
+    """Parameters, the aggregator's state and the averaged parameters, flat."""
+    import torch
+
+    parts = [flat_params(solver)] + [v.reshape(-1) for v in solver.agg_state.values()]
+    parts += [v.reshape(-1) for v in solver.avg_params.values()] + [v.reshape(-1) for v in solver.eq_params.values()]
+    return torch.cat(parts).detach().clone()
+
+
+def check_toolkit_graph(solver, name: str, k: int = TOOLKIT_CHECK_K):
+    """Two graphed chunks of k steps against 2k eager steps from the same
+    state on one solver: parameters, the aggregator's state and the
+    averaged parameters within 1e-6 relative. The state is restored."""
+    import torch
+
+    snap = solver.state
+    for _ in range(2):
+        solver.train_chunk(k)
+    torch.cuda.synchronize()
+    graphed = toolkit_state(solver)
+    solver._load_state(snap)
+    solver.train_steps(2 * k)
+    torch.cuda.synchronize()
+    eager = toolkit_state(solver)
+    solver._load_state(snap)
+    rel = float((graphed - eager).norm() / eager.norm())
+    log(f"[toolkit] {name}: 2 graphed chunks of {k} steps vs {2 * k} eager steps from the same state: parameters"
+        f"{', aggregator state' if solver.agg_state else ''}{', averaged parameters' if solver.avg_params else ''} "
+        f"rel err {rel:.3e}, bitwise {torch.equal(graphed, eager)}")
+    if not (rel <= 1e-6 and torch.isfinite(graphed).all()):
+        raise AssertionError(f"{name}: the graphed chunks disagree with the eager steps (rel {rel:.3e})")
+    return rel
+
+
+def _toolkit_run(name: str, solver, build_s: float, metric_fn, k=None):
+    """One solver of the [toolkit] phase: the graphed check;
+    ``train(num_fused_steps=k)`` with the launch counters set to 0 just
+    before (no plain version may run on CUDA); finite losses and metric;
+    graphed and eager steps/s. Returns the numbers."""
+    import torch
+
+    t_start = time.perf_counter()
+    rel = check_toolkit_graph(solver, name)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = solver.train(num_fused_steps=k)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    if any(plain.values()) or not logged or not all(math.isfinite(e["loss"]) for e in logged):
+        raise AssertionError(f"{name}: losses {logged}, plain versions on CUDA {plain}")
+    metric = metric_fn()
+    if not all(math.isfinite(v) for v in metric.values()):
+        raise AssertionError(f"{name}: metric {metric}")
+    launches = {n: v for n, v in counts.items() if v}
+    log(f"[toolkit] {name}: built in {build_s:.2f} s; train() {solver.epochs} epochs x {solver.iters_per_epoch} steps "
+        f"(K={k or 1}) in {dt:.2f} s, final loss {logged[-1]['loss']:.6e}; {metric}; kernel launches {launches}, "
+        f"plain versions on CUDA 0")
+    out = {"metric": metric, "train_s": dt, "final_loss": logged[-1]["loss"], "build_s": build_s,
+           "graph_vs_eager_rel": rel, "kernel_launches": launches}
+    trained = solver.state
+    out.update(time_graphed(solver, name, **TOOLKIT_TIMED))
+    solver._load_state(trained)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[toolkit] {name}: {out['seconds']:.1f} s for the check, train(), the metric and the timing")
+    return out
+
+
+def run_nsfnet3(tmp: str):
+    """nsfnet net 3 (Beltrami, MLP 10x100, S = 8 on 26010 rows): the
+    interior jet's streams; the interior loss and gradient of one batch on
+    jet_pallas_full_sb against the plain jet path, then 3 steps on
+    jet_pallas_full_sb and on jet_pallas_full against it (losses 1e-4,
+    gradients 1e-3; the MLP kernels launched every step); the autotuner's pick;
+    graphed chunks against eager steps; train() on the pick. Returns
+    (numbers, launches a step on jet_pallas_full_sb, on jet_pallas_full,
+    train() launches)."""
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import nsfnet
+
+    deriv_path.set_default(None)
+    t0 = time.perf_counter()
+    solver = nsfnet.build_solver(3, output_dir=os.path.join(tmp, "nsfnet3"), device="cuda",
+                                 **TOOLKIT_RUN["nsfnet net 3"])
+    build_s = time.perf_counter() - t0
+    sizes = {"EQ": int(next(iter(solver._static_batches["EQ"][0].values())).shape[0]),
+             **{n: len(solver.constraint[n].dataset) for n in ("Sup_b", "Sup_0")}}
+    if sizes != {"EQ": NSFNET3["N"], "Sup_b": 59400, "Sup_0": 29791}:
+        raise AssertionError(f"nsfnet net 3: batches {sizes}")
+    solver._stage_host_batches(1)  # the supervised sets' batch (indexed loaders), which _batches() reads
+    solver._chunk_pos = 0
+    check_against_plain_path(solver, "nsfnet net 3", ("jet_pallas_full_sb",), parts=("linears", "last_fc"))
+    per_sb = check_ldc_against_plain_path(solver, "nsfnet net 3", phase="toolkit", kernel_path="jet_pallas_full_sb")
+    per_full = check_ldc_against_plain_path(solver, "nsfnet net 3", phase="toolkit")
+    streams = interior_streams(solver, "EQ")
+    if streams != {len(NSFNET3_JET) + 1}:
+        raise AssertionError(f"nsfnet net 3: the interior jets have {streams} streams, expected {len(NSFNET3_JET) + 1}")
+    pick = run_autotune_phase({"nsfnet net 3": solver})["nsfnet net 3"]
+    with on_path(pick["winner"]):
+        rel = check_toolkit_graph(solver, "nsfnet net 3")
+    logged, dt, counts = train_on_pick(solver, "toolkit", "nsfnet net 3", pick["winner"], TOOLKIT_K["nsfnet net 3"])
+    metric = nsfnet.l2rel(solver)
+    if not all(math.isfinite(v) for v in metric.values()):
+        raise AssertionError(f"nsfnet net 3: metric {metric}")
+    log(f"[toolkit] nsfnet net 3: built in {build_s:.2f} s, batches {sizes}; interior jet {streams} streams; train() "
+        f"{solver.epochs} epochs x {solver.iters_per_epoch} steps on {pick['winner']} (the autotuner's pick), K="
+        f"{TOOLKIT_K['nsfnet net 3']}: {dt:.2f} s, final loss {logged[-1]['loss']:.6e}; {metric}; launches "
+        f"{({n: v for n, v in counts.items() if v})}")
+    with on_path(pick["winner"]):
+        out = time_graphed(solver, "nsfnet net 3", **TOOLKIT_TIMED)
+    out.update(metric=metric, autotune=pick, train_s=dt, final_loss=logged[-1]["loss"], build_s=build_s,
+               graph_vs_eager_rel=rel, launches_per_step_jet_pallas_full_sb=per_sb,
+               launches_per_step_jet_pallas_full=per_full)
+    deriv_path.set_default(None)
+    return out, per_sb, per_full, counts
+
+
+def run_toolkit_phase(tmp: str):
+    """The PINN-toolkit examples on the card at their JAX defaults, no path
+    pinned (``TOOLKIT_RUN``: train() cut): nsfnet nets 1 and 3, darcy2d,
+    quick_start cases 1-3, spinn_helmholtz3d, deephpms_ns and
+    deephpms_schrodinger (``DEEPHPMS_TOOLKIT``), each through
+    :func:`_toolkit_run`, nsfnet net 3 through :func:`run_nsfnet3`; then a
+    PCGrad, a Relobralo and an EMA variant of darcy2d, each held graphed
+    against eager. quick_start's shuffled loaders are held on fresh
+    solvers (``check_fresh_graph_against_eager``); case 3 is L-BFGS, a host
+    loop a step that is never captured. Returns (numbers, nsfnet net 3's
+    launches a step on jet_pallas_full_sb and jet_pallas_full, its train()
+    launches)."""
+    import torch
+
+    from paddlescience_torch.autodiff import path as deriv_path
+    from paddlescience_torch.examples import (darcy2d, deephpms_ns, deephpms_schrodinger, nsfnet, quick_start,
+                                              spinn_helmholtz3d)
+    from paddlescience_torch.loss import mtl
+    from paddlescience_torch.optimizer import Adam
+    from paddlescience_torch.optimizer.lr_scheduler import OneCycleLR
+    from paddlescience_torch.solver import Solver
+    from paddlescience_torch.utils import ema
+
+    out = {}
+
+    def build(fn):
+        deriv_path.set_default(None)
+        t0 = time.perf_counter()
+        solver = fn()
+        return solver, time.perf_counter() - t0
+
+    solver, b = build(lambda: nsfnet.build_solver(1, output_dir=os.path.join(tmp, "nsfnet1"),
+                                                                   device="cuda", **TOOLKIT_RUN["nsfnet net 1"]))
+    out["nsfnet net 1"] = _toolkit_run("nsfnet net 1", solver, b, lambda: nsfnet.l2rel(solver),
+                                       TOOLKIT_K["nsfnet net 1"])
+    del solver
+    out["nsfnet net 3"], per_sb, per_full, nsfnet3_counts = run_nsfnet3(tmp)
+    torch.cuda.empty_cache()
+
+    darcy = lambda **kw: darcy2d.build_solver(output_dir=os.path.join(tmp, "darcy2d"), device="cuda", **kw)
+    solver, b = build(lambda: darcy(**TOOLKIT_RUN["darcy2d"]))
+    out["darcy2d"] = _toolkit_run("darcy2d", solver, b, lambda: {"L2Rel": darcy2d.l2rel(solver)})
+    for label, extra in (("darcy2d PCGrad", dict(loss_aggregator=mtl.PCGrad(None, 2))),
+                         ("darcy2d Relobralo", dict(loss_aggregator=mtl.Relobralo(None, 2))),
+                         ("darcy2d EMA", dict(ema_avg=ema.ExponentialMovingAverage(decay=0.9)))):
+        base = darcy(epochs=1)
+        lr = OneCycleLR(epochs=1, iters_per_epoch=base.iters_per_epoch, max_learning_rate=1e-3)()
+        variant = Solver(base.model, base.constraint, None, Adam(lr)(base.model), epochs=1,
+                         iters_per_epoch=base.iters_per_epoch, equation=base.equation, device="cuda", **extra)
+        out[label] = {"graph_vs_eager_rel": check_toolkit_graph(variant, label)}
+        if label == "darcy2d EMA":
+            variant.train_steps(5)
+            avg = torch.cat([v.reshape(-1) for v in variant.avg_params.values()])
+            if torch.equal(avg, flat_params(variant)) or not torch.isfinite(avg).all():
+                raise AssertionError("darcy2d EMA: the averaged parameters did not average")
+        out[label].update(time_graphed(variant, label, **TOOLKIT_TIMED))
+        del base, variant
+    torch.cuda.empty_cache()
+
+    for case in (1, 2):
+        label = f"quick_start case {case}"
+        make = getattr(quick_start, f"build_case{case}")
+        rel = check_fresh_graph_against_eager(
+            lambda: make(epochs=1, output_dir=None, device="cuda")[0], label, 10)
+        (solver, ref), b = build(lambda: make(output_dir=os.path.join(tmp, "quick_start"), device="cuda",
+                                                      **TOOLKIT_RUN[label]))
+        deriv_path.set_default(None)
+        reset_counts()
+        t0 = time.perf_counter()
+        l2 = quick_start.run_1d_case(solver, ref)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts, plain = read_counts()
+        if any(plain.values()) or not math.isfinite(l2):
+            raise AssertionError(f"{label}: l2_rel {l2}, plain versions on CUDA {plain}")
+        log(f"[toolkit] {label}: built in {b:.2f} s; train() {solver.epochs} epochs x {solver.iters_per_epoch} steps "
+            f"(K=1: a shuffled loader) in {dt:.2f} s, final loss {solver.loss_history[-1][1]:.6e}; l2_rel {l2:.5f}")
+        out[label] = {"metric": {"l2_rel": l2}, "train_s": dt, "build_s": b, "graph_vs_eager_rel": rel}
+        out[label].update(time_graphed(solver, label, **TOOLKIT_TIMED))
+        del solver
+    solver, b = build(lambda: quick_start.build_case3(
+        output_dir=os.path.join(tmp, "quick_start3"), device="cuda", **TOOLKIT_RUN["quick_start case 3"]))
+    reset_counts()
+    t0 = time.perf_counter()
+    w_max = quick_start.run_case3(solver)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    if any(plain.values()) or not math.isfinite(w_max) or not all(math.isfinite(v) for _, v in solver.loss_history):
+        raise AssertionError(f"quick_start case 3: max |w| {w_max}, losses {solver.loss_history}, plain {plain}")
+    log(f"[toolkit] quick_start case 3: built in {b:.2f} s (Halton: 20000 interior, 10000 + 10000 edge points); "
+        f"{solver.epochs} L-BFGS steps (a host loop each, not captured) in {dt:.2f} s ({dt / solver.epochs * 1e3:.1f} ms "
+        f"a step, {sum(solver.optimizer.evaluations)} value-and-gradient evaluations); losses "
+        f"{solver.loss_history[0][1]:.6e} -> {solver.loss_history[-1][1]:.6e}; max |w| {w_max:.4e} m")
+    out["quick_start case 3"] = {"metric": {"max_w": w_max}, "train_s": dt, "build_s": b,
+                                 "evaluations": sum(solver.optimizer.evaluations)}
+    del solver
+    torch.cuda.empty_cache()
+
+    solver, b = build(lambda: spinn_helmholtz3d.build_solver(
+        output_dir=os.path.join(tmp, "spinn"), device="cuda", **TOOLKIT_RUN["spinn_helmholtz3d"]))
+    snap = solver.state
+    solver.model.branch_calls = 0
+    solver.train_step()
+    if solver.model.branch_calls != 12:  # the forward and one nested jvp per second derivative, 3 branch nets each
+        raise AssertionError(f"spinn_helmholtz3d: {solver.model.branch_calls} branch-net calls a step, expected 12")
+    solver._load_state(snap)
+    out["spinn_helmholtz3d"] = _toolkit_run("spinn_helmholtz3d", solver, b,
+                                            lambda: {"L2Rel": spinn_helmholtz3d.l2rel(solver)},
+                                            TOOLKIT_K["spinn_helmholtz3d"])
+    del solver
+    torch.cuda.empty_cache()
+
+    for name, epochs in DEEPHPMS_TOOLKIT.items():
+        module = deephpms_ns if name == "deephpms_ns" else deephpms_schrodinger
+        deriv_path.set_default(None)
+        t0 = time.perf_counter()
+        for i, solver in enumerate(module.stages(epochs, output_dir=os.path.join(tmp, name), device="cuda")):
+            label = f"{name}/stage{i + 1}"
+            out[label] = _toolkit_run(label, solver, time.perf_counter() - t0, lambda: {"L2Rel": solver.eval()[0]},
+                                      TOOLKIT_K["deephpms"])
+            t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+    deriv_path.set_default(None)
+    return out, per_sb, per_full, nsfnet3_counts
+
+
+def time_nsfnet_kernels(rows, per_sb, per_full):
+    """The MLP kernels' rows at nsfnet net 3's interior shape (S = 8, N =
+    26010, 4 -> 100 x 10, tanh; key "nsfnet_net3") and at 2601 rows (the
+    lattice points once; key "nsfnet_net3_2601_rows"), with the launches
+    per step of the interior batch on jet_pallas_full_sb (and, beside
+    them, on jet_pallas_full)."""
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.ops import jet_mlp as J
+
+    names = [r["name"] for r in rows]
+    for key, n in (("nsfnet_net3", NSFNET3["N"]), ("nsfnet_net3_2601_rows", NSFNET3["N_points"])):
+        time_mlp_shape(rows, key, len(NSFNET3_JET) + 1, n, NSFNET3["dims"], J.TANH,
+                       {k: per_sb.get(k, 0) for k in names}, index=jet.build_index(NSFNET3_JET))
+        for r in rows[:3]:
+            r[key]["launches_per_step_jet_pallas_full"] = per_full.get(r["name"], 0)
+
+
 def time_heart_flow_kernels(rows, heart_per_step, flow_per_step):
     """The MLP kernels' rows at heart's interior shape (S = 10, N = 1024,
     3 -> 256 x 6; key "heart") and aneurysm_flow's (S = 7, N = 20480, 3 ->
@@ -3168,6 +3452,9 @@ def main() -> int:
         mark("pinn_suite")
         log("[transforms] summary " + json.dumps(run_transforms_phase(tmp)))
         mark("transforms")
+        toolkit_numbers, nsfnet_sb, nsfnet_full, launches["toolkit nsfnet net 3"] = run_toolkit_phase(tmp)
+        log("[toolkit] summary " + json.dumps(toolkit_numbers))
+        mark("toolkit")
     autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
     log("[autotune] summary " + json.dumps(autotune_results))
     mark("autotune")
@@ -3183,6 +3470,7 @@ def main() -> int:
     time_ldc_kernels(rows, ldc_per_step)
     time_elasticity_kernels(rows, elastic_per_step)
     time_heart_flow_kernels(rows, heart_per_step["heart"], flow_per_step)
+    time_nsfnet_kernels(rows, nsfnet_sb, nsfnet_full)
     mark("timing")
     log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))

@@ -142,6 +142,46 @@ class _DerivStack:
         self._components.clear()
 
 
+class _GridStack:
+    """Derivative components of a separable model on a product grid
+    (SPINN): ``fn(*coords) -> (N_1, ..., N_d, m)`` of one (N_i, 1) column
+    per axis. Output [i, j, k] depends only on the i-th, j-th and k-th
+    coordinates, so the derivative along axis j is one forward-mode
+    derivative with an all-ones tangent on that axis's column (the cross
+    terms vanish by separability): a component costs one nested jvp of the
+    model, O(N d) network evaluations, as the JAX package's grid stack."""
+
+    def __init__(self, fn: Callable, coords: Dict[str, torch.Tensor], key_index: Dict[str, int],
+                 out_index: Dict[str, int]):
+        self.fn = fn
+        self.coord_keys = list(coords)
+        self.coords = [coords[k] for k in self.coord_keys]
+        self.key_index = key_index
+        self.out_index = out_index
+        self.extras: Dict[str, torch.Tensor] = {}
+        self.requested: Dict[Tuple[int, ...], None] = {}
+        self.collect_only = False
+        self._components: Dict[Tuple[int, ...], torch.Tensor] = {}
+
+    def get_component(self, dmulti: Tuple[int, ...]) -> torch.Tensor:
+        dmulti = tuple(sorted(dmulti))
+        self.requested[dmulti] = None
+        if dmulti not in self._components:
+            g = self.fn
+            for j in dmulti:
+                g = (lambda g_, j_: lambda *cs: torch.func.jvp(
+                    g_, cs, tuple(torch.ones_like(c) if i == j_ else torch.zeros_like(c)
+                                  for i, c in enumerate(cs)))[1])(g, j)
+            self._components[dmulti] = g(*self.coords)
+        return self._components[dmulti]
+
+    def precompute(self, dmultis) -> None:
+        """No fused jet on a grid: components come one jvp each."""
+
+    def clear(self) -> None:
+        self._components.clear()
+
+
 class _Record:
     """Provenance of one tensor: which stack, output column, and which
     coordinate axes it has already been differentiated along."""
@@ -188,6 +228,11 @@ class Tape:
         for stack in self._stacks:
             stack.clear()
         self._records.clear()
+
+    def add_grid_stack(self, fn, coords, key_index, out_index) -> _GridStack:
+        stack = _GridStack(fn, coords, key_index, out_index)
+        self._stacks.append(stack)
+        return stack
 
     def derivative(self, rec: _Record, j: int) -> torch.Tensor:
         dmulti = rec.dmulti + (j,)

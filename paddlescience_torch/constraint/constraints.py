@@ -12,9 +12,12 @@ batched by a ``BatchLoader`` (a new batch each step), or an
 feeds it every step). ``criteria`` is a callable of the
 coordinate columns or a string that evaluates to one here, as in the JAX
 package (``"lambda t, x, y: np.isclose(x, -4.0)"``). Labels and weights
-are numbers or callables of the input dict: the sympy forms need sympy,
-which is not installed where the port runs. Not ported yet:
-``PeriodicConstraint``.
+are numbers, callables of the input dict, or sympy expressions over the
+geometry's coordinates: sympy is not installed where the port runs, so
+such an expression is read from its ``str`` by ``utils/symbolic.py`` into
+a numpy function of the coordinates (no sympy import); a form outside that
+reader's grammar (``Derivative``, an unknown function) raises naming it.
+``PeriodicConstraint`` pairs boundary points with their periodic images.
 """
 
 from __future__ import annotations
@@ -25,12 +28,31 @@ import numpy as np
 
 from paddlescience_torch.constraint.base import Constraint
 from paddlescience_torch.data.dataset.array_dataset import IterableNamedArrayDataset, NamedArrayDataset
+from paddlescience_torch.utils.symbolic import read_expression
 
-__all__ = ["InteriorConstraint", "BoundaryConstraint", "InitialConstraint", "IntegralConstraint",
-           "SupervisedConstraint", "prepare_label", "prepare_weight"]
+__all__ = ["InteriorConstraint", "BoundaryConstraint", "InitialConstraint", "PeriodicConstraint",
+           "IntegralConstraint", "SupervisedConstraint", "prepare_label", "prepare_weight"]
 
 _DATASETS = {"IterableNamedArrayDataset": IterableNamedArrayDataset, "NamedArrayDataset": NamedArrayDataset}
 Spec = Union[float, int, Callable]
+
+
+def _is_sympy(value) -> bool:
+    """A sympy object, recognised without importing sympy."""
+    return type(value).__module__.startswith("sympy")
+
+
+def _sympy_array(value, input: Dict[str, np.ndarray], dim_keys, ref: np.ndarray, what: str) -> np.ndarray:
+    """A sympy label or weight over the coordinates ``dim_keys``, read
+    from ``str(value)`` and evaluated with numpy on the sampled columns,
+    broadcast to ``ref``'s shape and dtype (the JAX package lambdifies it
+    over the same keys)."""
+    expr = read_expression(str(value), what)
+    unknown = [n for n in expr.names if n not in dim_keys]
+    if unknown:
+        raise NotImplementedError(f"{what} = {value}: names {unknown} are not coordinates {tuple(dim_keys)}")
+    out = expr({k: input[k] for k in expr.names}, "numpy")
+    return np.broadcast_to(np.asarray(out, dtype=ref.dtype), ref.shape).copy()
 
 
 def _criteria(criteria: Optional[Union[Callable, str]]) -> Optional[Callable]:
@@ -42,21 +64,22 @@ def _criteria(criteria: Optional[Union[Callable, str]]) -> Optional[Callable]:
 def prepare_label(label_dict: Dict[str, Spec], input: Dict[str, np.ndarray],
                   dim_keys=()) -> Dict[str, np.ndarray]:
     """Label arrays aligned with the sampled inputs: a number fills the
-    shape of the inputs, a callable of the input dict gives the array.
-    ``dim_keys`` are the geometry's coordinates, over which the JAX package
-    evaluates a sympy label (not ported: anything else raises)."""
+    shape of the inputs, a callable of the input dict gives the array, a
+    sympy expression is evaluated over the geometry's coordinates
+    ``dim_keys`` (read without sympy)."""
     ref = next(iter(input.values()))
     label = {}
     for key, value in label_dict.items():
         if isinstance(value, (int, float)):
             label[key] = np.full_like(ref, value)
+        elif _is_sympy(value):
+            label[key] = _sympy_array(value, input, dim_keys, ref, f"label {key!r}")
         elif callable(value):
             label[key] = value(input)
             if isinstance(label[key], (int, float)):
                 label[key] = np.full_like(ref, label[key])
         else:
-            raise NotImplementedError(f"label of type {type(value)} is not ported (numbers and callables are; "
-                                      f"a sympy expression over {tuple(dim_keys)} needs ROADMAP Queue A 2)")
+            raise NotImplementedError(f"type of {type(value)} is invalid yet.")
     return label
 
 
@@ -76,13 +99,14 @@ def prepare_weight(weight_dict: Optional[Dict[str, Union[Spec, str]]], input, la
             weight[key] = input["sdf"]
         elif isinstance(value, (int, float)):
             weight[key] = np.full_like(ref, float(value))
+        elif _is_sympy(value):
+            weight[key] = _sympy_array(value, input, dim_keys, ref, f"weight {key!r}")
         elif callable(value):
             weight[key] = value(input)
             if isinstance(weight[key], (int, float)):
                 weight[key] = np.full_like(ref, weight[key])
         else:
-            raise NotImplementedError(f"weight of type {type(value)} is not ported (numbers and callables are; "
-                                      f"a sympy expression over {tuple(dim_keys)} needs ROADMAP Queue A 2)")
+            raise NotImplementedError(f"type of {type(value)} is invalid yet.")
     return weight
 
 
@@ -156,6 +180,30 @@ class InitialConstraint(Constraint):
         input = geom.sample_initial_interior(_n_samples(dataloader_cfg), random, _criteria(criteria), evenly,
                                              compute_sdf_derivatives)
         _finish(self, geom, input, label_dict, weight_dict, dataloader_cfg, loss, name)
+
+
+class PeriodicConstraint(Constraint):
+    """Ties u(x) to u at x's periodic image along ``periodic_key``: the
+    batch is the sampled boundary points followed by their images
+    (``geom.periodic_point``), every label 0, and the loss a periodic one
+    comparing the two halves (as the JAX class: half the batch size of
+    points, the images appended)."""
+
+    def __init__(self, output_expr: Dict[str, Callable], label_dict: Dict[str, Spec], geom, periodic_key: str,
+                 dataloader_cfg: Dict[str, Any], loss, random: str = "pseudo",
+                 criteria: Optional[Union[Callable, str]] = None, evenly: bool = False,
+                 weight_dict: Optional[Dict[str, Union[Spec, str]]] = None, name: str = "PeriodicBC"):
+        self.label_dict = label_dict
+        self.input_keys = geom.dim_keys
+        self.output_keys = tuple(output_expr.keys())
+        self.output_expr = output_expr
+        n_half = (dataloader_cfg["batch_size"] // 2) * dataloader_cfg.get("iters_per_epoch", 1)
+        component = geom.dim_keys.index(periodic_key) - int("t" in geom.dim_keys)
+        input = geom.sample_boundary(n_half, random, _criteria(criteria), evenly)
+        coords = {k: input[k] for k in geom.dim_keys}
+        mirrored = geom.periodic_point(coords, component)
+        full = {k: np.concatenate([coords[k], mirrored[k]], axis=0) for k in geom.dim_keys}
+        _finish(self, geom, full, {k: 0.0 for k in output_expr}, weight_dict, dataloader_cfg, loss, name)
 
 
 class IntegralConstraint(Constraint):

@@ -25,23 +25,16 @@ optimizes it with the model.
 from __future__ import annotations
 
 import ast
-import math
-import operator
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from paddlescience_torch.autodiff.ad import jacobian, stop_gradient
+from paddlescience_torch.autodiff.ad import jacobian, stop_gradient, unwrap
+from paddlescience_torch.utils.symbolic import Expression, read_expression
 
 __all__ = ["PDE", "derivative_key", "parse_coefficient"]
 
-Coefficient = Union[float, str]
-
-_CONSTANTS = {"pi": math.pi, "E": math.e}  # the names sympy's parser reads as numbers
-_BINOPS = {ast.Add: operator.add, ast.Sub: operator.sub, ast.Mult: operator.mul, ast.Div: operator.truediv,
-           ast.Pow: operator.pow}
-_UNOPS = {ast.USub: operator.neg, ast.UAdd: operator.pos}
-
+Coefficient = Union[float, str, Expression]
 
 def derivative_key(name: str, axes: Sequence[str] = ()) -> str:
     """The JAX package's key of d^k name / d axes (``_cvt_to_key``): the
@@ -52,39 +45,23 @@ def derivative_key(name: str, axes: Sequence[str] = ()) -> str:
 
 def parse_coefficient(value: Coefficient, what: str) -> Coefficient:
     """A coefficient given as a string, read as the JAX package's sympy
-    parser reads it, without sympy: arithmetic of numbers (``"1/3"``,
-    ``"2.5e-3"``, ``"pi"``) is that number; a bare identifier (``"nu"``) is
-    a field ``out[name]`` (an input column, a model output or a learnable
-    parameter), returned as the name. Any other expression raises
-    ``NotImplementedError``: lowering it needs sympy (ROADMAP Queue A 2).
-    Numbers pass through as floats."""
+    parser reads it, without sympy (``utils/symbolic.py``): arithmetic of
+    numbers (``"1/3"``, ``"2.5e-3"``, ``"pi"``) is that number; a bare
+    identifier (``"nu"``) is a field ``out[name]`` (an input column, a model
+    output or a learnable parameter), returned as the name; any other
+    expression (``"nu * 2"``, ``"exp(k) / 2"``) is returned as an
+    :class:`~paddlescience_torch.utils.symbolic.Expression` of such names,
+    which :meth:`PDE.coefficient` evaluates on the tensors. A form outside
+    the reader's grammar raises ``NotImplementedError`` naming it. Numbers
+    pass through as floats."""
     if not isinstance(value, str):
         return float(value)
-
-    def number(node):
-        if isinstance(node, ast.Constant) and isinstance(node.value, (int, float)):
-            return float(node.value)
-        if isinstance(node, ast.Name) and node.id in _CONSTANTS:
-            return _CONSTANTS[node.id]
-        if isinstance(node, ast.BinOp) and type(node.op) in _BINOPS:
-            return _BINOPS[type(node.op)](number(node.left), number(node.right))
-        if isinstance(node, ast.UnaryOp) and type(node.op) in _UNOPS:
-            return _UNOPS[type(node.op)](number(node.operand))
-        raise ValueError
-
-    try:
-        tree = ast.parse(value.strip(), mode="eval").body
-    except SyntaxError:
-        tree = None
-    if tree is not None:
-        try:
-            return number(tree)
-        except (ValueError, ZeroDivisionError, OverflowError):
-            pass
-        if isinstance(tree, ast.Name):
-            return tree.id
-    raise NotImplementedError(f"{what} = {value!r}: an expression string needs a sympy-free lowering (ROADMAP "
-                              f"Queue A 2); pass a number or the name of a field")
+    expr = read_expression(value, what)
+    if not expr.names:
+        return expr.constant
+    if isinstance(ast.parse(value.strip(), mode="eval").body, ast.Name):
+        return expr.names[0]
+    return expr
 
 
 class PDE:
@@ -132,6 +109,17 @@ class PDE:
         return self.detach(derivative_key(name, axes), value)
 
     def coefficient(self, out, value: Coefficient):
-        """A number, or the field ``out[name]`` (never differentiated),
-        through :meth:`detach` under its name."""
+        """A number; the field ``out[name]`` (never differentiated), through
+        :meth:`detach` under its name; or an expression of such fields,
+        each through :meth:`detach`."""
+        if isinstance(value, Expression):
+            return value({n: unwrap(self.detach(n, out[n])) for n in value.names})
         return self.detach(value, out[value]) if isinstance(value, str) else value
+
+    def _coefficient_derivative(self, out, expr: Expression, axis: str):
+        """d expr / d axis of a coefficient expression that names the
+        coordinate ``axis`` (its other names held fixed): a forward-mode
+        derivative of the pointwise expression along that column."""
+        values = {n: unwrap(self.detach(n, out[n])) for n in expr.names}
+        x = values.pop(axis)
+        return torch.func.jvp(lambda v: expr({**values, axis: v}), (x,), (torch.ones_like(x),))[1]

@@ -18,6 +18,7 @@ import torch
 
 from paddlescience_torch.autodiff.ad import hessian, jacobian
 from paddlescience_torch.equation.pde.base import PDE, parse_coefficient
+from paddlescience_torch.utils.symbolic import Expression
 
 __all__ = ["AllenCahn", "Laplace", "Poisson", "Helmholtz", "Biharmonic", "NavierStokes", "NormalDotVec",
            "LinearElasticity", "Vibration"]
@@ -143,8 +144,11 @@ class NavierStokes(PDE):
     strings (:func:`~paddlescience_torch.equation.pde.base.parse_coefficient`):
     a number's arithmetic is that number; a bare identifier is the field
     ``out[name]``, which the JAX package makes an independent variable, so
-    ``(nu u_x)_x = nu u_xx``; any other expression raises
-    ``NotImplementedError`` (ROADMAP Queue A 2)."""
+    ``(nu u_x)_x = nu u_xx``; an expression of fields is evaluated on them,
+    and where it names a coordinate the JAX form's product rule
+    ``(nu u_x)_x = nu u_xx + nu_x u_x`` brings its derivative along that
+    coordinate (a forward-mode derivative of the expression; the other
+    names are independent variables, as in sympy)."""
 
     def __init__(self, nu: Union[float, str], rho: Union[float, str], dim: int, time: bool,
                  detach_keys: Optional[Tuple[str, ...]] = None):
@@ -167,6 +171,10 @@ class NavierStokes(PDE):
                 for c, a in zip(vel, axes):
                     r = r + self.d(out, c) * self.d(out, q, a)
                 r = r - self.coefficient(out, self.nu) * sum(self.d(out, q, a, a) for a in axes)
+                if isinstance(self.nu, Expression):
+                    for a in axes:
+                        if a in self.nu.names:
+                            r = r - self._coefficient_derivative(out, self.nu, a) * self.d(out, q, a)
                 return r + self.d(out, "p", axes[k]) / self.coefficient(out, self.rho)
 
             return residual

@@ -61,16 +61,28 @@ process default.
 
 Learnable equation parameters (``PDE.create_parameter``, e.g.
 ``Vibration``'s k1, k2) are moved to the solver's device and optimized by
-the model's optimizer with its schedule, as the JAX solver's transform
-runs on (params, eq_params); they are part of ``state_dict`` (and so of
+the model's optimizer with its schedule (L-BFGS: on the one flat vector of
+the model's parameters and theirs), as the JAX solver's transform runs on
+(params, eq_params); they are part of ``state_dict`` (and so of
 checkpoints, resume and the carried ``state``) and are updated in place, so
 a captured graph reads them. With a ``ModelList`` the solver's models are
 its children, each with its own derivative stack; a child frozen by
 ``Arch.freeze`` requires no gradient and stays out of the optimizer, so
 its parameters never change (the JAX solver zeroes its updates).
 
-Not ported yet: EMA, microbatching, gradient accumulation, learnable
-equation parameters under L-BFGS and the multi-process branches.
+Aggregators: a weight-based one (``loss/mtl``) gives the total from the
+losses, the device step and the solver's generator (Relobralo's lookback
+draw), writing its moving state in place; a gradient-surgery one (PCGrad,
+AGDA: ``needs_grads``) gets one backward per loss into flat gradient
+vectors over the optimizer's parameters, and its merged vector is written
+into their gradients (the logged total is the plain sum of the losses),
+as the JAX solver's step does. With ``ema_avg`` (``utils/ema.py``) the
+averaged parameters are updated in place after each update, inside the
+captured step; they are part of the state (checkpoints, resume) and
+``eval()`` runs on them, ``predict()`` on the parameters, as in JAX.
+
+Not ported yet: microbatching, gradient accumulation and the
+multi-process branches.
 """
 
 from __future__ import annotations
@@ -133,6 +145,7 @@ class Solver:
         compute_metric_by_batch: bool = False,
         loss_aggregator: Optional[mtl.LossAggregator] = None,
         loss_granularity: str = "constraint",
+        ema_avg=None,
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -152,8 +165,6 @@ class Solver:
         self.equation = equation or {}
         self.eq_params = self._place_eq_params()
         if self.eq_params and optimizer is not None:
-            if getattr(optimizer, "is_lbfgs", False):
-                raise NotImplementedError("learnable equation parameters with L-BFGS are not ported yet")
             optimizer.add_params(list(self.eq_params.values()))
         if loss_granularity not in ("constraint", "key"):
             raise ValueError(f"loss_granularity must be 'constraint' or 'key', got {loss_granularity}")
@@ -162,6 +173,10 @@ class Solver:
         self.agg_state = self.loss_aggregator.init_state(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.models = list(model.model_list) if isinstance(model, ModelList) else [model]
+        self.ema_avg = ema_avg
+        # the averaged parameters, independent copies (the JAX solver's state["avg_params"])
+        self.avg_params: Dict[str, torch.Tensor] = (
+            {n: p.detach().clone() for n, p in self.model.named_parameters()} if ema_avg is not None else {})
         self.step = 0
         # the schedule's step counter on the device, advanced inside each (captured) step
         self._step_t = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -225,9 +240,10 @@ class Solver:
         learnable equation parameters and the model's buffers, the
         optimizer's state per parameter (in the optimizer's order, the
         equation parameters last; L-BFGS: its memory and the line search's
-        state), the aggregator's state, the batch generator's state and the
-        step."""
-        return {
+        state), the aggregator's state, the batch generator's state, the
+        step and, with ``ema_avg``, the averaged parameters."""
+        extra = {"avg_params": dict(self.avg_params)} if self.ema_avg is not None else {}
+        return {**extra,
             "params": dict(self.model.named_parameters()),
             "eq_params": dict(self.eq_params),
             "buffers": dict(self.model.named_buffers()),
@@ -264,6 +280,9 @@ class Solver:
             self.optimizer.sync_from_state()
         for k, v in state["agg_state"].items():
             self.agg_state[k].copy_(v)
+        if self.ema_avg is not None:
+            for n, v in state.get("avg_params", state["params"]).items():
+                self.avg_params[n].copy_(v)
         self.generator.set_state(state["generator"])
         self.step = int(state["step"])
         self._step_t.fill_(self.step)
@@ -283,6 +302,12 @@ class Solver:
         self._graphs.clear()
         self._chunk_bufs.clear()
         self._chunk.clear()
+
+    def load_state_params(self, other: "Solver") -> None:
+        """Copy ``other``'s model parameters into this solver's (a second
+        phase that starts from the first's, as ``polish.state["params"] =
+        solver.state["params"]`` in JAX)."""
+        self._load_state({"params": other.state["params"]}, params_only=True)
 
     def load_pretrain(self, pretrained_model_path: str) -> None:
         """Load the model parameters of a checkpoint (nothing else)."""
@@ -437,14 +462,44 @@ class Solver:
             return self._lbfgs_step()
         losses = self._constraint_losses(self._batches())
         names = self._loss_names()
-        total, _ = self.loss_aggregator.aggregate([losses[n] for n in names], self.agg_state)
+        agg = self.loss_aggregator
         self.optimizer.zero_grad()
-        total.backward()
+        if agg.needs_grads:
+            total = torch.stack([losses[n] for n in names]).sum()
+            self._surgery_grads([losses[n] for n in names])
+        else:
+            total, _ = agg.aggregate([losses[n] for n in names], self.agg_state, self._step_t, self.generator)
+            total.backward()
         lr = self.optimizer.step(self._step_t if self.optimizer.lr_t is not None else step)
         self._step_t += 1
+        if self.ema_avg is not None:
+            named = dict(self.model.named_parameters())
+            self.ema_avg.update_(list(self.avg_params.values()), [named[n] for n in self.avg_params], self._step_t)
         logs = {"loss": total.detach(), **{f"loss/{n}": losses[n].detach() for n in names}}
         logs["lr"] = lr.detach() if isinstance(lr, torch.Tensor) else torch.tensor(lr)
         return logs
+
+    def _surgery_grads(self, losses: List[torch.Tensor]) -> None:
+        """A gradient-surgery aggregator's step: one backward per loss into
+        a flat vector over the optimizer's parameters (the equation
+        parameters included), the (K, P) stack transformed, and the merged
+        vector written into the parameters' gradients."""
+        params = self.optimizer.params()
+        flats = []
+        for i, loss in enumerate(losses):
+            grads = torch.autograd.grad(loss, params, retain_graph=i < len(losses) - 1, allow_unused=True)
+            flats.append(torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                                    for g, p in zip(grads, params)]))
+        merged, _ = self.loss_aggregator.transform_grads(torch.stack(flats), self.agg_state)
+        ofs = 0
+        with torch.no_grad():
+            for p in params:
+                g = merged[ofs: ofs + p.numel()].view_as(p)
+                if p.grad is None:
+                    p.grad = g.clone()
+                else:
+                    p.grad.copy_(g)
+                ofs += p.numel()
 
     def train_step(self) -> Dict[str, torch.Tensor]:
         """One eager optimizer step (after the aggregator refresh when one
@@ -636,6 +691,19 @@ class Solver:
         Returns (the first metric value, {validator: {metric.key: value}})."""
         if not self.validator:
             raise ValueError("no validator available")
+        if self.ema_avg is not None:  # the averaged parameters, as the JAX solver's eval
+            named = dict(self.model.named_parameters())
+            live = {n: p.detach().clone() for n, p in named.items()}
+            for n, v in self.avg_params.items():
+                named[n].copy_(v)
+            try:
+                return self._eval(epoch_id)
+            finally:
+                for n, v in live.items():
+                    named[n].copy_(v)
+        return self._eval(epoch_id)
+
+    def _eval(self, epoch_id: Optional[int] = None) -> Tuple[float, Dict[str, Dict[str, float]]]:
         metric_group: Dict[str, Dict[str, float]] = {}
         target_metric = None
         all_losses: List[float] = []

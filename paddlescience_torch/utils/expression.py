@@ -124,6 +124,24 @@ def _forward_transform_on_tape(model, input_dict, tape: ad.Tape) -> Dict[str, to
     return result
 
 
+def _grid_forward(model, feed, grid_keys, batched_out, tape: ad.Tape) -> Dict[str, torch.Tensor]:
+    """A separable model on a product grid (SPINN: per-axis coordinate
+    columns, grid-shaped outputs), as the JAX package: its outputs on a grid
+    stack, whose derivatives are one jvp per axis."""
+    out_keys = tuple(model.output_keys)
+    out_index, _ = _column_index(batched_out, out_keys)
+
+    def grid_fn(*coords):
+        o = model(dict(zip(grid_keys, coords)))
+        return torch.cat([o[k] for k in out_keys], dim=-1)
+
+    stack = tape.add_grid_stack(grid_fn, {k: feed[k] for k in grid_keys}, {k: i for i, k in enumerate(grid_keys)},
+                                out_index)
+    for k in out_keys:
+        tape.register_output(batched_out[k], stack, out_index[k])
+    return {k: batched_out[k] for k in out_keys}
+
+
 def _transform_needs_tape(model, feed) -> Tuple[bool, Optional[Dict[str, torch.Tensor]]]:
     """Whether ``model``'s output transform calls ``jacobian``/``hessian``
     (then its plain call raises for want of tape records), and the plain
@@ -145,6 +163,10 @@ def forward_with_derivatives(models: Sequence, input_dict: Mapping[str, torch.Te
     """Run each model on the constraint inputs and register everything on
     the tape so ``jacobian`` works on the results. Returns the input
     coordinates plus all model outputs.
+
+    A separable model on a product grid (per-axis columns of different
+    lengths, or outputs of more than two dimensions: SPINN) gets a grid
+    stack (:func:`_grid_forward`).
 
     A model's (N, 1) input columns are the coordinates it is differentiated
     along; its other inputs ride along as per-point extras. A model with
@@ -191,6 +213,9 @@ def forward_with_derivatives(models: Sequence, input_dict: Mapping[str, torch.Te
             batched_out = model(feed)
         if not diff_keys:
             out.update(batched_out)
+            continue
+        if any(v.ndim > 2 for v in batched_out.values()) or len({feed[k].shape[0] for k in diff_keys}) > 1:
+            out.update(_grid_forward(model, feed, diff_keys, batched_out, tape))
             continue
         extras = {k: feed[k] for k in in_keys if k not in diff_keys}
         x = torch.cat([input_dict[k] for k in diff_keys], dim=-1)

@@ -13,7 +13,8 @@ DeepONet's ``branch_net.linears.0.weight``, ``trunk_net.last_fc.bias`` and
 ``fno_blocks.fno_skips.0.weight``, an LNO's ``laplace.residue_re``,
 ``conv_w``, ``conv_b`` and ``fc0.weight``, a ``ModelList``'s
 ``model_list.0.linears.0.weight_v`` from the JAX tree's
-``params["model_list"]["0"]``, ...). The layout is the JAX one
+``params["model_list"]["0"]``, a SPINN's ``branch_nets.0.embed_u.weight``
+from ``params["branch_nets"]["0"]``, ...). The layout is the JAX one
 on both sides (W of shape (in, out), a complex weight as its real and
 imaginary parts), so nothing is transposed. Buffers that a module rebuilds
 from its arguments (the LNO's grids ``laplace.t_0``, ``laplace.lam_0``,

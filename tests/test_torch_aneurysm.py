@@ -173,11 +173,13 @@ def test_navier_stokes_residuals_match_the_sympy_form(dim, time, deriv):
 
 
 def test_navier_stokes_with_a_string_viscosity_is_not_ported():
-    """A bare name is a field and a number string a number (ported, held
-    against JAX in ``test_torch_equations.py``); an expression string
-    still needs a sympy-free lowering."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 2"):
-        TNavierStokes("nu * (1 + x)", 1.0, 3, False)
+    """A bare name is a field and a number string a number; an expression
+    string is read without sympy (held against JAX in
+    ``test_torch_equations_basic.py``); only a form outside the reader's
+    grammar is not ported, and raises naming it."""
+    assert TNavierStokes("nu * (1 + x)", 1.0, 3, False).nu.names == ("nu", "x")
+    with pytest.raises(NotImplementedError, match="Max"):
+        TNavierStokes("Max(nu, x)", 1.0, 3, False)
 
 
 def test_normal_dot_vec_and_integral_loss_on_point_sets():
