@@ -5,7 +5,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, each fatal
 on failure:
 
 1. build   - compile every kernel of the driven paths from
-             ``paddlescience_torch/csrc`` with nvcc for sm_90a, in parallel;
+             ``paddlescience_torch/csrc`` with nvcc for sm_90a, in parallel
+             and in the background (nice 19) while the kernel-free
+             [operators] and [operators2] phases run;
 2. kernels - hold each kernel against its plain PyTorch version (and the
              backwards against ``torch.autograd`` through the plain forward)
              on the card, at the main-path shapes and every depth a driven
@@ -78,7 +80,7 @@ on failure:
              steps against 20 eager steps; graphed and eager steps/s,
              points/s, busy and capture time on jet_pallas_full and on
              the plain jet path;
-   euler_beam - the example's ``train()`` at its defaults (100 epochs of
+   euler_beam - the example's ``train()`` for 30 of its 100 epochs of
              one 10-step graph: u, u_x, u_xx through the MLP kernels,
              u_xxx and the fourth-order residual by nested jvp inside the
              graph) and its L2Rel against the analytic solution; the
@@ -109,10 +111,10 @@ on failure:
    operators - BASELINE's operator config at the examples' defaults, one
              CUDA graph an epoch (``train(num_fused_steps=iters_per_epoch)``,
              the host batches staged a replay): Darcy TFNO (1100 samples
-             generated on the host, 50 of the example's 300 epochs of 62
+             generated on the host, 10 of the example's 300 epochs of 62
              steps, l2 every 10 epochs) and the Brusselator LNO (1000
              samples generated on the card, 2 of them held against the CPU
-             generator within 1e-4 x max |u|; 50 of 300 epochs of 16
+             generator within 1e-4 x max |u|; 10 of 300 epochs of 16
              steps, the decoded L2Rel);
              for each a graphed epoch against eager steps (1e-6), graphed
              and eager steps/s with device busy, the final metric;
@@ -129,7 +131,7 @@ on failure:
              own: one graph an epoch, which takes a minute or more to
              capture): the
              cavity generator on the card (one 2000-step chunk at 33^2 as
-             one graph, against eager steps on the card within 1e-6 and
+             20 replays of a 100-step graph, against eager steps on the card within 1e-6 and
              against the CPU within 1e-5 x max), the two stages' reference
              fields solved on the card on a 65^2 grid (the recipes' own:
              257^2) and timed; the gated and MLP kernels against their plain
@@ -160,7 +162,7 @@ on failure:
              autotuner's pick; 3 steps on jet_pallas_full against the
              plain jet path (losses 1e-4, gradients 1e-3); two graphed
              chunks of 10 steps against 20 eager steps (1e-6);
-             ``train()`` for 2 of the example's 2000 epochs (100-step
+             ``train()`` for 1 of the example's 2000 epochs (100-step
              graphs); graphed and eager steps/s; the inverse problem for 1
              of its 100 epochs on the trained networks, frozen (bitwise
              unchanged, no jet_mlp_bwd or jet_wgrad launched), the Lame
@@ -180,6 +182,32 @@ on failure:
              no kernel launched and no plain version on CUDA (a
              transformed net has no jet forward), the example's metric,
              graphed and eager steps/s with busy share and kernels a step;
+   xpinn    - XPINN at the JAX defaults (three MLPs 2 -> 20 x 4, tanh,
+             the Laplacian's 5-stream jet on 2000, 900, 900 residual rows
+             and 100 on each interface): the MLP kernels at those rows
+             against their plain versions; one batch's loss and gradient on
+             jet_pallas_full (pinned whole) against the plain jet path and
+             nested jvp (1e-4, 1e-3); per residual evaluation (7 a step)
+             one launch of jet_mlp_bwd and jet_wgrad and two of
+             jet_mlp_fwd (the backward's recompute); graphed chunks against eager
+             steps (1e-6); 500 steps (10 graphs of 50) with the counters
+             set to 0 just before, l2_rel; graphed and eager steps/s on
+             jet_pallas_full and the plain jet path;
+   hpinns   - hPINNs at the JAX defaults (three MLPs 15 -> 48 x 4, 1500 +
+             5000 points, nested jvp): graphed chunks against eager steps;
+             one outer iteration of 100 steps (graphs of 20) and the
+             multiplier update in place; the PDE MSE and the objective;
+             graphed and eager steps/s;
+   operators2 - darcy_uno, catheter, fourcastnet, fourcastnet_finetune,
+             sfno_swe, adv_cvit and ns_cvit through their solvers, epochs
+             cut (``OPERATORS2_RUN``), yinglong and the velocity GAN
+             through their hand loops: each model on the card against a
+             copy on the CPU with the same weights (outputs and gradients
+             within 1e-4 x their largest magnitude: cuFFT against pocketfft,
+             the strided convs, the resizes), a graphed epoch (or chunk)
+             against eager steps (1e-6), train() one graph an epoch, the
+             metric (l2, L2Rel, RMSE and ACC, the rollout RMSEs, the GAN's
+             L1), graphed and eager steps/s with device busy;
    autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
              candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
              PirateNet 9x256, the aneurysm, cylinder2d matched,
@@ -196,7 +224,8 @@ on failure:
              workload's (S=6, N=282,600, 3 -> 52 x 5), at the LDC
              recipes' (S=5: PirateNet 4 blocks, ModifiedMLP 5 layers, MLP
              2 -> 256 x 4) and at the control arm's (SiLU, S=4, N=2048,
-             3 -> 512 x 6);
+             3 -> 512 x 6), heart's, aneurysm_flow's, nsfnet net 3's and
+             XPINN's (tanh, S=5, N=2000, 2 -> 20 x 4);
              jet_wgrad over the 27 PirateNet layers beside one torch.mm a
              layer (the library time of every jet_wgrad row) and torch.bmm, with
              and without the d alpha sum and against a separate sum (and
@@ -220,11 +249,16 @@ The line before the last holds the card's name and power limit; the line
 before it a JSON object ``{"kernels": [...]}``; the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 CUDA is unavailable or the port is not beside this script.
+
+``python3 chip_smoke.py --only xpinn,hpinns,operators2`` builds the
+kernels and runs only the named phases of this slice (a probe: it prints
+their summaries and no result line).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -268,9 +302,10 @@ PDE_CONSTRAINT = {"mlp": "PDE", "mlp_5x50": "PDE", "piratenet": "PDE", "modified
 CYLINDER = dict(S=6, N=282600, points=299280, dims=(3,) + (52,) * 5, check_n=(282600, 9419), eager_steps=3, K=10,
                 replays=3)
 CYLINDER_PATH = "cylinder/jet_pallas_full"
-# euler_beam: the example's train() at its defaults (100 epochs x 10 steps, one graph of 10 steps
+# euler_beam: the example's train() (EULER_RUN epochs x 10 steps, one graph of 10 steps
 # an epoch), then the TIPC shape (one iteration per epoch: 100 + 4 points a step) in graphed chunks
 EULER_TIPC_K, EULER_REPLAYS = 10, 5
+EULER_RUN = dict(epochs=30)  # of the example's 100 x 10 (cut for the script's time)
 HERE = os.path.dirname(os.path.abspath(__file__))
 STL_DIR = os.path.join(HERE, "dataset", "aneurysm")  # listed in .gitignore
 CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
@@ -1192,18 +1227,20 @@ def profile_steps(solver, name: str, step_ms: float, steps: int = 5, top: int = 
             run()
         torch.cuda.synchronize()
     steps *= steps_per_run
-    rows = []
-    for e in prof.key_averages():
-        # device-side kernels only: CPU-side ranges (aten ops, autograd
-        # functions) and GPU user annotations (Optimizer.step) repeat the
-        # time of the kernels inside them
-        if getattr(e, "device_type", None) != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+    # the raw events, summed by name: key_averages() would first build the
+    # profiler's Python event tree, about 0.1 ms an event (10 s for one
+    # replay of a graph of 100,000 kernels). Device-side events only:
+    # CPU-side ranges (aten ops, autograd functions) and GPU user
+    # annotations (Optimizer.step) repeat the time of the kernels inside
+    # them; asynchronous events count no time, as in key_averages()
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation() or e.is_async()
+                or e.start_thread_id() != e.end_thread_id() or getattr(e, "is_hidden_event", lambda: False)()):
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us / steps / 1e3, e.count / steps, e.key))
+        ns, count = totals.get(e.name(), (0, 0))
+        totals[e.name()] = (ns + e.duration_ns(), count + 1)
+    rows = [(ns / steps / 1e6, count / steps, name) for name, (ns, count) in totals.items() if ns > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy == 0:
@@ -1563,8 +1600,8 @@ def run_cylinder_phase():
 
 
 def run_euler_beam_phase(tmp: str):
-    """The euler_beam example on jet_pallas_full: ``train()`` at its
-    defaults (one CUDA graph of 10 steps an epoch: the boundary's u, u_x,
+    """The euler_beam example on jet_pallas_full: ``train()`` for
+    ``EULER_RUN``'s epochs (one CUDA graph of 10 steps an epoch: the boundary's u, u_x,
     u_xx through the MLP kernels, u_xxx and the fourth-order residual by
     nested jvp, all inside the graph) and the L2Rel against the analytic
     solution; the boundary loss and gradient against the plain jet path
@@ -1575,7 +1612,7 @@ def run_euler_beam_phase(tmp: str):
 
     from paddlescience_torch.examples import euler_beam
 
-    solver = euler_beam.build_solver(output_dir=os.path.join(tmp, "euler_beam"), device="cuda")
+    solver = euler_beam.build_solver(output_dir=os.path.join(tmp, "euler_beam"), device="cuda", **EULER_RUN)
     counts = graph_train(solver, "euler_beam")
     metric, group = solver.eval()
     reqs = {n: sorted({m for rs in r.values() for stack in rs for m in stack}) for n, r in solver._jet_requests.items()}
@@ -1602,8 +1639,8 @@ def run_euler_beam_phase(tmp: str):
 
 # the JAX examples' train() at their defaults, no derivative path pinned: (graphed chunk K and replays timed)
 EXAMPLE_TIMED = {"laplace2d": (10, 5), "ldc2d": (50, 3), "deeponet": (32, 5)}
-# cut for the script's time: ldc2d_steady 20 of its 50 epochs, DeepONet 40 of its 100
-EXAMPLE_RUN = {"ldc2d": dict(epochs=20), "deeponet": dict(epochs=40)}
+# cut for the script's time: ldc2d_steady 10 of its 50 epochs, DeepONet 20 of its 100
+EXAMPLE_RUN = {"ldc2d": dict(epochs=10), "deeponet": dict(epochs=20)}
 AUTOTUNE_ENV = {"PSCI_AUTOTUNE_FUSED": "5", "PSCI_AUTOTUNE_CALLS": "3"}  # K = 5: cut for the script's time
 
 
@@ -1714,7 +1751,7 @@ def run_example_phases(tmp: str):
 LBFGS_CHECK_STEPS = 3  # L-BFGS steps held on jet_pallas_full against the plain jet path
 LBFGS_REFINE_STEPS = 50  # L-BFGS steps after the [ldc2d] phase's Adam training
 LBFGS_EPOCHS = 5  # of the example's 50 epochs of 50 L-BFGS steps: cut for the script's time
-OPERATOR_EPOCHS = 25  # of the operator examples' 300 epochs: cut for the script's time
+OPERATOR_EPOCHS = 10  # of the operator examples' 300 epochs: cut for the script's time
 OPERATOR_TIMED = {"darcy": 5, "brusselator": 10}  # graphed replays timed per solver
 BRUSSELATOR_CHECK = 2  # samples of the generator held on the card against the CPU
 BRUSSELATOR_TOL = 1e-4  # x max |u|: cuFFT against the CPU's FFT over the 9500 steps of the rollout
@@ -1839,18 +1876,22 @@ def run_lbfgs_phase(tmp: str, adam_params):
 
 def check_operator_graph(name: str, build):
     """One epoch as one graph of k = iters_per_epoch steps (k host batches
-    staged a replay) against k eager steps, both from a fresh solver:
-    parameters within 1e-6 relative (and whether bitwise)."""
+    staged a replay) against k eager steps, both from a fresh solver and
+    under cuDNN's deterministic algorithms: parameters within 1e-6
+    relative (and whether bitwise)."""
     import torch
 
+    from paddlescience_torch.utils.step_graph import deterministic_convs
+
     runs = {}
-    for fused in ("eager", "graphed"):
-        s = build()
-        k = s.iters_per_epoch
-        s.epochs = 1
-        s.train(num_fused_steps=k if fused == "graphed" else 1)
-        runs[k if fused == "graphed" else 1] = s
-    torch.cuda.synchronize()
+    with deterministic_convs():  # cuDNN's atomics would reorder a conv's weight-gradient sums
+        for fused in ("eager", "graphed"):
+            s = build()
+            k = s.iters_per_epoch
+            s.epochs = 1
+            s.train(num_fused_steps=k if fused == "graphed" else 1)
+            runs[k if fused == "graphed" else 1] = s
+        torch.cuda.synchronize()
     a, b = flat_params(runs[k]), flat_params(runs[1])
     rel = float((a - b).norm() / b.norm())
     log(f"[operators] {name}: one epoch as one graph of {k} steps vs {k} eager steps from the same fresh state: "
@@ -1884,6 +1925,14 @@ def train_operator(name: str, solver, metric_name: str):
     return timing
 
 
+@functools.lru_cache(maxsize=None)
+def _darcy_data():
+    """The Darcy examples' 1100 samples at 16^2 (generated on the host once)."""
+    from paddlescience_torch.examples import darcy_tfno
+
+    return darcy_tfno.make_data(1100, 16)
+
+
 def run_operator_phase(tmp: str):
     """BASELINE's operator config through the examples' entry points at
     their defaults, the epochs cut to ``OPERATOR_EPOCHS`` (of 300): Darcy
@@ -1900,7 +1949,7 @@ def run_operator_phase(tmp: str):
 
     out = {}
     t0 = time.perf_counter()
-    darcy_data = darcy_tfno.make_data(1100, 16)
+    darcy_data = _darcy_data()
     gen_s = time.perf_counter() - t0
     log(f"[operators] darcy: {len(darcy_data[0])} samples at 16^2 generated (host, numpy and scipy) in {gen_s:.2f} s")
     build = lambda tag: darcy_tfno.build_solver(epochs=OPERATOR_EPOCHS, data=darcy_data,
@@ -1994,7 +2043,7 @@ def run_autotune_phase(solvers):
                     + ", ".join(f"{n} {t:.4f}" for n, t in times.items()) + f"; winner {winner} (the argmin); "
                     f"state bitwise unchanged; kernel launches while timing "
                     f"{results[name]['launches']}; a second call served from the cache, nothing timed")
-                solver._graphs.clear()
+                solver.release_graphs()
                 torch.cuda.empty_cache()
         finally:
             autotune._time_candidate = real
@@ -2099,7 +2148,7 @@ def run_recipe_phase(tmp: str):
 
 def check_generator():
     """The cavity generator on the card: one 2000-step chunk at Re 100 on
-    the LDC_CHECK_N grid graphed (one replay), against the same chunk in
+    the LDC_CHECK_N grid graphed (20 replays of a 100-step graph), against the same chunk in
     eager steps on the card (1e-6 x max) and on the CPU (1e-5 x max; cuFFT
     against pocketfft). Returns the numbers."""
     import numpy as np
@@ -2337,9 +2386,10 @@ def time_ldc_kernels(rows, per_step):
 
 ARM_JET = [(0,), (1,), (2,)]  # each control-arm network's interior jet: the value and d/dx, d/dy, d/dz (S = 4)
 ELASTICITY = dict(N=2048, dims=(3,) + (512,) * 6)  # the interior batch and each network's hidden layers
-# 2 of the example's 2000 epochs (and 1 of the inverse's 100), 100 steps each as one graph; each constraint
-# samples one iteration's points (2048 interior, 128 + 128 + 512 boundary), not the example's batch x 100
-ARM_FORWARD = dict(epochs=2, iters_per_epoch=100, sample_iters=1)
+# 1 of the example's 2000 epochs (and 1 of the inverse's 100), each as one graph: the forward's 50 of its 100
+# steps (cut for the script's time), the inverse's 100; each constraint samples one iteration's points
+# (2048 interior, 128 + 128 + 512 boundary), not the example's batch x 100
+ARM_FORWARD = dict(epochs=1, iters_per_epoch=50, sample_iters=1)
 ARM_INVERSE = dict(epochs=1, iters_per_epoch=100, sample_iters=1)
 ARM_GRAPH_K = 10  # graphed chunks against eager steps
 BRACKET_RUN = dict(epochs=1, iters_per_epoch=20)  # 1 of the example's 30 epochs of 20 steps
@@ -2569,10 +2619,12 @@ HALVES_CHECKS = [(9, 1024, HEART["dims"]), (10, 1024, HEART["dims"]), (9, 1023, 
                  (10, 2048, FLOW["dims"])]
 # heart: each constraint samples one iteration's points (1024 interior, 128 on each boundary), not the example's
 # batch x 20 iterations; 100 of the example's 200 epochs of 20 steps (the inverse's too)
-HEART_RUN = dict(sample_iters=1, epochs=100)
+HEART_RUN = dict(sample_iters=1, epochs=20)  # of 200 (cut for the script's time)
 HEART_TIMED = (20, 3)  # (K, replays) of the graphed-against-eager timing
 FLOW_TIMED = (10, 3)
 PINN_SUITE = ("burgers", "shock_wave", "nlsmb_soliton", "nlsmb_rogue_wave", "heat_exchanger")
+# train() cut for the script's time (PERF.md §4): of 40, 20 and 50 epochs
+PINN_SUITE_RUN = {"burgers": dict(epochs=5), "shock_wave": dict(epochs=5), "nlsmb_rogue_wave": dict(epochs=10)}
 PINN_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
 # the graphed-against-eager timing of each: K = 5, 5 eager steps timed, the eager steps not profiled
 PINN_TIMED = dict(k=5, replays=3, eager_steps=5, profiled=0)
@@ -2581,20 +2633,22 @@ PINN_TIMED = dict(k=5, replays=3, eager_steps=5, profiled=0)
 # name -> build_solver arguments
 TRANSFORM_EXAMPLES = {
     "poiseuille_flow": dict(epochs=4),  # of 40 epochs x 50 steps
-    "heat_pinn": dict(epochs=20),  # of 50 x 20
-    "ldc2d_unsteady_Re10": dict(epochs=100),  # of 20000 x 1 (eager steps: one step an epoch)
+    "heat_pinn": dict(epochs=10),  # of 50 x 20
+    "ldc2d_unsteady_Re10": dict(epochs=30),  # of 20000 x 1 (eager steps: one step an epoch)
     "volterra_ide": {},  # 50 x 20
-    "biharmonic2d": dict(epochs=2),  # of 40 x 25
-    "gpinn": dict(epochs=100),  # of 20000 x 1
+    "biharmonic2d": dict(epochs=1),  # of 40 x 25, in graphs of TRANSFORM_FUSE["biharmonic2d"]
+    "gpinn": dict(epochs=30),  # of 20000 x 1
     "fractional_poisson_2d": {},  # 200 x 1
-    "bubble": dict(epochs=100),  # of 10000 x 1
+    "bubble": dict(epochs=30),  # of 10000 x 1
 }
 # deephpms: pde -> each stage's epochs of one step (the example's: 60); KdV (order 3, between the
 # two) runs on the CPU only: its two ETDRK4 fields alone take 11 s of host time
-DEEPHPMS_RUN = {"burgers": (60, 60, 60), "ks": (10, 10, 10)}
+DEEPHPMS_RUN = {"burgers": (20, 20, 20), "ks": (2, 2, 2)}  # cut for the script's time (PERF.md §4)
 TRANSFORM_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
 # the graphed-against-eager timing: the check's 3-step graph replayed 3 times, 3 eager steps, none profiled
 # (the profiler took 30 s over one eager step of biharmonic2d's or deephpms ks's nested jvp)
+# train()'s graph size where one epoch's graph takes long to capture (19,463 kernels a step)
+TRANSFORM_FUSE = {"biharmonic2d": 5}
 TRANSFORM_TIMED = dict(k=TRANSFORM_CHECK_K, replays=3, eager_steps=3, profiled=0)
 
 
@@ -2609,12 +2663,12 @@ TOOLKIT_RUN = {
     "darcy2d": dict(epochs=4),  # of 40 x 25
     "quick_start case 1": dict(epochs=2),  # of 10 x 100
     "quick_start case 2": dict(epochs=2),  # of 10 x 100
-    "quick_start case 3": dict(epochs=10),  # of 50 L-BFGS steps
-    "spinn_helmholtz3d": dict(epochs=1, iters_per_epoch=100),  # of 50 x 1000 (an eager step takes 0.5 s: capture)
+    "quick_start case 3": dict(epochs=5),  # of 50 L-BFGS steps
+    "spinn_helmholtz3d": dict(epochs=1, iters_per_epoch=10),  # of 50 x 1000 (an eager step takes 0.5 s: capture)
 }
 # train()'s chunks (graphs; capturing a chunk costs about K eager steps, 0.15-0.65 s each in the nested-jvp stages)
 TOOLKIT_K = {"nsfnet net 1": 10, "nsfnet net 3": 10, "spinn_helmholtz3d": 10, "deephpms": 5}
-DEEPHPMS_TOOLKIT = {"deephpms_ns": (10, 10), "deephpms_schrodinger": (10, 10, 5)}  # of 60 epochs x 20 steps each
+DEEPHPMS_TOOLKIT = {"deephpms_ns": (10, 10), "deephpms_schrodinger": (10, 10, 2)}  # of 60 epochs x 20 steps each
 TOOLKIT_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
 TOOLKIT_TIMED = dict(k=TOOLKIT_CHECK_K, replays=3, eager_steps=3, profiled=0)
 
@@ -2723,7 +2777,7 @@ def train_on_pick(solver, phase: str, name: str, pick: str, k=None):
     from paddlescience_torch.autodiff import path as deriv_path
 
     deriv_path.set_default(deriv_path.CANDIDATES[pick])
-    solver._graphs.clear()  # train() captures its own graph: the counters see its warm-up and capture launches
+    solver.release_graphs()  # train() captures its own graph: the counters see its warm-up and capture launches
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
@@ -2744,8 +2798,8 @@ def run_heart_phase(tmp: str):
     streams; the autotuner's pick over every candidate; 3 steps on
     jet_pallas_full against the plain jet path (losses 1e-4, gradients
     1e-3; the three MLP kernels launched every step); graphed chunks against
-    eager steps (1e-6); ``train()`` for the example's 200 x 20 steps on the
-    pick; the L2Rel of u, v, w against the data (and E_hat); graphed and
+    eager steps (1e-6); ``train()`` for ``HEART_RUN``'s epochs (of the
+    example's 200) x 20 steps on the pick; the L2Rel of u, v, w against the data (and E_hat); graphed and
     eager steps/s. Returns (launch counts by run, kernel launches a step
     on jet_pallas_full, numbers)."""
     from paddlescience_torch.autodiff import path as deriv_path
@@ -2827,7 +2881,8 @@ def run_pinn_suite_phase(tmp: str):
     (widths 50-64, under the lane gate: the plain jet path or nested jvp,
     no kernel): two graphed chunks of 3 steps against 6 eager steps from
     the same state (1e-6), the state restored;
-    ``train()`` at the example's epochs; its final metric; graphed and
+    ``train()`` at the example's epochs (``PINN_SUITE_RUN`` cuts three);
+    its final metric; graphed and
     eager steps/s and kernels a step. Returns the numbers."""
     import importlib
 
@@ -2840,7 +2895,8 @@ def run_pinn_suite_phase(tmp: str):
         module = importlib.import_module(f"paddlescience_torch.examples.{name}")
         deriv_path.set_default(None)
         t0 = time.perf_counter()
-        solver = module.build_solver(output_dir=os.path.join(tmp, name), device="cuda")
+        solver = module.build_solver(output_dir=os.path.join(tmp, name), device="cuda",
+                                     **PINN_SUITE_RUN.get(name, {}))
         build_s = time.perf_counter() - t0
         snap = solver.state
         check_graph_against_eager_rewound(solver, name, PINN_CHECK_K)
@@ -2888,7 +2944,7 @@ def _transform_metric(name: str, module, solver):
     return {"L2Rel": module.l2rel(solver)}
 
 
-def _transform_run(label: str, solver, build_s: float, metric_fn, timed=None):
+def _transform_run(label: str, solver, build_s: float, metric_fn, timed=None, k=None):
     """One solver of the [transforms] phase: two graphed chunks against
     eager steps from the same state (on ``timed`` where given: a solver of
     the same example whose batches take a graph), the state restored;
@@ -2896,7 +2952,8 @@ def _transform_run(label: str, solver, build_s: float, metric_fn, timed=None):
     transformed net has no jet forward, the others sit under the lane gate
     with no path pinned, and no plain version may run on CUDA); the metric;
     graphed and eager steps/s, busy share and kernels a step (the trained
-    state restored afterwards). Returns the numbers."""
+    state restored afterwards); ``k`` steps a graph in train() (None: the
+    solver's default). Returns the numbers."""
     import torch
 
     timed = solver if timed is None else timed
@@ -2909,7 +2966,7 @@ def _transform_run(label: str, solver, build_s: float, metric_fn, timed=None):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    logged = solver.train()
+    logged = solver.train(k)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts, plain = read_counts()
@@ -2958,7 +3015,8 @@ def run_transforms_phase(tmp: str):
         if name == "bubble":
             n_train = len(solver.constraint["Sup"].dataset)
             timed = module.build_solver(output_dir=None, device="cuda", sup_batch=n_train, **kwargs)
-        out[name] = _transform_run(name, solver, build_s, lambda: _transform_metric(name, module, solver), timed)
+        out[name] = _transform_run(name, solver, build_s, lambda: _transform_metric(name, module, solver), timed,
+                                   TRANSFORM_FUSE.get(name))
         del solver, timed
         torch.cuda.empty_cache()
     for pde, epochs in DEEPHPMS_RUN.items():
@@ -3251,6 +3309,338 @@ def time_heart_flow_kernels(rows, heart_per_step, flow_per_step):
                    {k: flow_per_step.get(k, 0) for k in names}, index=jet.build_index(NS3D))
 
 
+# ------------------------------------- the eighteenth slice: XPINN, hPINNs, the operators --
+
+XPINN_JET = [(0, 0), (1, 1)]  # each net's Laplacian: u_xx and u_yy, with u, u_x, u_y the jet has 5 streams
+XPINN = dict(N=2000, dims=(2,) + (20,) * 4, rows=(2000, 900, 900, 100))  # the middle strip, the sides, an interface
+XPINN_RESIDUALS = 7  # residual evaluations a step: 3 strips + 2 interfaces x 2 nets
+XPINN_K = 50  # steps a graph: one epoch of the JAX configuration (10 x 50)
+XPINN_JET_K = 10  # steps a graph when the plain jet path is timed beside the kernels
+HPINNS_K = 10  # inner steps a graph: one outer iteration of 100 steps is 10 replays
+HAND_TIMED = dict(replays=3, eager_steps=3, profiled=1)
+GRAPH_TOL = 1e-6
+
+
+class _HandLoop:
+    """The ``train_step`` / ``train_chunk`` face that :func:`time_graphed`
+    drives, over a hand loop's ``StepGraph``."""
+
+    def __init__(self, loop):
+        self.loop = loop
+
+    def train_step(self):
+        return self.loop.run(1, graphed=False)
+
+    def train_chunk(self, k):
+        return self.loop.run(k)
+
+
+def check_hand_graph(name: str, loop, k: int, phase: str):
+    """Two graphed chunks of k steps against 2k eager steps from one state
+    of a hand loop, under cuDNN's deterministic algorithms: everything a
+    step changes within 1e-6 relative; the state restored after. Returns
+    the relative error."""
+    import torch
+
+    from paddlescience_torch.utils.step_graph import deterministic_convs
+
+    snap = loop.snapshot()
+    with deterministic_convs():  # cuDNN's atomics would reorder a conv's weight-gradient sums
+        for _ in range(2):
+            loop.run(k)
+        torch.cuda.synchronize()
+        graphed = torch.cat([t.detach().reshape(-1).float() for t in loop.state()])
+        loop.restore(snap)
+        loop.run(2 * k, graphed=False)
+        torch.cuda.synchronize()
+        eager = torch.cat([t.detach().reshape(-1).float() for t in loop.state()])
+    loop.restore(snap)
+    rel = float((graphed - eager).norm() / eager.norm())
+    log(f"[{phase}] {name}: 2 graphed chunks of {k} steps vs {2 * k} eager steps from one state: parameters and "
+        f"optimizer state rel err {rel:.3e}, bitwise {torch.equal(graphed, eager)}")
+    if not (rel <= GRAPH_TOL and torch.isfinite(graphed).all()):
+        raise AssertionError(f"{name}: the graphed chunks disagree with the eager steps (rel {rel:.3e})")
+    return rel
+
+
+def run_xpinn_phase():
+    """XPINN at the JAX defaults (three MLPs 2 -> 20 x 4, tanh; 2000, 900,
+    900 residual rows and 100 on each interface): the MLP kernels at each
+    residual's rows against their plain versions; on one batch, the loss
+    and gradient on jet_pallas_full (pinned whole) against the plain jet
+    path and nested jvp (loss 1e-4, gradient 1e-3 of the largest
+    magnitude); per residual evaluation one launch of jet_mlp_bwd and of
+    jet_wgrad and two of jet_mlp_fwd (the backward's recompute);
+    graphed chunks against eager steps; 500 steps (10 graphs of 50) on
+    jet_pallas_full with the counters set to 0 just before (the warm-up's
+    and the capture's steps launch through the wrappers, the replays
+    through none), l2_rel; graphed and eager steps/s on jet_pallas_full and
+    on the plain jet path.
+    Returns (numbers, launches per step on jet_pallas_full, kernel errors,
+    the 500 steps' launches)."""
+    import torch
+
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.examples import xpinn
+    from paddlescience_torch.utils.step_graph import WARMUP_STEPS
+
+    t_start = time.perf_counter()
+    errs = {}
+    for n in sorted(set(XPINN["rows"]), reverse=True):
+        for k, v in check_kernels(len(XPINN_JET) * 2 + 1, n, XPINN["dims"], index=jet.build_index(XPINN_JET)).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    model = xpinn.build(device="cuda")
+    grads = {}
+    for deriv in ("jet", "jvp", "jet_pallas_full"):
+        with on_path(deriv):
+            torch.cuda.synchronize()
+            reset_counts()
+            loss, *g = model.gradients()
+            torch.cuda.synchronize()
+            counts, plain = read_counts()
+        grads[deriv] = (float(loss), torch.cat([t.reshape(-1) for t in g]))
+        if deriv == "jet_pallas_full":
+            per_step = counts
+            # the backward recomputes the stage boundaries with a second forward (no save_bounds on this path)
+            want = {"jet_mlp_fwd": 2 * XPINN_RESIDUALS, "jet_mlp_bwd": XPINN_RESIDUALS, "jet_wgrad": XPINN_RESIDUALS}
+            got = {n: counts[n] for n in want}
+            if got != want or any(v for n, v in counts.items() if n not in want) or any(plain.values()):
+                raise AssertionError(f"xpinn: launches {counts} (expected per residual evaluation one forward, "
+                                     f"its recompute, one jet_mlp_bwd and one jet_wgrad: {want}), plain versions "
+                                     f"on CUDA {plain}")
+    k_loss, k_grad = grads["jet_pallas_full"]
+    cmp = {}
+    for ref in ("jet", "jvp"):
+        r_loss, r_grad = grads[ref]
+        cmp[ref] = {"loss_rel": abs(k_loss - r_loss) / abs(r_loss),
+                    "grad_rel": float((k_grad - r_grad).abs().max() / r_grad.abs().max())}
+        log(f"[xpinn] one batch, jet_pallas_full vs {ref}: loss {k_loss:.9e} vs {r_loss:.9e} (rel "
+            f"{cmp[ref]['loss_rel']:.3e}), gradient max abs diff {cmp[ref]['grad_rel']:.3e} x its largest magnitude")
+        if cmp[ref]["loss_rel"] > 1e-4 or cmp[ref]["grad_rel"] > 1e-3:
+            raise AssertionError(f"xpinn: jet_pallas_full disagrees with {ref}: {cmp[ref]}")
+    log(f"[xpinn] jet_pallas_full: one batch launches {({n: v for n, v in per_step.items() if v})}: for each of the "
+        f"{XPINN_RESIDUALS} residual evaluations one forward, its recompute in the backward, one jet_mlp_bwd and one "
+        f"jet_wgrad; plain versions on CUDA 0")
+    out = {"vs_plain_paths": cmp, "launches_per_step": {n: v for n, v in per_step.items() if v}}
+    with on_path("jet_pallas_full"):
+        out["graph_vs_eager_rel"] = check_hand_graph("xpinn", model.loop, 5, "xpinn")
+        steps = model.cfg["epochs"] * model.cfg["iters_per_epoch"]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = model.train_steps(steps, XPINN_K)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts, plain = read_counts()
+        l2 = model.l2_rel()
+        # a replay launches through no wrapper: the counts are the warm-up's and the capture's steps
+        counted = {n: (WARMUP_STEPS + XPINN_K) * v for n, v in out["launches_per_step"].items()}
+        if any(counts[n] != v for n, v in counted.items()) or any(plain.values()) \
+                or not (math.isfinite(loss) and math.isfinite(l2)):
+            raise AssertionError(f"xpinn: {steps} steps: loss {loss}, l2_rel {l2}, launches {counts}, plain {plain}")
+        log(f"[xpinn] {steps} steps on jet_pallas_full ({steps // XPINN_K} graphs of {XPINN_K}) in {train_s:.2f} s: "
+            f"final loss {loss:.6e}, l2_rel {l2:.6e}; launches {({n: v for n, v in counts.items() if v})}")
+        out.update(steps=steps, train_s=train_s, final_loss=loss, l2_rel=l2)
+        out["jet_pallas_full"] = time_graphed(_HandLoop(model.loop), "xpinn jet_pallas_full", XPINN_K, **HAND_TIMED)
+    with on_path("jet"):  # 3210 kernels a step on this path: graphs of XPINN_JET_K steps keep the capture short
+        out["jet"] = time_graphed(_HandLoop(model.loop), "xpinn jet", XPINN_JET_K, **HAND_TIMED)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[xpinn] {out['seconds']:.1f} s")
+    return out, per_step, errs, counts
+
+
+def run_hpinns_phase():
+    """hPINNs at the JAX defaults (three MLPs 15 -> 48 x 4, 1500 objective
+    and 5000 PDE points; nested jvp, no kernel): graphed chunks against
+    eager steps; one outer iteration of 100 inner steps (5 graphs of 20)
+    and the multiplier update in place; the PDE MSE and the objective,
+    finite; graphed and eager steps/s."""
+    import torch
+
+    from paddlescience_torch.examples import hpinns
+
+    t_start = time.perf_counter()
+    model = hpinns.build(device="cuda")
+    out = {"graph_vs_eager_rel": check_hand_graph("hpinns", model.loop, 3, "hpinns")}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    logs = model.train_steps(100, HPINNS_K)
+    mu0 = float(model.mu)
+    model.lagrangian_update()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts, plain = read_counts()
+    ev = model.evaluate()
+    lam = float(model.lam_re.abs().max())
+    if not all(math.isfinite(v) for v in list(logs.values()) + list(ev.values())) or any(plain.values()) \
+            or float(model.mu) != 2 * mu0 or not lam > 0:
+        raise AssertionError(f"hpinns: logs {logs}, {ev}, mu {float(model.mu)}, max |lambda| {lam}, plain {plain}")
+    log(f"[hpinns] one outer iteration: 100 inner steps ({100 // HPINNS_K} graphs of {HPINNS_K}) and the multiplier "
+        f"update in {train_s:.2f} s: loss {logs['loss']:.6e}, PDE MSE {ev['pde_mse']:.6e}, objective "
+        f"{ev['objective']:.6e}, mu {mu0} -> {float(model.mu)}, max |lambda_re| {lam:.4e}; kernel launches "
+        f"{({n: v for n, v in counts.items() if v})} (none expected)")
+    out.update(train_s=train_s, **ev, final_loss=logs["loss"], mu=float(model.mu))
+    out.update(time_graphed(_HandLoop(model.loop), "hpinns", HPINNS_K, replays=3, eager_steps=2, profiled=1))
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[hpinns] {out['seconds']:.1f} s")
+    return out
+
+
+# the [operators2] phase: each new operator example, cut (PERF.md §4)
+OPERATORS2_RUN = {"darcy_uno": dict(epochs=2), "catheter": dict(epochs=20), "fourcastnet": {},
+                  "fourcastnet_finetune": {}, "sfno_swe": {}, "adv_cvit": dict(epochs=3), "ns_cvit": dict(epochs=3)}
+OPERATORS2_TIMED = dict(replays=3, eager_steps=3, profiled=1)
+VGAN_STEPS, VGAN_K = 60, 20
+YINGLONG_K = 10
+
+
+def card_vs_cpu(name: str, model, inputs):
+    """The module on the card against a copy of it on the CPU with the same
+    weights, on the same inputs: every output, and the parameter gradient
+    of sum(out * c) (all parameters as one vector), within 1e-4 x its
+    largest magnitude (the FFT and padding traps show here). Returns the
+    largest such error."""
+    import copy
+
+    import torch
+
+    cpu = copy.deepcopy(model).cpu()
+    gen = torch.Generator().manual_seed(3)
+    worst = 0.0
+    outs = {}
+    for tag, m, dev in (("card", model, next(model.parameters()).device), ("cpu", cpu, "cpu")):
+        feed = {k: v.to(dev) for k, v in inputs.items()}
+        o = m(feed)
+        if tag == "card":
+            cots = {k: torch.randn(v.shape, generator=gen) for k, v in o.items()}
+        loss = sum((v * cots[k].to(dev)).sum() for k, v in o.items())
+        ps = [p for p in m.parameters() if p.requires_grad]
+        gs = torch.autograd.grad(loss, ps, allow_unused=True)
+        # the gradient as one vector: a parameter whose gradient is zero in exact arithmetic (an attention
+        # key's bias: softmax ignores a shift) holds float32 noise, which only the whole gradient can scale
+        outs[tag] = ([v.detach().cpu() for v in o.values()],
+                     [torch.cat([(g if g is not None else torch.zeros_like(p)).detach().cpu().reshape(-1)
+                                 for g, p in zip(gs, ps)])])
+    for part, (a_list, b_list) in zip(("output", "gradient"), zip(outs["card"], outs["cpu"])):
+        for a, b in zip(a_list, b_list):
+            err = float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+            worst = max(worst, err)
+            if err > REL_TOL:
+                raise AssertionError(f"{name}: the card disagrees with the CPU ({part}: {err:.3e} of the largest "
+                                     "magnitude)")
+    log(f"[operators2] {name}: card vs CPU, same weights and inputs: outputs and parameter gradients within "
+        f"{worst:.3e} x their largest magnitude (limit {REL_TOL})")
+    return worst
+
+
+def _first_batch(solver, name: str):
+    """The constraint's first host batch as CPU tensors."""
+    import torch
+
+    inp, _, _ = next(iter(solver.constraint.values())).data_iter.__next__()
+    return {k: torch.as_tensor(v, dtype=torch.float32) for k, v in inp.items()}
+
+
+def run_operators2_phase(tmp: str):
+    """The new operator examples at their defaults (epochs cut,
+    ``OPERATORS2_RUN``): darcy_uno, catheter, fourcastnet and its finetune,
+    sfno_swe, adv_cvit and ns_cvit through their solvers (card against CPU
+    on a batch; one graphed epoch against eager steps; train() one graph an
+    epoch; the metric; graphed and eager steps/s), yinglong and the
+    velocity GAN through their hand loops (card against CPU; graphed
+    against eager; the fit or the GAN's steps; the metric). Returns the
+    numbers."""
+    import torch
+
+    from paddlescience_torch.examples import (adv_cvit, catheter, darcy_uno, fourcastnet, fourcastnet_finetune,
+                                              ns_cvit, sfno_swe, velocitygan_fwi, yinglong)
+
+    out = {}
+    darcy_data = _darcy_data()  # the [operators] phase's samples
+    makers = {
+        "darcy_uno": lambda tag, **kw: darcy_uno.build_solver(data=darcy_data, output_dir=os.path.join(tmp, tag),
+                                                              device="cuda", **kw),
+        "catheter": lambda tag, **kw: catheter.build_solver(data_dir=None, output_dir=os.path.join(tmp, tag),
+                                                            device="cuda", **kw),
+        "fourcastnet": lambda tag, **kw: fourcastnet.build_solver(output_dir=os.path.join(tmp, tag), device="cuda",
+                                                                  **kw),
+        "fourcastnet_finetune": lambda tag, **kw: fourcastnet_finetune.build_solver(
+            os.path.join(tmp, "fourcastnet", "checkpoints", "latest"), output_dir=os.path.join(tmp, tag),
+            device="cuda", **kw),
+        "sfno_swe": lambda tag, **kw: sfno_swe.build_solver(output_dir=os.path.join(tmp, tag), device="cuda", **kw),
+        "adv_cvit": lambda tag, **kw: adv_cvit.build_solver(data_dir=None, output_dir=os.path.join(tmp, tag),
+                                                            device="cuda", **kw),
+        "ns_cvit": lambda tag, **kw: ns_cvit.build_solver(output_dir=os.path.join(tmp, tag), device="cuda", **kw),
+    }
+    for name, build in makers.items():
+        t_start = time.perf_counter()
+        solver = build(name, **OPERATORS2_RUN[name])
+        num = {"card_vs_cpu": card_vs_cpu(name, solver.model, _first_batch(solver, name))}
+        num["graph_check"] = check_operator_graph(name, lambda: build(name + "_chk", **OPERATORS2_RUN[name]))
+        k = solver.iters_per_epoch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logged = solver.train(num_fused_steps=k)
+        torch.cuda.synchronize()
+        num["train_s"] = time.perf_counter() - t0
+        metric, group = solver.eval()
+        if name == "fourcastnet":
+            solver._save("latest", print_log=False)
+        if not math.isfinite(metric) or not all(math.isfinite(e["loss"]) for e in logged):
+            raise AssertionError(f"{name}: metric {metric}, logs {logged[-3:]}")
+        num.update(metric=metric, metrics=group, epochs=solver.epochs, steps=solver.epochs * k)
+        log(f"[operators2] {name}: train() {solver.epochs} epochs x {k} steps, one graph an epoch, in "
+            f"{num['train_s']:.2f} s; final loss {logged[-1]['loss']:.6e}; {group}")
+        num.update(time_graphed(solver, name, k, **OPERATORS2_TIMED))
+        num["seconds"] = time.perf_counter() - t_start
+        out[name] = num
+
+    t_start = time.perf_counter()
+    yl = yinglong.YingLong(device="cuda")
+    num = {"card_vs_cpu": card_vs_cpu("yinglong", yl.model, {"input": yl.x[:2]})}
+    num["graph_vs_eager_rel"] = check_hand_graph("yinglong", yl.loop, 5, "operators2")
+    num["fit_loss"] = yl.fit(40, YINGLONG_K)
+    num["rollout_rmse"] = yl.rollout(4)
+    if not all(math.isfinite(v) for v in num["rollout_rmse"] + [num["fit_loss"]]):
+        raise AssertionError(f"yinglong: {num}")
+    log(f"[operators2] yinglong: 40 fit steps (graphs of {YINGLONG_K}): loss {num['fit_loss']:.6e}; rollout RMSE "
+        f"per step {[round(r, 6) for r in num['rollout_rmse']]}")
+    num.update(time_graphed(_HandLoop(yl.loop), "yinglong", YINGLONG_K, **OPERATORS2_TIMED))
+    num["seconds"] = time.perf_counter() - t_start
+    out["yinglong"] = num
+
+    t_start = time.perf_counter()
+    gan = velocitygan_fwi.build(device="cuda")
+    num = {"card_vs_cpu_generator": card_vs_cpu("velocity generator", gan.gen, {"data": gan.x[:4]}),
+           "card_vs_cpu_discriminator": card_vs_cpu("velocity discriminator", gan.disc, {"velocity": gan.y[:4]})}
+    num["graph_vs_eager_rel"] = check_hand_graph("velocitygan", gan.loop, 5, "operators2")
+    first = gan.train_steps(1)
+    last = gan.train_steps(VGAN_STEPS, VGAN_K)
+    if not all(math.isfinite(v) for v in list(last.values()) + [first["l1"]]) or not last["l1"] < first["l1"]:
+        raise AssertionError(f"velocitygan: L1 {first['l1']} -> {last}")
+    num.update(first_l1=first["l1"], last_l1=last["l1"], d_loss=last["d_loss"], g_loss=last["g_loss"])
+    log(f"[operators2] velocitygan: 1 + {VGAN_STEPS} step pairs (graphs of {VGAN_K}): L1 {first['l1']:.6f} -> "
+        f"{last['l1']:.6f}, d loss {last['d_loss']:.6f}, g loss {last['g_loss']:.6f}")
+    num.update(time_graphed(_HandLoop(gan.loop), "velocitygan", VGAN_K, **OPERATORS2_TIMED))
+    num["seconds"] = time.perf_counter() - t_start
+    out["velocitygan"] = num
+    return out
+
+
+def time_xpinn_kernels(rows, per_step):
+    """The MLP kernels' rows at XPINN's middle strip (S = 5: u, u_x, u_y,
+    u_xx, u_yy; N = 2000; 2 -> 20 x 4, tanh; key "xpinn"), with the
+    launches per step on jet_pallas_full (one of each per residual
+    evaluation, 7 a step)."""
+    from paddlescience_torch.autodiff import jet
+    from paddlescience_torch.ops import jet_mlp as J
+
+    names = [r["name"] for r in rows]
+    time_mlp_shape(rows, "xpinn", len(XPINN_JET) * 2 + 1, XPINN["N"], XPINN["dims"], J.TANH,
+                   {k: per_step.get(k, 0) for k in names}, index=jet.build_index(XPINN_JET))
+
+
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
     "jet_mlp_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
@@ -3262,9 +3652,31 @@ REPLACES = {
 }
 
 
+def run_probe(only, tmp: str) -> int:
+    """The named phases of this slice alone (``--only``)."""
+    for phase in only:
+        if phase == "xpinn":
+            log("[xpinn] summary " + json.dumps(run_xpinn_phase()[0]))
+        elif phase == "hpinns":
+            log("[hpinns] summary " + json.dumps(run_hpinns_phase()))
+        elif phase == "operators2":
+            log("[operators2] summary " + json.dumps(run_operators2_phase(tmp)))
+        else:
+            raise ValueError(f"--only takes xpinn, hpinns, operators2; not {phase}")
+        mark(phase)
+    log(f"[done] the probe's phases passed in {time.perf_counter() - T0:.1f} s (the build included)")
+    return 0
+
+
 def main() -> int:
     import torch
 
+    only = []
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        only = sys.argv[2].split(",")
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--only xpinn,hpinns,operators2]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3272,8 +3684,6 @@ def main() -> int:
     try:
         import paddlescience_torch  # noqa: F401
         from paddlescience_torch.ops import cuda_build
-        from paddlescience_torch.ops import jet_gated as G
-        from paddlescience_torch.ops import jet_mlp as J
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 3
@@ -3282,10 +3692,33 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    # the kernels compile in the background at the lowest priority, so the
+    # phases that run meanwhile keep their core
+    nvcc = cuda_build.Build()
+    try:
+        with tempfile.TemporaryDirectory(prefix="psci_smoke_") as tmp:
+            return run_all(tmp, card, nvcc, only)
+    finally:
+        nvcc.close()
 
-    t0 = time.perf_counter()
-    build_logs = cuda_build.build()
-    log(f"[build] {len(build_logs)} kernels built in {time.perf_counter() - t0:.1f} s")
+
+def run_all(tmp: str, card: str, nvcc, only) -> int:
+    """Every phase, in order; the kernel-free [operators] and [operators2]
+    while ``nvcc`` (a ``cuda_build.Build``) compiles the kernels."""
+    import torch
+
+    from paddlescience_torch.ops import jet_gated as G
+    from paddlescience_torch.ops import jet_mlp as J
+
+    if not only:
+        log("[build] nvcc started for every kernel (nice 19); [operators] and [operators2], which launch no "
+            "kernel of the port, run meanwhile")
+        log("[operators] summary " + json.dumps(run_operator_phase(tmp)))
+        mark("operators")
+        log("[operators2] summary " + json.dumps(run_operators2_phase(tmp)))
+        mark("operators2")
+    build_logs = nvcc.wait()
+    log(f"[build] {len(build_logs)} kernels built, {time.perf_counter() - T0:.1f} s after the start")
     mark("build")
     for name, text in build_logs.items():
         for line in text.splitlines():
@@ -3296,6 +3729,9 @@ def main() -> int:
             log(f"[build] {name}.cu {fn}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
             if name in PTXAS:
                 PTXAS[name][fn] = [regs, st, ld]
+
+    if only:
+        return run_probe(only, tmp)
 
     from paddlescience_torch.autodiff import jet
     from paddlescience_torch.autodiff import path as deriv_path
@@ -3404,57 +3840,60 @@ def main() -> int:
         check_against_plain_path(solver, arch, tuple(PATHS[p][1] for p in paths), parts)
     mark("plain-path checks")
 
-    with tempfile.TemporaryDirectory(prefix="psci_smoke_") as tmp:
-        graph_launches, graph_timing = run_graph_phase(ane, tmp)
-        launches.update(graph_launches)
-        log("[graph] summary " + json.dumps(graph_timing))
-        mark("graph")
-        cyl_errs, launches[CYLINDER_PATH], cyl_timing = run_cylinder_phase()
-        log("[cylinder] summary " + json.dumps(cyl_timing))
-        mark("cylinder")
-        launches["graph euler_beam"], euler_timing = run_euler_beam_phase(tmp)
-        log("[euler_beam] summary " + json.dumps(euler_timing))
-        mark("euler_beam")
-        example_launches, example_timing, ldc2d_params = run_example_phases(tmp)
-        launches.update(example_launches)
-        log("[examples] summary " + json.dumps(example_timing))
-        mark("examples")
-        launches["lbfgs jet_pallas_full"], lbfgs_numbers = run_lbfgs_phase(tmp, ldc2d_params)
-        log("[lbfgs] summary " + json.dumps(lbfgs_numbers))
-        mark("lbfgs")
-        log("[operators] summary " + json.dumps(run_operator_phase(tmp)))
-        mark("operators")
-        recipe_launches, recipe_numbers = run_recipe_phase(tmp)
-        launches.update(recipe_launches)
-        log("[recipes] summary " + json.dumps(recipe_numbers))
-        mark("recipes")
-        ldc_launches, ldc_per_step, ldc_errs, ldc_numbers = run_ldc_phase(tmp)
-        launches.update(ldc_launches)
-        merge(ldc_errs)
-        log("[ldc] summary " + json.dumps(ldc_numbers))
-        mark("ldc")
-        elastic_launches, elastic_per_step, elastic_errs, elastic_numbers = run_elasticity_phase(tmp, ane_build_s)
-        launches.update(elastic_launches)
-        merge(elastic_errs)
-        log("[elasticity] summary " + json.dumps(elastic_numbers))
-        mark("elasticity")
-        log("[viv] summary " + json.dumps(run_viv_phase(tmp)))
-        mark("viv")
-        heart_launches, heart_per_step, heart_numbers = run_heart_phase(tmp)
-        launches.update(heart_launches)
-        log("[heart] summary " + json.dumps(heart_numbers))
-        mark("heart")
-        flow_launches, flow_per_step, flow_numbers = run_aneurysm_flow_phase(tmp)
-        launches.update(flow_launches)
-        log("[aneurysm_flow] summary " + json.dumps(flow_numbers))
-        mark("aneurysm_flow")
-        log("[pinn_suite] summary " + json.dumps(run_pinn_suite_phase(tmp)))
-        mark("pinn_suite")
-        log("[transforms] summary " + json.dumps(run_transforms_phase(tmp)))
-        mark("transforms")
-        toolkit_numbers, nsfnet_sb, nsfnet_full, launches["toolkit nsfnet net 3"] = run_toolkit_phase(tmp)
-        log("[toolkit] summary " + json.dumps(toolkit_numbers))
-        mark("toolkit")
+    graph_launches, graph_timing = run_graph_phase(ane, tmp)
+    launches.update(graph_launches)
+    log("[graph] summary " + json.dumps(graph_timing))
+    mark("graph")
+    cyl_errs, launches[CYLINDER_PATH], cyl_timing = run_cylinder_phase()
+    log("[cylinder] summary " + json.dumps(cyl_timing))
+    mark("cylinder")
+    launches["graph euler_beam"], euler_timing = run_euler_beam_phase(tmp)
+    log("[euler_beam] summary " + json.dumps(euler_timing))
+    mark("euler_beam")
+    example_launches, example_timing, ldc2d_params = run_example_phases(tmp)
+    launches.update(example_launches)
+    log("[examples] summary " + json.dumps(example_timing))
+    mark("examples")
+    launches["lbfgs jet_pallas_full"], lbfgs_numbers = run_lbfgs_phase(tmp, ldc2d_params)
+    log("[lbfgs] summary " + json.dumps(lbfgs_numbers))
+    mark("lbfgs")
+    recipe_launches, recipe_numbers = run_recipe_phase(tmp)
+    launches.update(recipe_launches)
+    log("[recipes] summary " + json.dumps(recipe_numbers))
+    mark("recipes")
+    ldc_launches, ldc_per_step, ldc_errs, ldc_numbers = run_ldc_phase(tmp)
+    launches.update(ldc_launches)
+    merge(ldc_errs)
+    log("[ldc] summary " + json.dumps(ldc_numbers))
+    mark("ldc")
+    elastic_launches, elastic_per_step, elastic_errs, elastic_numbers = run_elasticity_phase(tmp, ane_build_s)
+    launches.update(elastic_launches)
+    merge(elastic_errs)
+    log("[elasticity] summary " + json.dumps(elastic_numbers))
+    mark("elasticity")
+    log("[viv] summary " + json.dumps(run_viv_phase(tmp)))
+    mark("viv")
+    heart_launches, heart_per_step, heart_numbers = run_heart_phase(tmp)
+    launches.update(heart_launches)
+    log("[heart] summary " + json.dumps(heart_numbers))
+    mark("heart")
+    flow_launches, flow_per_step, flow_numbers = run_aneurysm_flow_phase(tmp)
+    launches.update(flow_launches)
+    log("[aneurysm_flow] summary " + json.dumps(flow_numbers))
+    mark("aneurysm_flow")
+    log("[pinn_suite] summary " + json.dumps(run_pinn_suite_phase(tmp)))
+    mark("pinn_suite")
+    log("[transforms] summary " + json.dumps(run_transforms_phase(tmp)))
+    mark("transforms")
+    toolkit_numbers, nsfnet_sb, nsfnet_full, launches["toolkit nsfnet net 3"] = run_toolkit_phase(tmp)
+    log("[toolkit] summary " + json.dumps(toolkit_numbers))
+    mark("toolkit")
+    xpinn_numbers, xpinn_per_step, xpinn_errs, launches["xpinn jet_pallas_full"] = run_xpinn_phase()
+    merge(xpinn_errs)
+    log("[xpinn] summary " + json.dumps(xpinn_numbers))
+    mark("xpinn")
+    log("[hpinns] summary " + json.dumps(run_hpinns_phase()))
+    mark("hpinns")
     autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
     log("[autotune] summary " + json.dumps(autotune_results))
     mark("autotune")
@@ -3471,6 +3910,7 @@ def main() -> int:
     time_elasticity_kernels(rows, elastic_per_step)
     time_heart_flow_kernels(rows, heart_per_step["heart"], flow_per_step)
     time_nsfnet_kernels(rows, nsfnet_sb, nsfnet_full)
+    time_xpinn_kernels(rows, xpinn_per_step)
     mark("timing")
     log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))

@@ -1,9 +1,18 @@
+from paddlescience_torch.arch.afno import AFNONet, PrecipNet
 from paddlescience_torch.arch.base import Arch
+from paddlescience_torch.arch.cvit import CVit, CVit1D
 from paddlescience_torch.arch.deeponet import DeepONet
+from paddlescience_torch.arch.fno import FNONet, TFNO1dNet, TFNO2dNet, TFNO3dNet
+from paddlescience_torch.arch.geofno import FNO1d, VelocityDiscriminator, VelocityGenerator
+from paddlescience_torch.arch.lno import LNO
 from paddlescience_torch.arch.model_list import ModelList
 from paddlescience_torch.arch.spinn import SPINN
 from paddlescience_torch.arch.mlp import (MLP, FourierEmbedding, ModifiedMLP, PeriodEmbedding, PirateNet,
                                           PirateNetBlock, RandomWeightFactorization)
+from paddlescience_torch.arch.sfnonet import SFNONet
+from paddlescience_torch.arch.unonet import UNONet
 
-__all__ = ["Arch", "DeepONet", "ModelList", "SPINN", "MLP", "ModifiedMLP", "PirateNet", "PirateNetBlock", "FourierEmbedding",
-           "PeriodEmbedding", "RandomWeightFactorization"]
+__all__ = ["Arch", "DeepONet", "ModelList", "SPINN", "MLP", "ModifiedMLP", "PirateNet", "PirateNetBlock",
+           "FourierEmbedding", "PeriodEmbedding", "RandomWeightFactorization", "FNONet", "TFNO1dNet", "TFNO2dNet",
+           "TFNO3dNet", "LNO", "UNONet", "FNO1d", "VelocityGenerator", "VelocityDiscriminator", "AFNONet", "PrecipNet",
+           "SFNONet", "CVit1D", "CVit"]

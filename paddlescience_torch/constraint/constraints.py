@@ -27,13 +27,19 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 
 from paddlescience_torch.constraint.base import Constraint
-from paddlescience_torch.data.dataset.array_dataset import IterableNamedArrayDataset, NamedArrayDataset
+from paddlescience_torch.data.dataset.array_dataset import (ContinuousNamedArrayDataset, IterableNamedArrayDataset,
+                                                            NamedArrayDataset)
+from paddlescience_torch.data.dataset.domain_dataset import ERA5SampledDataset, FWIDataset, SphericalSWEDataset
+from paddlescience_torch.data.dataset.science_dataset import ERA5Dataset
 from paddlescience_torch.utils.symbolic import read_expression
 
 __all__ = ["InteriorConstraint", "BoundaryConstraint", "InitialConstraint", "PeriodicConstraint",
            "IntegralConstraint", "SupervisedConstraint", "prepare_label", "prepare_weight"]
 
-_DATASETS = {"IterableNamedArrayDataset": IterableNamedArrayDataset, "NamedArrayDataset": NamedArrayDataset}
+_DATASETS = {"IterableNamedArrayDataset": IterableNamedArrayDataset, "NamedArrayDataset": NamedArrayDataset,
+             "ContinuousNamedArrayDataset": ContinuousNamedArrayDataset, "ERA5Dataset": ERA5Dataset,
+             "ERA5SampledDataset": ERA5SampledDataset, "FWIDataset": FWIDataset,
+             "SphericalSWEDataset": SphericalSWEDataset}
 Spec = Union[float, int, Callable]
 
 
@@ -249,7 +255,8 @@ class SupervisedConstraint(Constraint):
         if ds_name not in _DATASETS:
             raise NotImplementedError(f"dataset '{ds_name}' is not ported; available: {sorted(_DATASETS)}")
         dataset = _DATASETS[ds_name](**ds_cfg)
-        self.input_keys = tuple(dataset.input.keys())
+        if hasattr(dataset, "input"):  # a generator dataset has no input arrays to name its keys
+            self.input_keys = tuple(dataset.input.keys())
         self.output_keys = tuple(output_expr.keys()) if output_expr is not None else tuple(dataset.label.keys())
         if output_expr is None:
             output_expr = {key: (lambda out, k=key: out[k]) for key in self.output_keys}

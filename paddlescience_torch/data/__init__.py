@@ -4,7 +4,8 @@ array datasets and the host batch loader the validators read.
 ``BatchLoader`` walks an indexed dataset in batches of rows, as the JAX
 package's does for one process: ``drop_last`` drops the short last batch
 (or keeps it), ``shuffle`` draws a new permutation each pass from an
-explicit ``torch.Generator``. Full-batch datasets yield their arrays whole.
+explicit ``torch.Generator``. Full-batch datasets yield their arrays whole, generator datasets a fresh
+batch each step.
 Batch transforms and the multi-process shard are not ported yet.
 """
 
@@ -16,15 +17,23 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from paddlescience_torch.data.dataset import DeviceSampledDataset, IterableNamedArrayDataset, NamedArrayDataset
+from paddlescience_torch.data.dataset import (ContinuousNamedArrayDataset, DeviceSampledDataset, ERA5Dataset,
+                                              ERA5SampledDataset, FWIDataset, IterableNamedArrayDataset,
+                                              NamedArrayDataset, SphericalSWEDataset)
 
-__all__ = ["BatchLoader", "build_dataset", "build_dataloader", "DeviceSampledDataset",
-           "IterableNamedArrayDataset", "NamedArrayDataset"]
+__all__ = ["BatchLoader", "build_dataset", "build_dataloader", "ContinuousNamedArrayDataset", "DeviceSampledDataset",
+           "ERA5Dataset", "ERA5SampledDataset", "FWIDataset", "IterableNamedArrayDataset", "NamedArrayDataset",
+           "SphericalSWEDataset"]
 
 _DATASETS = {
     "NamedArrayDataset": NamedArrayDataset,
     "IterableNamedArrayDataset": IterableNamedArrayDataset,
+    "ContinuousNamedArrayDataset": ContinuousNamedArrayDataset,
     "DeviceSampledDataset": DeviceSampledDataset,
+    "ERA5Dataset": ERA5Dataset,
+    "ERA5SampledDataset": ERA5SampledDataset,
+    "FWIDataset": FWIDataset,
+    "SphericalSWEDataset": SphericalSWEDataset,
 }
 
 
@@ -68,7 +77,7 @@ class BatchLoader:
 
     def __iter__(self) -> Iterator[Tuple[Dict, Dict, Dict]]:
         mode = getattr(self.dataset, "batch_mode", "indexed")
-        if mode == "full":
+        if mode in ("full", "generator"):
             yield from iter(self.dataset)
             return
         if mode == "device":

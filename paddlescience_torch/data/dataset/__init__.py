@@ -1,4 +1,7 @@
-from paddlescience_torch.data.dataset.array_dataset import (DeviceSampledDataset, IterableNamedArrayDataset,
-                                                            NamedArrayDataset)
+from paddlescience_torch.data.dataset.array_dataset import (ContinuousNamedArrayDataset, DeviceSampledDataset,
+                                                            IterableNamedArrayDataset, NamedArrayDataset)
+from paddlescience_torch.data.dataset.domain_dataset import ERA5SampledDataset, FWIDataset, SphericalSWEDataset
+from paddlescience_torch.data.dataset.science_dataset import ERA5Dataset
 
-__all__ = ["DeviceSampledDataset", "IterableNamedArrayDataset", "NamedArrayDataset"]
+__all__ = ["ContinuousNamedArrayDataset", "DeviceSampledDataset", "IterableNamedArrayDataset", "NamedArrayDataset",
+           "ERA5Dataset", "ERA5SampledDataset", "FWIDataset", "SphericalSWEDataset"]

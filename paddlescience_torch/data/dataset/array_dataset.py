@@ -6,6 +6,9 @@
   validators do;
 * ``IterableNamedArrayDataset`` yields the complete arrays every step
   (full-batch training); the solver stages them on the device once.
+* ``ContinuousNamedArrayDataset`` yields a fresh host batch from its
+  generator functions each step; the solver stages each into the device
+  buffers its captured chunk reads, as it stages indexed batches.
 * ``DeviceSampledDataset`` draws a fresh batch on the device each step:
   ``sample_fn(generator) -> (input_dict, label_dict, weight_dict)`` of
   tensors, with ``generator`` a ``torch.Generator`` on the solver's device.
@@ -17,7 +20,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
-__all__ = ["NamedArrayDataset", "IterableNamedArrayDataset", "DeviceSampledDataset"]
+__all__ = ["NamedArrayDataset", "IterableNamedArrayDataset", "ContinuousNamedArrayDataset", "DeviceSampledDataset"]
 
 
 class NamedArrayDataset:
@@ -61,6 +64,30 @@ class IterableNamedArrayDataset:
     def __iter__(self):
         while True:
             yield self.input, self.label, self.weight
+
+
+class ContinuousNamedArrayDataset:
+    """Fresh batches every step: ``input()`` gives the input dict, then
+    ``label(input)`` the labels (it may pop keys that only it reads off
+    the input) and ``weight(input)`` the weights."""
+
+    batch_mode = "generator"
+
+    def __init__(self, input: Callable[[], Dict[str, np.ndarray]],
+                 label: Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]], weight: Optional[Callable] = None,
+                 transforms=None):
+        if transforms is not None:
+            raise NotImplementedError("dataset transforms are not ported yet")
+        self.input_fn = input
+        self.label_fn = label
+        self.weight_fn = weight
+
+    def __iter__(self):
+        while True:
+            inp = self.input_fn()
+            lab = self.label_fn(inp)
+            wgt = self.weight_fn(inp) if self.weight_fn is not None else {}
+            yield inp, lab, wgt
 
 
 class DeviceSampledDataset:

@@ -46,6 +46,7 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.
                         "dataset")
 CHUNK = 2000  # steps between host reads of psi (the tool's)
 TOL = 1e-7  # the march stops once max |dpsi| / (CHUNK dt) falls below this (the tool's)
+GRAPH_STEPS = 100  # steps a captured CUDA graph holds: a chunk replays it CHUNK // GRAPH_STEPS times
 DEFAULT_N = 257
 
 
@@ -123,18 +124,20 @@ def _stepper(n: int, Re: float, device: torch.device):
 
 def _chunk_runner(step, omega: torch.Tensor, psi: torch.Tensor, graphed: bool) -> Callable[[], None]:
     """A function that advances (``omega``, ``psi``) in place by ``CHUNK``
-    steps: one replay of a CUDA graph captured here when ``graphed``, else
-    eager steps."""
+    steps: ``CHUNK // GRAPH_STEPS`` replays of a CUDA graph of
+    ``GRAPH_STEPS`` steps captured here when ``graphed`` (the same steps as
+    one graph of the whole chunk, whose capture costs the host as much as
+    running the chunk eagerly), else eager steps."""
 
-    def run():
+    def advance(steps):
         o = omega
-        for _ in range(CHUNK):
+        for _ in range(steps):
             o, p = step(o)
         omega.copy_(o)
         psi.copy_(p)
 
     if not graphed:
-        return run
+        return lambda: advance(CHUNK)
     side = torch.cuda.Stream(omega.device)
     side.wait_stream(torch.cuda.current_stream(omega.device))
     with torch.cuda.stream(side):  # one warm-up step (the FFT plans); a step writes no input
@@ -143,8 +146,13 @@ def _chunk_runner(step, omega: torch.Tensor, psi: torch.Tensor, graphed: bool) -
     torch.cuda.synchronize(omega.device)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):  # recorded, not run: omega and psi are unchanged
-        run()
-    return graph.replay
+        advance(GRAPH_STEPS)
+
+    def replay():
+        for _ in range(CHUNK // GRAPH_STEPS):
+            graph.replay()
+
+    return replay
 
 
 def solve_cavity(Re: float, n: int = DEFAULT_N, steps: Optional[int] = None, report: Callable[[str], None] = print,

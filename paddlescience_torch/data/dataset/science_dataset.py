@@ -1,14 +1,63 @@
-"""The Darcy flow data generator (counterpart of
-``paddlescience_tpu/data/dataset/science_dataset.py::generate_darcy_dataset``,
-a numpy and scipy copy: for one seed both give the same arrays bitwise)."""
+"""Scientific datasets (counterpart of
+``paddlescience_tpu/data/dataset/science_dataset.py``): the ERA5-style
+weather windows and the Darcy flow data generator (a numpy and scipy copy:
+for one seed both give the same arrays bitwise).
+
+``ERA5Dataset`` reads a (T, C, H, W) array from an HDF5 file through
+``h5py``, imported when a file is read (the GPU machine has none), and
+windows it with :func:`era5_windows`, which also takes an array in memory:
+the port's FourCastNet examples build their synthetic fields in memory and
+window them there, so they need no h5py.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["generate_darcy_dataset"]
+from paddlescience_torch.data.dataset.array_dataset import NamedArrayDataset
+from paddlescience_torch.data.dataset.domain_dataset import import_h5py
+
+__all__ = ["ERA5Dataset", "era5_windows", "generate_darcy_dataset"]
+
+
+def era5_windows(data: np.ndarray, input_keys: Sequence[str], label_keys: Sequence[str], size: Optional[int] = None,
+                 stride: int = 1, num_label_timestamps: int = 1,
+                 vars_channel: Optional[Sequence[int]] = None) -> Tuple[Dict, Dict]:
+    """Autoregressive windows of a (T, C, H, W) array: input frame t, and
+    for label i (of ``num_label_timestamps``) the frame t + (i + 1) stride,
+    for t < min(T - stride num_label_timestamps, size); ``vars_channel``
+    picks channels first. Returns (inputs, labels) as float32 dicts."""
+    if vars_channel is not None:
+        data = data[:, list(vars_channel)]
+    if len(label_keys) != num_label_timestamps:
+        raise ValueError(f"need {num_label_timestamps} label_keys, got {len(label_keys)}")
+    T = data.shape[0] - stride * num_label_timestamps
+    if size is not None:
+        T = min(T, size)
+    inputs = {input_keys[0]: data[:T].astype(np.float32)}
+    labels = {key: data[stride * (i + 1): T + stride * (i + 1)].astype(np.float32)
+              for i, key in enumerate(label_keys[:num_label_timestamps])}
+    return inputs, labels
+
+
+class ERA5Dataset(NamedArrayDataset):
+    """Weather windows (:func:`era5_windows`) of the (T, C, H, W) array
+    under ``hdf_key`` of the HDF5 file ``file_path``, or of ``data`` when
+    given (then no file is read)."""
+
+    def __init__(self, file_path: Optional[str], input_keys: Tuple[str, ...], label_keys: Tuple[str, ...],
+                 size: Optional[int] = None, stride: int = 1, num_label_timestamps: int = 1,
+                 vars_channel: Optional[Tuple[int, ...]] = None, hdf_key: str = "fields", transforms=None,
+                 training: bool = True, data: Optional[np.ndarray] = None):
+        if data is None:
+            with import_h5py().File(file_path, "r") as f:
+                data = np.asarray(f[hdf_key])
+        inputs, labels = era5_windows(data, input_keys, label_keys, size, stride, num_label_timestamps, vars_channel)
+        super().__init__(inputs, labels, None, transforms)
+        self.input_keys = tuple(input_keys)
+        self.label_keys = tuple(label_keys)
 
 
 def generate_darcy_dataset(n_samples: int = 64, resolution: int = 64, seed: int = 0, alpha: float = 2.0,

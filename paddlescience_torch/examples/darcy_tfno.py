@@ -1,5 +1,5 @@
-"""Darcy flow operator learning with a TFNO on the port (counterpart of
-``examples/darcy_tfno.py``, TFNO only).
+"""Darcy flow operator learning with a TFNO or a UNO on the port
+(counterpart of ``examples/darcy_tfno.py``).
 
 Learns a -> u for -div(a grad u) = 1 on (0, 1)^2 from data made by the
 finite-difference Darcy solver (``data/dataset/science_dataset.py``):
@@ -11,11 +11,14 @@ projection 64 and 4 layers; the loss the per-sample relative H1 norm
 (``FunctionalLoss``); AdamW at 5e-3 with weight decay 1e-4 on a ``Step``
 schedule halving the rate every 60 epochs; shuffled batches of 16 (``n_train
 // 16`` steps an epoch); evaluation every 10 epochs of the mean per-sample
-relative L2 on the held-out samples. ``arch="uno"`` (the JAX example's
-UNO variant) raises: ``UNONet`` is not ported yet (ROADMAP Queue A 5).
+relative L2 on the held-out samples. ``arch="uno"`` trains the JAX
+example's UNO instead (``arch/unonet.py``: hidden 32, lifting and
+projection 64, four stages of (32, 64, 64, 32) channels with (12, 12),
+(8, 8), (8, 8), (12, 12) modes, scaled by 1, 0.5, 2 and 1;
+``examples/darcy_uno.py``).
 
 Run on the GPU: ``python -m paddlescience_torch.examples.darcy_tfno
-[epochs]`` (each epoch one CUDA graph of ``n_train // 16`` steps).
+[epochs [arch]]`` (each epoch one CUDA graph of ``n_train // 16`` steps).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from paddlescience_torch.arch.fno import TFNO2dNet
+from paddlescience_torch.arch.unonet import UNONet
 from paddlescience_torch.constraint.constraints import SupervisedConstraint
 from paddlescience_torch.data.dataset.science_dataset import generate_darcy_dataset
 from paddlescience_torch.device import DeviceLike, resolve_device
@@ -92,24 +96,28 @@ def build_solver(epochs: int = 300, n_train: int = 1000, n_eval: int = 100, reso
                  output_dir: Optional[str] = "./output_darcy_tfno", arch: str = "tfno", batch_size: int = 16, *,
                  data: Optional[Tuple[np.ndarray, np.ndarray]] = None, shuffle: bool = True,
                  device: DeviceLike = None, seed: int = 42, log_freq: int = 50) -> Solver:
-    """The Darcy solver of the JAX example (TFNO), on ``data`` (the inputs
+    """The Darcy solver of the JAX example (``arch`` "tfno" or "uno"), on ``data`` (the inputs
     and labels of :func:`make_data`) when given, else on data generated
     here. The model's weights come from a ``torch.Generator`` seeded with
     ``seed``, the loader's shuffled order from another (the JAX loader
     draws it with numpy, so the orders differ; ``shuffle=False`` walks the
     samples in order in both)."""
-    if arch == "uno":
-        raise NotImplementedError("darcy_tfno with arch='uno' needs UNONet, which is not ported yet: "
-                                  "ROADMAP Queue A 5")
-    if arch != "tfno":
-        raise ValueError(f"unknown arch '{arch}' (tfno)")
+    if arch not in ("tfno", "uno"):
+        raise ValueError(f"unknown arch '{arch}' (tfno, uno)")
     device = resolve_device(device)
     np.random.seed(seed)
     random.seed(seed)
     a, u = data if data is not None else make_data(n_train + n_eval, resolution)
-    model = TFNO2dNet(("input",), ("output",), n_modes_height=16, n_modes_width=16, hidden_channels=32,
-                      in_channels=3, out_channels=1, lifting_channels=256, projection_channels=64, n_layers=4,
-                      generator=torch.Generator().manual_seed(seed), device=device)
+    g = torch.Generator().manual_seed(seed)
+    if arch == "uno":
+        model = UNONet(("input",), ("output",), in_channels=3, out_channels=1, hidden_channels=32,
+                       lifting_channels=64, projection_channels=64, n_layers=4, uno_out_channels=(32, 64, 64, 32),
+                       uno_n_modes=((12, 12), (8, 8), (8, 8), (12, 12)),
+                       uno_scalings=((1.0, 1.0), (0.5, 0.5), (2.0, 2.0), (1.0, 1.0)), generator=g, device=device)
+    else:
+        model = TFNO2dNet(("input",), ("output",), n_modes_height=16, n_modes_width=16, hidden_channels=32,
+                          in_channels=3, out_channels=1, lifting_channels=256, projection_channels=64, n_layers=4,
+                          generator=g, device=device)
     sup = SupervisedConstraint(
         {"dataset": {"name": "NamedArrayDataset", "input": {"input": a[:n_train]}, "label": {"output": u[:n_train]}},
          "batch_size": batch_size, "sampler": {"shuffle": shuffle}},
@@ -130,6 +138,6 @@ def build_solver(epochs: int = 300, n_train: int = 1000, n_eval: int = 100, reso
 
 if __name__ == "__main__":
     argv = sys.argv[1:]
-    solver = build_solver(epochs=int(argv[0]) if argv else 300)
+    solver = build_solver(epochs=int(argv[0]) if argv else 300, arch=argv[1] if len(argv) > 1 else "tfno")
     solver.train(num_fused_steps=solver.iters_per_epoch)
     print(f"final l2 = {solver.eval()[0]:.4e}")

@@ -46,8 +46,15 @@ All three: tanh, 1000 steps an epoch, BC 4 x 256, lr 1e-3 decaying by 0.9
 every ``decay`` steps, 5 warmup epochs (none for the plain MLP), RWF(1.0,
 0.1) on the gated nets, GradNorm every 1000 steps with momentum 0.9.
 
-Not ported: the JAX recipe's ``mixed_curriculum_precision`` (TPU matmul
-precision switched per stage; the port trains in float32 throughout).
+``mixed_curriculum_precision`` (default off, as in the JAX recipes) is the
+JAX recipe's knob that lowers the matmul precision in the warm-up stages:
+here it allows TF32 in torch's matmuls and cuDNN
+(``torch.backends.cuda.matmul.allow_tf32``, ``torch.backends.cudnn.allow_tf32``)
+for every stage but the last, and restores float32 for the last stage and
+after the run, whether it ends normally or raises
+(:func:`stage_precision`). The hand-written jet kernels are not torch
+matmuls: they keep their 3xTF32 products (``ops/jet_mlp.py``) in every
+stage.
 
 Run on the GPU: ``python -m paddlescience_torch.examples.ldc_curriculum
 [recipe]`` (default ``re3200_piratenet``).
@@ -55,6 +62,7 @@ Run on the GPU: ``python -m paddlescience_torch.examples.ldc_curriculum
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -81,12 +89,14 @@ from paddlescience_torch.utils import ghia
 from paddlescience_torch.validate import SupervisedValidator
 
 __all__ = ["re3200_piratenet", "re3200_sota", "re1000_plain", "RECIPES", "lid_velocity", "boundary_points",
-           "make_model", "make_training", "build_stage_solver", "train_curriculum", "ghia_report", "evaluate"]
+           "make_model", "make_training", "build_stage_solver", "train_curriculum", "stage_precision", "ghia_report",
+           "evaluate"]
 
 _COMMON = dict(input_keys=("x", "y"), output_keys=("u", "v", "p"), hidden_size=256, activation="tanh",
                iters_per_epoch=1000, learning_rate=1e-3, gamma=0.9, decay_steps=10000, warmup_epoch=5,
                bs_pde=4096, bs_bc=256, update_freq=1000, momentum=0.9, init_weights=(10, 1, 1, 100, 100),
                eval_batch=16384, eval_during_train=False, eval_freq=10, log_freq=100, seed=42,
+               mixed_curriculum_precision=False,
                reference_n=ldc_reference.DEFAULT_N, reference_dir=None)
 
 
@@ -230,17 +240,40 @@ def train_curriculum(cfg: Dict, output_dir: Optional[str] = "./output_ldc", devi
     starting from the previous one's state; after each stage evaluate
     L2Rel.U and print the Ghia RMSE. ``deriv`` names a derivative-path
     candidate to pin (None: none is pinned); ``num_fused_steps`` is passed
-    to ``Solver.train``. Returns per stage {"Re", "epochs", "metric",
+    to ``Solver.train``. Returns per stage {"Re", "epochs", "tf32" (whether
+    the stage ran torch's matmuls in TF32), "metric",
     "ghia", "logs", "train_s" (the seconds of ``train()``), "graph_stats",
     "weights" (the GradNorm weights at the stage's end), "step" (the
     carried global step at its end)}."""
     device = resolve_device(device)
     if deriv is not None:
         deriv_path.set_default(deriv_path.CANDIDATES[deriv])
+    with stage_precision(False):  # restores the flags as they were, however the run ends
+        return _train_stages(cfg, output_dir, device, num_fused_steps)
+
+
+@contextlib.contextmanager
+def stage_precision(tf32: bool):
+    """Allow TF32 in torch's matmuls and cuDNN (``tf32``) or keep them in
+    float32 inside the context; the flags as they were come back after
+    it, on success and on failure alike."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _train_stages(cfg: Dict, output_dir, device, num_fused_steps) -> List[Dict]:
     model = make_model(cfg, device)
     optimizer, grad_norm = make_training(cfg, model)
+    mixed = bool(cfg.get("mixed_curriculum_precision", False))
     carry, prev, results = None, None, []
     for idx, (Re, epochs) in enumerate(zip(cfg["Re"], cfg["epochs"])):
+        # the warm-up stages in TF32 when mixed, the last Re (and every stage otherwise) in float32
+        tf32 = mixed and idx < len(cfg["Re"]) - 1
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
         out_dir = None if output_dir is None else os.path.join(output_dir, f"Re_{int(Re)}")
         print(f"Training curriculum {idx + 1}/{len(cfg['Re'])} Re={Re} epochs={epochs}", flush=True)
         solver = build_stage_solver(cfg, model, optimizer, grad_norm, float(Re), int(epochs), out_dir, device)
@@ -252,8 +285,9 @@ def train_curriculum(cfg: Dict, output_dir: Optional[str] = "./output_ldc", devi
         train_s = time.perf_counter() - t0
         metric, _ = solver.eval()
         print(f"Re={Re}: L2Rel.U = {metric:.5f}", flush=True)
-        results.append({"Re": Re, "epochs": int(epochs), "metric": metric, "ghia": ghia_report(model, Re),
-                        "logs": logs, "train_s": train_s, "graph_stats": dict(solver.graph_stats),
+        results.append({"Re": Re, "epochs": int(epochs), "tf32": tf32, "metric": metric,
+                        "ghia": ghia_report(model, Re), "logs": logs, "train_s": train_s,
+                        "graph_stats": dict(solver.graph_stats),
                         "weights": solver.agg_state["weight"].tolist(), "step": solver.step})
         carry, prev = solver.state, solver
     prev.release_graphs()

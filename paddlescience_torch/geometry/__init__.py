@@ -2,8 +2,8 @@
 numpy sampling, as in the JAX package, bitwise the same points from the
 same ``np.random`` seed. The ``Geometry`` base with the CSG operators,
 the 1-D, 2-D, 3-D and N-D shapes, CSG, the time domain and time-space
-product, point clouds, the STL ``Mesh`` (its ``SDFMesh`` twin is not
-ported), and :func:`build_geometry`."""
+product, point clouds, the STL ``Mesh`` and its ``SDFMesh`` twin, and
+:func:`build_geometry`."""
 
 import copy
 
@@ -13,13 +13,13 @@ from paddlescience_torch.geometry.geometry_1d import Interval
 from paddlescience_torch.geometry.geometry_2d import Disk, Polygon, Rectangle, Triangle
 from paddlescience_torch.geometry.geometry_3d import Cuboid, Sphere
 from paddlescience_torch.geometry.geometry_nd import Hypercube, Hypersphere
-from paddlescience_torch.geometry.mesh import Mesh, load_stl
+from paddlescience_torch.geometry.mesh import Mesh, SDFMesh, load_stl
 from paddlescience_torch.geometry.pointcloud import PointCloud
 from paddlescience_torch.geometry.timedomain import TimeDomain, TimeXGeometry
 
 __all__ = ["Geometry", "Interval", "Disk", "Rectangle", "Triangle", "Polygon", "Cuboid", "Sphere", "Hypercube",
-           "Hypersphere", "CSGUnion", "CSGDifference", "CSGIntersection", "PointCloud", "Mesh", "load_stl",
-           "TimeDomain", "TimeXGeometry", "build_geometry"]
+           "Hypersphere", "CSGUnion", "CSGDifference", "CSGIntersection", "PointCloud", "Mesh", "SDFMesh",
+           "load_stl", "TimeDomain", "TimeXGeometry", "build_geometry"]
 
 
 def build_geometry(cfg):

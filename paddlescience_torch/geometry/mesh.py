@@ -19,7 +19,7 @@ import numpy as np
 
 from paddlescience_torch.geometry import geometry, raycast
 
-__all__ = ["Mesh", "load_stl"]
+__all__ = ["Mesh", "SDFMesh", "load_stl"]
 
 _DTYPE = np.float32
 
@@ -255,3 +255,15 @@ class Mesh(geometry.Geometry):
             f"num_faces = {len(self.faces)}",
             f"bbox = {self.bbox}",
         ])
+
+
+class SDFMesh(Mesh):
+    """An STL mesh whose inside test and signed distance come from the ray
+    cast alone, as the JAX package's ``SDFMesh``: the same math as
+    :class:`Mesh`, a class of its own so configurations that name it
+    build. The time-space product and the geometry checks that look for a
+    mesh by its type name accept both."""
+
+    @classmethod
+    def from_stl(cls, path: str) -> "SDFMesh":
+        return cls(path)

@@ -1,3 +1,4 @@
-from paddlescience_torch.nn.layers import Linear
+from paddlescience_torch.nn.layers import Conv, LayerNorm, Linear
+from paddlescience_torch.nn.resize import resize
 
-__all__ = ["Linear"]
+__all__ = ["Linear", "Conv", "LayerNorm", "resize"]

@@ -5,7 +5,8 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 library goes into ``csrc/_build/`` (listed in ``.gitignore``) under a name
 keyed by a hash of the sources and flags, so a checkout builds at first use
 and a changed source rebuilds. :func:`build` compiles several sources in
-parallel, one ``nvcc`` process each.
+parallel, one ``nvcc`` process each; :class:`Build` does so in the
+background.
 
 The wrappers bind a kernel's host entry point with :func:`declare` and call
 it with :func:`launch`, which raises on a CUDA error code; :func:`ptrs`,
@@ -28,7 +29,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "build", "load", "nvcc_path", "declare", "launch", "ptrs",
+__all__ = ["CSRC", "BUILD_DIR", "KERNELS", "Build", "build", "load", "nvcc_path", "declare", "launch", "ptrs",
            "ints", "stream_handle", "on_device", "is_cpu", "P", "I", "F"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -62,41 +63,76 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
-    """Compile every kernel in ``names`` that is not built yet, one ``nvcc``
-    per source, all started together. Returns ``{name: compiler log}`` (the
-    ``-Xptxas -v`` register and spill report) for the sources it built.
-    Raises ``RuntimeError`` with the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [(n, _library_path(n)) for n in names if not _library_path(n).exists()]
-    if not todo:
-        return {}
-    nvcc = nvcc_path()
-    procs = []
-    try:
-        for name, out in todo:
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            procs.append((name, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs, failed = {}, []
-        for name, out, tmp, proc in procs:
-            log, _ = proc.communicate()
-            logs[name] = log
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-        return logs
-    finally:
-        for _, _, tmp, proc in procs:
+class Build:
+    """Starts compiling every kernel in ``names`` that is not built yet, one
+    ``nvcc`` per source, all together, at the lowest scheduling priority
+    (nice 19: the caller's own work stays first in line), and returns at
+    once. :meth:`wait` finishes them; :meth:`close` kills any still
+    running; :func:`load` of a kernel in flight waits for its build."""
+
+    def __init__(self, names: Sequence[str] = KERNELS):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.logs: Optional[Dict[str, str]] = None
+        self.procs = []
+        todo = [(n, _library_path(n)) for n in names if not _library_path(n).exists()]
+        if not todo:
+            self.logs = {}
+            return
+        nvcc = nvcc_path()
+        try:
+            for name, out in todo:
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+                cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                self.procs.append((name, out, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                    preexec_fn=lambda: os.nice(19))))
+                _PENDING[name] = self
+        except BaseException:
+            self.close()
+            raise
+
+    def wait(self) -> Dict[str, str]:
+        """``{name: compiler log}`` (the ``-Xptxas -v`` register and spill
+        report) for the sources built. Raises ``RuntimeError`` with the
+        compiler's output if any build failed."""
+        if self.logs is not None:
+            return self.logs
+        try:
+            logs, failed = {}, []
+            for name, out, tmp, proc in self.procs:
+                log, _ = proc.communicate()
+                logs[name] = log
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+                else:
+                    os.replace(tmp, out)
+            if failed:
+                raise RuntimeError("\n".join(failed))
+            self.logs = logs
+            return logs
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        for name, _, tmp, proc in self.procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             if tmp.exists():
                 tmp.unlink()
+            if _PENDING.get(name) is self:
+                del _PENDING[name]
+
+
+_PENDING: Dict[str, Build] = {}  # kernel -> the build in flight that compiles it
+
+
+def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
+    """Compile every kernel in ``names`` that is not built yet, one ``nvcc``
+    per source, all started together. Returns ``{name: compiler log}`` (the
+    ``-Xptxas -v`` register and spill report) for the sources it built.
+    Raises ``RuntimeError`` with the compiler's output if any build fails."""
+    return Build(names).wait()
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -105,6 +141,8 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             path = _library_path(name)
+            if name in _PENDING:
+                _PENDING[name].wait()
             if not path.exists():
                 build([name])
             lib = ctypes.CDLL(str(path))

@@ -7,7 +7,7 @@ property of the arch, the derivative components, the batch and the card:
 on the H100 the cylinder2d matched workload (MLP 5x50, 299,280 points a
 step) runs faster on the plain jet path than on the MLP kernels, while the
 256-512 wide nets run faster on the kernels. :func:`autotune` times K train
-steps of every candidate as one captured CUDA graph (``Solver._graph``;
+steps of every candidate as one captured CUDA graph (``Solver.loop``;
 K eager steps on the CPU), installs the fastest as the process default and
 caches the decision on disk, keyed by :func:`signature`, so a later run
 skips the timing.
@@ -46,6 +46,7 @@ import torch
 
 from paddlescience_torch.autodiff import path as deriv_path
 from paddlescience_torch.ops.jet_mlp import KernelRefusal
+from paddlescience_torch.utils.step_graph import graph_key
 
 __all__ = ["autotune", "maybe_autotune", "candidate_names", "signature"]
 
@@ -153,10 +154,6 @@ def candidate_names(solver) -> List[str]:
     return names
 
 
-def _graph_key(k: int, name: str) -> tuple:
-    return (k, tuple(sorted(deriv_path.CANDIDATES[name].items())))
-
-
 def _time_candidate(solver, k: int, calls: int) -> float:
     """Seconds per step of the current default path: on CUDA ``calls``
     replays of the K-step graph (captured first, then one replay as a
@@ -166,7 +163,7 @@ def _time_candidate(solver, k: int, calls: int) -> float:
     run reads those."""
     solver._stage_host_batches(k)
     if solver.device.type == "cuda":
-        graph, _ = solver._graph(k)
+        graph, _ = solver.loop.graph(k)
         graph.replay()
         torch.cuda.synchronize(solver.device)
         t0 = time.perf_counter()
@@ -188,7 +185,7 @@ def _time_candidate(solver, k: int, calls: int) -> float:
 
 
 def _drop_graph(solver, k: int, name: str) -> None:
-    solver._graphs.pop(_graph_key(k, name), None)
+    solver.loop.graphs.pop(graph_key(k, deriv_path.CANDIDATES[name]), None)
     if solver.device.type == "cuda":
         torch.cuda.synchronize(solver.device)
         torch.cuda.empty_cache()

@@ -89,6 +89,7 @@ from __future__ import annotations
 
 import os
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -96,14 +97,12 @@ import torch
 
 from paddlescience_torch.arch.model_list import ModelList
 from paddlescience_torch.autodiff import ad
-from paddlescience_torch.autodiff import path as deriv_path
 from paddlescience_torch.device import DeviceLike, resolve_device
 from paddlescience_torch.loss import mtl
 from paddlescience_torch.utils import expression, save_load
+from paddlescience_torch.utils.step_graph import StepGraph
 
 __all__ = ["Solver"]
-
-WARMUP_STEPS = 3  # eager steps on a side stream before a capture (then undone)
 
 
 def _batch_mode(cst) -> str:
@@ -199,9 +198,11 @@ class Solver:
         self._chunk_bufs: Dict[tuple, tuple] = {}
         self._chunk: Dict[str, tuple] = {}
         self._chunk_pos = 0
-        # (K, derivative path) -> (CUDA graph of K steps, its last step's logs)
-        self._graphs: Dict[tuple, Tuple[torch.cuda.CUDAGraph, Dict[str, torch.Tensor]]] = {}
-        self.graph_stats: Dict[int, Dict[str, float]] = {}
+        # K-step chunks, captured in CUDA graphs on the card (utils/step_graph.py); the loop reaches the
+        # solver weakly, so a dropped solver frees its graphs at once
+        me = weakref.proxy(self)
+        self.loop = StepGraph(lambda i: me._chunk_step(i), self.device, snapshot=lambda: me.state,
+                              restore=lambda snap: me._load_state(snap), generator=self.generator)
         self._last_save_t: Optional[float] = None
 
         if pretrained_model_path is not None:
@@ -299,7 +300,7 @@ class Solver:
     def release_graphs(self) -> None:
         """Drop the captured graphs and the staged batch buffers (their
         memory pools go with them); the next chunk captures anew."""
-        self._graphs.clear()
+        self.loop.release()
         self._chunk_bufs.clear()
         self._chunk.clear()
 
@@ -534,50 +535,16 @@ class Solver:
 
     # ------------------------------------------------- captured chunks --
 
-    def _graph(self, k: int) -> Tuple[torch.cuda.CUDAGraph, Dict[str, torch.Tensor]]:
-        """The CUDA graph of ``k`` train steps on the current derivative
-        path, captured at first use: ``WARMUP_STEPS`` eager steps on a side
-        stream (building and loading the kernels, their first launches and
-        attributes, the expressions' derivative requests), the training
-        state restored in place, then the capture of ``k`` steps with the
-        batch generator registered. Raises ``RuntimeError`` if the capture
-        fails; there is no eager fallback."""
-        key = (k, tuple(sorted(deriv_path.get_default().items())))
-        if key in self._graphs:
-            return self._graphs[key]
-        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
-            raise RuntimeError("this torch cannot register a generator with a CUDA graph "
-                               "(CUDAGraph.register_generator_state); train with num_fused_steps=1")
-        snap = self.state
-        t0 = time.perf_counter()
-        try:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                for i in range(WARMUP_STEPS):
-                    self._chunk_pos = i % k
-                    self._step(self.step + i)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            self._load_state(snap)
-            torch.cuda.synchronize(self.device)
-            t1 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(self.generator)
-            with torch.cuda.graph(graph):
-                for i in range(k):
-                    self._chunk_pos = i
-                    logs = self._step(self.step + i)
-            torch.cuda.synchronize(self.device)
-        except Exception as e:
-            from paddlescience_torch.ops.jet_mlp import KernelRefusal
+    @property
+    def graph_stats(self) -> Dict[int, Dict[str, float]]:
+        """Per K: the seconds of the last K-step capture's warm-up and
+        capture, and the replays since (``StepGraph.stats``)."""
+        return self.loop.stats
 
-            self._load_state(snap)
-            if isinstance(e, KernelRefusal):  # a shape refusal before any launch, not a capture failure
-                raise
-            raise RuntimeError(f"capturing {k} train steps in one CUDA graph failed: {e}") from e
-        self.graph_stats[k] = {"warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1, "replays": 0}
-        self._graphs[key] = (graph, logs)
-        return graph, logs
+    def _chunk_step(self, i: int) -> Dict[str, torch.Tensor]:
+        """The chunk's i-th step: it reads slice i of the staged batches."""
+        self._chunk_pos = i
+        return self._step(self.step + i)
 
     def train_chunk(self, k: int, global_step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """One chunk of ``k`` steps from the current step: the aggregator
@@ -590,16 +557,9 @@ class Solver:
         self._stage_host_batches(k)
         self._chunk_pos = 0
         self._maybe_refresh_agg_weights(self.step if global_step is None else global_step, span=k)
-        if self.device.type == "cuda" and k > 1:
-            if self._lbfgs:
-                raise ValueError("an L-BFGS step is a host loop and is not captured: train it with K = 1")
-            graph, logs = self._graph(k)
-            graph.replay()
-            self.graph_stats[k]["replays"] += 1
-        else:
-            for i in range(k):
-                self._chunk_pos = i
-                logs = self._step(self.step + i)
+        if self._lbfgs and k > 1 and self.device.type == "cuda":
+            raise ValueError("an L-BFGS step is a host loop and is not captured: train it with K = 1")
+        logs = self.loop.run(k, graphed=k > 1)
         self.step += k
         return logs
 

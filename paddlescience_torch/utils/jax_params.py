@@ -14,9 +14,15 @@ DeepONet's ``branch_net.linears.0.weight``, ``trunk_net.last_fc.bias`` and
 ``conv_w``, ``conv_b`` and ``fc0.weight``, a ``ModelList``'s
 ``model_list.0.linears.0.weight_v`` from the JAX tree's
 ``params["model_list"]["0"]``, a SPINN's ``branch_nets.0.embed_u.weight``
-from ``params["branch_nets"]["0"]``, ...). The layout is the JAX one
-on both sides (W of shape (in, out), a complex weight as its real and
-imaginary parts), so nothing is transposed. Buffers that a module rebuilds
+from ``params["branch_nets"]["0"]``, a UNO's ``convs.1.w2_im`` and
+``h_skips.0.weight``, an AFNO's ``blocks.0.filter.w1``,
+``blocks.0.norm1.scale`` and ``pos_embed``, a CViT's
+``encoder.blocks.0.attn.q.weight``, ...). The layout is the JAX one on
+both sides (W of shape (in, out), a complex weight as its real and
+imaginary parts, a LayerNorm's ``scale`` and ``shift``), so nothing is
+transposed, but for the kernels of ``nn.layers.Conv``: JAX keeps them as
+(*window, in, out), torch as (out, in, *window), and a module names such
+parameters in its ``jax_layout`` ({"weight": "conv"}). Buffers that a module rebuilds
 from its arguments (the LNO's grids ``laplace.t_0``, ``laplace.lam_0``,
 ...) need not be passed. This module imports no JAX: callers hand it numpy
 arrays. :func:`load_jax_eq_params` carries a JAX solver's learnable
@@ -70,7 +76,11 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any],
         dst = targets.get(name)
         if dst is None:
             dst = named_buffers[name]
-        src = torch.from_numpy(np.array(value, dtype=np.float32))
+        value = np.array(value, dtype=np.float32)
+        owner, _, leaf = name.rpartition(".")
+        if getattr(module.get_submodule(owner), "jax_layout", {}).get(leaf) == "conv":
+            value = np.moveaxis(value, (-1, -2), (0, 1)).copy()  # (*window, in, out) -> (out, in, *window)
+        src = torch.from_numpy(value)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
         dst.copy_(src)

@@ -49,7 +49,7 @@ def test_autotune_on_gpu(cuda_device, tmp_path, monkeypatch):
     times = entry["timings_ms_per_step"]
     assert set(times) == set(names) and winner == min(times, key=times.get)
     assert tpath.get_default() == tpath.CANDIDATES[winner]
-    assert [key[1] for key in solver._graphs] == [tuple(sorted(tpath.CANDIDATES[winner].items()))]
+    assert [key[1] for key in solver.loop.graphs] == [tuple(sorted(tpath.CANDIDATES[winner].items()))]
     after = solver.state_dict()
     assert torch.equal(after["generator"], before["generator"]) and after["step"] == before["step"]
     for n, v in before["params"].items():

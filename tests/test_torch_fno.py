@@ -300,13 +300,27 @@ def test_darcy_tfno_three_train_steps_match_jax(tmp_path):
     np.testing.assert_allclose(t_metric, float(j_metric), rtol=1e-4)
 
 
-def test_darcy_uno_names_its_roadmap_item():
-    """``arch="uno"`` raises naming the ROADMAP Queue A item that holds
-    ``unonet.py``."""
-    import re
-
-    queue_a = open(os.path.join(ROOT, "ROADMAP.md")).read().split("### Queue A")[1].split("### Queue B")[0]
-    parts = re.split(r"^(\d+)\. \*\*", queue_a, flags=re.M)  # [preamble, number, body, number, body, ...]
-    (item,) = [num for num, body in zip(parts[1::2], parts[2::2]) if "unonet.py" in body]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}\\b"):
-        tdarcy.build_solver(arch="uno", device="cpu", output_dir=None)
+def test_darcy_uno_three_train_steps_match_jax(tmp_path):
+    """``arch="uno"`` (hidden 32, stages (32, 64, 64, 32), scalings 1, 0.5,
+    2, 1: one antialiased down-scaling and one up-scaling) at n_train =
+    32, n_eval = 16, shuffle off in both: three train steps against the
+    JAX solver's jitted step, then the eval."""
+    js = jdarcy.build_solver(epochs=2, n_train=32, n_eval=16, arch="uno", output_dir=str(tmp_path / "jax"))
+    loader = js.constraint["Sup"].data_loader
+    loader.shuffle = False
+    js.constraint["Sup"].data_iter = iter(loader)
+    ts = tdarcy.build_solver(epochs=2, n_train=32, n_eval=16, arch="uno", output_dir=str(tmp_path / "port"),
+                             shuffle=False, device="cpu")
+    assert type(ts.model).__name__ == "UNONet"
+    load_jax_params(ts.model, jax.tree.map(np.asarray, js.state["params"]))
+    step_fn = js._build_train_step()
+    j_logs = []
+    for _ in range(3):
+        host = {n: jax.tree.map(jnp.asarray, next(c.data_iter)) for n, c in js.constraint.items()}
+        js.state, logs = step_fn(js.state, host)
+        j_logs.append([float(logs[k]) for k in ("loss", "lr")])
+    t_logs = [[float(v) for k, v in ts.train_step().items() if k in ("loss", "lr")] for _ in range(3)]
+    np.testing.assert_allclose(np.array(t_logs), np.array(j_logs), rtol=1e-4)
+    j_metric, _ = js.eval()
+    t_metric, _ = ts.eval()
+    np.testing.assert_allclose(t_metric, float(j_metric), rtol=1e-4)

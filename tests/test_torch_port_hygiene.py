@@ -284,6 +284,33 @@ def test_the_new_modules_import_alone_without_jax(rel):
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+EIGHTEENTH_SLICE_MODULES = ("utils/step_graph.py", "examples/xpinn.py", "examples/hpinns.py", "geometry/mesh.py",
+                            "examples/ldc_curriculum.py", "nn/layers.py", "nn/resize.py",
+                            "arch/unonet.py", "examples/darcy_uno.py", "arch/geofno.py", "examples/catheter.py",
+                            "data/dataset/domain_dataset.py", "examples/velocitygan_fwi.py", "arch/afno.py",
+                            "data/dataset/science_dataset.py", "examples/fourcastnet.py",
+                            "examples/fourcastnet_finetune.py", "examples/yinglong.py", "arch/sht.py",
+                            "arch/sfnonet.py", "examples/sfno_swe.py", "arch/cvit.py", "data/dataset/array_dataset.py",
+                            "examples/adv_cvit.py", "examples/ns_cvit.py")
+
+
+def test_the_hand_loop_and_operator_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(EIGHTEENTH_SLICE_MODULES) <= checked
+
+
+def test_the_eighteenth_slice_imports_without_jax_or_h5py():
+    """Every module of the slice, imported in a fresh process, loads no JAX,
+    sympy, optax or JAX-package module, and no h5py (the GPU machine has
+    none: the HDF5 readers import it when they read a file)."""
+    mods = ["paddlescience_torch." + rel[:-3].replace("/", ".") for rel in EIGHTEENTH_SLICE_MODULES]
+    code = (f"import importlib, sys\nfor m in {mods!r}:\n    importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('h5py',)!r})\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_the_port_has_no_torch_lbfgs():
     """optax's L-BFGS is copied by hand; ``torch.optim.LBFGS`` (another
     first step, line search and stopping rule) is used nowhere."""
