@@ -7,7 +7,8 @@ on failure:
 1. build   - compile every kernel of the driven paths from
              ``paddlescience_torch/csrc`` with nvcc for sm_90a, in parallel
              and in the background (nice 19) while the kernel-free
-             [operators] and [operators2] phases run;
+             [operators], [operators2], [earthformer] and [koopman]
+             phases run;
 2. kernels - hold each kernel against its plain PyTorch version (and the
              backwards against ``torch.autograd`` through the plain forward)
              on the card, at the main-path shapes and every depth a driven
@@ -208,6 +209,19 @@ on failure:
              against eager steps (1e-6), train() one graph an epoch, the
              metric (l2, L2Rel, RMSE and ACC, the rollout RMSEs, the GAN's
              L1), graphed and eager steps/s with device busy;
+   earthformer - the ENSO Earthformer and ExtFormer-MoE (10 experts,
+             top-4) at the reference ENSO pretrain width (12 -> 14 months
+             at 24 x 48, base 64, batch 8, dropout 0.1) and SEVIR at its
+             example's size: card against CPU in float64 (float32
+             measured beside it), one graphed epoch against eager steps
+             (bitwise expected; dropout and the gates' noise drawn inside
+             the graph), the training randomness on in train mode and off
+             in eval, train() in graphed chunks, eval() (RMSE, SEVIR's
+             skill scores), steps/s, busy, kernels a step, peak memory;
+   koopman - lorenz_koopman, both rossler stages and both
+             physformer_lorenz stages (stage 1 a 60-step graph of its hand
+             loop): a few graphed epochs, the loss and metric, steps/s,
+             and the Physformer's rollout on the card against the CPU;
    autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
              candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
              PirateNet 9x256, the aneurysm, cylinder2d matched,
@@ -250,9 +264,10 @@ before it a JSON object ``{"kernels": [...]}``; the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 CUDA is unavailable or the port is not beside this script.
 
-``python3 chip_smoke.py --only xpinn,hpinns,operators2`` builds the
-kernels and runs only the named phases of this slice (a probe: it prints
-their summaries and no result line).
+``python3 chip_smoke.py --only xpinn,hpinns,operators2,earthformer,koopman``
+runs only the named phases (a probe: it prints their summaries and no
+result line); it waits for the kernel build only when a named phase
+launches a kernel of the port.
 """
 
 from __future__ import annotations
@@ -1874,7 +1889,7 @@ def run_lbfgs_phase(tmp: str, adam_params):
     return launches, out
 
 
-def check_operator_graph(name: str, build):
+def check_operator_graph(name: str, build, phase: str = "operators"):
     """One epoch as one graph of k = iters_per_epoch steps (k host batches
     staged a replay) against k eager steps, both from a fresh solver and
     under cuDNN's deterministic algorithms: parameters within 1e-6
@@ -1894,7 +1909,7 @@ def check_operator_graph(name: str, build):
         torch.cuda.synchronize()
     a, b = flat_params(runs[k]), flat_params(runs[1])
     rel = float((a - b).norm() / b.norm())
-    log(f"[operators] {name}: one epoch as one graph of {k} steps vs {k} eager steps from the same fresh state: "
+    log(f"[{phase}] {name}: one epoch as one graph of {k} steps vs {k} eager steps from the same fresh state: "
         f"parameters rel err {rel:.3e}, bitwise {torch.equal(a, b)}, {runs[k].graph_stats[k]['replays']} replay(s)")
     if rel > 1e-6 or runs[k].graph_stats[k]["replays"] != 1:
         raise AssertionError(f"{name}: the graphed epoch disagrees with the eager steps")
@@ -3495,22 +3510,22 @@ VGAN_STEPS, VGAN_K = 60, 20
 YINGLONG_K = 10
 
 
-def card_vs_cpu(name: str, model, inputs):
+def card_cpu_errors(model, inputs, dtype=None):
     """The module on the card against a copy of it on the CPU with the same
-    weights, on the same inputs: every output, and the parameter gradient
-    of sum(out * c) (all parameters as one vector), within 1e-4 x its
-    largest magnitude (the FFT and padding traps show here). Returns the
-    largest such error."""
+    weights, on the same inputs (both copies cast to ``dtype`` when given):
+    the largest error of any output and of the parameter gradient of
+    sum(out * c) (all parameters as one vector), each over its largest
+    magnitude."""
     import copy
 
     import torch
 
-    cpu = copy.deepcopy(model).cpu()
+    card = model if dtype is None else copy.deepcopy(model).to(dtype)
+    cpu = copy.deepcopy(card).cpu()
     gen = torch.Generator().manual_seed(3)
-    worst = 0.0
     outs = {}
-    for tag, m, dev in (("card", model, next(model.parameters()).device), ("cpu", cpu, "cpu")):
-        feed = {k: v.to(dev) for k, v in inputs.items()}
+    for tag, m, dev in (("card", card, next(model.parameters()).device), ("cpu", cpu, "cpu")):
+        feed = {k: v.to(dev, dtype or v.dtype) for k, v in inputs.items()}
         o = m(feed)
         if tag == "card":
             cots = {k: torch.randn(v.shape, generator=gen) for k, v in o.items()}
@@ -3522,15 +3537,22 @@ def card_vs_cpu(name: str, model, inputs):
         outs[tag] = ([v.detach().cpu() for v in o.values()],
                      [torch.cat([(g if g is not None else torch.zeros_like(p)).detach().cpu().reshape(-1)
                                  for g, p in zip(gs, ps)])])
-    for part, (a_list, b_list) in zip(("output", "gradient"), zip(outs["card"], outs["cpu"])):
-        for a, b in zip(a_list, b_list):
-            err = float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
-            worst = max(worst, err)
-            if err > REL_TOL:
-                raise AssertionError(f"{name}: the card disagrees with the CPU ({part}: {err:.3e} of the largest "
-                                     "magnitude)")
-    log(f"[operators2] {name}: card vs CPU, same weights and inputs: outputs and parameter gradients within "
-        f"{worst:.3e} x their largest magnitude (limit {REL_TOL})")
+    rel = lambda a, b: float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))  # noqa: E731
+    return (max(rel(a, b) for a, b in zip(outs["card"][0], outs["cpu"][0])),
+            max(rel(a, b) for a, b in zip(outs["card"][1], outs["cpu"][1])))
+
+
+def card_vs_cpu(name: str, model, inputs, phase: str = "operators2", dtype=None):
+    """:func:`card_cpu_errors` held to 1e-4 of the largest magnitude (the
+    FFT and padding traps show here). Returns the larger error."""
+    worst = 0.0
+    for part, err in zip(("output", "gradient"), card_cpu_errors(model, inputs, dtype)):
+        worst = max(worst, err)
+        if err > REL_TOL:
+            raise AssertionError(f"{name}: the card disagrees with the CPU ({part}: {err:.3e} of the largest "
+                                 "magnitude)")
+    log(f"[{phase}] {name}: card vs CPU, same weights and inputs{'' if dtype is None else ', in ' + str(dtype)}: "
+        f"outputs and parameter gradients within {worst:.3e} x their largest magnitude (limit {REL_TOL})")
     return worst
 
 
@@ -3628,6 +3650,181 @@ def run_operators2_phase(tmp: str):
     return out
 
 
+# ----------------------- the nineteenth slice: the Earthformer family, the Koopman embeddings, Physformer --
+
+# the reference ENSO pretrain width (tests/test_extformer_param_parity.py), batch 8
+ENSO_FULL = dict(in_len=12, out_len=14, lat=24, lon=48, base_units=64, num_global_vectors=0, batch_size=8)
+EARTHFORMER_EPOCHS = 2  # train() epochs of the example's 3 steps (cut for the script's time, PERF.md §4)
+EARTHFORMER_TIMED = dict(replays=3, eager_steps=3, profiled=1)
+CARD_VS_CPU_SAMPLES = 1  # samples of the first batch held on the card against the CPU
+# epochs: 5 of lorenz_koopman's 50 and of each rossler stage's 20 (cut for the script's time); physformer_lorenz its 4
+KOOPMAN_RUN = {"lorenz_koopman": dict(epochs=5), "rossler": dict(epochs=5), "physformer_lorenz": {}}
+KOOPMAN_TIMED = dict(replays=3, eager_steps=3, profiled=0)
+GENERATE_LEN = 32  # entries of the Physformer rollout held on the card against the CPU
+
+
+def check_dropout_active(name: str, solver, inputs, phase: str = "earthformer"):
+    """Two train-mode forwards from different generator states differ, and
+    two eval-mode forwards (no generator) are bitwise equal."""
+    import torch
+
+    model = solver.model
+    feed = {k: v.cuda() for k, v in inputs.items()}
+    outs = []
+    with torch.no_grad():
+        for seed in (1, 2, None, None):
+            model.set_train_rng(None if seed is None else torch.Generator(device="cuda").manual_seed(seed))
+            outs.append(next(iter(model(feed).values())))
+    model.set_train_rng(None)
+    differ, same = not torch.equal(outs[0], outs[1]), torch.equal(outs[2], outs[3])
+    log(f"[{phase}] {name}: train-mode forwards from two generator states differ: {differ}; eval-mode forwards "
+        f"bitwise equal: {same}")
+    if not (differ and same):
+        raise AssertionError(f"{name}: the training randomness is not active in train mode or not off in eval")
+
+
+def train_slice_solver(phase: str, name: str, solver, k: int, timed):
+    """``train(num_fused_steps=k)`` (one graph a chunk), ``eval()``, the
+    numbers finite and no plain kernel version on CUDA; graphed and eager
+    steps/s with the busy share and kernels per step; the peak memory the
+    training held. Returns the numbers."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logged = solver.train(num_fused_steps=k)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    _, plain = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metric, group = solver.eval()
+    values = [metric] + [e["loss"] for e in logged] + [v for g in group.values() for v in g.values()]
+    if not all(math.isfinite(v) for v in values) or any(plain.values()):
+        raise AssertionError(f"{name}: metric {metric}, logs {logged[-3:]}, plain versions on CUDA {plain}")
+    steps = solver.epochs * solver.iters_per_epoch
+    log(f"[{phase}] {name}: train() {solver.epochs} epochs x {solver.iters_per_epoch} steps in graphs of {k} in "
+        f"{train_s:.2f} s (the capture included), final loss {logged[-1]['loss']:.6e}, peak memory {peak:.3f} GiB; "
+        f"{group}")
+    num = {"train_s": train_s, "steps": steps, "final_loss": logged[-1]["loss"], "metric": metric,
+           "metrics": group, "peak_memory_gib": peak}
+    num.update(time_graphed(solver, name, k, **timed))
+    return num
+
+
+def run_earthformer_phase(tmp: str):
+    """The ENSO Earthformer and ExtFormer-MoE at the reference ENSO pretrain
+    width (input (12, 24, 48, 1), target (14, 24, 48, 1), base 64, 4 heads,
+    depth (1, 1), no global vectors, axial / axial / cross_1x1, dropout 0.1
+    at the three sites, batch 8; the MoE one with ``default_moe_config()``:
+    10 experts, top-4, cuboid-latent gates) and SEVIR at the example's
+    size, each through its solver: the card against the CPU on the first
+    batch's first samples in eval mode; one graphed epoch against eager
+    steps from one fresh state (dropout and the gates' noise drawn inside
+    the graph); the training randomness on in train mode and off in eval;
+    train() in graphed chunks, eval() (RMSE; SEVIR's skill scores); graphed
+    and eager steps/s, busy share, kernels per step, peak memory. Returns
+    the numbers."""
+    import torch
+
+    from paddlescience_torch.arch.cuboid_transformer import ExtFormerMoECuboid
+    from paddlescience_torch.arch.extformer_moe import default_moe_config
+    from paddlescience_torch.examples import earthformer_enso, earthformer_sevir
+
+    full = dict(ENSO_FULL, epochs=EARTHFORMER_EPOCHS, device="cuda")
+    makers = {
+        "earthformer_enso": lambda tag: earthformer_enso.make_solver(output_dir=os.path.join(tmp, tag), **full),
+        "extformer_moe_enso": lambda tag: earthformer_enso.make_solver(
+            ExtFormerMoECuboid, output_dir=os.path.join(tmp, tag), moe_config=default_moe_config(), **full),
+        "earthformer_sevir": lambda tag: earthformer_sevir.make_solver(
+            epochs=EARTHFORMER_EPOCHS, output_dir=os.path.join(tmp, tag), device="cuda"),
+    }
+    out = {}
+    torch.zeros(1, device="cuda")  # the CUDA context, outside the first build's seconds
+    for name, build in makers.items():
+        t_start = time.perf_counter()
+        solver = build(name)
+        num = {"build_s": time.perf_counter() - t_start,
+               "parameters": sum(p.numel() for p in solver.model.parameters())}
+        inputs = {k: v[:CARD_VS_CPU_SAMPLES] for k, v in _first_batch(solver, name).items()}
+        solver.model.set_train_rng(None)
+        t0 = time.perf_counter()
+        # held in float32, the precision that trains (a TF32 or conv-algorithm fault shows here), and in float64,
+        # where rounding is out of the way and only a fault of the logic would show; one sample: at two the
+        # float32 gradient's rounding reaches the limit on either device (PERF.md §6)
+        num["card_vs_cpu_float32"] = card_vs_cpu(name, solver.model, inputs, phase="earthformer")
+        num["card_vs_cpu"] = card_vs_cpu(name, solver.model, inputs, phase="earthformer", dtype=torch.float64)
+        num["card_vs_cpu_s"] = time.perf_counter() - t0
+        log(f"[earthformer] {name}: both card vs CPU comparisons {num['card_vs_cpu_s']:.1f} s")
+        check_dropout_active(name, solver, inputs)
+        t0 = time.perf_counter()
+        num["graph_check"] = check_operator_graph(name, lambda: build(name + "_chk"), phase="earthformer")
+        num["graph_check_s"] = time.perf_counter() - t0
+        num.update(train_slice_solver("earthformer", name, solver, solver.iters_per_epoch, EARTHFORMER_TIMED))
+        num["seconds"] = time.perf_counter() - t_start
+        log(f"[earthformer] {name}: {num['parameters']} parameters; {num['seconds']:.1f} s")
+        out[name] = num
+        del solver
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_koopman_phase(tmp: str):
+    """lorenz_koopman, both rossler stages and both physformer_lorenz
+    stages at the examples' sizes (epochs cut, ``KOOPMAN_RUN``): a few
+    graphed epochs each (the Physformer stage-1 hand loop as one graph of
+    its 60 steps, checked against eager steps), the loss and metric;
+    graphed and eager steps/s; the Physformer's ``generate`` on the card
+    against the CPU. Returns the numbers."""
+    import copy
+
+    import torch
+
+    from paddlescience_torch.examples import lorenz_koopman, physformer_lorenz, rossler
+
+    out = {}
+    t_start = time.perf_counter()
+    s = lorenz_koopman.build_solver(output_dir=os.path.join(tmp, "lorenz_koopman"), device="cuda",
+                                    **KOOPMAN_RUN["lorenz_koopman"])
+    out["lorenz_koopman"] = train_slice_solver("koopman", "lorenz_koopman", s, s.iters_per_epoch, KOOPMAN_TIMED)
+    out["lorenz_koopman"]["seconds"] = time.perf_counter() - t_start
+
+    t_start = time.perf_counter()
+    run = KOOPMAN_RUN["rossler"]
+    s = rossler.build_embedding(output_dir=os.path.join(tmp, "rossler"), device="cuda", **run)
+    out["rossler_embedding"] = train_slice_solver("koopman", "rossler embedding", s, s.iters_per_epoch,
+                                                  KOOPMAN_TIMED)
+    s2 = rossler.build_transformer(s.model, output_dir=os.path.join(tmp, "rossler2"), device="cuda", **run)
+    out["rossler_transformer"] = train_slice_solver("koopman", "rossler transformer", s2, s2.iters_per_epoch,
+                                                    KOOPMAN_TIMED)
+    out["rossler_transformer"]["seconds"] = time.perf_counter() - t_start
+
+    t_start = time.perf_counter()
+    stage1 = physformer_lorenz.EmbeddingPretrain(device="cuda")
+    num = {"graph_vs_eager_rel": check_hand_graph("physformer stage 1", stage1.loop, 10, "koopman")}
+    num["stage1_loss"] = stage1.train(60, 60)
+    if not math.isfinite(num["stage1_loss"]):
+        raise AssertionError(f"physformer stage 1: loss {num['stage1_loss']}")
+    log(f"[koopman] physformer stage 1: 60 Adam steps as one graph, loss {num['stage1_loss']:.6e}")
+    s = physformer_lorenz.build_solver(output_dir=os.path.join(tmp, "physformer"), embedding_model=stage1.model,
+                                       device="cuda", **KOOPMAN_RUN["physformer_lorenz"])
+    num.update(train_slice_solver("koopman", "physformer_lorenz", s, s.iters_per_epoch, KOOPMAN_TIMED))
+    model = s.model
+    x = torch.as_tensor(s.constraint["Sup"].dataset.input["embeds"][:4, :1], device="cuda")
+    cpu = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        card, ref = model.generate(x, GENERATE_LEN).cpu(), cpu.generate(x.cpu(), GENERATE_LEN)
+    err = float((card - ref).abs().max() / ref.abs().max())
+    log(f"[koopman] physformer generate: {GENERATE_LEN}-entry rollout of 4 sequences, card vs CPU within {err:.3e} "
+        f"x the largest magnitude (limit {REL_TOL})")
+    if not (err <= REL_TOL and card.shape == (4, GENERATE_LEN, x.shape[-1])):
+        raise AssertionError(f"physformer generate: card vs CPU {err:.3e}, shape {tuple(card.shape)}")
+    num.update(generate_card_vs_cpu=err, seconds=time.perf_counter() - t_start)
+    out["physformer_lorenz"] = num
+    return out
+
+
 def time_xpinn_kernels(rows, per_step):
     """The MLP kernels' rows at XPINN's middle strip (S = 5: u, u_x, u_y,
     u_xx, u_yy; N = 2000; 2 -> 20 x 4, tanh; key "xpinn"), with the
@@ -3652,6 +3849,10 @@ REPLACES = {
 }
 
 
+PROBES = ("xpinn", "hpinns", "operators2", "earthformer", "koopman")
+KERNEL_FREE = ("operators2", "earthformer", "koopman")  # phases that launch no kernel of the port
+
+
 def run_probe(only, tmp: str) -> int:
     """The named phases of this slice alone (``--only``)."""
     for phase in only:
@@ -3661,8 +3862,12 @@ def run_probe(only, tmp: str) -> int:
             log("[hpinns] summary " + json.dumps(run_hpinns_phase()))
         elif phase == "operators2":
             log("[operators2] summary " + json.dumps(run_operators2_phase(tmp)))
+        elif phase == "earthformer":
+            log("[earthformer] summary " + json.dumps(run_earthformer_phase(tmp)))
+        elif phase == "koopman":
+            log("[koopman] summary " + json.dumps(run_koopman_phase(tmp)))
         else:
-            raise ValueError(f"--only takes xpinn, hpinns, operators2; not {phase}")
+            raise ValueError(f"--only takes {', '.join(PROBES)}; not {phase}")
         mark(phase)
     log(f"[done] the probe's phases passed in {time.perf_counter() - T0:.1f} s (the build included)")
     return 0
@@ -3675,7 +3880,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
         only = sys.argv[2].split(",")
     elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--only xpinn,hpinns,operators2]", file=sys.stderr)
+        print(f"usage: chip_smoke.py [--only {','.join(PROBES)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3703,20 +3908,27 @@ def main() -> int:
 
 
 def run_all(tmp: str, card: str, nvcc, only) -> int:
-    """Every phase, in order; the kernel-free [operators] and [operators2]
-    while ``nvcc`` (a ``cuda_build.Build``) compiles the kernels."""
+    """Every phase, in order; the kernel-free [operators], [operators2],
+    [earthformer] and [koopman] while ``nvcc`` (a ``cuda_build.Build``)
+    compiles the kernels."""
     import torch
 
     from paddlescience_torch.ops import jet_gated as G
     from paddlescience_torch.ops import jet_mlp as J
 
     if not only:
-        log("[build] nvcc started for every kernel (nice 19); [operators] and [operators2], which launch no "
-            "kernel of the port, run meanwhile")
+        log("[build] nvcc started for every kernel (nice 19); [operators], [operators2], [earthformer] and "
+            "[koopman], which launch no kernel of the port, run meanwhile")
         log("[operators] summary " + json.dumps(run_operator_phase(tmp)))
         mark("operators")
         log("[operators2] summary " + json.dumps(run_operators2_phase(tmp)))
         mark("operators2")
+        log("[earthformer] summary " + json.dumps(run_earthformer_phase(tmp)))
+        mark("earthformer")
+        log("[koopman] summary " + json.dumps(run_koopman_phase(tmp)))
+        mark("koopman")
+    elif all(p in KERNEL_FREE for p in only):  # no kernel needed: no wait for the build
+        return run_probe(only, tmp)
     build_logs = nvcc.wait()
     log(f"[build] {len(build_logs)} kernels built, {time.perf_counter() - T0:.1f} s after the start")
     mark("build")

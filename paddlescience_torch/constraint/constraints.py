@@ -27,19 +27,12 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 
 from paddlescience_torch.constraint.base import Constraint
-from paddlescience_torch.data.dataset.array_dataset import (ContinuousNamedArrayDataset, IterableNamedArrayDataset,
-                                                            NamedArrayDataset)
-from paddlescience_torch.data.dataset.domain_dataset import ERA5SampledDataset, FWIDataset, SphericalSWEDataset
-from paddlescience_torch.data.dataset.science_dataset import ERA5Dataset
+from paddlescience_torch.data import _DATASETS
 from paddlescience_torch.utils.symbolic import read_expression
 
 __all__ = ["InteriorConstraint", "BoundaryConstraint", "InitialConstraint", "PeriodicConstraint",
            "IntegralConstraint", "SupervisedConstraint", "prepare_label", "prepare_weight"]
 
-_DATASETS = {"IterableNamedArrayDataset": IterableNamedArrayDataset, "NamedArrayDataset": NamedArrayDataset,
-             "ContinuousNamedArrayDataset": ContinuousNamedArrayDataset, "ERA5Dataset": ERA5Dataset,
-             "ERA5SampledDataset": ERA5SampledDataset, "FWIDataset": FWIDataset,
-             "SphericalSWEDataset": SphericalSWEDataset}
 Spec = Union[float, int, Callable]
 
 

@@ -17,13 +17,15 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from paddlescience_torch.data.dataset import (ContinuousNamedArrayDataset, DeviceSampledDataset, ERA5Dataset,
-                                              ERA5SampledDataset, FWIDataset, IterableNamedArrayDataset,
-                                              NamedArrayDataset, SphericalSWEDataset)
+from paddlescience_torch.data.dataset import (ContinuousNamedArrayDataset, CylinderDataset, DeviceSampledDataset,
+                                              ENSODataset, ERA5Dataset, ERA5SampledDataset, ExtMoEENSODataset,
+                                              FWIDataset, IterableNamedArrayDataset, LorenzDataset, NamedArrayDataset,
+                                              RosslerDataset, SEVIRDataset, SphericalSWEDataset)
 
 __all__ = ["BatchLoader", "build_dataset", "build_dataloader", "ContinuousNamedArrayDataset", "DeviceSampledDataset",
            "ERA5Dataset", "ERA5SampledDataset", "FWIDataset", "IterableNamedArrayDataset", "NamedArrayDataset",
-           "SphericalSWEDataset"]
+           "SphericalSWEDataset", "ENSODataset", "ExtMoEENSODataset", "SEVIRDataset", "LorenzDataset",
+           "RosslerDataset", "CylinderDataset"]
 
 _DATASETS = {
     "NamedArrayDataset": NamedArrayDataset,
@@ -34,6 +36,12 @@ _DATASETS = {
     "ERA5SampledDataset": ERA5SampledDataset,
     "FWIDataset": FWIDataset,
     "SphericalSWEDataset": SphericalSWEDataset,
+    "ENSODataset": ENSODataset,
+    "ExtMoEENSODataset": ExtMoEENSODataset,
+    "SEVIRDataset": SEVIRDataset,
+    "LorenzDataset": LorenzDataset,
+    "RosslerDataset": RosslerDataset,
+    "CylinderDataset": CylinderDataset,
 }
 
 

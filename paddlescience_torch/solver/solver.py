@@ -81,6 +81,20 @@ averaged parameters are updated in place after each update, inside the
 captured step; they are part of the state (checkpoints, resume) and
 ``eval()`` runs on them, ``predict()`` on the parameters, as in JAX.
 
+Training randomness inside a model (the Earthformer family's dropout and
+noisy MoE gates) draws from the solver's generator: before each train step
+(and each aggregator refresh, which the JAX solver computes inside its
+step) every model with a ``set_train_rng`` method is handed
+``self.generator``; ``eval()`` and ``predict()`` hand it None, as the JAX
+solver hands a fresh key a step and resets it for eval and predict. The
+draws are thus part of the captured chunks (the generator is registered
+with each graph, so each replay draws anew), and a checkpoint's generator
+state repeats them on resume. ``AFNONet`` has no ``set_train_rng`` and
+keeps its own ``dropout_generator`` attribute, which the solver leaves
+alone: the JAX solver never hands AFNONet a key (it has no
+``set_train_rng`` there either), so handing it this generator would turn
+on dropout that the reference does not run.
+
 Not ported yet: microbatching, gradient accumulation and the
 multi-process branches.
 """
@@ -405,9 +419,17 @@ class Solver:
     def _params(self) -> List[torch.nn.Parameter]:
         return [p for p in self.model.parameters() if p.requires_grad]
 
+    def _set_train_rng(self, generator: Optional[torch.Generator]) -> None:
+        """Hand ``generator`` (None: no training randomness) to every model
+        that takes one."""
+        for m in self.models:
+            if hasattr(m, "set_train_rng"):
+                m.set_train_rng(generator)
+
     def _refresh_agg_weights(self) -> None:
         """Per-loss gradient norms over all parameters -> aggregator weights,
         written into the aggregator's tensors in place."""
+        self._set_train_rng(self.generator)
         losses = self._constraint_losses(self._batches())
         names = self._loss_names()
         params = self._params()
@@ -440,6 +462,7 @@ class Solver:
         batches = self._batches()
         names = self._loss_names()
         params = self.optimizer.params()
+        self._set_train_rng(self.generator)
 
         def value_and_grad(flat: torch.Tensor):
             self.optimizer.set_flat_params(flat)
@@ -461,6 +484,7 @@ class Solver:
         as tensors."""
         if self._lbfgs:
             return self._lbfgs_step()
+        self._set_train_rng(self.generator)
         losses = self._constraint_losses(self._batches())
         names = self._loss_names()
         agg = self.loss_aggregator
@@ -651,6 +675,7 @@ class Solver:
         Returns (the first metric value, {validator: {metric.key: value}})."""
         if not self.validator:
             raise ValueError("no validator available")
+        self._set_train_rng(None)
         if self.ema_avg is not None:  # the averaged parameters, as the JAX solver's eval
             named = dict(self.model.named_parameters())
             live = {n: p.detach().clone() for n, p in named.items()}
@@ -717,6 +742,7 @@ class Solver:
         on ``input_dict``, in batches of ``batch_size`` rows (all at once
         when None); numpy arrays with ``return_numpy``, else tensors on the
         device. Single process only."""
+        self._set_train_rng(None)
         num = len(next(iter(input_dict.values())))
         if batch_size is None or batch_size >= num:
             batch_size = num

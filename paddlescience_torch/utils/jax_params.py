@@ -17,14 +17,22 @@ DeepONet's ``branch_net.linears.0.weight``, ``trunk_net.last_fc.bias`` and
 from ``params["branch_nets"]["0"]``, a UNO's ``convs.1.w2_im`` and
 ``h_skips.0.weight``, an AFNO's ``blocks.0.filter.w1``,
 ``blocks.0.norm1.scale`` and ``pos_embed``, a CViT's
-``encoder.blocks.0.attn.q.weight``, ...). The layout is the JAX one on
+``encoder.blocks.0.attn.q.weight``, a CuboidTransformer's ``pos``,
+``init_global``, ``initial_encoder.convs.0.weight``,
+``enc_levels.0.0.attns.1.rel_bias``, ``enc_levels.0.0.g_lns.0.scale``,
+``dec_cross.0.0.attns.0.kv.weight`` and ``g_proj.0.bias``, an
+ExtFormer-MoE's stacked experts ``inner.enc_levels.0.0.ffns.0.w_in`` and
+gate tables ``...ffns.0.gate.latent_table``, a Koopman embedding's
+``k_ut`` with its ``mean`` and ``std`` buffers, ...). The layout is the JAX one on
 both sides (W of shape (in, out), a complex weight as its real and
 imaginary parts, a LayerNorm's ``scale`` and ``shift``), so nothing is
 transposed, but for the kernels of ``nn.layers.Conv``: JAX keeps them as
 (*window, in, out), torch as (out, in, *window), and a module names such
 parameters in its ``jax_layout`` ({"weight": "conv"}). Buffers that a module rebuilds
 from its arguments (the LNO's grids ``laplace.t_0``, ``laplace.lam_0``,
-...) need not be passed. This module imports no JAX: callers hand it numpy
+..., the cylinder embedding's band indices) need not be passed, and the
+cuboid attention's masks and relative-position indices are no buffers at
+all (built in numpy and kept per device by the module code). This module imports no JAX: callers hand it numpy
 arrays. :func:`load_jax_eq_params` carries a JAX solver's learnable
 equation parameters (``state["eq_params"]``).
 """
