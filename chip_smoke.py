@@ -7,8 +7,8 @@ on failure:
 1. build   - compile every kernel of the driven paths from
              ``paddlescience_torch/csrc`` with nvcc for sm_90a, in parallel
              and in the background (nice 19) while the kernel-free
-             [operators], [operators2], [earthformer] and [koopman]
-             phases run;
+             [operators], [operators2], [earthformer], [koopman], [graphs]
+             and [unetex] phases run;
 2. kernels - hold each kernel against its plain PyTorch version (and the
              backwards against ``torch.autograd`` through the plain forward)
              on the card, at the main-path shapes and every depth a driven
@@ -222,6 +222,24 @@ on failure:
              physformer_lorenz stages (stage 1 a 60-step graph of its hand
              loop): a few graphed epochs, the loss and metric, steps/s,
              and the Physformer's rollout on the card against the CPU;
+   graphs  - tgcn_pems through ``Solver.train`` in graphed epochs at the
+             example's 16 sensors and at PEMSD4's 307 (full width, batch
+             64; epochs cut, ``TGCN_EPOCHS``): card against CPU on one
+             batch, a graphed epoch against eager steps, dropout on in
+             train and off in eval, the val MAE; the fixed-order segment
+             sum and gather (``nn/segment.py``) two calls bitwise equal,
+             forward and backward, against ``index_add_`` and timed beside
+             it at the AMGNet example's graph and a 4096-node kNN graph;
+             the AMGNet (airfoil, cylinder), CFDGCN, GraphCast and CGCNN
+             hand loops (one captured graph a sample graph): card against
+             CPU on one sample, graphed against eager steps, the examples'
+             steps with the loss falling, GraphCast's RMSE;
+   unetex  - topopt and deepcfd_unetex through their solvers: card
+             against CPU on one batch, a graphed epoch against eager
+             steps, train(), Binary_Acc and IoU, the MSE; for every path
+             of [graphs] and [unetex] graphed and eager steps/s with the
+             spread of the timed calls, busy share, kernels a step and
+             peak memory;
    autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
              candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
              PirateNet 9x256, the aneurysm, cylinder2d matched,
@@ -264,7 +282,7 @@ before it a JSON object ``{"kernels": [...]}``; the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 CUDA is unavailable or the port is not beside this script.
 
-``python3 chip_smoke.py --only xpinn,hpinns,operators2,earthformer,koopman``
+``python3 chip_smoke.py --only xpinn,hpinns,operators2,earthformer,koopman,graphs,unetex``
 runs only the named phases (a probe: it prints their summaries and no
 result line); it waits for the kernel build only when a named phase
 launches a kernel of the port.
@@ -3838,6 +3856,385 @@ def time_xpinn_kernels(rows, per_step):
                    {k: per_step.get(k, 0) for k in names}, index=jet.build_index(XPINN_JET))
 
 
+# ------------- the twentieth slice: the graph networks (segment sums), the transforms and UNetEx --
+
+TGCN_NODES = (16, 307)  # the example's ring of sensors and PEMSD4's 307, both at full width, batch 64
+TGCN_EPOCHS = {16: 10, 307: 2}  # of the example's 100 epochs of 44 steps (cut for the script's time, PERF.md §4)
+# samples of the first batch held card against CPU in float64: at 307 nodes the CPU's float64 pass over the whole
+# batch takes about 7 s, so 8 of its 64 (cut for the script's time, PERF.md §4)
+TGCN_FLOAT64_ROWS = {16: 64, 307: 8}
+GRAPH_FITS = {"amgnet_airfoil": 40, "amgnet_cylinder": 40, "cfdgcn": 60, "graphcast": 60, "cgcnn_property": 80}
+SEGMENT_GRAPHS = {"amgnet": (64, 4), "knn4096": (4096, 4)}  # (nodes, neighbours) of the kNN graphs timed, hidden 64
+SEGMENT_HIDDEN = 64
+SLICE_TIMED = dict(calls=3, eager_steps=5, profiled=2)  # timed calls (a chunk, or eager_steps steps), profiled ones
+DEV = "cuda"  # where this slice's phases run
+UNETEX_RUN = {"topopt": dict(epochs=8), "deepcfd_unetex": dict(epochs=4)}  # the examples' own epochs
+
+
+def _spread(times, steps: int):
+    """(median ms a step, min, max) over timed calls of ``steps`` steps each."""
+    ms = sorted(t / steps * 1e3 for t in times)
+    return ms[len(ms) // 2], ms[0], ms[-1]
+
+
+def time_slice_path(name: str, phase: str, eager, graphed, k: int, calls: int, eager_steps: int, profiled: int):
+    """``eager()`` (one eager step) and ``graphed()`` (one call of ``k``
+    graphed steps, captured already) of one path: steps/s from the median
+    of ``calls`` timed calls each (host clock, each call ending in a
+    synchronize; eager calls of ``eager_steps`` steps) with the fastest and
+    slowest call beside it, the device's busy share and kernels a step from
+    a profile of each (``profiled`` eager steps, one graphed call), and the
+    peak memory over both. Returns the numbers."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager()
+    graphed()
+    torch.cuda.synchronize()
+    times = {"eager": [], "graphed": []}
+    for _ in range(calls):
+        for tag, fn, n in (("eager", eager, eager_steps), ("graphed", graphed, 1)):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            times[tag].append(time.perf_counter() - t0)
+    e_ms, e_lo, e_hi = _spread(times["eager"], eager_steps)
+    g_ms, g_lo, g_hi = _spread(times["graphed"], k)
+    _, e_busy, e_kernels = profile_steps(None, f"{name} eager", e_ms, steps=profiled, top=5, run=eager)
+    _, g_busy, g_kernels = profile_steps(None, f"{name} graphed (K={k})", g_ms, steps=1, top=5, run=graphed,
+                                         steps_per_run=k)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    share = lambda busy, ms: "not measured" if busy is None else f"{100 * busy / ms:.1f}% busy"  # noqa: E731
+    log(f"[{phase}] timing {name}: eager {1e3 / e_ms:.2f} steps/s ({e_ms:.4f} ms a step, calls {e_lo:.4f}-{e_hi:.4f}, "
+        f"{share(e_busy, e_ms)}, {e_kernels:.0f} kernels a step), graphed {1e3 / g_ms:.2f} steps/s ({g_ms:.4f} ms, "
+        f"calls {g_lo:.4f}-{g_hi:.4f}, {share(g_busy, g_ms)}), K={k}, {calls} calls each; peak memory {peak:.3f} GiB")
+    return {"eager_steps_per_s": 1e3 / e_ms, "eager_ms": e_ms, "eager_ms_range": [e_lo, e_hi],
+            "eager_busy_ms": e_busy, "graphed_steps_per_s": 1e3 / g_ms, "graphed_ms": g_ms,
+            "graphed_ms_range": [g_lo, g_hi], "graphed_busy_ms": g_busy, "kernels_per_step": [e_kernels, g_kernels],
+            "K": k, "peak_memory_gib": peak}
+
+
+def time_solver_path(name: str, phase: str, solver, k: int):
+    return time_slice_path(name, phase, solver.train_step, lambda: solver.train_chunk(k), k, **SLICE_TIMED)
+
+
+def _cast(tree, dtype):
+    """Floating tensors of a nested input cast to ``dtype``."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast(v, dtype) for v in tree)
+    return tree
+
+
+def _move(tree, device):
+    """Tensors of a nested input (dicts, tuples, lists) moved to ``device``;
+    host index arrays kept."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _move(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_move(v, device) for v in tree)
+    return tree
+
+
+def card_vs_cpu_both(name: str, model, inputs, phase: str, rows=None):
+    """:func:`card_vs_cpu` in float32 on the first sample (the training
+    precision: float32 gradient sums over a whole batch after a
+    batch-statistics norm, or through cuDNN's weight-gradient algorithms,
+    stray past 1e-4 from float64 on the card and the CPU alike, PERF.md
+    §6) and in float64 on the whole batch, or its first ``rows`` samples
+    (only a fault of the logic shows). Returns both errors."""
+    import torch
+
+    one = {k: v[:CARD_VS_CPU_SAMPLES] for k, v in inputs.items()}
+    some = {k: v[:rows] for k, v in inputs.items()}
+    return {"card_vs_cpu_float32": card_vs_cpu(name, model, one, phase=phase),
+            "card_vs_cpu": card_vs_cpu(name, model, some, phase=phase, dtype=torch.float64)}
+
+
+def graph_card_vs_cpu(name: str, model, inputs, phase: str = "graphs", dtype=None):
+    """The graph model on the card against a copy on the CPU with the same
+    weights (both cast to ``dtype`` when given), on one sample's inputs
+    (graph indices on the host): the outputs and the whole parameter
+    gradient of sum(out * c), each within 1e-4 of its largest magnitude.
+    Returns the larger error."""
+    import copy
+
+    import torch
+
+    card = model if dtype is None else copy.deepcopy(model).to(dtype)
+    cpu = copy.deepcopy(card).cpu()
+    gen = torch.Generator().manual_seed(3)
+    outs = {}
+    for tag, m, dev in (("card", card, DEV), ("cpu", cpu, "cpu")):
+        feed = _move(inputs, dev)
+        if dtype is not None:
+            feed = _cast(feed, dtype)
+        o = m(feed)
+        if tag == "card":
+            cots = {key: torch.randn(v.shape, generator=gen) for key, v in o.items()}
+        loss = sum((v * cots[key].to(dev)).sum() for key, v in o.items())
+        ps = [p for p in m.parameters() if p.requires_grad]
+        gs = torch.autograd.grad(loss, ps)
+        outs[tag] = (torch.cat([v.detach().cpu().reshape(-1) for v in o.values()]),
+                     torch.cat([g.detach().cpu().reshape(-1) for g in gs]))
+    errs = [float((a - b).abs().max() / max(float(b.abs().max()), 1e-30)) for a, b in zip(outs["card"], outs["cpu"])]
+    log(f"[{phase}] {name}: card vs CPU on one sample{'' if dtype is None else ', in ' + str(dtype)}: outputs "
+        f"{errs[0]:.3e}, parameter gradient {errs[1]:.3e} of their largest magnitude (limit {REL_TOL})")
+    if not max(errs) <= REL_TOL:
+        raise AssertionError(f"{name}: the card disagrees with the CPU ({errs})")
+    return max(errs)
+
+
+def check_fit_graph(name: str, fit, steps: int, phase: str = "graphs"):
+    """``steps`` graphed steps (each sample's own captured graph) against
+    the same steps eager, from one state: parameters and Adam's state
+    within 1e-6 relative (and whether bitwise); the state restored after."""
+    import torch
+
+    snap, step0 = fit.snapshot(), fit.step
+    fit.train_steps(steps, graphed=True)
+    torch.cuda.synchronize()
+    graphed = torch.cat([t.detach().reshape(-1).float() for t in fit.state()])
+    fit.restore(snap, step0)
+    fit.train_steps(steps, graphed=False)
+    torch.cuda.synchronize()
+    eager = torch.cat([t.detach().reshape(-1).float() for t in fit.state()])
+    fit.restore(snap, step0)
+    rel = float((graphed - eager).norm() / eager.norm())
+    bitwise = torch.equal(graphed, eager)
+    log(f"[{phase}] {name}: {steps} graphed steps ({len(fit.loops)} captured graphs, one a sample) vs {steps} eager "
+        f"steps from one state: rel err {rel:.3e}, bitwise {bitwise}")
+    if not (rel <= GRAPH_TOL and torch.isfinite(graphed).all()):
+        raise AssertionError(f"{name}: the graphed steps disagree with the eager ones (rel {rel:.3e})")
+    return {"rel_err": rel, "bitwise": bitwise}
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device ms of one ``fn()`` call: ``reps`` calls captured in one CUDA
+    graph (after warm-up calls on a side stream), its replay timed with
+    CUDA events, so the host's launch work is out of the number."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=5, warmup=1) / reps
+
+
+def check_segment_pair(tag: str, n_nodes: int, k: int, rows):
+    """The fixed-order segment sum and gather (``nn/segment.py``) at a kNN
+    graph of ``n_nodes`` nodes, ``k`` neighbours, hidden 64: two calls
+    bitwise equal, forward and backward; within 1e-5 of the largest
+    magnitude of the ``index_add_`` version; the times (CUDA events) of
+    each beside the byte bound. Appends a row to ``rows``; returns it."""
+    import numpy as np
+    import torch
+
+    from paddlescience_torch.data.dataset.domain_dataset import make_synthetic_graph
+    from paddlescience_torch.nn import segment as seg
+
+    _, _, s, r, _ = make_synthetic_graph(np.random.default_rng(0), n_nodes, k, 5, 3, 3)
+    F_ = SEGMENT_HIDDEN
+    g = torch.Generator(device=DEV).manual_seed(0)
+    e = torch.randn((len(r), F_), generator=g, device=DEV, requires_grad=True)
+    x = torch.randn((n_nodes, F_), generator=g, device=DEV, requires_grad=True)
+    cot_n, cot_e = torch.randn((n_nodes, F_), generator=g, device=DEV), torch.randn((len(r), F_), generator=g,
+                                                                                        device=DEV)
+    r_t, s_t = torch.as_tensor(r, device=DEV).long(), torch.as_tensor(s, device=DEV).long()
+
+    def ours():
+        agg, rows_ = seg.segment_sum(e, r, n_nodes), seg.gather(x, s)
+        return (agg, rows_) + torch.autograd.grad((agg * cot_n).sum() + (rows_ * cot_e).sum(), (e, x))
+
+    def plain():
+        agg, rows_ = seg.segment_sum_plain(e, r_t, n_nodes), seg.gather_plain(x, s_t)
+        return (agg, rows_) + torch.autograd.grad((agg * cot_n).sum() + (rows_ * cot_e).sum(), (e, x))
+
+    a, b = [t.detach() for t in ours()], [t.detach() for t in ours()]
+    bitwise = all(torch.equal(p, q) for p, q in zip(a, b))
+    ref = [t.detach() for t in plain()]
+    err = max(float((p - q).abs().max() / max(float(q.abs().max()), 1e-30)) for p, q in zip(a, ref))
+    plan = seg.segments(r, n_nodes)
+    ed = e.detach()
+    fns = {"sum": lambda: seg.segment_sum(ed, r, n_nodes), "index_add": lambda: seg.segment_sum_plain(ed, r_t, n_nodes),
+           "pair": ours, "plain_pair": plain}
+    call_ms = {key: cuda_ms(fn, reps=20) for key, fn in fns.items()}  # back-to-back calls: the host's work included
+    device_ms = {key: graph_ms(fn) for key, fn in fns.items()}  # replayed from a CUDA graph: the device's alone
+    nbytes = 4 * (len(r) * F_ + n_nodes * F_) + 8 * (len(r) + n_nodes)  # rows read, sums written, order, offsets
+    bound, by = bound_ms(len(r) * F_, nbytes)
+    row = {"graph": tag, "nodes": n_nodes, "edges": len(r), "hidden": F_, "max_in_degree": int(plan.counts.max()),
+           "bitwise_two_calls": bitwise, "rel_err_vs_index_add": err, "call_ms": call_ms, "device_ms": device_ms,
+           "sum_bound_ms": bound, "sum_bound_by": by}
+    log(f"[graphs] segment pair at {tag} ({n_nodes} nodes, {len(r)} edges, hidden {F_}, max in-degree "
+        f"{int(plan.counts.max())}): two calls bitwise {bitwise} (forward and backward), vs index_add_ {err:.3e} of the "
+        f"largest magnitude; device ms a call (graph replay): fixed-order sum {device_ms['sum']:.4f} vs index_add_ "
+        f"{device_ms['index_add']:.4f} (bound {bound:.4f} by {by}), gather + sum forward and backward "
+        f"{device_ms['pair']:.4f} vs the plain pair {device_ms['plain_pair']:.4f}; back-to-back calls (host "
+        f"included): {call_ms['sum']:.4f} / {call_ms['index_add']:.4f} / {call_ms['pair']:.4f} / "
+        f"{call_ms['plain_pair']:.4f}")
+    if not (bitwise and err <= 1e-5):
+        raise AssertionError(f"segment pair at {tag}: bitwise {bitwise}, error {err:.3e}")
+    rows.append(row)
+    return row
+
+
+def run_graphs_phase(tmp: str):
+    """The graph slice on the card: tgcn_pems through ``Solver.train``
+    (graphed, at the example's 16 sensors and at PEMSD4's 307, full width,
+    batch 64; graphed = eager; dropout on in train and off in eval; card
+    against CPU on one batch; the final val MAE), the segment-sum pair at
+    the AMGNet example's graph and at a 4096-node kNN graph, and the
+    AMGNet (airfoil, cylinder), CFDGCN, GraphCast and CGCNN hand loops
+    (card against CPU on one sample, graphed = eager, the examples' steps
+    with the loss falling, GraphCast's RMSE); every path's graphed and
+    eager steps/s with their spread, busy share, kernels a step and peak
+    memory. Returns the numbers."""
+    import torch
+
+    from paddlescience_torch.examples import (amgnet_airfoil, amgnet_cylinder, cfdgcn, cgcnn_property, graphcast,
+                                              tgcn_pems)
+
+    out = {}
+    torch.zeros(1, device=DEV)
+    for nodes in TGCN_NODES:
+        name = f"tgcn_pems {nodes} nodes"
+        t_start = time.perf_counter()
+        build = lambda tag, n=nodes: tgcn_pems.build_solver(  # noqa: E731
+            epochs=TGCN_EPOCHS[n], num_nodes=n, output_dir=os.path.join(tmp, tag), device=DEV)
+        solver = build(f"tgcn{nodes}")
+        inputs = _first_batch(solver, name)
+        solver.model.set_train_rng(None)
+        parts = {"build": time.perf_counter() - t_start}
+        num = card_vs_cpu_both(name, solver.model, inputs, "graphs", rows=TGCN_FLOAT64_ROWS[nodes])
+        check_dropout_active(name, solver, inputs, phase="graphs")
+        parts["card_vs_cpu"] = time.perf_counter() - t_start - sum(parts.values())
+        num["graph_check"] = check_operator_graph(name, lambda: build(f"tgcn{nodes}_chk"), phase="graphs")
+        parts["graph_check"] = time.perf_counter() - t_start - sum(parts.values())
+        k = solver.iters_per_epoch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logged = solver.train(num_fused_steps=k)
+        torch.cuda.synchronize()
+        num["train_s"] = time.perf_counter() - t0
+        metric, group = solver.eval()
+        if not all(math.isfinite(v) for v in [metric] + [e["loss"] for e in logged]):
+            raise AssertionError(f"{name}: val MAE {metric}, logs {logged[-3:]}")
+        num.update(val_mae=group["pems_valid"]["MAE.label"], metrics=group, final_loss=logged[-1]["loss"],
+                   steps=solver.epochs * k)
+        log(f"[graphs] {name}: train() {solver.epochs} epochs x {k} steps, one graph an epoch, in "
+            f"{num['train_s']:.2f} s, final loss {logged[-1]['loss']:.6e}; {group}")
+        parts["train_eval"] = time.perf_counter() - t_start - sum(parts.values())
+        num.update(time_solver_path(name, "graphs", solver, k))
+        parts["timing"] = time.perf_counter() - t_start - sum(parts.values())
+        num["seconds"], num["seconds_by_part"] = time.perf_counter() - t_start, parts
+        log(f"[graphs] {name}: val MAE {num['val_mae']:.4f} after {solver.epochs} epochs; {num['seconds']:.1f} s "
+            f"({', '.join(f'{key} {v:.1f}' for key, v in parts.items())})")
+        out[name] = num
+        del solver
+
+    t0 = time.perf_counter()
+    out["segment_pair"] = [check_segment_pair(tag, n, k, []) for tag, (n, k) in SEGMENT_GRAPHS.items()]
+    log(f"[graphs] segment pairs: {time.perf_counter() - t0:.1f} s")
+
+    builders = {"amgnet_airfoil": amgnet_airfoil.build, "amgnet_cylinder": amgnet_cylinder.build,
+                "cfdgcn": cfdgcn.build, "graphcast": graphcast.build, "cgcnn_property": cgcnn_property.build}
+    for name, build in builders.items():
+        t_start = time.perf_counter()
+        fit = build(device=DEV)
+        inp, _ = fit.samples[0]
+        num = {"card_vs_cpu_float32": graph_card_vs_cpu(name, fit.model, inp),
+               "card_vs_cpu": graph_card_vs_cpu(name, fit.model, inp, dtype=torch.float64)}
+        num["graph_check"] = check_fit_graph(name, fit, 2 * len(fit.samples))
+        steps = GRAPH_FITS[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, last = fit.fit(steps)
+        num.update(first_loss=first, last_loss=last, fit_s=time.perf_counter() - t0, steps=steps)
+        if name == "graphcast":
+            num["rmse"] = graphcast.rmse(fit)
+        log(f"[graphs] {name}: {steps} Adam steps ({len(fit.loops)} captured graphs, one a sample) in "
+            f"{num['fit_s']:.2f} s: loss {first:.6f} -> {last:.6f}"
+            + (f"; per-node RMSE {num['rmse']:.6f}" if "rmse" in num else ""))
+        n = len(fit.samples)
+        t0 = time.perf_counter()
+        num.update(time_slice_path(name, "graphs", lambda: fit.train_steps(1, graphed=False),
+                                   lambda: fit.train_steps(n, graphed=True), n, **SLICE_TIMED))
+        num["seconds"], num["timing_s"] = time.perf_counter() - t_start, time.perf_counter() - t0
+        log(f"[graphs] {name}: {num['seconds']:.1f} s (timing {num['timing_s']:.1f})")
+        out[name] = num
+        fit.release()
+    return out
+
+
+def run_unetex_phase(tmp: str):
+    """topopt and deepcfd_unetex through their solvers at the examples'
+    defaults: card against CPU on one batch, one graphed epoch against
+    eager steps (under cuDNN's deterministic algorithms), train() (topopt
+    eager step by step, as its short last batch requires; deepcfd one graph
+    an epoch), the metrics (Binary_Acc and IoU; MSE), graphed and eager
+    steps/s with their spread, busy share, kernels a step and peak memory
+    (topopt's timing loader drops the short last batch, so that every
+    chunk has one shape). Returns the numbers."""
+    import torch
+
+    from paddlescience_torch.data import build_dataloader
+    from paddlescience_torch.examples import deepcfd_unetex, topopt
+
+    out = {}
+    makers = {"topopt": topopt.build_solver, "deepcfd_unetex": deepcfd_unetex.build_solver}
+    for name, make in makers.items():
+        t_start = time.perf_counter()
+        build = lambda tag, make=make, name=name: make(output_dir=os.path.join(tmp, tag), device=DEV,  # noqa: E731
+                                                       **UNETEX_RUN[name])
+        solver = build(name)
+        num = card_vs_cpu_both(name, solver.model, _first_batch(solver, name), "unetex")
+        num["graph_check"] = check_operator_graph(name, lambda: build(name + "_chk"), phase="unetex")
+        k = solver.iters_per_epoch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logged = solver.train() if name == "topopt" else solver.train(num_fused_steps=k)
+        torch.cuda.synchronize()
+        num["train_s"] = time.perf_counter() - t0
+        metric, group = solver.eval()
+        values = [metric] + [e["loss"] for e in logged] + [v for g in group.values() for v in g.values()]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{name}: metric {metric}, logs {logged[-3:]}")
+        num.update(metrics=group, final_loss=logged[-1]["loss"], steps=solver.epochs * k)
+        log(f"[unetex] {name}: train() {solver.epochs} epochs x {k} steps "
+            f"({'eager steps' if name == 'topopt' else 'one graph an epoch'}) in {num['train_s']:.2f} s, final loss "
+            f"{logged[-1]['loss']:.6e}; {group}")
+        if name == "topopt":
+            cst = solver.constraint["sup_constraint"]
+            cst.data_loader = build_dataloader(cst.dataset, {"batch_size": cst.data_loader.batch_size,
+                                                             "sampler": {"shuffle": True, "drop_last": True}})
+            cst.data_iter = iter(cst.data_loader)
+        num.update(time_solver_path(name, "unetex", solver, k))
+        num["seconds"] = time.perf_counter() - t_start
+        out[name] = num
+        del solver
+    return out
+
+
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
     "jet_mlp_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
@@ -3849,8 +4246,8 @@ REPLACES = {
 }
 
 
-PROBES = ("xpinn", "hpinns", "operators2", "earthformer", "koopman")
-KERNEL_FREE = ("operators2", "earthformer", "koopman")  # phases that launch no kernel of the port
+PROBES = ("xpinn", "hpinns", "operators2", "earthformer", "koopman", "graphs", "unetex")
+KERNEL_FREE = ("operators2", "earthformer", "koopman", "graphs", "unetex")  # phases that launch no kernel of the port
 
 
 def run_probe(only, tmp: str) -> int:
@@ -3866,6 +4263,10 @@ def run_probe(only, tmp: str) -> int:
             log("[earthformer] summary " + json.dumps(run_earthformer_phase(tmp)))
         elif phase == "koopman":
             log("[koopman] summary " + json.dumps(run_koopman_phase(tmp)))
+        elif phase == "graphs":
+            log("[graphs] summary " + json.dumps(run_graphs_phase(tmp)))
+        elif phase == "unetex":
+            log("[unetex] summary " + json.dumps(run_unetex_phase(tmp)))
         else:
             raise ValueError(f"--only takes {', '.join(PROBES)}; not {phase}")
         mark(phase)
@@ -3909,16 +4310,16 @@ def main() -> int:
 
 def run_all(tmp: str, card: str, nvcc, only) -> int:
     """Every phase, in order; the kernel-free [operators], [operators2],
-    [earthformer] and [koopman] while ``nvcc`` (a ``cuda_build.Build``)
-    compiles the kernels."""
+    [earthformer], [koopman], [graphs] and [unetex] while ``nvcc`` (a
+    ``cuda_build.Build``) compiles the kernels."""
     import torch
 
     from paddlescience_torch.ops import jet_gated as G
     from paddlescience_torch.ops import jet_mlp as J
 
     if not only:
-        log("[build] nvcc started for every kernel (nice 19); [operators], [operators2], [earthformer] and "
-            "[koopman], which launch no kernel of the port, run meanwhile")
+        log("[build] nvcc started for every kernel (nice 19); [operators], [operators2], [earthformer], [koopman], "
+            "[graphs] and [unetex], which launch no kernel of the port, run meanwhile")
         log("[operators] summary " + json.dumps(run_operator_phase(tmp)))
         mark("operators")
         log("[operators2] summary " + json.dumps(run_operators2_phase(tmp)))
@@ -3927,6 +4328,10 @@ def run_all(tmp: str, card: str, nvcc, only) -> int:
         mark("earthformer")
         log("[koopman] summary " + json.dumps(run_koopman_phase(tmp)))
         mark("koopman")
+        log("[graphs] summary " + json.dumps(run_graphs_phase(tmp)))
+        mark("graphs")
+        log("[unetex] summary " + json.dumps(run_unetex_phase(tmp)))
+        mark("unetex")
     elif all(p in KERNEL_FREE for p in only):  # no kernel needed: no wait for the build
         return run_probe(only, tmp)
     build_logs = nvcc.wait()

@@ -6,6 +6,7 @@ from paddlescience_torch.arch.deeponet import DeepONet
 from paddlescience_torch.arch.embedding_koopman import CylinderEmbedding, LorenzEmbedding, RosslerEmbedding
 from paddlescience_torch.arch.fno import FNONet, TFNO1dNet, TFNO2dNet, TFNO3dNet
 from paddlescience_torch.arch.geofno import FNO1d, VelocityDiscriminator, VelocityGenerator
+from paddlescience_torch.arch.graph_nets import AMGNet, CFDGCN, CrystalGraphConvNet, GraphCastNet, MeshGraphNet, TGCN
 from paddlescience_torch.arch.lno import LNO
 from paddlescience_torch.arch.model_list import ModelList
 from paddlescience_torch.arch.physx_transformer import PhysformerGPT2
@@ -13,10 +14,12 @@ from paddlescience_torch.arch.spinn import SPINN
 from paddlescience_torch.arch.mlp import (MLP, FourierEmbedding, ModifiedMLP, PeriodEmbedding, PirateNet,
                                           PirateNetBlock, RandomWeightFactorization)
 from paddlescience_torch.arch.sfnonet import SFNONet
+from paddlescience_torch.arch.unetex import UNetEx
 from paddlescience_torch.arch.unonet import UNONet
 
 __all__ = ["Arch", "DeepONet", "ModelList", "SPINN", "MLP", "ModifiedMLP", "PirateNet", "PirateNetBlock",
            "FourierEmbedding", "PeriodEmbedding", "RandomWeightFactorization", "FNONet", "TFNO1dNet", "TFNO2dNet",
            "TFNO3dNet", "LNO", "UNONet", "FNO1d", "VelocityGenerator", "VelocityDiscriminator", "AFNONet", "PrecipNet",
            "SFNONet", "CVit1D", "CVit", "CuboidTransformer", "ExtFormerMoECuboid", "LorenzEmbedding",
-           "RosslerEmbedding", "CylinderEmbedding", "PhysformerGPT2"]
+           "RosslerEmbedding", "CylinderEmbedding", "PhysformerGPT2", "TGCN", "MeshGraphNet", "AMGNet", "CFDGCN",
+           "GraphCastNet", "CrystalGraphConvNet", "UNetEx"]

@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 
 from paddlescience_torch.constraint.base import Constraint
+from paddlescience_torch import data as data_mod
 from paddlescience_torch.data import _DATASETS
 from paddlescience_torch.utils.symbolic import read_expression
 
@@ -243,11 +244,10 @@ class SupervisedConstraint(Constraint):
 
     def __init__(self, dataloader_cfg: Dict[str, Any], loss,
                  output_expr: Optional[Dict[str, Callable]] = None, name: str = "Sup"):
-        ds_cfg = dict(dataloader_cfg["dataset"])
-        ds_name = ds_cfg.pop("name")
+        ds_name = dataloader_cfg["dataset"]["name"]
         if ds_name not in _DATASETS:
             raise NotImplementedError(f"dataset '{ds_name}' is not ported; available: {sorted(_DATASETS)}")
-        dataset = _DATASETS[ds_name](**ds_cfg)
+        dataset = data_mod.build_dataset(dataloader_cfg["dataset"])  # compiles a transforms config
         if hasattr(dataset, "input"):  # a generator dataset has no input arrays to name its keys
             self.input_keys = tuple(dataset.input.keys())
         self.output_keys = tuple(output_expr.keys()) if output_expr is not None else tuple(dataset.label.keys())

@@ -12,6 +12,11 @@
 * ``DeviceSampledDataset`` draws a fresh batch on the device each step:
   ``sample_fn(generator) -> (input_dict, label_dict, weight_dict)`` of
   tensors, with ``generator`` a ``torch.Generator`` on the solver's device.
+
+The host datasets take ``transforms(input, label, weight) -> (input,
+label, weight)`` (``data/process/transform.py``), applied to every batch
+they give, as in the JAX package: a full-batch dataset with transforms
+gives a transformed copy each step, which the solver stages anew.
 """
 
 from __future__ import annotations
@@ -25,18 +30,16 @@ __all__ = ["NamedArrayDataset", "IterableNamedArrayDataset", "ContinuousNamedArr
 
 class NamedArrayDataset:
     """Finite dataset over aligned ``{key: (N, ...)}`` arrays, indexed by
-    rows. Per-dataset transforms are not ported."""
+    rows; ``transforms`` maps each indexed batch."""
 
     batch_mode = "indexed"
 
     def __init__(self, input: Dict[str, np.ndarray], label: Optional[Dict[str, np.ndarray]] = None,
                  weight: Optional[Dict[str, np.ndarray]] = None, transforms=None):
-        if transforms is not None:
-            raise NotImplementedError("dataset transforms are not ported yet")
         self.input = {k: np.asarray(v) for k, v in input.items()}
         self.label = {k: np.asarray(v) for k, v in (label or {}).items()}
         self.weight = {k: np.asarray(v) for k, v in (weight or {}).items()}
-        self.transforms = None
+        self.transforms = transforms
         lens = {len(v) for v in self.input.values()}
         if len(lens) != 1:
             raise ValueError(f"input arrays must share leading dim, got {lens}")
@@ -46,8 +49,12 @@ class NamedArrayDataset:
         return self._len
 
     def __getitem__(self, idx):
-        return ({k: v[idx] for k, v in self.input.items()}, {k: v[idx] for k, v in self.label.items()},
-                {k: v[idx] for k, v in self.weight.items()})
+        inp = {k: v[idx] for k, v in self.input.items()}
+        lab = {k: v[idx] for k, v in self.label.items()}
+        wgt = {k: v[idx] for k, v in self.weight.items()}
+        if self.transforms is not None:
+            inp, lab, wgt = self.transforms(inp, lab, wgt)
+        return inp, lab, wgt
 
 
 class IterableNamedArrayDataset:
@@ -56,14 +63,18 @@ class IterableNamedArrayDataset:
     batch_mode = "full"
 
     def __init__(self, input: Dict[str, np.ndarray], label: Optional[Dict[str, np.ndarray]] = None,
-                 weight: Optional[Dict[str, np.ndarray]] = None):
+                 weight: Optional[Dict[str, np.ndarray]] = None, transforms=None):
         self.input = {k: np.asarray(v) for k, v in input.items()}
         self.label = {k: np.asarray(v) for k, v in (label or {}).items()}
         self.weight = {k: np.asarray(v) for k, v in (weight or {}).items()}
+        self.transforms = transforms
 
     def __iter__(self):
         while True:
-            yield self.input, self.label, self.weight
+            inp, lab, wgt = self.input, self.label, self.weight
+            if self.transforms is not None:
+                inp, lab, wgt = self.transforms(inp, lab, wgt)
+            yield inp, lab, wgt
 
 
 class ContinuousNamedArrayDataset:
@@ -76,17 +87,18 @@ class ContinuousNamedArrayDataset:
     def __init__(self, input: Callable[[], Dict[str, np.ndarray]],
                  label: Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]], weight: Optional[Callable] = None,
                  transforms=None):
-        if transforms is not None:
-            raise NotImplementedError("dataset transforms are not ported yet")
         self.input_fn = input
         self.label_fn = label
         self.weight_fn = weight
+        self.transforms = transforms
 
     def __iter__(self):
         while True:
             inp = self.input_fn()
             lab = self.label_fn(inp)
             wgt = self.weight_fn(inp) if self.weight_fn is not None else {}
+            if self.transforms is not None:
+                inp, lab, wgt = self.transforms(inp, lab, wgt)
             yield inp, lab, wgt
 
 

@@ -7,8 +7,7 @@ Each reads its archive when given a path and otherwise builds the JAX
 package's synthetic stand-in, with the same numpy generator and seed, so
 the arrays are bitwise the JAX package's. Each is an indexed
 ``NamedArrayDataset`` (the JAX package's ``_DictDataset``; a
-``BatchLoader`` walks it); per-dataset transforms
-are not ported. HDF5 archives are read through ``h5py``, imported when a
+``BatchLoader`` walks it). HDF5 archives are read through ``h5py``, imported when a
 file is read: a machine without it (the GPU machine has none) can still
 build every synthetic set, and a file read there raises naming h5py.
 The SEVIR catalog is read with pandas, imported likewise.
@@ -25,6 +24,17 @@ advecting Gaussian rain cells. The trajectory sets window HDF5 groups of
 (block_size, D) windows, labels ``window[1:]`` and ``window``; given an
 ``embedding_model`` they hold its encoder's embeddings of the windows
 instead (the transformer stage).
+
+PEMS traffic (``PEMSDataset``) reads ``{split}.npy`` series with their
+``mean.npy``/``std.npy`` or synthesizes daily-periodic sensor series, cut
+into input_len -> label_len windows (inputs standard-scaled). The graph
+sets (``MeshAirfoilDataset``, ``MeshCylinderDataset``,
+``GridMeshAtmosphericDataset``) give one graph a sample, ``(node_fea,
+edge_fea, senders, receivers)`` under the input key, from .npz files or
+the JAX package's synthetic kNN and lat-lon ring graphs; ``CGCNNDataset``
+gives crystals ``(atom_fea, nbr_fea, nbr_idx)`` and a target. Every
+dataset applies its ``transforms`` to each batch it gives, as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -38,7 +48,8 @@ import numpy as np
 from paddlescience_torch.data.dataset.array_dataset import NamedArrayDataset
 
 __all__ = ["FWIDataset", "ERA5SampledDataset", "SphericalSWEDataset", "ENSODataset", "ExtMoEENSODataset",
-           "SEVIRDataset", "LorenzDataset", "RosslerDataset", "CylinderDataset", "import_h5py"]
+           "SEVIRDataset", "LorenzDataset", "RosslerDataset", "CylinderDataset", "PEMSDataset", "make_synthetic_graph",
+           "MeshAirfoilDataset", "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "import_h5py"]
 
 _F32 = np.float32
 
@@ -552,3 +563,242 @@ class SEVIRDataset(_FrameWindowDataset):
                     seqs.extend(SEVIRDataset._frames(ev, dtype_name, preprocess, img_height, img_width)
                                 for ev in np.asarray(f[dtype_name]))
         return seqs
+
+
+# ---------------------------------------------------------------------------
+# Traffic (PEMS): standard-scaled sliding windows
+# ---------------------------------------------------------------------------
+
+
+class PEMSDataset(NamedArrayDataset):
+    """PEMS traffic windows (reference ``pems_dataset.py:60-140``): a
+    ``file_path`` directory with ``{split}.npy`` (T, N) and ``mean.npy`` /
+    ``std.npy``, or the synthetic series (one sensor network: per-node base
+    levels from seed 11, a daily sine, noise from seed 17 (train) or 18,
+    the val split continuing the clock after the train window). Inputs are
+    standard-scaled (``norm_input``), labels raw; ``.mean``/``.std`` are
+    kept."""
+
+    def __init__(self, input_keys: Tuple[str, ...], label_keys: Tuple[str, ...], file_path: Optional[str] = None,
+                 split: str = "train", input_len: int = 12, label_len: int = 12, num_nodes: int = 8,
+                 num_steps: int = 288, norm_input: bool = True, weight_dict=None, transforms=None,
+                 synthetic: bool = False):
+        path = _require(file_path, synthetic)
+        if path is not None:
+            series = np.load(osp.join(path, f"{split}.npy")).astype(_F32)
+            self.mean = np.load(osp.join(path, "mean.npy")).astype(_F32)
+            self.std = np.load(osp.join(path, "std.npy")).astype(_F32)
+        else:
+            rng = np.random.default_rng(11)
+            base = rng.uniform(100, 500, num_nodes)[None, :]
+            offset = 0 if split == "train" else 7 * num_steps
+            t = np.arange(offset, offset + num_steps, dtype=_F32)
+            daily = np.sin(2 * np.pi * t / 288.0)[:, None]
+            noise_rng = np.random.default_rng(17 + (0 if split == "train" else 1))
+            series = base * (1.0 + 0.5 * daily) + 10.0 * noise_rng.standard_normal(
+                (num_steps, num_nodes)).astype(_F32)
+            self.mean = series.mean(axis=0, keepdims=True)
+            self.std = series.std(axis=0, keepdims=True) + 1e-8
+        xs, ys = [], []
+        total = input_len + label_len
+        for i in range(0, len(series) - total + 1):
+            xs.append(series[i: i + input_len])
+            ys.append(series[i + input_len: i + total])
+        x = np.stack(xs).astype(_F32)
+        y = np.stack(ys).astype(_F32)
+        if norm_input:
+            x = (x - self.mean[None]) / self.std[None]
+        label = {label_keys[0]: y}
+        super().__init__({input_keys[0]: x}, label, _expand_weight(weight_dict, label), transforms)
+
+
+# ---------------------------------------------------------------------------
+# Graph datasets (AMGNet / CFDGCN / GraphCast)
+# ---------------------------------------------------------------------------
+
+
+def make_synthetic_graph(rng, n_nodes=64, k=4, node_dim=5, edge_dim=3, label_dim=3):
+    """A kNN graph over random 2-D points -> (node_fea, edge_fea, senders,
+    receivers, labels): each node sends to its k nearest; edges carry the
+    offset and its length; labels are a smooth function of position."""
+    pos = rng.uniform(0, 1, (n_nodes, 2)).astype(_F32)
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    nbr = np.argsort(d2, axis=1)[:, :k]
+    senders = np.repeat(np.arange(n_nodes), k).astype(np.int32)
+    receivers = nbr.reshape(-1).astype(np.int32)
+    rel = pos[receivers] - pos[senders]
+    dist = np.linalg.norm(rel, axis=1, keepdims=True)
+    edge_fea = np.concatenate([rel, dist], axis=1).astype(_F32)
+    if edge_dim > 3:
+        edge_fea = np.concatenate([edge_fea, np.zeros((len(edge_fea), edge_dim - 3), _F32)], axis=1)
+    else:
+        edge_fea = edge_fea[:, :edge_dim]
+    extra = rng.standard_normal((n_nodes, max(node_dim - 2, 0))).astype(_F32) * 0.1
+    node_fea = np.concatenate([pos, extra], axis=1)[:, :node_dim].astype(_F32)
+    lab = np.stack([np.sin(2 * np.pi * pos[:, 0] * (j + 1)) * np.cos(2 * np.pi * pos[:, 1])
+                    for j in range(label_dim)], axis=1).astype(_F32)
+    return node_fea, edge_fea, senders, receivers, lab
+
+
+class _GraphDataset:
+    """Graph samples: input[key] = (node_fea, edge_fea, senders, receivers),
+    from ``*.npz`` files (nodes, edges, senders, receivers, label) under
+    ``data_dir`` or ``num_samples`` synthetic kNN graphs (seed 14)."""
+
+    batch_mode = "indexed"
+    _node_dim = 5
+    _edge_dim = 3
+    _label_dim = 3
+
+    def __init__(self, input_keys: Tuple[str, ...], label_keys: Tuple[str, ...], data_dir: Optional[str] = None,
+                 num_samples: int = 8, n_nodes: int = 64, k: int = 4, transforms=None, synthetic: bool = False):
+        path = _require(data_dir, synthetic)
+        self.input_keys = input_keys
+        self.label_keys = label_keys
+        self.transforms = transforms
+        self.graphs = []
+        if path is not None:
+            for f in sorted(_glob.glob(osp.join(path, "*.npz")))[:num_samples]:
+                z = np.load(f)
+                self.graphs.append(((z["nodes"].astype(_F32), z["edges"].astype(_F32),
+                                     z["senders"].astype(np.int32), z["receivers"].astype(np.int32)),
+                                    z["label"].astype(_F32)))
+            if not self.graphs:
+                raise FileNotFoundError(f"no graph .npz files under '{path}'")
+        else:
+            rng = np.random.default_rng(14)
+            for _ in range(num_samples):
+                nf, ef, s, r, lab = make_synthetic_graph(rng, n_nodes, k, self._node_dim, self._edge_dim,
+                                                         self._label_dim)
+                self.graphs.append(((nf, ef, s, r), lab))
+
+    def __len__(self):
+        return len(self.graphs)
+
+    def __getitem__(self, idx):
+        if not np.isscalar(idx):
+            idx = int(np.atleast_1d(np.asarray(idx))[0])
+        graph, lab = self.graphs[idx]
+        inp = {self.input_keys[0]: graph}
+        label = {self.label_keys[0]: lab} if self.label_keys else {}
+        wgt = {}
+        if self.transforms is not None:
+            inp, label, wgt = self.transforms(inp, label, wgt)
+        return inp, label, wgt
+
+
+class MeshAirfoilDataset(_GraphDataset):
+    """Airfoil mesh graphs (reference ``airfoil_dataset.py:50-210``): 5
+    node features, 3 edge features, 3 fields."""
+
+    _node_dim, _edge_dim, _label_dim = 5, 3, 3
+
+
+class MeshCylinderDataset(_GraphDataset):
+    """Cylinder mesh graphs (reference ``cylinder_dataset.py:40-190``): 4
+    node features, 3 edge features, 3 fields."""
+
+    _node_dim, _edge_dim, _label_dim = 4, 3, 3
+
+
+class GridMeshAtmosphericDataset(_GraphDataset):
+    """GraphCast grid graphs (reference ``atmospheric_dataset.py``): a
+    ``lat`` x ``lon`` grid, each point linked to its four neighbours
+    (longitude periodic), 8 atmospheric channels a node; the label is the
+    next state ``0.9 x + 0.1 tanh(x rolled by one node)`` (seed 15)."""
+
+    _node_dim, _edge_dim, _label_dim = 8, 4, 8
+
+    def __init__(self, input_keys: Tuple[str, ...], label_keys: Tuple[str, ...], data_dir: Optional[str] = None,
+                 num_samples: int = 4, lat: int = 8, lon: int = 16, transforms=None, synthetic: bool = False):
+        if _require(data_dir, synthetic) is not None:
+            super().__init__(input_keys, label_keys, data_dir, num_samples, transforms=transforms)
+            return
+        self.input_keys = input_keys
+        self.label_keys = label_keys
+        self.transforms = transforms
+        self.graphs = []
+        rng = np.random.default_rng(15)
+        la = np.linspace(-np.pi / 2, np.pi / 2, lat, dtype=_F32)
+        lo = np.linspace(0, 2 * np.pi, lon, endpoint=False, dtype=_F32)
+        LA, LO = np.meshgrid(la, lo, indexing="ij")
+        pos = np.stack([LA.ravel(), LO.ravel()], 1)
+        n = lat * lon
+        senders, receivers = [], []
+        for i in range(lat):
+            for j in range(lon):
+                u = i * lon + j
+                for di, dj in ((0, 1), (1, 0), (0, -1), (-1, 0)):
+                    ii, jj = i + di, (j + dj) % lon
+                    if 0 <= ii < lat:
+                        senders.append(u)
+                        receivers.append(ii * lon + jj)
+        senders = np.asarray(senders, np.int32)
+        receivers = np.asarray(receivers, np.int32)
+        rel = pos[receivers] - pos[senders]
+        ef = np.concatenate([rel, np.cos(rel)], axis=1).astype(_F32)[:, : self._edge_dim]
+        if ef.shape[1] < self._edge_dim:
+            ef = np.concatenate([ef, np.zeros((len(ef), self._edge_dim - ef.shape[1]), _F32)], 1)
+        for _ in range(num_samples):
+            state = rng.standard_normal((n, self._node_dim)).astype(_F32)
+            nxt = 0.9 * state + 0.1 * np.tanh(state[np.roll(np.arange(n), 1)])
+            self.graphs.append(((state, ef, senders, receivers), nxt.astype(_F32)))
+
+
+# ---------------------------------------------------------------------------
+# Crystal graphs (CGCNN)
+# ---------------------------------------------------------------------------
+
+
+class CGCNNDataset:
+    """Crystal graphs (reference ``cgcnn_dataset.py``): preprocessed
+    ``*.npz`` (atom_fea, nbr_fea, nbr_idx, target) under ``data_dir``, or
+    ``num_samples`` synthetic periodic crystals (seed 16): binary atom
+    features, the ``max_nbr`` nearest neighbours under the minimum-image
+    distance, Gaussian-expanded distances, a target from both.
+    ``items[i] = ((atom_fea (n, A), nbr_fea (n, M, B), nbr_idx (n, M)),
+    target)``; a sample is ``({"i": (a, n, idx)}, {"out": [target]}, {})``."""
+
+    batch_mode = "indexed"
+
+    def __init__(self, data_dir: Optional[str] = None, num_samples: int = 16, n_atoms: int = 12,
+                 atom_fea_len: int = 16, nbr_fea_len: int = 8, max_nbr: int = 8, transforms=None,
+                 synthetic: bool = False):
+        path = _require(data_dir, synthetic)
+        self.items = []
+        self.transforms = transforms
+        if path is not None:
+            for f in sorted(_glob.glob(osp.join(path, "*.npz")))[:num_samples]:
+                z = np.load(f)
+                self.items.append(((z["atom_fea"].astype(_F32), z["nbr_fea"].astype(_F32),
+                                    z["nbr_idx"].astype(np.int32)), float(z["target"])))
+            if not self.items:
+                raise FileNotFoundError(f"no crystal .npz files under '{path}'")
+        else:
+            rng = np.random.default_rng(16)
+            for _ in range(num_samples):
+                atom_fea = (rng.integers(0, 2, (n_atoms, atom_fea_len))).astype(_F32)
+                pos = rng.uniform(0, 1, (n_atoms, 3))
+                d = np.linalg.norm((pos[:, None, :] - pos[None, :, :] + 0.5) % 1.0 - 0.5, axis=-1)
+                np.fill_diagonal(d, np.inf)
+                nbr_idx = np.argsort(d, axis=1)[:, :max_nbr].astype(np.int32)
+                dist = np.take_along_axis(d, nbr_idx, axis=1)
+                centers = np.linspace(0, 1.0, nbr_fea_len)
+                nbr_fea = np.exp(-((dist[..., None] - centers) ** 2) / 0.02).astype(_F32)
+                target = float(atom_fea.mean() + 0.5 * dist.mean())
+                self.items.append(((atom_fea, nbr_fea, nbr_idx), target))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        if not np.isscalar(idx):
+            idx = int(np.atleast_1d(np.asarray(idx))[0])
+        (a, n, i), y = self.items[idx]
+        inp = {"i": (a, n, i)}
+        lab = {"out": np.asarray([y], _F32)}
+        wgt = {}
+        if self.transforms is not None:
+            inp, lab, wgt = self.transforms(inp, lab, wgt)
+        return inp, lab, wgt

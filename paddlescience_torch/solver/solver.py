@@ -199,16 +199,15 @@ class Solver:
         # per constraint / validator: the derivative components its expressions request
         self._jet_requests: Dict[str, dict] = {name: {} for name in self.constraint}
         self._eval_requests: Dict[str, dict] = {}
-        # full-batch constraints feed the same arrays every step: stage once
-        self._static_batches = {
-            name: tuple(self._to_device(part) for part in next(cst.data_iter))
-            for name, cst in self.constraint.items()
-            if cst.data_iter is not None and _batch_mode(cst) == "full"
-        }
-        # indexed constraints: a new host batch each step, staged per chunk into
-        # static (K, B, ...) device buffers that step i of the chunk reads at slice i
+        # full-batch constraints without transforms feed the same arrays every step: stage once
+        static = [name for name, cst in self.constraint.items() if cst.data_iter is not None
+                  and _batch_mode(cst) == "full" and getattr(cst.dataset, "transforms", None) is None]
+        self._static_batches = {name: tuple(self._to_device(part) for part in next(self.constraint[name].data_iter))
+                                for name in static}
+        # the others (indexed, generator, transformed full batches): a new host batch each step, staged per
+        # chunk into static (K, B, ...) device buffers that step i of the chunk reads at slice i
         self._indexed = [name for name, cst in self.constraint.items()
-                         if cst.data_iter is not None and _batch_mode(cst) != "full"]
+                         if cst.data_iter is not None and name not in static]
         self._chunk_bufs: Dict[tuple, tuple] = {}
         self._chunk: Dict[str, tuple] = {}
         self._chunk_pos = 0

@@ -23,7 +23,12 @@ from ``params["branch_nets"]["0"]``, a UNO's ``convs.1.w2_im`` and
 ``dec_cross.0.0.attns.0.kv.weight`` and ``g_proj.0.bias``, an
 ExtFormer-MoE's stacked experts ``inner.enc_levels.0.0.ffns.0.w_in`` and
 gate tables ``...ffns.0.gate.latent_table``, a Koopman embedding's
-``k_ut`` with its ``mean`` and ``std`` buffers, ...). The layout is the JAX one on
+``k_ut`` with its ``mean`` and ``std`` buffers, a graph network's
+``blocks.0.edge_fc1.weight``, ``coarse_blocks.1.node_norm.scale`` and
+``gnn.decoder.bias``, TGCN's ``tc1.convs.1.weight`` (a ``Conv``) and
+``bn1.scale``, a UNetEx's ``decoder_stacks.3.convs.0.weight``, ...: a
+Python list of modules in the JAX tree is a ``ModuleList`` there and an
+``nn.ModuleList`` here, both keyed by index). The layout is the JAX one on
 both sides (W of shape (in, out), a complex weight as its real and
 imaginary parts, a LayerNorm's ``scale`` and ``shift``), so nothing is
 transposed, but for the kernels of ``nn.layers.Conv``: JAX keeps them as

@@ -210,10 +210,14 @@ def test_build_dataset_and_dataloader_match_jax():
     assert len(tdata.build_dataloader(full, {})) == 1 and next(iter(tdata.BatchLoader(full)))[0]["x"] is full.input["x"]
     with pytest.raises(ValueError, match="unknown dataset"):
         tdata.build_dataset({"name": "MatDataset"})
-    with pytest.raises(NotImplementedError, match="transforms"):
-        tdata.build_dataset({**cfg, "transforms": [{"Scale": {"scale": {"x": 2.0}}}]})
-    with pytest.raises(NotImplementedError, match="batch transforms"):
-        tdata.build_dataloader(td, {"batch_transforms": [{"FunctionalBatchTransform": {}}]})
+    # a transforms config and a batch_transforms config give JAX's batches
+    tcfg = {**cfg, "transforms": [{"name": "Scale", "scale": {"x": 2.0}}]}
+    np.testing.assert_array_equal(tdata.build_dataset(tcfg)[np.arange(3)][0]["x"],
+                                  jdata.build_dataset(tcfg)[np.arange(3)][0]["x"])
+    bt = {"batch_size": 7, "batch_transforms": [
+        {"FunctionalBatchTransform": {"transform_func": lambda i, lab, w: ({"x": i["x"] + 1}, lab, w)}}]}
+    np.testing.assert_array_equal(next(iter(tdata.build_dataloader(td, bt)))[0]["x"],
+                                  next(iter(jdata.build_dataloader(jd, bt)))[0]["x"])
     with pytest.raises(TypeError, match="no host loader"):
         next(iter(tdata.BatchLoader(tdata.DeviceSampledDataset(lambda g: None))))
 
