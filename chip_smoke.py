@@ -78,7 +78,8 @@ on failure:
              3 eager steps through the kernels and the peak device
              memory; one batch's PDE loss and gradient against the plain
              jet path and against nested jvp; 2 graphed chunks of 10
-             steps against 20 eager steps; graphed and eager steps/s,
+             steps against 20 eager steps; graphed and eager steps/s (10
+             eager steps timed),
              points/s, busy and capture time on jet_pallas_full and on
              the plain jet path;
    euler_beam - the example's ``train()`` for 30 of its 100 epochs of
@@ -99,7 +100,7 @@ on failure:
              steps;
    lbfgs    - ldc2d_steady with ``lbfgs=True`` (optax's L-BFGS with its
              zoom line search, a host loop a step) through ``train()`` for
-             5 of the example's 50 epochs of 50 steps (cut for time), no
+             3 of the example's 50 epochs of 50 steps (cut for time), no
              path pinned: steps/s,
              value-and-gradient evaluations a step (mean, max), the
              residual MSEs, the peak memory; Adam then L-BFGS (50 steps
@@ -127,8 +128,8 @@ on failure:
              epoch, graphed and eager steps/s with device busy;
    ldc      - the LDC Re-curriculum recipes (PirateNet 4x256, ModifiedMLP
              5x256, MLP 4x256) at full width and batch, cut to the first
-             two stages (Re 100, 400) of one 500-step epoch each (the
-             recipes' own: 1000), in graphs of 100 steps (the recipes'
+             two stages (Re 100, 400) of one 100-step epoch each (the
+             recipes' own: 1000), in graphs of 50 steps (the recipes'
              own: one graph an epoch, which takes a minute or more to
              capture): the
              cavity generator on the card (one 2000-step chunk at 33^2 as
@@ -179,7 +180,7 @@ on failure:
              fractional_poisson_2d, bubble, and deephpms's three stages
              for burgers and ks) at their JAX defaults, no path pinned,
              train() cut (``TRANSFORM_EXAMPLES``, ``DEEPHPMS_RUN``): two graphed
-             chunks of 3 steps against 6 eager steps (1e-6), train() with
+             chunks of 2 steps against 4 eager steps (1e-6), train() with
              no kernel launched and no plain version on CUDA (a
              transformed net has no jet forward), the example's metric,
              graphed and eager steps/s with busy share and kernels a step;
@@ -240,7 +241,24 @@ on failure:
              of [graphs] and [unetex] graphed and eager steps/s with the
              spread of the timed calls, busy share, kernels a step and
              peak memory;
-   autotune - ``solver/autotune.py::autotune`` (K = 10, 3 replays a
+   misc    - the recurrent, misc and generative slice at the examples'
+             full widths: epnn_elastoplastic, phygeonet, phygeonet_bc,
+             iops, chip_heat (100 + 100 of its 500 + 500 fields),
+             transformer4sr and regae through their solvers, and the
+             hand loops phylstm_seismic (types 2 and 3), phycrnet_burgers
+             and tempogan_lite, whose 16 frames come from 800 LBM steps
+             through the lbm_collide_stream kernel (launched, no plain
+             version on CUDA, the frames within 1e-4 of lbm_step_plain's
+             on the card; the kernel timed at 64 x 64): card against CPU
+             on one batch in float32 and float64, a graphed chunk bitwise
+             the eager steps (cuDNN deterministic where a model has
+             convolutions), the metric or the loss (a hand loop's fallen),
+             graphed and eager steps/s (3 calls of a chunk and of 5 eager
+             steps; chip_heat 2 calls and phylstm 3 of 1 eager step, their
+             eager steps not profiled; median and range), busy share,
+             kernels a step and peak memory; tempogan_lite's launches
+             count in the LBM kernel's row;
+   autotune - ``solver/autotune.py::autotune`` (K = 3, 2 replays a
              candidate, a temporary cache) on the Allen-Cahn MLP 4x256,
              PirateNet 9x256, the aneurysm, cylinder2d matched,
              euler_beam, laplace2d and ldc2d_steady: every candidate's
@@ -282,7 +300,7 @@ before it a JSON object ``{"kernels": [...]}``; the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 CUDA is unavailable or the port is not beside this script.
 
-``python3 chip_smoke.py --only xpinn,hpinns,operators2,earthformer,koopman,graphs,unetex``
+``python3 chip_smoke.py --only xpinn,hpinns,operators2,earthformer,koopman,graphs,unetex,misc``
 runs only the named phases (a probe: it prints their summaries and no
 result line); it waits for the kernel build only when a named phase
 launches a kernel of the port.
@@ -343,7 +361,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 STL_DIR = os.path.join(HERE, "dataset", "aneurysm")  # listed in .gitignore
 CAVITY = dict(nx=256, ny=256, re=400.0, u_lid=0.1, steps=1000)
 LBM_TIMED = 2048  # lattice edge at which the LBM kernel is timed
-TIMED_STEPS = 20
+TIMED_STEPS = 10  # eager steps timed against the graphed chunks (cut for the script's time)
 T0 = 0.0  # when main() started
 KERNELS = ("jet_mlp_fwd", "jet_mlp_bwd", "jet_wgrad", "jet_gated_fwd", "jet_gated_bwd", "lbm_collide_stream")
 # kernel instance -> [registers, spill store bytes, spill load bytes], per jet kernel
@@ -1455,7 +1473,7 @@ def check_resume(tmp: str, k=RESUME_K):
         f"last_epoch 2 of an uninterrupted run")
 
 
-def time_graphed(solver, name: str, k: int, replays: int, eager_steps: int = TIMED_STEPS, profiled: int = 3):
+def time_graphed(solver, name: str, k: int, replays: int, eager_steps: int = TIMED_STEPS, profiled: int = 1):
     """Eager train_step (``eager_steps`` timed, ``profiled`` profiled; 0:
     the eager busy share not measured) against graphed chunks of k steps on
     one solver, in this call: steps/s (host clock around whole calls ending
@@ -1672,9 +1690,10 @@ def run_euler_beam_phase(tmp: str):
 
 # the JAX examples' train() at their defaults, no derivative path pinned: (graphed chunk K and replays timed)
 EXAMPLE_TIMED = {"laplace2d": (10, 5), "ldc2d": (50, 3), "deeponet": (32, 5)}
-# cut for the script's time: ldc2d_steady 10 of its 50 epochs, DeepONet 20 of its 100
-EXAMPLE_RUN = {"ldc2d": dict(epochs=10), "deeponet": dict(epochs=20)}
-AUTOTUNE_ENV = {"PSCI_AUTOTUNE_FUSED": "5", "PSCI_AUTOTUNE_CALLS": "3"}  # K = 5: cut for the script's time
+# cut for the script's time: ldc2d_steady 5 of its 50 epochs, DeepONet 20 of its 100
+EXAMPLE_RUN = {"ldc2d": dict(epochs=5), "deeponet": dict(epochs=20)}
+# K = 3, 2 timed calls a candidate: cut for the script's time
+AUTOTUNE_ENV = {"PSCI_AUTOTUNE_FUSED": "3", "PSCI_AUTOTUNE_CALLS": "2"}
 
 
 def state_diff(a, b):
@@ -1783,7 +1802,7 @@ def run_example_phases(tmp: str):
 
 LBFGS_CHECK_STEPS = 3  # L-BFGS steps held on jet_pallas_full against the plain jet path
 LBFGS_REFINE_STEPS = 50  # L-BFGS steps after the [ldc2d] phase's Adam training
-LBFGS_EPOCHS = 5  # of the example's 50 epochs of 50 L-BFGS steps: cut for the script's time
+LBFGS_EPOCHS = 3  # of the example's 50 epochs of 50 L-BFGS steps: cut for the script's time
 OPERATOR_EPOCHS = 10  # of the operator examples' 300 epochs: cut for the script's time
 OPERATOR_TIMED = {"darcy": 5, "brusselator": 10}  # graphed replays timed per solver
 BRUSSELATOR_CHECK = 2  # samples of the generator held on the card against the CPU
@@ -2126,9 +2145,9 @@ RECIPE_NAMES = ("default_ntk", "sota")
 RECIPE_RUN = dict(epochs=2, iters_per_epoch=150, update_freq=150, eval_freq=1)
 RECIPE_TIMED = (50, 2)  # (K, replays) of the graphed-against-eager timing
 # [ldc]: the three curriculum recipes at full width and batch, cut to their first two stages (Re 100, 400) of
-# one 200-step epoch each (the recipes' own: 1000 steps an epoch; cut for the script's time),
+# one 100-step epoch each (the recipes' own: 1000 steps an epoch; cut for the script's time),
 # the reference fields solved on a 65^2 grid (the recipes' own: 257^2)
-LDC_CUT = dict(Re=(100, 400), epochs=(1, 1), reference_n=65, iters_per_epoch=200)
+LDC_CUT = dict(Re=(100, 400), epochs=(1, 1), reference_n=65, iters_per_epoch=100)
 LDC_K = 50  # steps a graph in the curricula (the recipes' own: one 1000-step graph an epoch,
 #             whose capture took 49-103 s a stage for PirateNet on the H100)
 LDC_CHECK_N = 33  # the generator on the card against the CPU: one 2000-step chunk at Re 100
@@ -2657,7 +2676,8 @@ HEART_TIMED = (20, 3)  # (K, replays) of the graphed-against-eager timing
 FLOW_TIMED = (10, 3)
 PINN_SUITE = ("burgers", "shock_wave", "nlsmb_soliton", "nlsmb_rogue_wave", "heat_exchanger")
 # train() cut for the script's time (PERF.md §4): of 40, 20 and 50 epochs
-PINN_SUITE_RUN = {"burgers": dict(epochs=5), "shock_wave": dict(epochs=5), "nlsmb_rogue_wave": dict(epochs=10)}
+# shock_wave: 2 of 20 epochs (7282 kernels a step through nested jvp)
+PINN_SUITE_RUN = {"burgers": dict(epochs=5), "shock_wave": dict(epochs=2), "nlsmb_rogue_wave": dict(epochs=10)}
 PINN_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
 # the graphed-against-eager timing of each: K = 5, 5 eager steps timed, the eager steps not profiled
 PINN_TIMED = dict(k=5, replays=3, eager_steps=5, profiled=0)
@@ -2677,12 +2697,12 @@ TRANSFORM_EXAMPLES = {
 # deephpms: pde -> each stage's epochs of one step (the example's: 60); KdV (order 3, between the
 # two) runs on the CPU only: its two ETDRK4 fields alone take 11 s of host time
 DEEPHPMS_RUN = {"burgers": (20, 20, 20), "ks": (2, 2, 2)}  # cut for the script's time (PERF.md §4)
-TRANSFORM_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
-# the graphed-against-eager timing: the check's 3-step graph replayed 3 times, 3 eager steps, none profiled
+TRANSFORM_CHECK_K = 2  # two graphed chunks of 2 steps against 4 eager steps (cut for the script's time)
+# the graphed-against-eager timing: the check's 2-step graph replayed 3 times, 2 eager steps, none profiled
 # (the profiler took 30 s over one eager step of biharmonic2d's or deephpms ks's nested jvp)
 # train()'s graph size where one epoch's graph takes long to capture (19,463 kernels a step)
 TRANSFORM_FUSE = {"biharmonic2d": 5}
-TRANSFORM_TIMED = dict(k=TRANSFORM_CHECK_K, replays=3, eager_steps=3, profiled=0)
+TRANSFORM_TIMED = dict(k=TRANSFORM_CHECK_K, replays=3, eager_steps=2, profiled=0)
 
 
 # the [toolkit] phase: the PINN-toolkit examples at their JAX defaults, train() cut (PERF.md §4)
@@ -2701,9 +2721,10 @@ TOOLKIT_RUN = {
 }
 # train()'s chunks (graphs; capturing a chunk costs about K eager steps, 0.15-0.65 s each in the nested-jvp stages)
 TOOLKIT_K = {"nsfnet net 1": 10, "nsfnet net 3": 10, "spinn_helmholtz3d": 10, "deephpms": 5}
-DEEPHPMS_TOOLKIT = {"deephpms_ns": (10, 10), "deephpms_schrodinger": (10, 10, 2)}  # of 60 epochs x 20 steps each
-TOOLKIT_CHECK_K = 3  # two graphed chunks of 3 steps against 6 eager steps
-TOOLKIT_TIMED = dict(k=TOOLKIT_CHECK_K, replays=3, eager_steps=3, profiled=0)
+# of 60 epochs x 20 steps each (cut for the script's time)
+DEEPHPMS_TOOLKIT = {"deephpms_ns": (10, 10), "deephpms_schrodinger": (10, 10, 1)}
+TOOLKIT_CHECK_K = 2  # two graphed chunks of 2 steps against 4 eager steps (cut for the script's time)
+TOOLKIT_TIMED = dict(k=TOOLKIT_CHECK_K, replays=3, eager_steps=2, profiled=0)
 
 
 def check_halves_kernels():
@@ -3368,17 +3389,18 @@ class _HandLoop:
         return self.loop.run(k)
 
 
-def check_hand_graph(name: str, loop, k: int, phase: str):
+def check_hand_graph(name: str, loop, k: int, phase: str, bitwise: bool = False, convs: bool = True):
     """Two graphed chunks of k steps against 2k eager steps from one state
-    of a hand loop, under cuDNN's deterministic algorithms: everything a
-    step changes within 1e-6 relative; the state restored after. Returns
-    the relative error."""
+    of a hand loop, under cuDNN's deterministic algorithms where it runs
+    ``convs``: everything a step changes within 1e-6 relative (with
+    ``bitwise``: equal); the state restored after. Returns the relative
+    error."""
     import torch
 
     from paddlescience_torch.utils.step_graph import deterministic_convs
 
     snap = loop.snapshot()
-    with deterministic_convs():  # cuDNN's atomics would reorder a conv's weight-gradient sums
+    with deterministic_convs() if convs else contextlib.nullcontext():  # cuDNN's atomics reorder its sums
         for _ in range(2):
             loop.run(k)
         torch.cuda.synchronize()
@@ -3391,7 +3413,7 @@ def check_hand_graph(name: str, loop, k: int, phase: str):
     rel = float((graphed - eager).norm() / eager.norm())
     log(f"[{phase}] {name}: 2 graphed chunks of {k} steps vs {2 * k} eager steps from one state: parameters and "
         f"optimizer state rel err {rel:.3e}, bitwise {torch.equal(graphed, eager)}")
-    if not (rel <= GRAPH_TOL and torch.isfinite(graphed).all()):
+    if not (rel <= GRAPH_TOL and torch.isfinite(graphed).all()) or (bitwise and not torch.equal(graphed, eager)):
         raise AssertionError(f"{name}: the graphed chunks disagree with the eager steps (rel {rel:.3e})")
     return rel
 
@@ -3673,7 +3695,7 @@ def run_operators2_phase(tmp: str):
 # the reference ENSO pretrain width (tests/test_extformer_param_parity.py), batch 8
 ENSO_FULL = dict(in_len=12, out_len=14, lat=24, lon=48, base_units=64, num_global_vectors=0, batch_size=8)
 EARTHFORMER_EPOCHS = 2  # train() epochs of the example's 3 steps (cut for the script's time, PERF.md §4)
-EARTHFORMER_TIMED = dict(replays=3, eager_steps=3, profiled=1)
+EARTHFORMER_TIMED = dict(replays=3, eager_steps=2, profiled=1)  # 2 eager steps: cut for the script's time
 CARD_VS_CPU_SAMPLES = 1  # samples of the first batch held on the card against the CPU
 # epochs: 5 of lorenz_koopman's 50 and of each rossler stage's 20 (cut for the script's time); physformer_lorenz its 4
 KOOPMAN_RUN = {"lorenz_koopman": dict(epochs=5), "rossler": dict(epochs=5), "physformer_lorenz": {}}
@@ -4235,6 +4257,255 @@ def run_unetex_phase(tmp: str):
     return out
 
 
+# steps a graph: an epoch where an epoch is at most 25 steps, else 5; where a step is thousands of kernels
+# (capturing costs ~65 us a launch: chip_heat 16,560 kernels a step, phylstm 7,337 and 10,453) 2 for the
+# solver (train_chunk(1) runs eagerly) and 1 for the hand loops (cut for the script's time, PERF.md §4)
+MISC_K = {"epnn_elastoplastic": 4, "phygeonet": 5, "phygeonet_bc": 5, "iops": 25, "chip_heat": 2,
+          "transformer4sr": 5, "regae": 4, "phylstm_seismic": 1, "phylstm3_seismic": 1, "phycrnet_burgers": 5,
+          "tempogan_lite": 5}
+# timed calls of a chunk and of eager steps (median and range), profiled eager steps; where an eager step takes
+# 0.2-0.8 s on the H100 (chip_heat, phylstm), 1 eager step a call and none profiled (the eager busy share not
+# measured), chip_heat 2 calls (cut for the script's time, PERF.md §4)
+MISC_TIMED = dict(calls=3, eager_steps=5, profiled=1)
+_ONE_EAGER = dict(calls=3, eager_steps=1, profiled=0)
+MISC_TIMED_CUT = {"chip_heat": dict(_ONE_EAGER, calls=2), "phylstm_seismic": _ONE_EAGER,
+                  "phylstm3_seismic": _ONE_EAGER}
+# chip_heat's Gaussian random fields: 100 + 100 of the example's 500 + 500 (each constraint's loader permutes the
+# product of points, fields, types and boundary samples: 324 million indices at 500 + 500; cut for the script's
+# time, PERF.md §4)
+MISC_CHIP_HEAT = dict(nu=100, nbc=100)
+MISC_FRAMES = dict(n_frames=16, nx=64)  # tempogan_lite's LBM frames: the example's own
+
+
+class _Laps:
+    """Seconds of the named parts of one path, each call closing a part."""
+
+    def __init__(self):
+        self.t = self.t0 = time.perf_counter()
+        self.parts = {}
+
+    def __call__(self, part: str) -> None:
+        now = time.perf_counter()
+        self.parts[part], self.t = now - self.t, now
+
+    def total(self) -> float:
+        return self.t - self.t0
+
+    def __str__(self) -> str:
+        return f"{self.total():.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in self.parts.items()) + ")"
+
+
+def _has_convs(module) -> bool:
+    """Whether cuDNN runs any of the module's layers (then a graphed-against-
+    eager check holds it to its deterministic algorithms, and the timing,
+    under its defaults, captures its own graph)."""
+    from paddlescience_torch.nn.layers import Conv
+
+    return any(isinstance(m, Conv) for m in module.modules())
+
+
+def _rollout_module(model):
+    """PhyCRNet's rollout from rest as a module of {"input": x} -> {"x1":
+    ..., "x4": ...} (what :func:`card_cpu_errors` drives)."""
+    import torch
+
+    class Rollout(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, feed):
+            out = self.inner({"initial_state": None, "input": feed["input"]})
+            return {f"x{i + 1}": o for i, o in enumerate(out["outputs"])}
+
+    return Rollout(model)
+
+
+def misc_card_vs_cpu(name: str, model, inputs):
+    """:func:`card_vs_cpu` on one batch in float32 (the training
+    precision) and in float64 (a fault of the logic only), each held to
+    REL_TOL. Returns both errors."""
+    import torch
+
+    return {"card_vs_cpu_float32": card_vs_cpu(name, model, inputs, phase="misc"),
+            "card_vs_cpu_float64": card_vs_cpu(name, model, inputs, phase="misc", dtype=torch.float64)}
+
+
+def check_misc_solver_graph(name: str, solver, k: int):
+    """One chunk of k steps as one CUDA graph against the same k steps
+    eager, from one state of ``solver`` and on the same k staged host
+    batches (a model with convolutions under cuDNN's deterministic
+    algorithms): the parameters bitwise equal; the state restored after,
+    the graph kept. Returns the check's numbers."""
+    import torch
+
+    from paddlescience_torch.utils.step_graph import deterministic_convs
+
+    loop = solver.loop
+    solver._stage_host_batches(k)
+    snap = loop.snapshot()
+    with deterministic_convs() if _has_convs(solver.model) else contextlib.nullcontext():
+        loop.run(k)
+        torch.cuda.synchronize()
+        graphed = flat_params(solver).clone()
+        loop.restore(snap)
+        loop.run(k, graphed=False)
+        torch.cuda.synchronize()
+        eager = flat_params(solver)
+    loop.restore(snap)
+    rel = float((graphed - eager).norm() / eager.norm())
+    bitwise = torch.equal(graphed, eager)
+    log(f"[misc] {name}: one graph of {k} steps vs {k} eager steps from one state, on the same staged batches: "
+        f"parameters rel err {rel:.3e}, bitwise {bitwise}, {solver.graph_stats[k]['replays']} replay(s)")
+    if not (bitwise and solver.graph_stats[k]["replays"] == 1 and torch.isfinite(graphed).all()):
+        raise AssertionError(f"{name}: the graphed chunk is not bitwise the eager steps (rel {rel:.3e})")
+    return {"rel_err": rel, "bitwise": bitwise}
+
+
+def misc_frames():
+    """tempogan_lite's LBM frames on the card, the launch counters set to 0
+    just before: every collide-and-stream step through the kernel (no plain
+    version on CUDA), the frames within REL_TOL of the plain step's on the
+    card. Returns (frames, launch counts, numbers)."""
+    import torch
+
+    from paddlescience_torch.examples import tempogan_lite
+    from paddlescience_torch.ops import lbm
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    frames = tempogan_lite.make_lbm_frames(device=DEV, **MISC_FRAMES)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts, plain = read_counts()
+    steps = MISC_FRAMES["n_frames"] * 50
+    check_counts("misc tempogan_lite", counts, plain, steps=steps)
+    ref = tempogan_lite.make_lbm_frames(device=DEV, step=lbm.lbm_step_plain, **MISC_FRAMES)
+    err = check_close("tempogan_lite frames vs lbm_step_plain", frames, ref)
+    nx = MISC_FRAMES["nx"]
+    f = make_lattice(nx, nx)
+    tau = 3.0 * (0.1 * nx / 400.0) + 0.5
+    kernel_ms = graph_ms(lambda: lbm.lbm_collide_stream(f, tau))
+    # back-to-back calls, host included: the method of the row's cavity-lattice time (ms_cavity_lattice)
+    calls_ms = cuda_ms(lambda: lbm.lbm_collide_stream(f, tau))
+    step_ms = cuda_ms(lambda: lbm.lbm_step(f, tau, 0.1))  # the walls index with host lists: not capturable
+    bound, by = bound_ms(100.0 * nx * nx, 2 * 9 * nx * nx * 4.0)
+    num = {"frames_s": dt, "launches": counts["lbm_collide_stream"], "launches_per_frame": counts["lbm_collide_stream"]
+           / MISC_FRAMES["n_frames"], "max_abs_err_vs_plain": err, "kernel_ms_64": kernel_ms,
+           "kernel_calls_ms_64": calls_ms, "step_ms_64": step_ms, "bound_ms_64": bound, "bound_by": by}
+    log(f"[misc] tempogan_lite frames: {MISC_FRAMES['n_frames']} frames of {nx}x{nx}, {steps} LBM steps in "
+        f"{dt:.3f} s, lbm_collide_stream launches {counts['lbm_collide_stream']} ({num['launches_per_frame']:.0f} a "
+        f"frame), plain versions on CUDA {sum(plain.values())}; frames vs lbm_step_plain on the card max abs err "
+        f"{err:.3e}; at {nx}x{nx} the kernel {kernel_ms:.4f} ms (device, graph replay), {calls_ms:.4f} ms "
+        f"(back-to-back calls, host included), the whole step "
+        f"{step_ms:.4f} ms (back-to-back calls, host included), bound {bound:.5f} ms by {by}")
+    return frames, counts, num
+
+
+def run_misc_phase(tmp: str):
+    """The recurrent, misc and generative slice on the card at the
+    examples' full widths: the solver examples (epnn_elastoplastic,
+    phygeonet, phygeonet_bc, iops, chip_heat, transformer4sr, regae) and
+    the hand loops (phylstm_seismic types 2 and 3, phycrnet_burgers,
+    tempogan_lite on frames made by the LBM kernel): card against CPU on
+    one batch (float32, and float64), graphed = eager bitwise, the metric
+    or the loss finite (a hand loop's fallen), graphed and eager steps/s
+    (3 calls of a chunk and of 5 eager steps: median and range), busy
+    share, kernels a step and peak memory. Returns (the numbers, the LBM
+    launch counts of tempogan_lite's frames)."""
+    import torch
+
+    from paddlescience_torch.examples import (chip_heat, epnn_elastoplastic, iops, phycrnet_burgers, phygeonet,
+                                              phylstm_seismic, regae, tempogan_lite, transformer4sr)
+    from paddlescience_torch.nn.resize import resize
+
+    torch.zeros(1, device=DEV)
+    out = {}
+    def validators(solver):
+        return solver, lambda s: s.eval()[1]
+
+    def geo(d):
+        solver, data = phygeonet.build_solver(output_dir=d, device=DEV)
+        ref = phygeonet.jacobi_reference(data)
+        return solver, lambda s: {"ev": phygeonet.evaluate_field(s, data, ref)}
+
+    def geo_bc(d):
+        solver, aux = phygeonet.build_solver_bc(output_dir=d, device=DEV)
+        return solver, lambda s: {"ev": phygeonet.evaluate_field_bc(s, aux)}
+
+    makers = {  # output dir -> (solver, its metrics once trained)
+        "epnn_elastoplastic": lambda d: validators(epnn_elastoplastic.build_solver(output_dir=d, device=DEV)),
+        "phygeonet": geo,
+        "phygeonet_bc": geo_bc,
+        "iops": lambda d: validators(iops.build_solver(output_dir=d, device=DEV)),
+        "chip_heat": lambda d: validators(chip_heat.build_solver(output_dir=d, device=DEV, **MISC_CHIP_HEAT)),
+        "transformer4sr": lambda d: validators(transformer4sr.build_solver(output_dir=d, device=DEV)),
+        "regae": lambda d: validators(regae.build_solver(output_dir=d, device=DEV)),
+    }
+    for name, make in makers.items():
+        lap = _Laps()
+        k = MISC_K[name]
+        solver, metrics = make(os.path.join(tmp, name))
+        lap("build")
+        num = {"graph_check": check_misc_solver_graph(name, solver, k)}
+        lap("graph check")
+        num.update(misc_card_vs_cpu(name, solver.model, _first_batch(solver, name)))
+        lap("card vs CPU")
+        num.update(time_slice_path(name, "misc", solver.train_step, lambda: solver.train_chunk(k), k,
+                                   **MISC_TIMED_CUT.get(name, MISC_TIMED)))
+        lap("timing")
+        group = metrics(solver)
+        values = [v for g in group.values() for v in (g.values() if isinstance(g, dict) else [g])]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{name}: metrics {group}")
+        lap("metrics")
+        num.update(metrics=group, seconds=lap.total(), seconds_by_part=lap.parts)
+        log(f"[misc] {name}: {group}; {lap}")
+        out[name] = num
+        del solver
+
+    frames, lbm_counts, out["tempogan_lite frames"] = misc_frames()
+    loops = {
+        "phylstm_seismic": lambda: phylstm_seismic.build(2, device=DEV),
+        "phylstm3_seismic": lambda: phylstm_seismic.build(3, device=DEV),
+        "phycrnet_burgers": lambda: phycrnet_burgers.build(device=DEV),
+        "tempogan_lite": lambda: tempogan_lite.TempoGAN(device=DEV, frames=frames, **MISC_FRAMES),
+    }
+    for name, make in loops.items():
+        lap = _Laps()
+        k = MISC_K[name]
+        fit = make()
+        first = fit.train_steps(1)
+        lap("build and a step")
+        num = {}
+        if name == "tempogan_lite":
+            up = resize(fit.lo, fit.lo.shape[:2] + (fit.nx, fit.nx), "nearest")  # the generator's input
+            num["generator"] = misc_card_vs_cpu(name + " generator", fit.gen, {"in": up})
+            num["discriminator"] = misc_card_vs_cpu(name + " discriminator", fit.disc, {"x": fit.hi})
+        elif name == "phycrnet_burgers":
+            num.update(misc_card_vs_cpu(name, _rollout_module(fit.model), {"input": fit.u0}))
+        else:
+            num.update(misc_card_vs_cpu(name, fit.model, fit.inputs))
+        lap("card vs CPU")
+        num["graph_vs_eager_rel"] = check_hand_graph(name, fit.loop, k, "misc", bitwise=True,
+                                                     convs=any(_has_convs(m) for m in fit.modules))
+        lap("graph check")
+        num.update(time_slice_path(name, "misc", lambda: fit.loop.run(1, graphed=False), lambda: fit.loop.run(k), k,
+                                   **MISC_TIMED_CUT.get(name, MISC_TIMED)))
+        lap("timing")
+        last = {key: float(v) for key, v in fit.loop.run(k).items()}
+        key = "pix" if name == "tempogan_lite" else "loss"
+        if not (all(math.isfinite(v) for v in last.values()) and last[key] < first[key]):
+            raise AssertionError(f"{name}: {key} {first[key]} -> {last[key]}")
+        lap("last chunk")
+        num.update(first=first, last=last, seconds=lap.total(), seconds_by_part=lap.parts)
+        log(f"[misc] {name}: {key} {first[key]:.6f} -> {last[key]:.6f}; {lap}")
+        out[name] = num
+        fit.loop.release()
+    return out, lbm_counts
+
+
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
     "jet_mlp_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
@@ -4246,7 +4517,7 @@ REPLACES = {
 }
 
 
-PROBES = ("xpinn", "hpinns", "operators2", "earthformer", "koopman", "graphs", "unetex")
+PROBES = ("xpinn", "hpinns", "operators2", "earthformer", "koopman", "graphs", "unetex", "misc")
 KERNEL_FREE = ("operators2", "earthformer", "koopman", "graphs", "unetex")  # phases that launch no kernel of the port
 
 
@@ -4267,6 +4538,8 @@ def run_probe(only, tmp: str) -> int:
             log("[graphs] summary " + json.dumps(run_graphs_phase(tmp)))
         elif phase == "unetex":
             log("[unetex] summary " + json.dumps(run_unetex_phase(tmp)))
+        elif phase == "misc":
+            log("[misc] summary " + json.dumps(run_misc_phase(tmp)[0]))
         else:
             raise ValueError(f"--only takes {', '.join(PROBES)}; not {phase}")
         mark(phase)
@@ -4511,6 +4784,9 @@ def run_all(tmp: str, card: str, nvcc, only) -> int:
     mark("xpinn")
     log("[hpinns] summary " + json.dumps(run_hpinns_phase()))
     mark("hpinns")
+    misc_numbers, launches["misc tempogan_lite"] = run_misc_phase(tmp)
+    log("[misc] summary " + json.dumps(misc_numbers))
+    mark("misc")
     autotune_results = run_autotune_phase(autotune_solvers(solvers, ane))
     log("[autotune] summary " + json.dumps(autotune_results))
     mark("autotune")
@@ -4528,6 +4804,11 @@ def run_all(tmp: str, card: str, nvcc, only) -> int:
     time_heart_flow_kernels(rows, heart_per_step["heart"], flow_per_step)
     time_nsfnet_kernels(rows, nsfnet_sb, nsfnet_full)
     time_xpinn_kernels(rows, xpinn_per_step)
+    frames = misc_numbers["tempogan_lite frames"]
+    lbm_row = next(r for r in rows if r["name"] == "lbm_collide_stream")
+    lbm_row.update(launches_tempogan_lite=frames["launches"], ms_tempogan_lattice=frames["kernel_ms_64"],
+                   calls_ms_tempogan_lattice=frames["kernel_calls_ms_64"],
+                   bound_ms_tempogan_lattice=frames["bound_ms_64"])
     mark("timing")
     log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))

@@ -23,9 +23,9 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from paddlescience_torch.data.dataset import (CGCNNDataset, ContinuousNamedArrayDataset, CylinderDataset,
-                                              DeviceSampledDataset, ENSODataset, ERA5Dataset, ERA5SampledDataset,
-                                              ExtMoEENSODataset, FWIDataset, GridMeshAtmosphericDataset,
+from paddlescience_torch.data.dataset import (CGCNNDataset, ChipHeatDataset, ContinuousNamedArrayDataset,
+                                              CylinderDataset, DeviceSampledDataset, ENSODataset, ERA5Dataset,
+                                              ERA5SampledDataset, ExtMoEENSODataset, FWIDataset, GridMeshAtmosphericDataset,
                                               IterableNamedArrayDataset, LorenzDataset, MeshAirfoilDataset,
                                               MeshCylinderDataset, NamedArrayDataset, PEMSDataset, RosslerDataset,
                                               SEVIRDataset, SphericalSWEDataset)
@@ -35,7 +35,7 @@ __all__ = ["BatchLoader", "build_dataset", "build_dataloader", "build_batch_tran
            "DeviceSampledDataset", "ERA5Dataset", "ERA5SampledDataset", "FWIDataset", "IterableNamedArrayDataset",
            "NamedArrayDataset", "SphericalSWEDataset", "ENSODataset", "ExtMoEENSODataset", "SEVIRDataset",
            "LorenzDataset", "RosslerDataset", "CylinderDataset", "PEMSDataset", "MeshAirfoilDataset",
-           "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset"]
+           "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "ChipHeatDataset"]
 
 _DATASETS = {
     "NamedArrayDataset": NamedArrayDataset,
@@ -57,6 +57,7 @@ _DATASETS = {
     "MeshCylinderDataset": MeshCylinderDataset,
     "GridMeshAtmosphericDataset": GridMeshAtmosphericDataset,
     "CGCNNDataset": CGCNNDataset,
+    "ChipHeatDataset": ChipHeatDataset,
 }
 
 

@@ -1,6 +1,6 @@
 from paddlescience_torch.data.dataset.array_dataset import (ContinuousNamedArrayDataset, DeviceSampledDataset,
                                                             IterableNamedArrayDataset, NamedArrayDataset)
-from paddlescience_torch.data.dataset.domain_dataset import (CGCNNDataset, CylinderDataset, ENSODataset,
+from paddlescience_torch.data.dataset.domain_dataset import (CGCNNDataset, ChipHeatDataset, CylinderDataset, ENSODataset,
                                                              ERA5SampledDataset, ExtMoEENSODataset, FWIDataset,
                                                              GridMeshAtmosphericDataset, LorenzDataset,
                                                              MeshAirfoilDataset, MeshCylinderDataset, PEMSDataset,
@@ -10,4 +10,4 @@ from paddlescience_torch.data.dataset.science_dataset import ERA5Dataset
 __all__ = ["ContinuousNamedArrayDataset", "DeviceSampledDataset", "IterableNamedArrayDataset", "NamedArrayDataset",
            "ERA5Dataset", "ERA5SampledDataset", "FWIDataset", "SphericalSWEDataset", "ENSODataset",
            "ExtMoEENSODataset", "SEVIRDataset", "LorenzDataset", "RosslerDataset", "CylinderDataset", "PEMSDataset",
-           "MeshAirfoilDataset", "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset"]
+           "MeshAirfoilDataset", "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "ChipHeatDataset"]

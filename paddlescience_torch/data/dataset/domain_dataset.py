@@ -32,7 +32,10 @@ sets (``MeshAirfoilDataset``, ``MeshCylinderDataset``,
 ``GridMeshAtmosphericDataset``) give one graph a sample, ``(node_fea,
 edge_fea, senders, receivers)`` under the input key, from .npz files or
 the JAX package's synthetic kNN and lat-lon ring graphs; ``CGCNNDataset``
-gives crystals ``(atom_fea, nbr_fea, nbr_idx)`` and a target. Every
+gives crystals ``(atom_fea, nbr_fea, nbr_idx)`` and a target.
+``ChipHeatDataset`` indexes the cartesian product of its ``index``
+factors (chip_heat's points x power maps x boundary types x boundary
+data). Every
 dataset applies its ``transforms`` to each batch it gives, as the JAX
 package's.
 """
@@ -49,7 +52,8 @@ from paddlescience_torch.data.dataset.array_dataset import NamedArrayDataset
 
 __all__ = ["FWIDataset", "ERA5SampledDataset", "SphericalSWEDataset", "ENSODataset", "ExtMoEENSODataset",
            "SEVIRDataset", "LorenzDataset", "RosslerDataset", "CylinderDataset", "PEMSDataset", "make_synthetic_graph",
-           "MeshAirfoilDataset", "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "import_h5py"]
+           "MeshAirfoilDataset", "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "ChipHeatDataset",
+           "import_h5py"]
 
 _F32 = np.float32
 
@@ -799,6 +803,69 @@ class CGCNNDataset:
         inp = {"i": (a, n, i)}
         lab = {"out": np.asarray([y], _F32)}
         wgt = {}
+        if self.transforms is not None:
+            inp, lab, wgt = self.transforms(inp, lab, wgt)
+        return inp, lab, wgt
+
+
+class ChipHeatDataset:
+    """Cartesian-product indexing over input factor arrays: ``index`` names
+    the factor keys (the first varies fastest), and the dataset's length is
+    the product of their lengths. A key that is a factor takes its own
+    sub-index; a key as long as the product the flat index; a key as long
+    as a factor that factor's sub-index (the first such factor); ``u_one``,
+    when ``data_type`` is a factor, the composite index
+    len(input[data_type]) * sub[index[0]] + sub[data_type] (one value per
+    pair of a point and a ``data_type`` sample). Labels and weights are
+    indexed by the flat index modulo their length (a single row
+    repeated)."""
+
+    batch_mode = "indexed"
+
+    def __init__(self, input: Dict, label: Dict, index: Tuple[str, ...], data_type: str = "",
+                 weight: Optional[Dict] = None, transforms=None):
+        self.input = {k: np.asarray(v) for k, v in input.items()}
+        self.label = {k: np.asarray(v) for k, v in (label or {}).items()}
+        self.weight = {k: np.asarray(v) for k, v in (weight or {}).items()}
+        self.index = tuple(index)
+        self.data_type = data_type
+        self.transforms = transforms
+        self._sizes = [len(self.input[k]) for k in self.index]
+        self._len = int(np.prod(self._sizes))
+
+    def __len__(self):
+        return self._len
+
+    def _sub_indices(self, flat):
+        subs, rem = {}, flat
+        for k, sz in zip(self.index, self._sizes):
+            subs[k] = rem % sz
+            rem = rem // sz
+        return subs
+
+    def __getitem__(self, idx):
+        scalar = np.isscalar(idx) or (isinstance(idx, np.ndarray) and idx.ndim == 0)
+        flat = np.atleast_1d(np.asarray(idx))
+        subs = self._sub_indices(flat)
+        len_by_size = {}
+        for k in self.index:
+            len_by_size.setdefault(len(self.input[k]), k)
+        inp = {}
+        for k, v in self.input.items():
+            if k == "u_one" and self.data_type in subs and self.index and self.index[0] in subs:
+                inp[k] = v[len(self.input[self.data_type]) * subs[self.index[0]] + subs[self.data_type]]
+            elif k in subs:
+                inp[k] = v[subs[k]]
+            elif len(v) == self._len:
+                inp[k] = v[flat]
+            elif len(v) in len_by_size:
+                inp[k] = v[subs[len_by_size[len(v)]]]
+            else:
+                raise ValueError(f"input '{k}' length {len(v)} matches neither a factor nor the product")
+        lab = {k: (v[flat % len(v)] if len(v) > 1 else np.repeat(v, len(flat), 0)) for k, v in self.label.items()}
+        wgt = {k: v[flat % len(v)] for k, v in self.weight.items()}
+        if scalar:
+            inp, lab, wgt = ({k: v[0] for k, v in d.items()} for d in (inp, lab, wgt))
         if self.transforms is not None:
             inp, lab, wgt = self.transforms(inp, lab, wgt)
         return inp, lab, wgt

@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import random
 import sys
-import weakref
-from typing import Dict, List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,12 +30,12 @@ from paddlescience_torch.arch.physx_transformer import PhysformerGPT2
 from paddlescience_torch.constraint.constraints import SupervisedConstraint
 from paddlescience_torch.data.dataset.domain_dataset import LorenzDataset
 from paddlescience_torch.device import DeviceLike, resolve_device
+from paddlescience_torch.examples.hand_loop import HandLoop
 from paddlescience_torch.loss.losses import MSELoss
 from paddlescience_torch.metric import MSE
 from paddlescience_torch.optimizer.lr_scheduler import Cosine
 from paddlescience_torch.optimizer.optimizer import Adam
 from paddlescience_torch.solver.solver import Solver
-from paddlescience_torch.utils.step_graph import StepGraph
 from paddlescience_torch.validate import SupervisedValidator
 
 __all__ = ["EMBED", "BLOCK", "EmbeddingPretrain", "build_solver"]
@@ -44,7 +43,7 @@ __all__ = ["EMBED", "BLOCK", "EmbeddingPretrain", "build_solver"]
 EMBED, BLOCK = 32, 16
 
 
-class EmbeddingPretrain:
+class EmbeddingPretrain(HandLoop):
     """The stage-1 embedding, its windows on the device and its Adam step."""
 
     def __init__(self, *, device: DeviceLike = None):
@@ -54,33 +53,19 @@ class EmbeddingPretrain:
         ds = LorenzDataset(None, ("states",), ("pred_states", "recover_states"), block_size=BLOCK, stride=8, ndata=8)
         self.data = torch.from_numpy(ds.input["states"]).to(device)
         self.optimizer = Adam(1e-3)(self.model)
-        me = weakref.proxy(self)  # the loop reaches its model weakly: dropping the model frees its graphs
-        self.loop = StepGraph(lambda i: me._step(), device, state=lambda: me._state())
+        self.modules, self.optimizers = [self.model], [self.optimizer]
+        self._start_loop(device)
 
     def loss(self) -> torch.Tensor:
         out = self.model({"states": self.data})
         mse1 = torch.mean((out["pred_states"] - self.data[:, 1:]) ** 2)
         return mse1 + 10.0 * torch.mean((out["recover_states"] - self.data) ** 2)
 
-    def _state(self) -> List[torch.Tensor]:
-        return list(self.model.parameters()) + [t for s in self.optimizer.state_tensors().values() for t in s.values()]
-
-    def _step(self) -> Dict[str, torch.Tensor]:
-        self.optimizer.zero_grad()
-        loss = self.loss()
-        loss.backward()
-        self.optimizer.step(0)
-        return {"loss": loss.detach()}
-
     def train(self, steps: int = 60, k: int = 1) -> float:
         """``steps`` Adam steps in chunks of ``k`` (one graph a chunk on
         the card when k > 1); returns the last step's loss (taken before
         its update, as the JAX step reports it)."""
-        if steps % k:
-            raise ValueError(f"{steps} steps do not split into chunks of {k}")
-        for _ in range(steps // k):
-            logs = self.loop.run(k, graphed=k > 1)
-        return float(logs["loss"])
+        return self.train_steps(steps, k)["loss"]
 
 
 def build_solver(epochs: int = 4, output_dir: Optional[str] = "./output_physformer_lorenz", embedding_model=None,

@@ -17,17 +17,16 @@ Run on the GPU: ``python -m paddlescience_torch.examples.yinglong
 from __future__ import annotations
 
 import sys
-import weakref
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from paddlescience_torch.arch.afno import AFNONet
 from paddlescience_torch.device import DeviceLike, resolve_device
+from paddlescience_torch.examples.hand_loop import HandLoop
 from paddlescience_torch.optimizer.optimizer import Adam
 from paddlescience_torch.utils import save_load
-from paddlescience_torch.utils.step_graph import StepGraph
 
 __all__ = ["H", "W", "C", "time_features", "synth_fields", "YingLong", "run"]
 
@@ -54,7 +53,7 @@ def synth_fields(n=6, t=8, seed=0):
     return np.stack(seqs)
 
 
-class YingLong:
+class YingLong(HandLoop):
     """The backbone, the sequences on the device and the fit step."""
 
     def __init__(self, lr: float = 1e-3, seed: int = 0, *, device: DeviceLike = None):
@@ -68,8 +67,8 @@ class YingLong:
         self.x = torch.cat([self.data[:, 0], tf0], -1).permute(0, 3, 1, 2).contiguous()
         self.y = self.data[:, 1]
         self.optimizer = Adam(lr)(self.model)
-        me = weakref.proxy(self)  # the loop reaches its model weakly: dropping the model frees its graphs
-        self.loop = StepGraph(lambda i: me._step(), device, state=lambda: me._state())
+        self.modules, self.optimizers = [self.model], [self.optimizer]
+        self._start_loop(device)
 
     def forward(self, frame: torch.Tensor, step: int) -> torch.Tensor:
         """One rollout step: (N, H, W, C) frame -> the next, with the time
@@ -82,23 +81,9 @@ class YingLong:
         pred = self.model({"input": self.x})["output"]
         return torch.mean((pred.permute(0, 2, 3, 1) - self.y) ** 2)
 
-    def _state(self) -> List[torch.Tensor]:
-        return list(self.model.parameters()) + [t for s in self.optimizer.state_tensors().values() for t in s.values()]
-
-    def _step(self) -> Dict[str, torch.Tensor]:
-        self.optimizer.zero_grad()
-        loss = self.loss()
-        loss.backward()
-        self.optimizer.step(0)
-        return {"loss": loss.detach()}
-
     def fit(self, steps: int, k: int = 1) -> float:
         """``steps`` Adam steps in chunks of ``k``; returns the last loss."""
-        if steps % k:
-            raise ValueError(f"{steps} steps do not split into chunks of {k}")
-        for _ in range(steps // k):
-            logs = self.loop.run(k, graphed=k > 1)
-        return float(logs["loss"])
+        return self.train_steps(steps, k)["loss"]
 
     @torch.no_grad()
     def rollout(self, rollout_steps: int) -> List[float]:

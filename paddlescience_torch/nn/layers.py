@@ -1,7 +1,8 @@
 """Layers (counterpart of ``paddlescience_tpu/nn/layers.py``): ``Linear``
 in the JAX layout (W of shape (in, out)), ``Conv`` over channel-first
-inputs with JAX's padding rules, and ``LayerNorm`` with JAX's parameter
-names (``scale``, ``shift``) and its ``epsilon``.
+inputs with JAX's padding rules, ``LayerNorm`` with JAX's parameter
+names (``scale``, ``shift``) and its ``epsilon``, and ``Embedding`` (a
+(num, features) ``weight`` table on both sides).
 
 ``Conv`` keeps its kernel in torch's layout (out, in / groups, *window);
 the JAX kernel is (*window, in / groups, out), and ``utils/jax_params.py``
@@ -23,7 +24,7 @@ from torch import nn
 
 from paddlescience_torch.utils import initializer
 
-__all__ = ["Linear", "Conv", "LayerNorm", "same_padding"]
+__all__ = ["Linear", "Conv", "LayerNorm", "Embedding", "same_padding"]
 
 
 class Linear(nn.Module):
@@ -100,8 +101,13 @@ class Conv(nn.Module):
         if any(flat):
             mode = {"zeros": "constant", "circular": "circular", "replicate": "replicate"}[self.padding_mode]
             x = F.pad(x, flat, mode=mode)
-        return self._conv(x, self.weight, self.bias, stride=self.strides, dilation=self.dilation,
+        return self._conv(x, self._kernel(), self.bias, stride=self.strides, dilation=self.dilation,
                           groups=self.groups)
+
+    def _kernel(self) -> torch.Tensor:
+        """The effective kernel: the override point of a reparameterised
+        weight (PhyCRNet's weight norm), as in the JAX layer."""
+        return self.weight
 
 
 class LayerNorm(nn.Module):
@@ -117,3 +123,16 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, (self.num_features,), self.scale, self.shift, self.epsilon)
+
+
+class Embedding(nn.Module):
+    """Rows of a (num_embeddings, features) ``weight`` table, N(0, 1)
+    initialised from ``generator``: ``idx`` (integers of any shape) ->
+    idx.shape + (features,) (``jnp.take`` along axis 0)."""
+
+    def __init__(self, num_embeddings: int, features: int, *, generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_embeddings, features).normal_(generator=generator))
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return F.embedding(idx, self.weight)

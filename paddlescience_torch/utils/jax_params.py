@@ -26,7 +26,14 @@ gate tables ``...ffns.0.gate.latent_table``, a Koopman embedding's
 ``k_ut`` with its ``mean`` and ``std`` buffers, a graph network's
 ``blocks.0.edge_fc1.weight``, ``coarse_blocks.1.node_norm.scale`` and
 ``gnn.decoder.bias``, TGCN's ``tc1.convs.1.weight`` (a ``Conv``) and
-``bn1.scale``, a UNetEx's ``decoder_stacks.3.convs.0.weight``, ...: a
+``bn1.scale``, a UNetEx's ``decoder_stacks.3.convs.0.weight``, an
+``Embedding``'s ``weight`` ((num, features) on both sides), a
+Transformer's ``dec_blocks.1.kv_x.bias``, an LSTM's ``l1.w`` and ``l1.b``
+(one (in + H, 4H) weight, gates i, f, g, o), a ConvLSTM cell's
+``convlstm.0.conv_x.weight`` (a ``Conv``), PhyCRNet's weight-normed
+``encoder.0.conv.weight`` and ``encoder.0.conv.wn_g``, the tempoGAN
+``blocks.0.shortcut.weight`` and ``fc.weight``, Epnn's
+``layers.2.weight``, ChipDeepONets' ``BCtype_net.linears.0.weight``, ...: a
 Python list of modules in the JAX tree is a ``ModuleList`` there and an
 ``nn.ModuleList`` here, both keyed by index). The layout is the JAX one on
 both sides (W of shape (in, out), a complex weight as its real and

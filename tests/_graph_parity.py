@@ -60,7 +60,8 @@ def grads_parity(jm, tm, j_call, t_call, rtol=1e-5, seed=11, x64=False):
     scale = max(float(np.abs(g).max()) for g in jgrads.values())
     for n, g, p in zip(names, torch.autograd.grad(loss, ps, allow_unused=True), ps):
         want = jgrads[n]
-        if n.endswith("weight") and type(tm.get_submodule(n.rpartition(".")[0])).__name__ == "Conv":
+        owner, _, leaf = n.rpartition(".")
+        if getattr(tm.get_submodule(owner), "jax_layout", {}).get(leaf) == "conv":  # load_jax_params' rule
             want = np.moveaxis(want, (-1, -2), (0, 1))
         got = (g if g is not None else torch.zeros_like(p)).detach().numpy()
         assert got.shape == want.shape, (n, got.shape, want.shape)
