@@ -288,6 +288,29 @@ on failure:
              forwards' bound is that of their 3xTF32 tensor-core route
              (3 TF32 products per float32 product at 495 TFLOP/s, or the
              bytes), with the float32 one (67 TFLOP/s) beside it.
+6. radar  - DGMR at the reference defaults (4 context frames of 256^2
+             -> 18, latent 768, context 384, 53.6M generator parameters,
+             batch 2) as a grid-cell hand loop, NowcastNet at the JAX
+             defaults (9 of 29 frames at 512^2, ngf 32, batch 2) through
+             the Solver on RadarDataset, MoFlow at the example's and the
+             reference QM9 depth (10 bond, 27 atom blocks, hidden 128):
+             graphed chunks bitwise the eager steps (cuDNN deterministic),
+             card against CPU in float32 and float64 on one sample (DGMR's
+             sampler cut to 2 forecast steps, NowcastNet on a 256^2 field,
+             in float32 its evolution network and its generative half
+             apart, the latter fed the CPU's float64 advected frames),
+             graphed and eager steps/s (median and range of 3 calls), busy
+             share, kernels a step, peak memory and seconds by part; the
+             18 frames scored by DGMRDiscriminator (spatial 4, temporal 3
+             layers); whether torch.linalg.slogdet (and its backward) and
+             solve can be captured in a CUDA graph and repeat bitwise
+             (MoFlow's train step runs graphed: a refused capture of
+             slogdet fails the phase; solve's is recorded); the dgmr,
+             nowcastnet_radar, moflow_qm9 and moflow_optimize examples at
+             their own configurations with their checks (the grid-cell
+             loss not above the first step's, the round trip within
+             1e-4). Last: NowcastNet at 512^2 leaves the card's memory
+             pools large and fragmented.
 
 Tolerance (kernels against plain versions): the float32 sums run in
 another order, so each output may differ by at most 1e-4 times the largest
@@ -300,7 +323,7 @@ before it a JSON object ``{"kernels": [...]}``; the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result, when
 CUDA is unavailable or the port is not beside this script.
 
-``python3 chip_smoke.py --only xpinn,hpinns,operators2,earthformer,koopman,graphs,unetex,misc``
+``python3 chip_smoke.py --only xpinn,hpinns,operators2,earthformer,koopman,graphs,unetex,misc,radar``
 runs only the named phases (a probe: it prints their summaries and no
 result line); it waits for the kernel build only when a named phase
 launches a kernel of the port.
@@ -310,6 +333,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -4331,12 +4355,18 @@ def misc_card_vs_cpu(name: str, model, inputs):
             "card_vs_cpu_float64": card_vs_cpu(name, model, inputs, phase="misc", dtype=torch.float64)}
 
 
-def check_misc_solver_graph(name: str, solver, k: int):
+def check_misc_solver_graph(name: str, solver, k: int, phase: str = "misc", eager_first: bool = False):
     """One chunk of k steps as one CUDA graph against the same k steps
     eager, from one state of ``solver`` and on the same k staged host
     batches (a model with convolutions under cuDNN's deterministic
     algorithms): the parameters bitwise equal; the state restored after,
-    the graph kept. Returns the check's numbers."""
+    the graph kept. With ``eager_first`` the eager steps run before the
+    graph is captured: a captured graph's memory pool stays held, and where
+    a step's convolutions are large (NowcastNet at 512^2) cuDNN then picks
+    other algorithms for the eager steps that follow (less workspace free),
+    so eager steps after a capture differ from those before it while the
+    graph equals the eager steps run under the same memory. Returns the
+    check's numbers."""
     import torch
 
     from paddlescience_torch.utils.step_graph import deterministic_convs
@@ -4344,18 +4374,18 @@ def check_misc_solver_graph(name: str, solver, k: int):
     loop = solver.loop
     solver._stage_host_batches(k)
     snap = loop.snapshot()
+    runs = {}
     with deterministic_convs() if _has_convs(solver.model) else contextlib.nullcontext():
-        loop.run(k)
-        torch.cuda.synchronize()
-        graphed = flat_params(solver).clone()
-        loop.restore(snap)
-        loop.run(k, graphed=False)
-        torch.cuda.synchronize()
-        eager = flat_params(solver)
+        for graphed_run in ((False, True) if eager_first else (True, False)):
+            loop.restore(snap)
+            loop.run(k, graphed=graphed_run)
+            torch.cuda.synchronize()
+            runs[graphed_run] = flat_params(solver).clone()
+    graphed, eager = runs[True], runs[False]
     loop.restore(snap)
     rel = float((graphed - eager).norm() / eager.norm())
     bitwise = torch.equal(graphed, eager)
-    log(f"[misc] {name}: one graph of {k} steps vs {k} eager steps from one state, on the same staged batches: "
+    log(f"[{phase}] {name}: one graph of {k} steps vs {k} eager steps from one state, on the same staged batches: "
         f"parameters rel err {rel:.3e}, bitwise {bitwise}, {solver.graph_stats[k]['replays']} replay(s)")
     if not (bitwise and solver.graph_stats[k]["replays"] == 1 and torch.isfinite(graphed).all()):
         raise AssertionError(f"{name}: the graphed chunk is not bitwise the eager steps (rel {rel:.3e})")
@@ -4506,6 +4536,383 @@ def run_misc_phase(tmp: str):
     return out, lbm_counts
 
 
+# the [radar] phase: DGMR at the reference defaults (4 context frames of 256^2 -> 18, latent 768, context
+# 384: 53.6M generator parameters), batch 2; its card-against-CPU check on one sample with the sampler cut to
+# RADAR_CPU_STEPS forecast steps (every channel width and 256^2 kept: an 18-step forward and backward is ~1.5
+# TFLOP a sample, minutes of CPU in float64), PERF.md §4
+RADAR_DGMR = dict(t_in=4, t_out=18, hw=256, n_seq=2, latent_channels=768, context_channels=384)
+RADAR_CPU_STEPS = 2
+# NowcastNet at the JAX defaults (9 of 29 frames at 512^2, ngf 32) through the Solver on RadarDataset at 512^2,
+# batch 2; card against CPU on one sample of a 256^2 field (the parameters do not depend on the field's size;
+# the CPU at 512^2 would take tens of seconds in float64), PERF.md §4
+RADAR_NOWCAST = dict(height=512, width=512, input_length=9, total_length=29, ngf=32, batch_size=2, num_cases=4)
+RADAR_NOWCAST_CPU_HW = 256
+# MoFlow at the reference QM9 depth (hidden 128, 10 bond blocks, 27 atom blocks)
+RADAR_MOFLOW_QM9 = dict(b_hidden=128, a_hidden=128, b_n_blocks=10, a_n_blocks=27)
+# the card's float32 gradient error against float64 is held to twice the CPU's in the same run, or this: the
+# largest such error read on either device in PR 22's runs (card 1.49e-2, CPU 1.14e-2), rounded up (PERF.md §6)
+F32_GRAD_FLOOR = 2e-2
+RADAR_K = {"dgmr": 2, "nowcastnet": 2, "moflow_qm9": 10, "moflow_qm9 reference depth": 5}
+RADAR_TIMED = {"dgmr": dict(calls=3, eager_steps=1, profiled=1), "nowcastnet": dict(calls=3, eager_steps=2, profiled=1),
+               "moflow_qm9": dict(calls=3, eager_steps=5, profiled=1),
+               "moflow_qm9 reference depth": dict(calls=3, eager_steps=2, profiled=1)}
+
+
+def linalg_capture():
+    """Whether ``torch.linalg.slogdet`` (forward, and with its backward) and
+    ``torch.linalg.solve`` can be captured in a CUDA graph on this card and
+    repeat bitwise: each captured (after a warm-up on a side stream),
+    replayed twice, and held to the same call made eagerly. MoFlow's train
+    step runs graphed, so a refused capture of slogdet or its backward
+    raises; solve (only ``MoFlowNet.reverse``, never captured) is a
+    finding, recorded with its error. A graph that replays other numbers
+    than the eager call raises. Returns {op: {"captured": bool, "bitwise":
+    bool, "error": str}}."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    w0 = torch.linalg.qr(torch.randn(36, 36, generator=g))[0].to(DEV)
+    y0 = torch.randn(64, 9, 36, generator=g).to(DEV)
+    w = w0.clone().requires_grad_(True)
+    y = y0.clone()
+
+    def slogdet_fwd():
+        return torch.linalg.slogdet(w)[1].detach()
+
+    def slogdet_bwd():
+        if w.grad is not None:
+            w.grad.zero_()
+        torch.linalg.slogdet(w)[1].backward()
+        return w.grad.detach().clone()
+
+    def solve():
+        return torch.linalg.solve(w.detach().T, y[..., None])[..., 0]
+
+    out = {}
+    for name, fn in (("slogdet", slogdet_fwd), ("slogdet backward", slogdet_bwd), ("solve", solve)):
+        eager = fn().clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                res = fn()
+        except Exception as e:
+            if name != "solve":
+                raise
+            torch.cuda.synchronize()
+            out[name] = {"captured": False, "bitwise": False, "error": f"{type(e).__name__}: {str(e)[:200]}"}
+            log(f"[radar] CUDA-graph capture of torch.linalg.{name}: refused ({out[name]['error']})")
+            continue
+        reps = []
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            reps.append(res.clone())
+        bitwise = all(torch.equal(r, eager) for r in reps)
+        out[name] = {"captured": True, "bitwise": bitwise, "error": ""}
+        log(f"[radar] CUDA-graph capture of torch.linalg.{name}: captured, 2 replays bitwise equal to the eager call: "
+            f"{bitwise}")
+        if not bitwise:
+            raise AssertionError(f"torch.linalg.{name}: the captured graph replays other numbers than the eager call")
+        del graph
+    return out
+
+
+def _outs_and_grad(model, inputs, device, dtype, cots=None):
+    """A copy of ``model`` on ``device`` in ``dtype``: its outputs and the
+    whole parameter gradient of sum(out * c), as float64 CPU vectors, and
+    the cotangents c (drawn from a seeded generator when not given)."""
+    import copy
+
+    import torch
+
+    m = copy.deepcopy(model).to(device, dtype)
+    out = m({k: v.to(device, dtype) for k, v in inputs.items()})
+    if cots is None:
+        gen = torch.Generator().manual_seed(3)
+        cots = {k: torch.randn(v.shape, generator=gen, dtype=torch.float64) for k, v in out.items()}
+    loss = sum((v * cots[k].to(device, dtype)).sum() for k, v in out.items())
+    ps = [p for p in m.parameters() if p.requires_grad]
+    gs = torch.autograd.grad(loss, ps, allow_unused=True)
+    flat = lambda ts: torch.cat([t.detach().reshape(-1).cpu().double() for t in ts])  # noqa: E731
+    return flat(out.values()), flat(g if g is not None else torch.zeros_like(p) for g, p in zip(gs, ps)), cots
+
+
+def _generative_half(model):
+    """A module running NowcastNet ``model``'s generative half on
+    ``feed["frames"]`` and ``feed["evo"]`` (the dict in, dict out of
+    :func:`_outs_and_grad`)."""
+    import torch
+
+    class Half(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner = model
+
+        def forward(self, feed):
+            return {"output": self.inner.generate(feed["frames"], feed["evo"])}
+
+    return Half()
+
+
+def _named_outputs(module, names):
+    """A module running ``module(feed["x"])`` and naming its tuple of
+    outputs ``names`` (the dict in, dict out of :func:`_outs_and_grad`)."""
+    import torch
+
+    class Named(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.inner = module
+
+        def forward(self, feed):
+            return dict(zip(names, self.inner(feed["x"])))
+
+    return Named()
+
+
+def _hold_card_vs_cpu(name: str, model, inputs):
+    """One module on the card against the CPU with the same weights and
+    inputs, in float64 (outputs and the whole parameter gradient within
+    REL_TOL of their largest magnitude: a fault of the logic shows) and in
+    float32: the outputs within REL_TOL (TF32 or a wrong algorithm would
+    show), and the gradient's error against the CPU's float64 gradient no
+    more than twice the CPU's own float32 gradient's or F32_GRAD_FLOOR,
+    whichever is larger (at these widths the float32 gradient strays
+    5.7e-3-1.5e-2 from float64 on both devices, PERF.md §6, so two float32
+    gradients cannot agree to REL_TOL). Returns the errors."""
+    import torch
+
+    rel = lambda a, b: float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))  # noqa: E731
+    card64, g_card64, cots = _outs_and_grad(model, inputs, DEV, torch.float64)
+    cpu64, g_cpu64, _ = _outs_and_grad(model, inputs, "cpu", torch.float64, cots)
+    card32, g_card32, _ = _outs_and_grad(model, inputs, DEV, torch.float32, cots)
+    cpu32, g_cpu32, _ = _outs_and_grad(model, inputs, "cpu", torch.float32, cots)
+    num = {"float64_output": rel(card64, cpu64), "float64_gradient": rel(g_card64, g_cpu64),
+           "float32_output": rel(card32, cpu32), "float32_gradient_card_vs_cpu": rel(g_card32, g_cpu32),
+           "float32_gradient_card_vs_float64": rel(g_card32, g_cpu64),
+           "float32_gradient_cpu_vs_float64": rel(g_cpu32, g_cpu64)}
+    limit = max(2 * num["float32_gradient_cpu_vs_float64"], F32_GRAD_FLOOR)
+    log(f"[radar] {name}: card vs CPU on one sample: float64 outputs {num['float64_output']:.3e}, gradient "
+        f"{num['float64_gradient']:.3e}; float32 outputs {num['float32_output']:.3e}, gradient card vs CPU "
+        f"{num['float32_gradient_card_vs_cpu']:.3e}, against the float64 gradient: card "
+        f"{num['float32_gradient_card_vs_float64']:.3e}, CPU {num['float32_gradient_cpu_vs_float64']:.3e} "
+        f"(limits {REL_TOL}, and {limit:.3e} for the card's float32 gradient)")
+    if not (max(num["float64_output"], num["float64_gradient"], num["float32_output"]) <= REL_TOL
+            and num["float32_gradient_card_vs_float64"] <= limit):
+        raise AssertionError(f"{name}: the card disagrees with the CPU: {num}")
+    return num
+
+
+def radar_card_vs_cpu(name: str, model, inputs, parts=()):
+    """:func:`_hold_card_vs_cpu` of ``model``; with ``parts``, (label,
+    module, inputs) triples, the whole model is held in float64 only, its
+    float32 errors logged, and each part is held in both (NowcastNet: its
+    nearest warp rounds the flows to pixel indices, and float32 rounding
+    differences between the devices move some of those indices; the
+    generative half is fed the CPU's float64 advected frames on both
+    devices, so the rounding cannot enter it, PERF.md §6). Returns the
+    errors."""
+    import torch
+
+    if not parts:
+        return _hold_card_vs_cpu(name, model, inputs)
+    rel = lambda a, b: float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))  # noqa: E731
+    card64, g_card64, cots = _outs_and_grad(model, inputs, DEV, torch.float64)
+    cpu64, g_cpu64, _ = _outs_and_grad(model, inputs, "cpu", torch.float64, cots)
+    card32, g_card32, _ = _outs_and_grad(model, inputs, DEV, torch.float32, cots)
+    cpu32, g_cpu32, _ = _outs_and_grad(model, inputs, "cpu", torch.float32, cots)
+    off = (card32 - cpu32).abs() > REL_TOL * cpu32.abs().max()
+    num = {"whole_model_float64": {"output": rel(card64, cpu64), "gradient": rel(g_card64, g_cpu64)},
+           "whole_model_float32": {"output": rel(card32, cpu32), "gradient_card_vs_cpu": rel(g_card32, g_cpu32),
+                                   "output_share_off_by_1e-4": float(off.double().mean())}}
+    log(f"[radar] {name}: the whole model card vs CPU in float64 {num['whole_model_float64']} (limit "
+        f"{REL_TOL}); in float32 (not held: rounded flow indices) {num['whole_model_float32']}")
+    if max(num["whole_model_float64"].values()) > REL_TOL:
+        raise AssertionError(f"{name}: the card disagrees with the CPU in float64: {num}")
+    for label, module, feed in parts:
+        num[label] = _hold_card_vs_cpu(f"{name} {label}", module, feed)
+    return num
+
+
+def _dgmr_cut(model, steps: int):
+    """A copy of the DGMR ``model`` whose sampler forecasts ``steps`` frames
+    (its parameters do not depend on the count)."""
+    import copy
+
+    cut = copy.deepcopy(model)
+    cut.sampler.forecast_steps = steps
+    return cut
+
+
+def run_radar_phase(tmp: str):
+    """DGMR and NowcastNet at their reference widths and MoFlow at the
+    example's and the reference QM9 depth, on the card: graphed = eager
+    bitwise (cuDNN deterministic), card against CPU in float32 and
+    float64, graphed and eager steps/s (median and range of 3 calls), busy
+    share, kernels a step, peak memory, seconds by part; the examples'
+    own configurations end to end with their checks; the CUDA-graph
+    capture of slogdet and solve. Returns the numbers."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from paddlescience_torch.arch.dgmr import DGMRDiscriminator
+    from paddlescience_torch.examples import dgmr, moflow_optimize, moflow_qm9, nowcastnet_radar
+    from paddlescience_torch.utils.step_graph import deterministic_convs
+
+    torch.zeros(1, device=DEV)
+    out = {}
+
+    # DGMR at the reference defaults
+    lap = _Laps()
+    k = RADAR_K["dgmr"]
+    fit = dgmr.DGMRFit(**RADAR_DGMR, device=DEV)
+    n_params = sum(p.numel() for p in fit.model.parameters())
+    first = fit.train_steps(1)["loss"]
+    lap("build and a step")
+    num = {"parameters": n_params, "graph_vs_eager_rel": check_hand_graph("dgmr", fit.loop, k, "radar", bitwise=True)}
+    lap("graph check")
+    one = {"input_frames": fit.x[:1]}
+    cut = _dgmr_cut(fit.model, RADAR_CPU_STEPS)
+    num["card_vs_cpu"] = radar_card_vs_cpu(f"dgmr ({RADAR_CPU_STEPS} forecast steps)", cut, one)
+    del cut
+    lap("card vs CPU")
+    num.update(time_slice_path("dgmr", "radar", lambda: fit.loop.run(1, graphed=False), lambda: fit.loop.run(k), k,
+                               **RADAR_TIMED["dgmr"]))
+    lap("timing")
+    with torch.no_grad():
+        frames = fit.forecast()
+        disc = DGMRDiscriminator(input_channels=1, device=DEV)
+        scores = disc(frames)
+        torch.cuda.synchronize()
+    d = RADAR_DGMR
+    if not (frames.shape == (d["n_seq"], d["t_out"], 1, d["hw"], d["hw"]) and torch.isfinite(frames).all()
+            and torch.isfinite(scores).all()):
+        raise AssertionError(f"dgmr: forecast {tuple(frames.shape)}, scores {scores}")
+    last = fit.train_steps(k, k)["loss"]
+    if not math.isfinite(last):
+        raise AssertionError(f"dgmr: grid-cell loss {first} -> {last}")
+    lap("scores and a last chunk")
+    num.update(first=first, last=last, scores=scores.reshape(2, 2).tolist(), seconds=lap.total(),
+               seconds_by_part=lap.parts)
+    log(f"[radar] dgmr: {n_params} parameters, {d['t_out']} frames of {d['hw']}^2 from {d['t_in']}, batch "
+        f"{d['n_seq']}; grid-cell loss {first:.6f} -> "
+        f"{last:.6f}; DGMRDiscriminator (spatial 4, temporal 3 layers) scores {scores.reshape(2, 2).tolist()}; {lap}")
+    fit.loop.release()
+    del fit, disc, frames
+    out["dgmr"] = num
+
+    lap = _Laps()
+    grid, ex_scores = dgmr.run(device=DEV)
+    lap("run")
+    out["dgmr example"] = {"grid_loss": grid, "scores": ex_scores, "seconds": lap.total()}
+    log(f"[radar] dgmr example (64^2, latent and context 32, 6 frames, 5 steps): {ex_scores}; {lap}")
+
+    # NowcastNet at the JAX defaults through the Solver
+    lap = _Laps()
+    k = RADAR_K["nowcastnet"]
+    solver = nowcastnet_radar.build_solver(epochs=1, output_dir=os.path.join(tmp, "nowcastnet"), device=DEV,
+                                           iters_per_epoch=k, **RADAR_NOWCAST)
+    lap("build")
+    num = {"parameters": sum(p.numel() for p in solver.model.parameters()),
+           "graph_check": check_misc_solver_graph("nowcastnet", solver, k, phase="radar", eager_first=True)}
+    lap("graph check")
+    batch = _first_batch(solver, "nowcastnet")["input"][:1]
+    c = RADAR_NOWCAST_CPU_HW
+    field = {"input": batch[:, :, :c, :c]}
+    with torch.no_grad():
+        frames64, evo64 = copy.deepcopy(solver.model).to("cpu", torch.float64).evolve(
+            field["input"].to("cpu", torch.float64))
+    num["card_vs_cpu"] = radar_card_vs_cpu(f"nowcastnet ({c}^2)", solver.model, field, parts=(
+        ("evolution network", _named_outputs(solver.model.evo_net, ("intensity", "motion")),
+         {"x": field["input"][..., 0]}),
+        ("generative half", _generative_half(solver.model), {"frames": frames64, "evo": evo64})))
+    del frames64, evo64
+    lap("card vs CPU")
+    # timed under cuDNN's deterministic algorithms, replaying the graph the check captured: a second graph at
+    # 512^2 (its pool ~34 GiB) does not fit beside the first and the eager steps' cache (PERF.md §6)
+    with deterministic_convs():
+        num.update(time_slice_path("nowcastnet", "radar", solver.train_step, lambda: solver.train_chunk(k), k,
+                                   **RADAR_TIMED["nowcastnet"]))
+    lap("timing")
+    logs = solver.train()
+    pred = solver.predict({"input": batch.numpy()}, return_numpy=True)["output"]
+    n = RADAR_NOWCAST
+    if not (pred.shape == (1, n["total_length"] - n["input_length"], n["height"], n["width"], 1)
+            and np.isfinite(pred).all() and math.isfinite(logs[-1]["loss"])):
+        raise AssertionError(f"nowcastnet: prediction {pred.shape}, logs {logs}")
+    lap("train an epoch and predict")
+    num.update(loss=logs[-1]["loss"], seconds=lap.total(), seconds_by_part=lap.parts)
+    log(f"[radar] nowcastnet: {num['parameters']} parameters, {n['total_length'] - n['input_length']} frames of "
+        f"{n['height']}^2 from {n['input_length']}, batch {n['batch_size']}; loss {logs[-1]['loss']:.6f}; {lap}")
+    solver.release_graphs()
+    del solver
+    gc.collect()
+    torch.cuda.empty_cache()
+    num["reserved_gib_after_release"] = torch.cuda.memory_reserved() / 2**30
+    out["nowcastnet"] = num
+
+    lap = _Laps()
+    solver = nowcastnet_radar.build_solver(output_dir=os.path.join(tmp, "nowcastnet_example"), device=DEV)
+    logs = solver.train(num_fused_steps=solver.iters_per_epoch)
+    ds = nowcastnet_radar.build_dataset({"name": "RadarDataset", "input_keys": ("input",), "label_keys": ("output",),
+                                         "image_width": nowcastnet_radar.W, "image_height": nowcastnet_radar.H,
+                                         "total_length": nowcastnet_radar.TOTAL,
+                                         "input_length": nowcastnet_radar.IN_LEN})
+    pred = solver.predict({"input": ds.input["input"][:1]}, return_numpy=True)["output"]
+    if not (pred.shape == (1, 6, 32, 32, 1) and np.isfinite(pred).all()
+            and all(math.isfinite(v["loss"]) for v in logs)):
+        raise AssertionError(f"nowcastnet example: prediction {pred.shape}, losses {logs}")
+    lap("train 3 epochs graphed and predict")
+    out["nowcastnet example"] = {"losses": [l["loss"] for l in logs], "mean_abs_prediction": float(np.abs(pred).mean()),
+                                 "seconds": lap.total()}
+    log(f"[radar] nowcastnet example (32^2, 4 of 10 frames, ngf 16, 3 epochs of 4 graphed steps): loss "
+        f"{logs[0]['loss']:.6f} -> {logs[-1]['loss']:.6f}; {lap}")
+    solver.release_graphs()
+    del solver
+
+    # MoFlow: the capture finding, then the examples
+    lap = _Laps()
+    out["linalg_capture"] = linalg_capture()
+    lap("capture test")
+    for name, model in (("moflow_qm9", {}), ("moflow_qm9 reference depth", RADAR_MOFLOW_QM9)):
+        k = RADAR_K[name]
+        fit = moflow_qm9.MoFlowFit(device=DEV, **model)
+        first = fit.train_steps(1)["loss"]
+        lap(f"{name} build and a step")
+        num = {"parameters": sum(p.numel() for p in fit.model.parameters()),
+               "graph_vs_eager_rel": check_hand_graph(name, fit.loop, k, "radar", bitwise=True, convs=False)}
+        lap(f"{name} graph check")
+        num.update(time_slice_path(name, "radar", lambda: fit.loop.run(1, graphed=False), lambda: fit.loop.run(k), k,
+                                   **RADAR_TIMED[name]))
+        lap(f"{name} timing")
+        last = moflow_qm9.main(80 if name == "moflow_qm9" else 20, fit=fit)
+        err = moflow_qm9.roundtrip_error(fit)
+        if not (math.isfinite(last) and last < first and err < 1e-4):
+            raise AssertionError(f"{name}: NLL {first} -> {last}, round trip {err}")
+        lap(f"{name} main")
+        num.update(first=first, last=last, roundtrip_err=err)
+        log(f"[radar] {name}: {num['parameters']} parameters; NLL {first:.3f} -> {last:.3f}; round trip max err "
+            f"{err:.3e}")
+        fit.loop.release()
+        out[name] = num
+    opt = moflow_optimize.run(device=DEV)
+    if not all(math.isfinite(v) for v in opt.values()):
+        raise AssertionError(f"moflow_optimize: {opt}")
+    lap("moflow_optimize")
+    out["moflow_optimize"] = opt
+    out["moflow seconds"] = {"total": lap.total(), "by_part": lap.parts}
+    log(f"[radar] moflow_optimize: {opt}; MoFlow {lap}")
+    return out
+
+
 TC_KERNELS = ("jet_mlp_fwd", "jet_gated_fwd")  # kernels whose products run on the tensor cores (3xTF32)
 REPLACES = {
     "jet_mlp_fwd": "paddlescience_tpu/ops/jet_pallas.py:361",
@@ -4517,8 +4924,8 @@ REPLACES = {
 }
 
 
-PROBES = ("xpinn", "hpinns", "operators2", "earthformer", "koopman", "graphs", "unetex", "misc")
-KERNEL_FREE = ("operators2", "earthformer", "koopman", "graphs", "unetex")  # phases that launch no kernel of the port
+PROBES = ("xpinn", "hpinns", "operators2", "earthformer", "koopman", "graphs", "unetex", "misc", "radar")
+KERNEL_FREE = ("operators2", "earthformer", "koopman", "graphs", "unetex", "radar")  # phases that launch no kernel of the port
 
 
 def run_probe(only, tmp: str) -> int:
@@ -4540,6 +4947,8 @@ def run_probe(only, tmp: str) -> int:
             log("[unetex] summary " + json.dumps(run_unetex_phase(tmp)))
         elif phase == "misc":
             log("[misc] summary " + json.dumps(run_misc_phase(tmp)[0]))
+        elif phase == "radar":
+            log("[radar] summary " + json.dumps(run_radar_phase(tmp)))
         else:
             raise ValueError(f"--only takes {', '.join(PROBES)}; not {phase}")
         mark(phase)
@@ -4572,19 +4981,21 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     # the kernels compile in the background at the lowest priority, so the
-    # phases that run meanwhile keep their core
-    nvcc = cuda_build.Build()
+    # phases that run meanwhile keep their core; a probe of kernel-free phases builds none
+    nvcc = None if only and all(p in KERNEL_FREE for p in only) else cuda_build.Build()
     try:
         with tempfile.TemporaryDirectory(prefix="psci_smoke_") as tmp:
             return run_all(tmp, card, nvcc, only)
     finally:
-        nvcc.close()
+        if nvcc is not None:
+            nvcc.close()
 
 
 def run_all(tmp: str, card: str, nvcc, only) -> int:
     """Every phase, in order; the kernel-free [operators], [operators2],
     [earthformer], [koopman], [graphs] and [unetex] while ``nvcc`` (a
-    ``cuda_build.Build``) compiles the kernels."""
+    ``cuda_build.Build``) compiles the kernels; [radar], kernel-free too,
+    last."""
     import torch
 
     from paddlescience_torch.ops import jet_gated as G
@@ -4810,6 +5221,9 @@ def run_all(tmp: str, card: str, nvcc, only) -> int:
                    calls_ms_tempogan_lattice=frames["kernel_calls_ms_64"],
                    bound_ms_tempogan_lattice=frames["bound_ms_64"])
     mark("timing")
+    # last: NowcastNet at 512^2 leaves the card's memory pools large and fragmented
+    log("[radar] summary " + json.dumps(run_radar_phase(tmp)))
+    mark("radar")
     log(f"[done] every phase passed in {time.perf_counter() - T0:.1f} s (the build included)")
     print(json.dumps({"kernels": rows}))
     print(card)

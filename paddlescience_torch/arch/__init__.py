@@ -3,6 +3,7 @@ from paddlescience_torch.arch.base import Arch
 from paddlescience_torch.arch.cuboid_transformer import CuboidTransformer, ExtFormerMoECuboid
 from paddlescience_torch.arch.cvit import CVit, CVit1D
 from paddlescience_torch.arch.deeponet import DeepONet
+from paddlescience_torch.arch.dgmr import DGMR, DGMRDiscriminator, DGMRDiscriminators
 from paddlescience_torch.arch.embedding_koopman import CylinderEmbedding, LorenzEmbedding, RosslerEmbedding
 from paddlescience_torch.arch.gan import Discriminator, Generator
 from paddlescience_torch.arch.fno import FNONet, TFNO1dNet, TFNO2dNet, TFNO3dNet
@@ -11,6 +12,8 @@ from paddlescience_torch.arch.graph_nets import AMGNet, CFDGCN, CrystalGraphConv
 from paddlescience_torch.arch.lno import LNO
 from paddlescience_torch.arch.misc_nets import USCNN, ChipDeepONets, Epnn, HEDeepONets, Transformer
 from paddlescience_torch.arch.model_list import ModelList
+from paddlescience_torch.arch.moflow_net import MoFlowNet, MoFlowProp
+from paddlescience_torch.arch.nowcasting import NowcastNet
 from paddlescience_torch.arch.phycrnet import PhyCRNet
 from paddlescience_torch.arch.phylstm import DeepPhyLSTM
 from paddlescience_torch.arch.physx_transformer import PhysformerGPT2
@@ -28,4 +31,5 @@ __all__ = ["Arch", "DeepONet", "ModelList", "SPINN", "MLP", "ModifiedMLP", "Pira
            "SFNONet", "CVit1D", "CVit", "CuboidTransformer", "ExtFormerMoECuboid", "LorenzEmbedding",
            "RosslerEmbedding", "CylinderEmbedding", "PhysformerGPT2", "TGCN", "MeshGraphNet", "AMGNet", "CFDGCN",
            "GraphCastNet", "CrystalGraphConvNet", "UNetEx", "Epnn", "USCNN", "HEDeepONets", "ChipDeepONets",
-           "Transformer", "DeepPhyLSTM", "PhyCRNet", "AutoEncoder", "Generator", "Discriminator"]
+           "Transformer", "DeepPhyLSTM", "PhyCRNet", "AutoEncoder", "Generator", "Discriminator", "DGMR",
+           "DGMRDiscriminator", "DGMRDiscriminators", "NowcastNet", "MoFlowNet", "MoFlowProp"]

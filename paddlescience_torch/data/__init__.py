@@ -24,18 +24,20 @@ import numpy as np
 import torch
 
 from paddlescience_torch.data.dataset import (CGCNNDataset, ChipHeatDataset, ContinuousNamedArrayDataset,
-                                              CylinderDataset, DeviceSampledDataset, ENSODataset, ERA5Dataset,
-                                              ERA5SampledDataset, ExtMoEENSODataset, FWIDataset, GridMeshAtmosphericDataset,
-                                              IterableNamedArrayDataset, LorenzDataset, MeshAirfoilDataset,
-                                              MeshCylinderDataset, NamedArrayDataset, PEMSDataset, RosslerDataset,
-                                              SEVIRDataset, SphericalSWEDataset)
+                                              CylinderDataset, DeviceSampledDataset, DGMRDataset, ENSODataset,
+                                              ERA5Dataset, ERA5SampledDataset, ExtMoEENSODataset, FWIDataset,
+                                              GridMeshAtmosphericDataset, IterableNamedArrayDataset, LorenzDataset,
+                                              MeshAirfoilDataset, MeshCylinderDataset, MOlFLOWDataset, MRMSDataset,
+                                              MRMSSampledDataset, NamedArrayDataset, PEMSDataset, RadarDataset,
+                                              RosslerDataset, SEVIRDataset, SphericalSWEDataset)
 from paddlescience_torch.data.process.transform import Compose, build_transforms
 
 __all__ = ["BatchLoader", "build_dataset", "build_dataloader", "build_batch_transforms", "FunctionalBatchTransform", "Compose", "build_transforms", "ContinuousNamedArrayDataset",
            "DeviceSampledDataset", "ERA5Dataset", "ERA5SampledDataset", "FWIDataset", "IterableNamedArrayDataset",
            "NamedArrayDataset", "SphericalSWEDataset", "ENSODataset", "ExtMoEENSODataset", "SEVIRDataset",
            "LorenzDataset", "RosslerDataset", "CylinderDataset", "PEMSDataset", "MeshAirfoilDataset",
-           "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "ChipHeatDataset"]
+           "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "ChipHeatDataset",
+           "DGMRDataset", "RadarDataset", "MRMSDataset", "MRMSSampledDataset", "MOlFLOWDataset"]
 
 _DATASETS = {
     "NamedArrayDataset": NamedArrayDataset,
@@ -58,6 +60,11 @@ _DATASETS = {
     "GridMeshAtmosphericDataset": GridMeshAtmosphericDataset,
     "CGCNNDataset": CGCNNDataset,
     "ChipHeatDataset": ChipHeatDataset,
+    "DGMRDataset": DGMRDataset,
+    "RadarDataset": RadarDataset,
+    "MRMSDataset": MRMSDataset,
+    "MRMSSampledDataset": MRMSSampledDataset,
+    "MOlFLOWDataset": MOlFLOWDataset,
 }
 
 

@@ -19,7 +19,10 @@ archive directory (``CMIP_train.nc``/``CMIP_label.nc``: per-model year
 folding, 95E..330E) or a flat sst array; its synthetic stand-in is four
 spectral modes. SEVIR reads the CATALOG.csv layout or .h5 files of (N, H,
 W, T) events, preprocessed as ``scale * (x + offset)``; its stand-in is
-advecting Gaussian rain cells. The trajectory sets window HDF5 groups of
+advecting Gaussian rain cells, as are those of the radar nowcasting sets
+(``DGMRDataset``: .npy sequences; ``RadarDataset``: a directory of .npy
+frames a case, rescaled x / 10 - 3; ``MRMSDataset``: one .h5 file a day;
+``MRMSSampledDataset``: one .h5 window a file). The trajectory sets window HDF5 groups of
 (T, D) series (or RK4 trajectories of the Lorenz and Rossler systems) into
 (block_size, D) windows, labels ``window[1:]`` and ``window``; given an
 ``embedding_model`` they hold its encoder's embeddings of the windows
@@ -35,7 +38,8 @@ the JAX package's synthetic kNN and lat-lon ring graphs; ``CGCNNDataset``
 gives crystals ``(atom_fea, nbr_fea, nbr_idx)`` and a target.
 ``ChipHeatDataset`` indexes the cartesian product of its ``index``
 factors (chip_heat's points x power maps x boundary types x boundary
-data). Every
+data). ``MOlFLOWDataset`` gives MoFlow's one-hot atoms and bond tensors
+from an .npz, or random trees. Every
 dataset applies its ``transforms`` to each batch it gives, as the JAX
 package's.
 """
@@ -43,6 +47,7 @@ package's.
 from __future__ import annotations
 
 import glob as _glob
+import os
 import os.path as osp
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -51,8 +56,9 @@ import numpy as np
 from paddlescience_torch.data.dataset.array_dataset import NamedArrayDataset
 
 __all__ = ["FWIDataset", "ERA5SampledDataset", "SphericalSWEDataset", "ENSODataset", "ExtMoEENSODataset",
-           "SEVIRDataset", "LorenzDataset", "RosslerDataset", "CylinderDataset", "PEMSDataset", "make_synthetic_graph",
-           "MeshAirfoilDataset", "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "ChipHeatDataset",
+           "SEVIRDataset", "DGMRDataset", "RadarDataset", "MRMSDataset", "MRMSSampledDataset", "LorenzDataset",
+           "RosslerDataset", "CylinderDataset", "PEMSDataset", "make_synthetic_graph", "MeshAirfoilDataset",
+           "MeshCylinderDataset", "GridMeshAtmosphericDataset", "CGCNNDataset", "ChipHeatDataset", "MOlFLOWDataset",
            "import_h5py"]
 
 _F32 = np.float32
@@ -574,6 +580,118 @@ class SEVIRDataset(_FrameWindowDataset):
 # ---------------------------------------------------------------------------
 
 
+class DGMRDataset(_FrameWindowDataset):
+    """DGMR windows: ``input_frames`` frames -> the next
+    ``output_frames``, from the first ``number`` .npy (T, H, W) sequences
+    of ``file_path`` in name order, or (no path) ``number`` advecting
+    rain-cell sequences (numpy seed 4)."""
+
+    def __init__(self, input_keys: Tuple[str, ...], label_keys: Tuple[str, ...], file_path: Optional[str] = None,
+                 split: str = "validation", number: int = 8, input_frames: int = 4, output_frames: int = 6,
+                 H: int = 32, W: int = 32, weight_dict=None, transforms=None, synthetic: bool = False):
+        path = _require(file_path, synthetic)
+        if path is not None:
+            seqs = [np.asarray(np.load(f), _F32) for f in sorted(_glob.glob(osp.join(path, "*.npy")))[:number]]
+        else:
+            rng = np.random.default_rng(4)
+            seqs = [_advecting_cells(rng, input_frames + output_frames, H, W) for _ in range(number)]
+        super().__init__(input_keys, label_keys, seqs, input_frames, output_frames, None, weight_dict, transforms)
+
+
+class RadarDataset(_FrameWindowDataset):
+    """NowcastNet radar windows: ``dataset_path`` holds one directory a
+    case of per-frame .npy files, each case with at least
+    ``total_length`` frames giving one window of its first ones, rescaled
+    x / 10 - 3 and cropped; or (no path) ``num_cases`` advecting rain-cell
+    sequences (numpy seed 5)."""
+
+    def __init__(self, input_keys: Tuple[str, ...], label_keys: Tuple[str, ...], dataset_path: Optional[str] = None,
+                 image_width: int = 32, image_height: int = 32, total_length: int = 12, input_length: int = 4,
+                 num_cases: int = 8, weight_dict=None, transforms=None, synthetic: bool = False):
+        path = _require(dataset_path, synthetic)
+        seqs = []
+        if path is not None:
+            for case in sorted(os.listdir(path)):
+                case_dir = osp.join(path, case)
+                if not osp.isdir(case_dir):
+                    continue
+                frames = [np.load(f) for f in sorted(_glob.glob(osp.join(case_dir, "*.npy")))]
+                if len(frames) >= total_length:
+                    seq = np.stack(frames[:total_length]).astype(_F32) / 10.0 - 3.0
+                    seqs.append(seq[:, :image_height, :image_width])
+        else:
+            rng = np.random.default_rng(5)
+            seqs = [_advecting_cells(rng, total_length, image_height, image_width) for _ in range(num_cases)]
+        super().__init__(input_keys, label_keys, seqs, input_length, total_length - input_length, None, weight_dict,
+                         transforms)
+
+
+class MRMSDataset(_FrameWindowDataset):
+    """MRMS daily precipitation windows: ``file_path`` holds
+    ``*_{yyyymmdd}.h5`` files with a (N, H, W) "dataset", one a day of
+    ``date_period`` (every day must be there), cut into
+    ``num_input_timestamps`` -> ``num_label_timestamps`` windows every
+    ``stride`` frames; or (no path) ``num_days`` days of
+    ``frames_per_day`` advecting rain-cell frames (numpy seed 6)."""
+
+    def __init__(self, input_keys: Tuple[str, ...], label_keys: Tuple[str, ...], file_path: Optional[str] = None,
+                 date_period: Tuple[str, str] = ("20230101", "20230101"), num_input_timestamps: int = 1,
+                 num_label_timestamps: int = 1, stride: int = 1, H: int = 32, W: int = 32, num_days: int = 2,
+                 frames_per_day: int = 12, weight_dict=None, transforms=None, synthetic: bool = False):
+        path = _require(file_path, synthetic)
+        if path is not None:
+            h5py = import_h5py()
+            dates = self._date_range(date_period)
+            paths = [p for p in sorted(_glob.glob(osp.join(path, "*.h5")))
+                     if p.split(".h5")[0].split("_")[-1] in dates]
+            if len(paths) < len(dates):
+                raise FileNotFoundError(f"wanted {len(dates)} days of MRMS data under '{path}', found {len(paths)}")
+            seqs = []
+            for p in paths:
+                with h5py.File(p, "r") as f:
+                    seqs.append(np.asarray(f["dataset"], _F32))
+        else:
+            rng = np.random.default_rng(6)
+            seqs = [_advecting_cells(rng, frames_per_day, H, W) for _ in range(num_days)]
+        super().__init__(input_keys, label_keys, seqs, num_input_timestamps, num_label_timestamps, stride,
+                         weight_dict, transforms)
+
+    @staticmethod
+    def _date_range(period):
+        import datetime
+
+        start = datetime.datetime.strptime(period[0], "%Y%m%d")
+        end = datetime.datetime.strptime(period[1], "%Y%m%d")
+        out = []
+        while start <= end:
+            out.append(start.strftime("%Y%m%d"))
+            start += datetime.timedelta(days=1)
+        return out
+
+
+class MRMSSampledDataset(_FrameWindowDataset):
+    """Pre-sampled MRMS windows: .h5 files with a (T, H, W) "dataset", one
+    window each; or (no path) ``num_samples`` advecting rain-cell windows
+    (numpy seed 7)."""
+
+    def __init__(self, input_keys: Tuple[str, ...], label_keys: Tuple[str, ...], file_path: Optional[str] = None,
+                 num_input_timestamps: int = 1, num_label_timestamps: int = 1, H: int = 32, W: int = 32,
+                 num_samples: int = 4, weight_dict=None, transforms=None, synthetic: bool = False):
+        path = _require(file_path, synthetic)
+        T = num_input_timestamps + num_label_timestamps
+        if path is not None:
+            h5py = import_h5py()
+            seqs = []
+            for p in sorted(_glob.glob(osp.join(path, "*.h5"))):
+                with h5py.File(p, "r") as f:
+                    seqs.append(np.asarray(f["dataset"], _F32))
+        else:
+            rng = np.random.default_rng(7)
+            seqs = [_advecting_cells(rng, T, H, W) for _ in range(num_samples)]
+        super().__init__(input_keys, label_keys, seqs, num_input_timestamps, num_label_timestamps, T, weight_dict,
+                         transforms)
+
+
 class PEMSDataset(NamedArrayDataset):
     """PEMS traffic windows (reference ``pems_dataset.py:60-140``): a
     ``file_path`` directory with ``{split}.npy`` (T, N) and ``mean.npy`` /
@@ -869,3 +987,47 @@ class ChipHeatDataset:
         if self.transforms is not None:
             inp, lab, wgt = self.transforms(inp, lab, wgt)
         return inp, lab, wgt
+
+
+class MOlFLOWDataset(NamedArrayDataset):
+    """MoFlow molecule tensors: a one-hot atom matrix (max_atoms, n_types)
+    and a bond tensor (b_n_type, max_atoms, max_atoms) a molecule, from a
+    preprocessed .npz (keys nodes, edges), or (no path) ``num_samples``
+    random trees with a few extra bonds (numpy seed 17; the last atom type
+    marks absent atoms, the last bond type unbonded pairs). A .csv of
+    SMILES needs a chemistry toolkit to parse and raises. With
+    ``label_keys`` the label is each molecule's atom count."""
+
+    def __init__(self, file_path: Optional[str] = None, num_samples: int = 64, max_atoms: int = 9, n_types: int = 5,
+                 b_n_type: int = 4, input_keys: Tuple[str, ...] = ("nodes", "edges"),
+                 label_keys: Tuple[str, ...] = (), transforms=None, synthetic: bool = False):
+        path = _require(file_path, synthetic)
+        if path is not None:
+            if path.endswith(".csv"):
+                raise NotImplementedError("QM9 csv parsing requires rdkit (SMILES -> molecular graph), which is not "
+                                          "available in this environment; preprocess to .npz with keys nodes/edges "
+                                          "instead")
+            z = np.load(path)
+            nodes = z["nodes"].astype(_F32)
+            edges = z["edges"].astype(_F32)
+        else:
+            rng = np.random.default_rng(17)
+            nodes = np.zeros((num_samples, max_atoms, n_types), _F32)
+            edges = np.zeros((num_samples, b_n_type, max_atoms, max_atoms), _F32)
+            for s in range(num_samples):
+                n = rng.integers(3, max_atoms + 1)
+                types = rng.integers(0, n_types - 1, n)
+                nodes[s, np.arange(n), types] = 1.0
+                nodes[s, n:, n_types - 1] = 1.0
+                order = rng.permutation(n)  # a random spanning tree
+                for i in range(1, n):
+                    a, b = order[i], order[rng.integers(0, i)]
+                    bond = rng.integers(0, b_n_type - 1)
+                    edges[s, bond, a, b] = edges[s, bond, b, a] = 1.0
+                bonded = edges[s, : b_n_type - 1].sum(0) > 0
+                edges[s, b_n_type - 1] = 1.0 - bonded
+                np.fill_diagonal(edges[s, b_n_type - 1], 0.0)
+        label = {}
+        if label_keys:
+            label[label_keys[0]] = nodes.reshape(len(nodes), -1).sum(-1, keepdims=True)
+        super().__init__({input_keys[0]: nodes, input_keys[1]: edges}, label, transforms=transforms)

@@ -90,7 +90,8 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         self._conv = (F.conv1d, F.conv2d, F.conv3d)[self.ndim - 1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``kernel``, where given, is used in place of :meth:`_kernel`'s."""
         if self.padding == "SAME":
             pads = same_padding(x.shape[2:], self.kernel_size, self.strides, self.dilation)
         elif self.padding == "VALID":
@@ -101,7 +102,7 @@ class Conv(nn.Module):
         if any(flat):
             mode = {"zeros": "constant", "circular": "circular", "replicate": "replicate"}[self.padding_mode]
             x = F.pad(x, flat, mode=mode)
-        return self._conv(x, self._kernel(), self.bias, stride=self.strides, dilation=self.dilation,
+        return self._conv(x, self._kernel() if kernel is None else kernel, self.bias, stride=self.strides, dilation=self.dilation,
                           groups=self.groups)
 
     def _kernel(self) -> torch.Tensor:

@@ -28,6 +28,13 @@ order is fixed once per graph instead:
   forward and backward both repeat bitwise (``embedding_bag``'s own
   backward, which scatters with atomics, never runs).
 
+:func:`gather_rows` reads rows at an index computed on the device (a
+warp's sampling positions): its backward sums each row's cotangents in
+the order of a stable sort of the index (``torch.sort``, then
+``searchsorted`` for the row offsets and the same ``embedding_bag`` sum),
+with no read back to the host, so it too repeats bitwise and runs inside
+a CUDA graph.
+
 :func:`segment_sum_plain` and :func:`gather_plain` are the direct
 versions (``index_add_`` and advanced indexing), kept for the tests and
 the card's timing, never on a model's path.
@@ -45,7 +52,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Segments", "segments", "segment_sum", "gather", "segment_sum_plain", "gather_plain"]
+__all__ = ["Segments", "segments", "segment_sum", "gather", "gather_rows", "segment_sum_plain", "gather_plain"]
 
 IndexLike = Union[np.ndarray, torch.Tensor, "Segments"]
 
@@ -161,6 +168,27 @@ def gather(x: torch.Tensor, index: IndexLike) -> torch.Tensor:
     """``x[index]`` over the first axis, its backward a fixed-order segment
     sum."""
     return _Gather.apply(x, segments(index, x.shape[0]))
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.num_rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        ordered, order = torch.sort(index, stable=True)
+        offsets = torch.searchsorted(ordered, torch.arange(ctx.num_rows, device=index.device))
+        return F.embedding_bag(order, grad, offsets, mode="sum"), None
+
+
+def gather_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` over the first axis of (N, C) rows, for an (M,) index
+    on ``x``'s device; its backward a fixed-order sum (module docstring)."""
+    return _GatherRows.apply(x, index)
 
 
 def segment_sum_plain(data: torch.Tensor, index: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -22,6 +22,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
 from pathlib import Path
@@ -68,7 +69,8 @@ class Build:
     ``nvcc`` per source, all together, at the lowest scheduling priority
     (nice 19: the caller's own work stays first in line), and returns at
     once. :meth:`wait` finishes them; :meth:`close` kills any still
-    running; :func:`load` of a kernel in flight waits for its build."""
+    running, with the compiler processes each started; :func:`load` of a
+    kernel in flight waits for its build."""
 
     def __init__(self, names: Sequence[str] = KERNELS):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,7 +87,7 @@ class Build:
                 cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
                 self.procs.append((name, out, tmp, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                    preexec_fn=lambda: os.nice(19))))
+                    preexec_fn=lambda: os.nice(19), start_new_session=True)))
                 _PENDING[name] = self
         except BaseException:
             self.close()
@@ -115,8 +117,11 @@ class Build:
 
     def close(self) -> None:
         for name, _, tmp, proc in self.procs:
-            if proc.poll() is None:
-                proc.kill()
+            if proc.poll() is None:  # nvcc and the compilers it started (its own process group)
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
                 proc.wait()
             if tmp.exists():
                 tmp.unlink()

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import paddlescience_tpu as psci
+from _earthformer_parity import FAST, fast_call, one_torch_thread  # noqa: F401
 from paddlescience_tpu.arch import lno as jlno
 from paddlescience_tpu.nn.core import Rngs
 from paddlescience_torch.arch import lno as tlno
@@ -82,9 +83,9 @@ def _forward_and_grads(jm, tm, call_j, call_t, x):
         with jm.bind(p, rest):
             return call_j(jm, jnp.asarray(x))
 
-    jout = np.asarray(jax.jit(fwd)(params))
+    jout = np.asarray(fast_call(fwd, params))
     cot = np.random.default_rng(11).standard_normal(jout.shape).astype(np.float32)
-    j_grads = flatten_tree(jax.tree.map(np.asarray, jax.jit(jax.grad(lambda p: jnp.sum(fwd(p) * cot)))(params)))
+    j_grads = flatten_tree(jax.tree.map(np.asarray, fast_call(jax.grad(lambda p: jnp.sum(fwd(p) * cot)), params)))
     tout = call_t(tm, torch.from_numpy(x))
     grads = torch.autograd.grad((tout * torch.from_numpy(cot)).sum(), list(tm.parameters()))
     _close(tout, jout, 1e-5)
@@ -193,10 +194,12 @@ def test_brusselator_lno_three_train_steps_match_jax(tool_npz, monkeypatch, tmp_
     t_metric, t_group = ts.eval()
     assert set(t_group["sup_valid"]) == {"decoded.L2Rel"}
     np.testing.assert_allclose(t_metric, float(j_metric), rtol=1e-5)
-    j_logs, step_fn = [], js._build_train_step()
+    j_logs, step_fn, compiled = [], js._build_train_step(), None
     for _ in range(3):
         host = {n: jax.tree.map(jnp.asarray, next(c.data_iter)) for n, c in js.constraint.items()}
-        js.state, logs = step_fn(js.state, host)
+        if compiled is None:
+            compiled = step_fn.lower(js.state, host).compile(compiler_options=FAST)
+        js.state, logs = compiled(js.state, host)
         j_logs.append([float(logs[k]) for k in ("loss", "lr")])
     t_logs = [[float(v) for k, v in ts.train_step().items() if k in ("loss", "lr")] for _ in range(3)]
     np.testing.assert_allclose(np.array(t_logs), np.array(j_logs), rtol=1e-4)

@@ -321,3 +321,42 @@ def test_the_port_has_no_torch_lbfgs():
                 raise AssertionError(f"{path.name} uses {ast.unparse(node)}")
             if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("torch.optim"):
                 assert "LBFGS" not in [a.name for a in node.names], path.name
+
+
+TWENTY_SECOND_SLICE_MODULES = ("arch/dgmr.py", "arch/nowcasting.py", "arch/moflow_net.py",
+                               "data/dataset/domain_dataset.py", "visualize/__init__.py", "visualize/visualizer.py",
+                               "examples/dgmr.py", "examples/nowcastnet_radar.py", "examples/moflow_qm9.py",
+                               "examples/moflow_optimize.py")
+
+
+def test_the_radar_and_molecule_files_are_among_the_checked_sources():
+    checked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert set(TWENTY_SECOND_SLICE_MODULES) <= checked
+
+
+def test_the_twenty_second_slice_imports_without_jax_h5py_or_matplotlib():
+    """Every module of the slice, imported in a fresh process, loads no JAX,
+    sympy, optax or JAX-package module, no h5py (the radar readers import
+    it when they read a file) and no matplotlib (``VisualizerRadar``
+    imports it when it writes a strip): the GPU machine may have neither."""
+    mods = ["paddlescience_torch." + rel[:-3].replace("/", ".").removesuffix(".__init__")
+            for rel in TWENTY_SECOND_SLICE_MODULES]
+    code = (f"import importlib, sys\nfor m in {mods!r}:\n    importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ('h5py', 'matplotlib')!r})\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("rel", TWENTY_SECOND_SLICE_MODULES)
+def test_the_radar_slice_calls_no_library_reorder_or_spectral_norm(rel):
+    """The JAX modules' space-to-depth orders and fixed-u spectral norm are
+    the port's own: no ``F.pixel_shuffle``/``F.pixel_unshuffle`` (another
+    channel order) and no ``torch.nn.utils.spectral_norm`` (one iteration,
+    u updated in place) on these paths."""
+    for node in ast.walk(ast.parse((PORT / rel).read_text())):
+        if isinstance(node, ast.Attribute) and node.attr in ("pixel_shuffle", "pixel_unshuffle", "spectral_norm"):
+            raise AssertionError(f"{rel} reaches {ast.unparse(node)}")
+        if isinstance(node, ast.ImportFrom) and node.module and node.module.startswith("torch"):
+            names = {a.name for a in node.names}
+            assert not names & {"pixel_shuffle", "pixel_unshuffle", "spectral_norm"}, (rel, names)

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import paddlescience_tpu as psci
+from _earthformer_parity import one_torch_thread  # noqa: F401
 from paddlescience_tpu.autodiff import path as jpath
 from paddlescience_tpu.data import DeviceSampledDataset as JDeviceSampledDataset
 from paddlescience_tpu.loss import mtl as jmtl
